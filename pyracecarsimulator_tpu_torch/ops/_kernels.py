@@ -1,0 +1,105 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is a ``csrc/<name>.cu`` file with a plain C entry point. At
+first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under the package's ``_build/`` directory (listed in
+``.gitignore``), named by a hash of the source and the flags so that an
+edited source is rebuilt, and loaded with ``ctypes``. Nothing is built or
+loaded at import time: this module imports on machines without a CUDA
+toolkit, where only the plain PyTorch versions run (CPU tensors).
+
+Flags: ``-fmad=false`` keeps every multiply and add separately rounded, as
+in the plain PyTorch versions the kernels are held against bit for bit;
+fast math is never enabled (it lets the compiler assume there is no NaN,
+which the sweep's zero-direction reciprocals rely on, and approximate
+divisions).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "--resource-usage")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: name -> argtypes (restype is int: a cudaError_t)
+_SIGNATURES = {
+    "sector_sweep": ("sector_sweep_launch",
+                     [_P] * 11 + [_I, _I, _I, _I, _P]),
+}
+
+_loaded = {}       # kernel name -> ctypes function (process-wide cache)
+build_info = {}    # kernel name -> {"seconds", "log", "path"} of this process
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the default toolkit location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME); the CUDA kernels are built at "
+        "first use on a machine with the CUDA toolkit")
+
+
+def build_command(name: str, out: Path, nvcc: str = "nvcc") -> list:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}_{key[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the library for this source and
+    these flags exists. Returns its path; records the compile time and the
+    compiler's resource report in ``build_info[name]``."""
+    out = library_path(name)
+    if out.exists():
+        build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)",
+                                     "path": str(out)})
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run(build_command(name, tmp, nvcc_path()),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)        # atomic: concurrent builders never see half
+    build_info[name] = {"seconds": time.perf_counter() - t0,
+                        "log": (proc.stdout + proc.stderr).strip(),
+                        "path": str(out)}
+    return out
+
+
+def kernel(name: str):
+    """The ctypes entry point of kernel ``name``, built and loaded on first
+    use."""
+    fn = _loaded.get(name)
+    if fn is None:
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(build(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn

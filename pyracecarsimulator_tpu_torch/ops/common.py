@@ -1,0 +1,107 @@
+"""Shared scan prologue/epilogue: beam fan, theta buckets, extent mask.
+
+Counterpart of ``pyracecarsimulator_tpu/ops/common.py`` plus the per-ray
+reciprocals of ``raycast_segments._ray_invs``.
+
+Beam offsets follow ``jnp.linspace``'s algorithm (``start * (1 - i/div) +
+stop * i/div`` with the last entry set to ``stop``) in IEEE float32, one
+rounding per operation. XLA's CPU code generator rounds that expression
+differently (it contracts and reassociates, and differs even between its
+own jitted and eager runs), so about half of the 1080 offsets differ from
+the JAX package's by an ulp, and ``torch.cos``/``torch.sin`` differ from
+XLA's on some inputs. Sweeps given the same fan agree bit for bit; a
+free-running scan agrees within a stated tolerance.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def beam_angles(num_beams: int, fov: float, device="cpu") -> torch.Tensor:
+    """(num_beams,) float32 beam offsets in [-fov/2, fov/2], inclusive
+    endpoints."""
+    start = np.float32(-fov / 2.0)
+    stop = np.float32(fov / 2.0)
+    if num_beams == 1:
+        offs = np.asarray([start], np.float32)
+    else:
+        div = num_beams - 1
+        step = np.arange(div, dtype=np.float32) / np.float32(div)
+        offs = np.concatenate(
+            [start * (np.float32(1.0) - step) + stop * step,
+             np.asarray([stop], np.float32)])
+    return torch.as_tensor(offs, device=device)
+
+
+def quantize_angles(ang, theta_discretization: int):
+    """Reference theta-bucket quantization: angle -> bucket-start angle,
+    bucket floor((a mod 2pi)/2pi * D) clipped to [0, D-1]."""
+    if not theta_discretization:
+        return ang
+    two_pi = 2.0 * math.pi
+    idx = torch.floor(torch.remainder(ang, two_pi) / two_pi
+                      * theta_discretization)
+    idx = torch.clamp(idx.to(torch.int32), 0, theta_discretization - 1)
+    return idx * (two_pi / theta_discretization)
+
+
+def fan_cos_sin(theta, offs, theta_discretization: int = 0):
+    """Beam-fan direction cosines: (A,) headings x (B,) beam offsets ->
+    (ct, st), each (A, B).
+
+    Exact mode (``theta_discretization == 0``) rotates the per-beam
+    (cos d, sin d) by each heading's (cos, sin): 4 mul + 2 add per ray, the
+    definition every sector-backend path shares. ``theta_discretization >
+    0`` keeps the reference theta-bucket table semantics.
+    """
+    if theta_discretization:
+        ang = quantize_angles(theta[:, None] + offs[None, :],
+                              theta_discretization)
+        return torch.cos(ang), torch.sin(ang)
+    cth = torch.cos(theta)[:, None]
+    sth = torch.sin(theta)[:, None]
+    cd = torch.cos(offs)[None, :]
+    sd = torch.sin(offs)[None, :]
+    return cth * cd - sth * sd, sth * cd + cth * sd
+
+
+def rays_from_poses(poses, num_beams: int, fov: float,
+                    theta_discretization: int = 0):
+    """poses (..., 3) -> (batch_shape, poses2 (N,3), xb, yb, ct, st) with
+    ray tensors shaped (N, num_beams)."""
+    batch = tuple(poses.shape[:-1])
+    poses2 = poses.reshape(-1, 3)
+    ct, st = fan_cos_sin(poses2[:, 2],
+                         beam_angles(num_beams, fov, poses.device),
+                         theta_discretization)
+    xb = poses2[:, 0:1].expand(ct.shape)
+    yb = poses2[:, 1:2].expand(ct.shape)
+    return batch, poses2, xb, yb, ct, st
+
+
+def apply_extent_mask(r, x, y, extent, max_range):
+    """A scan from outside the real map is all max_range (the reference's
+    immediate out-of-map exit). x/y: (...,) origins; r: (..., B)."""
+    ex0, ex1, ey0, ey1 = extent
+    inside = (x >= ex0) & (x < ex1) & (y >= ey0) & (y < ey1)
+    return torch.where(inside[..., None], r,
+                       torch.full_like(r, max_range))
+
+
+def _ray_invs(cos_t, sin_t):
+    """Per-ray reciprocals, hoisted out of the segment sweep. A zero
+    direction component maps to a NaN reciprocal: t and the hit coordinate
+    become NaN and every comparison rejects them (this also covers a ray
+    collinear with a segment's line, where a huge finite reciprocal would
+    still give t = 0 * huge = 0)."""
+    nan = torch.full_like(cos_t, float("nan"))
+    one = torch.ones_like(cos_t)
+    inv_c = torch.where(cos_t == 0.0, nan,
+                        one / torch.where(cos_t == 0.0, one, cos_t))
+    inv_s = torch.where(sin_t == 0.0, nan,
+                        one / torch.where(sin_t == 0.0, one, sin_t))
+    return inv_c, inv_s
