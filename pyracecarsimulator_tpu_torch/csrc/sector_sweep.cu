@@ -1,16 +1,22 @@
-// Sector sweep: per-ray first-hit minima over a ray row's cull list.
+// List-routed sweep: per-ray first-hit minima over a ray row's cull list.
 //
-// Replaces the TPU kernel pyracecarsimulator_tpu/ops/raycast_pallas.py
-// ::_make_fused_tiles_kernel (called by sweep_sorted_tiles_fused), and
-// with it the XLA dense sweep raycast_sectors._sweep_xla, which computes
-// the same function on small-capacity maps.
+// Replaces four TPU kernels of pyracecarsimulator_tpu/ops/raycast_pallas.py,
+// which all compute this function and differ only in how they route rows
+// to lists and lay the lists out for the TPU:
+//   _make_fused_tiles_kernel (sweep_sorted_tiles_fused: sector tables),
+//   _make_sorted_tiles_kernel (sweep_sorted_tiles_pallas: mode sorted_pl),
+//   _make_kernel_grp (_raycast_pallas_ids_grp_raw: use_pallas=True),
+//   _kernel_tiled (_raycast_pallas_ids_raw: the dense backend's map tiles).
+// It also replaces the XLA sweeps that compute the same function
+// (raycast_sectors._sweep_xla, raycast_segments.raycast_tiled).
 //
-// What it computes. A ray row is one agent's block of `bb` consecutive
-// beams (bb = blockDim.x, 128 for the 1080-beam / 270 deg scan) from one
-// origin (x0, y0). Row g sweeps list ids[g] of the (L, 4, K) sector table
-// (rows p, lo, hi, is_vertical): vertical slots [0, n_v) and horizontal
-// slots [kv, kv + n_h), with n_v = meta[id][0], n_h = meta[id][2] -
-// meta[id][1]. For a vertical segment x = p, y in [lo, hi]:
+// What it computes. A ray row is a block of `bb` consecutive beams (bb =
+// blockDim.x, 128 on every path of the port) from one origin (x0, y0). Row
+// g sweeps list ids[g] of an (L, 4, K) table (rows p, lo, hi, is_vertical):
+// vertical slots [0, n_v) and horizontal slots [h_lo, h_end), with
+// meta[id] = [n_v, h_lo, h_end]. Sector tables and split-layout tile
+// tables have h_lo = the V block's capacity; mixed-layout tile tables have
+// h_lo = n_v. For a vertical segment x = p, y in [lo, hi]:
 //     t = (p - x0) * inv_c,  a = y0 + t * sin,
 // and for a horizontal one y = p, x in [lo, hi]:
 //     t = (p - y0) * inv_s,  a = x0 + t * cos;
@@ -27,24 +33,23 @@
 //
 // Design. One thread block per ray row, one thread per beam. The block
 // stages the [p, lo, hi] of its row's real slots (at most K, 3*K*4 bytes
-// of shared memory; 6 KB at berlin's K = 496), then every thread sweeps
-// them from shared memory (all threads read the same address: a
-// broadcast) keeping bv and bh in two registers. Rows loop to their own
-// real counts, so work is bound by the mean list length, not by K. The
-// TPU kernel's workarounds are left out: no sort of rows by list length,
-// no tiles of rows, no chunk-grouped table_ck layout, no SMEM prefetch
-// caps or agent chunking.
+// of shared memory: 6 KB for berlin's sector table, K = 496; 15 KB for its
+// tile table, K = 1280), then every thread sweeps them from shared memory
+// (all threads read the same address: a broadcast) keeping bv and bh in
+// two registers. Rows loop to their own real counts, so work is bound by
+// the mean list length, not by K. The TPU kernels' workarounds are left
+// out: no sort of rows by list length, no tiles of rows, no chunk-grouped
+// table_ck layout, no pre-gathered slot-major buffer, no grouping of rows
+// per grid step, no SMEM prefetch caps or agent chunking.
 //
-// Bound on the H100. At berlin x 4096 agents: 36,864 rows x ~198 real
-// slots per visited list (the table's mean is ~109; rays concentrate in
-// open tiles, whose lists are longer) x 128 beams ~ 9.3e8 ray-segment
-// tests per scan, ~14 instructions each on the FP32 pipes and
-// shared-memory broadcasts; plus ~2 KB of list per row read once from
-// L2/HBM (~90 MB per scan) and 6 x 18.9 MB of ray inputs and outputs. It
-// is bound by instruction issue, not by memory: the issue floor at 132 SMs
-// x 4 issues per clock x ~1.7 GHz is ~0.45 ms per scan. On levine (~5
-// slots per row) the ray tensors bound it. PERF.md holds the times measured
-// on an H100, each with the card's power limit.
+// Bound on the H100. Sector tables, berlin x 4096 agents: 36,864 rows x
+// ~198 real slots per visited list x 128 beams ~ 9.3e8 ray-segment tests
+// per scan, ~14 instructions each on the FP32 pipes and shared-memory
+// broadcasts; the issue floor at 132 SMs x 4 issues per clock x ~1.7 GHz
+// is ~0.45 ms per scan. Berlin's tile table visits ~547 slots per row on
+// average, ~2.6x the sector work. On levine's sector table (~5 slots per
+// row) the ray tensors bound it. PERF.md holds the times measured on an
+// H100, each with the card's power limit.
 
 #include <cuda_runtime.h>
 
@@ -52,13 +57,13 @@ namespace {
 
 constexpr float kBig = 3.0e38f;
 
-__global__ void sector_sweep_kernel(
+__global__ void list_sweep_kernel(
     const float* __restrict__ table, const int* __restrict__ meta,
     const int* __restrict__ ids, const float* __restrict__ x0,
     const float* __restrict__ y0, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, const float* __restrict__ inv_c,
     const float* __restrict__ inv_s, float* __restrict__ bv,
-    float* __restrict__ bh, int k, int kv) {
+    float* __restrict__ bh, int k) {
   extern __shared__ float seg[];  // [p | lo | hi], each k floats
   float* sp = seg;
   float* slo = seg + k;
@@ -69,12 +74,15 @@ __global__ void sector_sweep_kernel(
   const int bb = blockDim.x;
   const int id = ids[row];
   const int* m = meta + 3 * static_cast<size_t>(id);
-  const int nv = min(max(m[0], 0), kv);
-  const int nh = min(max(m[2] - m[1], 0), k - kv);
+  // clamped so that the staged slots fit the K-slot buffer whatever meta
+  // holds: n_v <= h_lo <= h_end <= k
+  const int h_lo = min(max(m[1], 0), k);
+  const int nv = min(max(m[0], 0), h_lo);
+  const int nh = min(max(m[2], h_lo), k) - h_lo;
   const int n = nv + nh;
   const float* list = table + static_cast<size_t>(id) * 4 * k;
   for (int s = b; s < n; s += bb) {
-    const int slot = s < nv ? s : kv + (s - nv);
+    const int slot = s < nv ? s : h_lo + (s - nv);
     sp[s] = list[slot];
     slo[s] = list[k + slot];
     shi[s] = list[2 * k + slot];
@@ -118,16 +126,16 @@ __global__ void sector_sweep_kernel(
 extern "C" int sector_sweep_launch(
     const void* table, const void* meta, const void* ids, const void* x0,
     const void* y0, const void* cos_t, const void* sin_t, const void* inv_c,
-    const void* inv_s, void* bv, void* bh, int g, int bb, int k, int kv,
+    const void* inv_s, void* bv, void* bh, int g, int bb, int k,
     void* stream) {
   if (g == 0) return 0;
   const size_t smem = 3 * static_cast<size_t>(k) * sizeof(float);
-  sector_sweep_kernel<<<g, bb, smem, static_cast<cudaStream_t>(stream)>>>(
+  list_sweep_kernel<<<g, bb, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const int*>(meta),
       static_cast<const int*>(ids), static_cast<const float*>(x0),
       static_cast<const float*>(y0), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<const float*>(inv_c),
       static_cast<const float*>(inv_s), static_cast<float*>(bv),
-      static_cast<float*>(bh), k, kv);
+      static_cast<float*>(bh), k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,8 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: name -> argtypes (restype is int: a cudaError_t)
 _SIGNATURES = {
-    "sector_sweep": ("sector_sweep_launch",
-                     [_P] * 11 + [_I, _I, _I, _I, _P]),
+    "sector_sweep": ("sector_sweep_launch", [_P] * 11 + [_I, _I, _I, _P]),
+    "dense_sweep": ("dense_sweep_launch", [_P] * 10 + [_I, _I, _P]),
 }
 
 _loaded = {}       # kernel name -> ctypes function (process-wide cache)
@@ -68,28 +68,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{key[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this source and
-    these flags exists. Returns its path; records the compile time and the
-    compiler's resource report in ``build_info[name]``."""
-    out = library_path(name)
-    if out.exists():
-        build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)",
-                                     "path": str(out)})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run(build_command(name, tmp, nvcc_path()),
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)        # atomic: concurrent builders never see half
-    build_info[name] = {"seconds": time.perf_counter() - t0,
-                        "log": (proc.stdout + proc.stderr).strip(),
-                        "path": str(out)}
-    return out
+def build(*names: str) -> list:
+    """Compile ``csrc/<name>.cu`` for each name whose library for this
+    source and these flags does not exist yet, one nvcc process per source,
+    all started together. Returns the libraries' paths; records each
+    compile's time and the compiler's resource report in
+    ``build_info[name]``. Waits for every compiler it started before it
+    raises on a failure."""
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            build_info.setdefault(name, {"seconds": 0.0, "log": "(cached)",
+                                         "path": str(out)})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(build_command(name, tmp, nvcc_path()),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs[name] = (out, tmp, time.perf_counter(), proc)
+    failed = []
+    for name, (out, tmp, t0, proc) in jobs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out)    # atomic: no process loads a half-written file
+        build_info[name] = {"seconds": time.perf_counter() - t0,
+                            "log": (stdout + stderr).strip(),
+                            "path": str(out)}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(name) for name in names]
 
 
 def kernel(name: str):
@@ -98,7 +109,7 @@ def kernel(name: str):
     fn = _loaded.get(name)
     if fn is None:
         symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(build(name))), symbol)
+        fn = getattr(ctypes.CDLL(str(build(name)[0])), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn

@@ -37,6 +37,15 @@ def beam_angles(num_beams: int, fov: float, device="cpu") -> torch.Tensor:
     return torch.as_tensor(offs, device=device)
 
 
+def _padded_offsets(num_beams, fov, bb, device="cpu"):
+    """The (NBLK*bb,) beam-offset row for beam blocks of ``bb``: the last
+    offset repeated into the padding beams of the last block (their
+    outputs are sliced off)."""
+    offs = beam_angles(num_beams, fov, device)
+    b_pad = -num_beams % bb
+    return torch.cat([offs, offs[-1:].expand(b_pad)]) if b_pad else offs
+
+
 def quantize_angles(ang, theta_discretization: int):
     """Reference theta-bucket quantization: angle -> bucket-start angle,
     bucket floor((a mod 2pi)/2pi * D) clipped to [0, D-1]."""
@@ -83,6 +92,26 @@ def rays_from_poses(poses, num_beams: int, fov: float,
     return batch, poses2, xb, yb, ct, st
 
 
+def _f32(v, device):
+    """A 0-dim float32 tensor on ``device``. Scalars that divide ride as
+    device tensors: CUDA divides by a host scalar through its reciprocal,
+    which is not the correctly rounded quotient the JAX package takes."""
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def tile_ids(tiles_shape, tile_size, tile_origin, x0, y0):
+    """(A,) agent positions -> (A,) int32 row-major ids of their map tiles,
+    clamped to the grid (the JAX package's f32 arithmetic: subtract, then
+    a correctly rounded divide, then truncate)."""
+    nr, nc = tiles_shape
+    tox, toy = tile_origin
+    dev = x0.device
+    ts = _f32(tile_size, dev)
+    ci = torch.clamp(((x0 - _f32(tox, dev)) / ts).to(torch.int32), 0, nc - 1)
+    ri = torch.clamp(((y0 - _f32(toy, dev)) / ts).to(torch.int32), 0, nr - 1)
+    return ri * nc + ci
+
+
 def apply_extent_mask(r, x, y, extent, max_range):
     """A scan from outside the real map is all max_range (the reference's
     immediate out-of-map exit). x/y: (...,) origins; r: (..., B)."""
@@ -90,6 +119,14 @@ def apply_extent_mask(r, x, y, extent, max_range):
     inside = (x >= ex0) & (x < ex1) & (y >= ey0) & (y < ey1)
     return torch.where(inside[..., None], r,
                        torch.full_like(r, max_range))
+
+
+def finish_minima(bv, bh, max_range):
+    """Per-orientation minima -> (r, isv, hit): the range clamped to
+    ``max_range``, whether the vertical minimum wins (exact ties go to
+    vertical), and whether anything within ``max_range`` was hit."""
+    m = torch.minimum(bv, bh)
+    return torch.clamp(m, max=max_range), bv <= bh, m < max_range
 
 
 def _ray_invs(cos_t, sin_t):

@@ -1,22 +1,26 @@
 """Sector-culled segment raycast: list routing, the sweep, the scan.
 
-Counterpart of the main-path subset of
-``pyracecarsimulator_tpu/ops/raycast_sectors.py``. Beams are grouped into
+Counterpart of ``pyracecarsimulator_tpu/ops/raycast_sectors.py`` (the
+single-map forward, its VJP and the scan). Beams are grouped into
 angle-contiguous blocks of ``bb`` (128 for the 1080-beam / 270 deg scan);
 each block (a "ray row": one agent, one origin) sweeps only its (tile,
 sector) cull list from ``maps/sectors.py``.
 
-One sweep serves every map. ``sector_sweep`` routes CPU tensors to
-``sweep_plain`` (PyTorch) and CUDA tensors to the hand-written Hopper kernel
-``csrc/sector_sweep.cu``, which replaces both of the JAX package's sweeps
-(the Pallas fused-gather kernel on large-capacity tables, the XLA dense
-sweep on small ones). Both visit the same slots of a row: vertical
-[0, n_v) and horizontal [kv, kv + n_h), from ``meta``, and agree bit for
-bit. The JAX package's mode zoo (sorted tiles, ``table_ck``, the
-``use_pallas``/``grp``/``interpret`` plumbing, SMEM-driven agent chunks) is
-TPU machinery and is not ported; modes "auto", "dense" and "sorted_plf*"
-all select the one sweep. The backward (``_winner_vjp``) belongs to the
-training slice and is not ported yet.
+One sweep serves every map and mode: the list-routed sweep of
+``ops/sweeps.py`` (plain PyTorch on CPU tensors, the hand-written Hopper
+kernel ``csrc/sector_sweep.cu`` on CUDA tensors), which visits a row's
+vertical slots [0, n_v) and horizontal slots [h_lo, h_end) from ``meta``.
+It replaces the JAX package's XLA dense sweep and its three Pallas sector
+kernels; each of those keeps a wrapper with its own launch counter: modes
+"auto", "dense" and "sorted_plf*" take ``sector_sweep``, mode "sorted_pl"
+``sorted_tiles_sweep`` and ``use_pallas=True`` ``grp_sweep``, all with the
+same values. The XLA-only sorted modes ("sorted", "sorted_pt", ...) raise.
+Left out as TPU machinery: ``table_ck``, the sort of rows into tiles, the
+``grp``/``interpret`` plumbing and SMEM-driven agent chunks.
+
+``raycast_sectors`` is differentiable in the rays: its forward runs under
+``raycast_grad._WinnerRaycast``, whose backward is the closed-form
+``_winner_vjp``; the table, meta and the lookup positions get no gradient.
 """
 
 from __future__ import annotations
@@ -24,15 +28,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _kernels
-from .common import (apply_extent_mask, beam_angles, fan_cos_sin,
-                     _ray_invs)
+from .common import (_f32, _padded_offsets, _ray_invs, apply_extent_mask,
+                     fan_cos_sin, tile_ids)
+from .raycast_grad import raycast_with_vjp
+from .sweeps import (grp_sweep, list_sweep_plain as sweep_plain,  # noqa: F401
+                     sector_sweep, sorted_tiles_sweep)
 
-_BIG = 3.0e38
 _TWO_PI = np.float32(2.0 * np.pi)
-# bytes of gathered (rows, 4, K) cull lists per agent chunk, and of each
-# (rows, slots, bb) intermediate, that the plain sweep may hold at once
-_PLAIN_BYTES_BUDGET = 1 << 28
 
 
 def sector_block_width(smap, num_beams: int, fov: float,
@@ -56,13 +58,6 @@ def sector_block_width(smap, num_beams: int, fov: float,
     return bb
 
 
-def _f32(v, device):
-    """A 0-dim float32 tensor on ``device``. Scalars that divide ride as
-    device tensors: CUDA divides by a host scalar through its reciprocal,
-    which is not the correctly rounded quotient the JAX package takes."""
-    return torch.tensor(v, dtype=torch.float32, device=device)
-
-
 def _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, ct, st,
               bb: int):
     """(A,) agent positions + (A, B) beam directions -> (A, NBLK) int32
@@ -70,13 +65,8 @@ def _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, ct, st,
     one in-block beam within half a block of every real beam."""
     a_n, b_n = ct.shape
     nblk = -(-b_n // bb)
-    nr, nc = tiles_shape
-    tox, toy = tile_origin
     dev = ct.device
-    ts = _f32(tile_size, dev)
-    ci = torch.clamp(((x0 - _f32(tox, dev)) / ts).to(torch.int32), 0, nc - 1)
-    ri = torch.clamp(((y0 - _f32(toy, dev)) / ts).to(torch.int32), 0, nr - 1)
-    tid = ri * nc + ci                                     # (A,)
+    tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)   # (A,)
     mids = torch.as_tensor(
         np.minimum(np.arange(nblk) * bb + bb // 2, b_n - 1), device=dev)
     th = torch.atan2(st[:, mids], ct[:, mids])             # (A, NBLK)
@@ -86,170 +76,60 @@ def _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, ct, st,
     return (tid[:, None] * ns + sec).to(torch.int32)       # (A, NBLK)
 
 
-def sweep_plain(table, meta, kv_sec, ids, x0, y0, cos_t, sin_t, inv_c,
-                inv_s):
-    """Plain PyTorch sweep: the reference of ``csrc/sector_sweep.cu``.
-
-    ``table`` (L, 4, K) f32, ``meta`` (L, 3) i32, ``ids`` (G,) i32 rows,
-    ``x0``/``y0`` (G,) row origins, ray tensors (G, bb). Returns the
-    unclamped minima (bv, bh), each (G, bb), 3e38 where nothing is hit.
-
-    Like the JAX package's ``_sweep_gathered``, it gathers each row's list
-    and sweeps it slot-chunk by slot-chunk as (G, chunk, bb) tensors;
-    slots outside the row's real counts are masked, so the contributing
-    slots are exactly the kernel's.
-    """
-    g_n, bb = cos_t.shape
-    k = table.shape[2]
-    lid = ids.long()
-    g_all = table.index_select(0, lid)                      # (G, 4, K)
-    m = meta.index_select(0, lid)
-    nv = m[:, 0:1]
-    nh = m[:, 2:3] - m[:, 1:2]
-    slot = torch.arange(k, device=table.device)[None, :]
-    real = torch.where(slot < kv_sec, slot < nv, slot - kv_sec < nh)
-    chunk = max(1, _PLAIN_BYTES_BUDGET // max(1, g_n * bb * 4))
-    big = torch.full((g_n, bb), _BIG, dtype=torch.float32,
-                     device=table.device)
-    x = x0[:, None, None]
-    y = y0[:, None, None]
-    best = {}
-    for lo_i, hi_i, vertical in ((0, kv_sec, True), (kv_sec, k, False)):
-        b = big
-        for c0 in range(lo_i, hi_i, chunk):
-            c1 = min(c0 + chunk, hi_i)
-            p = g_all[:, 0, c0:c1, None]                    # (G, ck, 1)
-            lo = g_all[:, 1, c0:c1, None]
-            hi = g_all[:, 2, c0:c1, None]
-            if vertical:
-                t = (p - x) * inv_c[:, None, :]
-                a = y + t * sin_t[:, None, :]
-            else:
-                t = (p - y) * inv_s[:, None, :]
-                a = x + t * cos_t[:, None, :]
-            valid = ((t >= 0.0) & ((a - lo) * (hi - a) >= 0.0)
-                     & real[:, c0:c1, None])
-            b = torch.minimum(b, torch.where(valid, t, _BIG).amin(dim=1))
-        best[vertical] = b
-    return best[True], best[False]
-
-
-def sector_sweep(table, meta, kv_sec, ids, x0, y0, cos_t, sin_t, inv_c,
-                 inv_s):
-    """The sweep of ``sweep_plain``, routed by device: CPU tensors take
-    ``sweep_plain``; CUDA tensors launch the kernel (or raise). Returns
-    (bv, bh), each (G, bb). ``sector_sweep.launches`` counts launches."""
-    if table.device.type == "cpu":
-        return sweep_plain(table, meta, kv_sec, ids, x0, y0, cos_t, sin_t,
-                           inv_c, inv_s)
-    if table.device.type != "cuda":
-        raise ValueError(f"no sector sweep for device {table.device}")
-    g_n, bb = cos_t.shape
-    l_n, four, k = table.shape
-    if four != 4 or meta.shape != (l_n, 3):
-        raise ValueError(f"table must be (L, 4, K) and meta (L, 3); got "
-                         f"{tuple(table.shape)}, {tuple(meta.shape)}")
-    if not 0 <= kv_sec <= k:
-        raise ValueError(f"kv_sec={kv_sec} outside [0, K={k}]")
-    if not 0 < bb <= 1024:
-        raise ValueError(f"rows of {bb} beams: one thread per beam needs "
-                         "1..1024")
-    if 3 * k * 4 > 48 * 1024:
-        raise ValueError(f"capacity K={k} needs {3 * k * 4} bytes of "
-                         "shared memory per row; the kernel takes <= 48 KB")
-    checks = ((table, torch.float32, (l_n, 4, k)),
-              (meta, torch.int32, (l_n, 3)),
-              (ids, torch.int32, (g_n,)), (x0, torch.float32, (g_n,)),
-              (y0, torch.float32, (g_n,)),
-              *((v, torch.float32, (g_n, bb))
-                for v in (cos_t, sin_t, inv_c, inv_s)))
-    for v, dtype, shape in checks:
-        if (v.device != table.device or v.dtype != dtype
-                or tuple(v.shape) != shape or not v.is_contiguous()):
-            raise ValueError(
-                f"sector_sweep: expected contiguous {dtype} {shape} on "
-                f"{table.device}, got {v.dtype} {tuple(v.shape)} on "
-                f"{v.device} (contiguous={v.is_contiguous()})")
-    bv = torch.empty((g_n, bb), dtype=torch.float32, device=table.device)
-    bh = torch.empty_like(bv)
-    fn = _kernels.kernel("sector_sweep")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), meta.data_ptr(), ids.data_ptr(),
-                 x0.data_ptr(), y0.data_ptr(), cos_t.data_ptr(),
-                 sin_t.data_ptr(), inv_c.data_ptr(), inv_s.data_ptr(),
-                 bv.data_ptr(), bh.data_ptr(), g_n, bb, k, int(kv_sec),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"sector_sweep kernel launch failed: CUDA error "
-                           f"{err}")
-    sector_sweep.launches += 1
-    return bv, bh
-
-
-sector_sweep.launches = 0
-
-
 def raycast_sectors(table, meta, tiles_shape, tile_size, tile_origin, ns,
-                    kv_sec, x0, y0, cos_t, sin_t, max_range: float = 10.0,
-                    bb: int = 128):
-    """Sector-culled raycast forward for (A,) origins and (A, B) beam
-    directions, B a multiple of ``bb``. Returns (r, isv, hit), each (A, B):
-    the clamped range, whether the vertical minimum wins (ties go to
-    vertical: ``bv <= bh``), and whether anything within max_range was hit.
-    """
-    a_n, b_n = cos_t.shape
+                    x0, y0, x, y, cos_t, sin_t, max_range: float = 10.0,
+                    bb: int = 128, sweep=sector_sweep):
+    """Differentiable sector-culled raycast for (A,) agent positions
+    ``x0``/``y0`` (the list lookup) and (A, B) rays, B a multiple of
+    ``bb``. Returns the clamped range (A, B). A row's origin is that of
+    its first beam (every beam of an agent shares its origin). ``sweep``
+    is one of the list-kernel wrappers (module doc)."""
+    b_n = cos_t.shape[1]
     if b_n % bb:
         raise ValueError(f"beam count {b_n} is not a multiple of bb={bb}")
-    ids = _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, cos_t,
-                    sin_t, bb)
-    inv_c, inv_s = _ray_invs(cos_t, sin_t)
-    g_n = ids.numel()
-    rows = lambda v: v.reshape(g_n, bb).contiguous()
-    bv, bh = sector_sweep(
-        table, meta, kv_sec, ids.reshape(g_n).contiguous(),
-        x0.repeat_interleave(b_n // bb).contiguous(),
-        y0.repeat_interleave(b_n // bb).contiguous(),
-        rows(cos_t), rows(sin_t), rows(inv_c), rows(inv_s))
-    bv = bv.reshape(a_n, b_n)
-    bh = bh.reshape(a_n, b_n)
-    m = torch.minimum(bv, bh)
-    return torch.clamp(m, max=max_range), bv <= bh, m < max_range
+
+    def minima(x, y, cos_t, sin_t):
+        a_n = cos_t.shape[0]
+        ids = _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0,
+                        cos_t, sin_t, bb)
+        inv_c, inv_s = _ray_invs(cos_t, sin_t)
+        g_n = ids.numel()
+        rows = lambda v: v.reshape(g_n, bb).contiguous()
+        bv, bh = sweep(table, meta, ids.reshape(g_n).contiguous(),
+                       x[:, ::bb].reshape(g_n).contiguous(),
+                       y[:, ::bb].reshape(g_n).contiguous(), rows(cos_t),
+                       rows(sin_t), rows(inv_c), rows(inv_s))
+        return bv.reshape(a_n, b_n), bh.reshape(a_n, b_n)
+
+    return raycast_with_vjp(minima, x, y, cos_t, sin_t, max_range)
 
 
-def _padded_offsets(num_beams, fov, bb, device="cpu"):
-    """The (NBLK*bb,) beam-offset row: the last offset repeated into the
-    padding beams of the last block (their outputs are sliced off)."""
-    nblk = -(-num_beams // bb)
-    b_pad = nblk * bb - num_beams
-    offs = beam_angles(num_beams, fov, device)
-    if b_pad:
-        offs = torch.cat([offs, offs[-1:].expand(b_pad)])
-    return offs
-
-
-def _check_mode(mode: str, use_pallas):
+def _sweep_for(mode: str, use_pallas):
+    """The list-kernel wrapper a mode selects (module doc)."""
     if use_pallas:
-        raise NotImplementedError(
-            "use_pallas=True selects the per-row grp kernel "
-            "(raycast_pallas._make_kernel_grp), not ported yet: ROADMAP.md "
-            "'Pallas kernels to port', item 3")
+        return grp_sweep
     kind = mode.split("@", 1)[0]
-    if kind not in ("auto", "dense") and not kind.startswith("sorted_plf"):
-        raise NotImplementedError(
-            f"sector sweep mode {mode!r} is not ported: the port's one "
-            "sweep serves 'auto', 'dense' and 'sorted_plf*' (ROADMAP.md "
-            "'Pallas kernels to port', item 2, and 'Not to port')")
+    if kind == "sorted_pl":
+        return sorted_tiles_sweep
+    if kind in ("auto", "dense") or kind.startswith("sorted_plf"):
+        return sector_sweep
+    raise NotImplementedError(
+        f"sector sweep mode {mode!r} is not ported: it selects one of the "
+        "JAX package's XLA sorted sweeps, TPU machinery (ROADMAP.md "
+        "'Not to port'); the port's list kernel serves 'auto', 'dense', "
+        "'sorted_pl' and 'sorted_plf*'")
 
 
-def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb):
+def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
+                sweep=sector_sweep):
     """Raycast + extent mask for one (A, 3) pose chunk whose padded beam
     fan (ct, st) was built outside the chunk loop. Returns (A,
     num_beams)."""
-    r, _, _ = raycast_sectors(
+    r = raycast_sectors(
         smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
-        smap.tile_origin, smap.ns, smap.kv_sec, poses2[:, 0].contiguous(),
-        poses2[:, 1].contiguous(), ct, st, max_range, bb)
+        smap.tile_origin, smap.ns, poses2[:, 0], poses2[:, 1],
+        poses2[:, 0:1].expand(ct.shape), poses2[:, 1:2].expand(ct.shape),
+        ct, st, max_range, bb, sweep)
     return apply_extent_mask(r[:, :num_beams], poses2[:, 0], poses2[:, 1],
                              smap.extent, max_range)
 
@@ -260,24 +140,18 @@ def scan_poses_sectors(smap, poses, num_beams: int = 1080,
                        use_pallas=None, mode: str = "auto",
                        agent_chunk=None) -> torch.Tensor:
     """Full lidar scans for poses (..., 3) on the sector backend; returns
-    (..., num_beams) ranges. ``poses`` must be on the map's device.
+    (..., num_beams) ranges, differentiable in the poses. ``poses`` must be
+    on the map's device.
 
-    ``agent_chunk``: agents per chunk. ``None`` chunks only CPU scans, so
-    that the plain sweep's gathered lists and (rows, slots, bb)
-    intermediates stay bounded; the CUDA kernel's working set does not grow
-    with the batch. ``0`` never chunks. Values are identical either way.
+    ``agent_chunk``: agents per sequential chunk; ``None`` or ``0`` never
+    chunks (neither sweep's working set grows with the batch beyond its
+    inputs and outputs). Values are identical either way.
     """
-    _check_mode(mode, use_pallas)
+    sweep = _sweep_for(mode, use_pallas)
     bb = sector_block_width(smap, num_beams, fov, bb)
     batch = tuple(poses.shape[:-1])
     poses2 = poses.reshape(-1, 3).to(torch.float32)
     a_n = poses2.shape[0]
-    nblk = -(-num_beams // bb)
-    k = smap.table.shape[2]
-    if agent_chunk is None:
-        per_agent = nblk * 4 * k * 4
-        agent_chunk = (max(1, _PLAIN_BYTES_BUDGET // per_agent)
-                       if smap.table.device.type == "cpu" else 0)
     offs = _padded_offsets(num_beams, fov, bb, poses2.device)
     # the fan is built ONCE for the whole batch, so chunked and unchunked
     # scans see the same directions
@@ -286,8 +160,9 @@ def scan_poses_sectors(smap, poses, num_beams: int = 1080,
         r = torch.cat([
             _scan_chunk(smap, poses2[i:i + agent_chunk],
                         ct[i:i + agent_chunk], st[i:i + agent_chunk],
-                        num_beams, max_range, bb)
+                        num_beams, max_range, bb, sweep)
             for i in range(0, a_n, agent_chunk)])
     else:
-        r = _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb)
+        r = _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
+                        sweep)
     return r.reshape(*batch, num_beams)

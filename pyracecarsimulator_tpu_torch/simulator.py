@@ -6,19 +6,22 @@ input processing -> dynamics -> scan from the lidar origin -> optional
 range noise -> TTC latch. ``RacecarSimulator`` is a thin stateful wrapper
 over it with the reference's method names.
 
-Ported backends: ``"sectors"`` and its alias ``"auto"``. That makes
-``"auto"`` the port's default backend; the JAX package's default,
-``"segments"`` (dense exact geometry), and the EDF and simplified-geometry
-backends are not ported yet and raise NotImplementedError, as do the
-obstacle edits (they need ``maps.sectors.add_segments``) and
-``map_grad``. PyTorch runs eagerly, so swapping a map through
-``step.map_cell`` simply replaces the tensors the next call reads; there is
-no compiled program to keep.
+Ported backends, with the JAX package's default, ``"segments"``:
+``"segments"`` (dense exact geometry, tile-culled on large maps),
+``"segments_pallas"`` (the same geometry through the JAX package's Pallas
+kernels; in the port both run the same Hopper kernels and give the same
+values), ``"sectors"`` (per-(tile, angular-sector) culled exact geometry)
+and its alias ``"auto"``. The scan of every ported backend is
+differentiable in the poses (analytic VJP). The simplified-geometry and
+EDF backends, the obstacle edits and ``map_grad`` raise
+NotImplementedError, each naming its ROADMAP item. PyTorch runs eagerly,
+so swapping a map through ``step.map_cell`` simply replaces the tensors
+the next call reads; there is no compiled program to keep.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -28,10 +31,17 @@ from .models import dynamics as dyn
 from .models.ttc import ttc_tables, check_ttc
 from .maps.loader import TrackMap, load_builtin
 from .maps.sectors import SectorSegmentMap, build_sector_map
+from .maps.segments import SegmentMap, build_segment_map
+from .ops.raycast_pallas import scan_poses_pallas as _scan_pallas
 from .ops.raycast_sectors import scan_poses_sectors as _scan_sectors
+from .ops.raycast_segments import scan_poses_segments as _scan_segments
 from .ops.noise import add_scan_noise
 
-_PORTED_BACKENDS = ("sectors", "auto")
+# backends of the JAX package that the port does not run yet, with the
+# ROADMAP.md queue-1 item that ports each
+_UNPORTED_BACKENDS = {"segments_simplified": 12, "edf": 15,
+                      "edf_bilinear": 15, "edf_implicit": 15}
+_BACKENDS = ("segments", "segments_pallas", "sectors", "auto")
 
 
 class StepOutput(NamedTuple):
@@ -46,76 +56,104 @@ class SimBundle(NamedTuple):
     """Everything a step function reads."""
 
     track: TrackMap
-    segmap: Optional[SectorSegmentMap]
+    segmap: Union[SegmentMap, SectorSegmentMap]
     car: CarParams
     scan: ScanParams
     sim: SimParams
-    backend: str = "sectors"    # resolved backend ("auto" never stored)
+    backend: str = "segments"   # resolved backend ("auto" never stored)
 
 
 def _check_backend(backend: str):
-    if backend not in _PORTED_BACKENDS:
+    if backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
-            f"backend {backend!r} is not ported; the port runs 'sectors' "
-            "('auto'). ROADMAP.md queue 1 lists the remaining backends")
+            f"backend {backend!r} is not ported yet: ROADMAP.md queue 1, "
+            f"item {_UNPORTED_BACKENDS[backend]}")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; the port runs "
+                         f"{', '.join(_BACKENDS)}")
 
 
 def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
-              sim: SimParams = None, backend: str = "auto",
+              sim: SimParams = None, backend: str = "segments",
               tile_size: Optional[float] = None,
               sector_ns: int = 16, sector_headroom: int = 0,
               device="cpu") -> SimBundle:
     """Load or accept a map and compile everything the step needs on the
     host, then place the tensors on ``device``.
 
-    ``backend``: "sectors" (per-(tile, angular-sector) culled exact
-    boundary geometry) or "auto" (alias for "sectors").
-    ``tile_size``: culling tile edge in meters (None = 2.0).
+    ``backend``: "segments" (dense exact geometry, no angular culling),
+    "segments_pallas" (the same geometry and values through the kernel
+    entry points of ``ops/raycast_pallas.py``), "sectors" (per-(tile,
+    angular-sector) culled exact geometry) or "auto" (alias for
+    "sectors").
+    ``tile_size``: culling tile edge in meters; None = per-backend default
+    (4.0 for the dense backends, 2.0 for the sector backend, whose parallax
+    pad shrinks with the tile).
     """
     _check_backend(backend)
+    if backend == "auto":
+        backend = "sectors"
     track = (load_builtin(track_or_name, device=device)
              if isinstance(track_or_name, str)
              else track_or_name.to(device))
     car = car or CarParams()
     scan = scan or ScanParams()
     sim = sim or SimParams()
-    segmap = build_sector_map(
-        track.occupancy.cpu().numpy(), track.resolution,
-        (track.origin_x, track.origin_y),
-        max_range=float(scan.max_range),
-        tile_size=tile_size if tile_size is not None else 2.0,
-        ns=sector_ns, headroom=sector_headroom,
-        real_hw=(track.height, track.width), device=device)
+    args = (track.occupancy.cpu().numpy(), track.resolution,
+            (track.origin_x, track.origin_y))
+    kw = dict(max_range=float(scan.max_range),
+              real_hw=(track.height, track.width), device=device)
+    if backend == "sectors":
+        segmap = build_sector_map(
+            *args, tile_size=tile_size if tile_size is not None else 2.0,
+            ns=sector_ns, headroom=sector_headroom, **kw)
+    else:
+        segmap = build_segment_map(
+            *args, tile_size=tile_size if tile_size is not None else 4.0,
+            **kw)
     return SimBundle(track=track, segmap=segmap, car=car, scan=scan,
-                     sim=sim, backend="sectors")
+                     sim=sim, backend=backend)
 
 
 def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
                  map_cell: Optional[dict] = None,
                  map_grad: bool = False,
                  agent_chunk: Optional[int] = None) -> Callable[[Any], Any]:
-    """Returns ``scan(poses) -> ranges`` for poses (..., 3), noiseless.
+    """Returns ``scan(poses) -> ranges`` for poses (..., 3), noiseless and
+    differentiable in the poses.
 
-    The sector map is read from ``map_cell["map"]`` at every call, so a
-    caller may swap in another map. ``agent_chunk`` is forwarded to
-    ``scan_poses_sectors``.
+    ``backend=None`` uses the backend the bundle was built with. The map
+    is read from ``map_cell["map"]`` at every call, so a caller may swap in
+    another map. ``agent_chunk`` is forwarded to ``scan_poses_sectors``.
     """
-    _check_backend(backend or bundle.backend)
+    backend = backend or bundle.backend
+    _check_backend(backend)
     if map_grad:
         raise NotImplementedError(
             "map_grad (the dRange/dMap path) is not ported yet: ROADMAP.md "
             "queue 1, item 14")
     if map_cell is None:
         map_cell = {"map": bundle.segmap}
+    sectors = backend in ("sectors", "auto")
+    if sectors != isinstance(bundle.segmap, SectorSegmentMap):
+        raise ValueError(
+            f"backend={backend!r} does not match the bundle's map type "
+            f"{type(bundle.segmap).__name__}; build the bundle with "
+            f"build_sim(backend={backend!r})")
+    if backend == "segments_pallas" and not isinstance(bundle.segmap,
+                                                       SegmentMap):
+        raise ValueError(
+            "backend='segments_pallas' needs an exact SegmentMap "
+            "(build_sim(backend='segments_pallas'))")
     sc = bundle.scan
-    theta_disc = sc.theta_discretization if sc.use_theta_table else 0
-
-    def scan_fn(poses):
-        return _scan_sectors(
-            map_cell["map"], poses, num_beams=sc.num_beams, fov=sc.fov,
-            max_range=sc.max_range, theta_discretization=theta_disc,
-            agent_chunk=agent_chunk)
-    return scan_fn
+    kw = dict(num_beams=sc.num_beams, fov=sc.fov, max_range=sc.max_range,
+              theta_discretization=(sc.theta_discretization
+                                    if sc.use_theta_table else 0))
+    if sectors:
+        return lambda poses: _scan_sectors(map_cell["map"], poses,
+                                           agent_chunk=agent_chunk, **kw)
+    scan = _scan_pallas if backend == "segments_pallas" else _scan_segments
+    return lambda poses: scan(map_cell["map"], poses, **kw)
 
 
 def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
@@ -184,7 +222,7 @@ class RacecarSimulator:
 
     def __init__(self, track_or_name="levine", car_params: CarParams = None,
                  scan_params: ScanParams = None, sim_params: SimParams = None,
-                 backend: str = "auto", batch_shape=(), seed: int = 0,
+                 backend: str = "segments", batch_shape=(), seed: int = 0,
                  with_noise: bool = True, device="cpu"):
         # sector_headroom as in the JAX facade: slack in the cull-list
         # capacity for the obstacle edits
@@ -271,8 +309,8 @@ class RacecarSimulator:
 
     def add_obstacle(self, x, y, size=0.2):
         raise NotImplementedError(
-            "add_obstacle needs maps.sectors.add_segments, not ported yet: "
-            "ROADMAP.md queue 1, item 5b")
+            "add_obstacle (maps.sectors.add_segments and the dense map "
+            "rebuild) is not ported yet: ROADMAP.md queue 1, item 5b")
 
     def clear_obstacles(self):
         raise NotImplementedError(

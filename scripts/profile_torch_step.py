@@ -2,10 +2,11 @@
 
     python3 scripts/profile_torch_step.py
 
-For each bundled map, at 4096 agents: builds the step
-(``build_sim(backend="auto")``, ``make_step_fn(with_noise=True)``) and warms
-it up. Then it times 50 steps with CUDA events, without the profiler, and
-records 10 more under ``torch.profiler``. It prints the card's name and power
+For each bundled map and each of the default backend ("segments") and the
+sector backend, at 4096 agents: builds the step (``build_sim(name,
+backend=...)``, ``make_step_fn(with_noise=True)``) and warms it up. Then
+it times 50 steps with CUDA events, without the profiler, and records 10
+more under ``torch.profiler``. It prints the card's name and power
 limit, the unprofiled step time, the device's busy time per step from the
 trace (the sum of the kernels' device time; one stream, so kernels do not
 overlap), the idle share ``1 - busy / unprofiled step time``, and the kernels
@@ -24,6 +25,7 @@ AGENTS = 4096
 TIMED_STEPS = 50
 TRACED_STEPS = 10
 MAPS = ("levine", "berlin")
+BACKENDS = ("segments", "sectors")
 
 
 def main() -> int:
@@ -45,8 +47,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    for name in MAPS:
-        bundle = build_sim(name, backend="auto", device="cuda")
+    for name, backend in ((n, b) for n in MAPS for b in BACKENDS):
+        bundle = build_sim(name, backend=backend, device="cuda")
         step = make_step_fn(bundle, with_noise=True)
         poses = torch.as_tensor(sample_free_poses(
             bundle.track, AGENTS, np.random.RandomState(0)), device="cuda")
@@ -81,9 +83,9 @@ def main() -> int:
         busy = sum(e.self_device_time_total for e in events) / 1e3 \
             / TRACED_STEPS
         launches = sum(e.count for e in events) / TRACED_STEPS
-        print(f"[{name}] {card}: {AGENTS} agents, step {step_ms:.4f} ms "
-              f"(CUDA events, no profiler), device busy {busy:.4f} ms/step "
-              f"(trace), idle share {1 - busy / step_ms:.4f}, "
+        print(f"[{name} {backend}] {card}: {AGENTS} agents, step "
+              f"{step_ms:.4f} ms (CUDA events, no profiler), device busy "
+              f"{busy:.4f} ms/step (trace), idle share {1 - busy / step_ms:.4f}, "
               f"{launches:.0f} kernels/step; wall under the profiler "
               f"{traced_ms:.4f} ms/step")
         events.sort(key=lambda e: -e.self_device_time_total)

@@ -25,13 +25,15 @@ from pyracecarsimulator_tpu.maps.sectors import (build_sector_map as
 from pyracecarsimulator_tpu.ops import raycast_sectors as jrs
 from pyracecarsimulator_tpu.ops.common import fan_cos_sin as jax_fan
 from pyracecarsimulator_tpu.ops.raycast_pallas import (
-    sweep_sorted_tiles_fused)
+    _raycast_pallas_ids_grp_raw, sweep_sorted_tiles_fused,
+    sweep_sorted_tiles_pallas)
 from pyracecarsimulator_tpu.ops.raycast_segments import (
     _ray_invs as jax_ray_invs)
 
 from pyracecarsimulator_tpu_torch.maps.sectors import SectorSegmentMap
 from pyracecarsimulator_tpu_torch.ops import _kernels
 from pyracecarsimulator_tpu_torch.ops import raycast_sectors as prs
+from pyracecarsimulator_tpu_torch.ops import sweeps
 
 FOV = 4.712388980384690
 MAXR = 4.0
@@ -121,9 +123,8 @@ def test_sweep_plain_matches_fused_pallas_kernel(blobby_bigk, chunk):
         jnp.asarray(ids), jnp.asarray(x0), jnp.asarray(y0),
         *map(jnp.asarray, (ct, st, ic, is_)), chunk=chunk, tile_rows=16,
         interpret=True)
-    bv, bh = prs.sweep_plain(pmap.table, pmap.meta, pmap.kv_sec, _t(ids),
-                             _t(x0), _t(y0), _t(ct), _t(st), _t(ic),
-                             _t(is_))
+    bv, bh = prs.sweep_plain(pmap.table, pmap.meta, _t(ids), _t(x0),
+                             _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
     _assert_same_result(bv_ref, bh_ref, bv, bh)
 
 
@@ -139,9 +140,8 @@ def test_sweep_plain_matches_xla_dense_sweep(blobby_bigk):
     bv_ref, bh_ref = jrs._sweep_xla(
         jmap.table, jmap.kv_sec, jnp.asarray(ids).reshape(a_n, nblk),
         *map(shp, (xb, yb, ct, st, ic, is_)), 64)
-    bv, bh = prs.sweep_plain(pmap.table, pmap.meta, pmap.kv_sec, _t(ids),
-                             _t(x0), _t(y0), _t(ct), _t(st), _t(ic),
-                             _t(is_))
+    bv, bh = prs.sweep_plain(pmap.table, pmap.meta, _t(ids), _t(x0),
+                             _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
     _assert_same_result(np.asarray(bv_ref).reshape(-1, BB),
                         np.asarray(bh_ref).reshape(-1, BB), bv, bh)
 
@@ -203,8 +203,7 @@ def test_cpu_tensors_take_the_plain_sweep(blobby_bigk):
     kernel's launch counter does not move."""
     jmap, pmap, poses = blobby_bigk
     ids, x0, y0, rays, _ = _jax_rows(jmap, poses, 540)
-    args = (pmap.table, pmap.meta, pmap.kv_sec, _t(ids), _t(x0), _t(y0),
-            *map(_t, rays))
+    args = (pmap.table, pmap.meta, _t(ids), _t(x0), _t(y0), *map(_t, rays))
     before = prs.sector_sweep.launches
     bv, bh = prs.sector_sweep(*args)
     bv2, bh2 = prs.sweep_plain(*args)
@@ -218,28 +217,65 @@ def test_sweep_rejects_other_devices(blobby_bigk):
     _, pmap, _ = blobby_bigk
     meta_dev = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(ValueError, match="device"):
-        prs.sector_sweep(meta_dev(4, 4, 16), meta_dev(4, 3), 8,
+        prs.sector_sweep(meta_dev(4, 4, 16), meta_dev(4, 3),
                          meta_dev(2), meta_dev(2), meta_dev(2),
                          *(meta_dev(2, BB) for _ in range(4)))
 
 
 @pytest.mark.parametrize("mode, ok", [
     ("auto", True), ("dense", True), ("sorted_plf@128", True),
-    ("sorted_plfm@16", True), ("sorted", False), ("sorted_pl@128", False),
+    ("sorted_plfm@16", True), ("sorted_pl@128", True), ("sorted", False),
     ("sorted_pt", False)])
 def test_modes(blobby_bigk, mode, ok):
-    """'auto', 'dense' and 'sorted_plf*' all select the one sweep; the
-    other JAX sweep modes, and use_pallas=True, are not ported."""
+    """'auto', 'dense', 'sorted_pl' and 'sorted_plf*' all run the list
+    kernel's routes with the same values, as does use_pallas=True; the
+    XLA-only sorted modes are not ported."""
     _, pmap, poses = blobby_bigk
     kw = dict(num_beams=540, fov=FOV, max_range=MAXR)
+    ref = prs.scan_poses_sectors(pmap, _t(poses), **kw)
     if ok:
         r = prs.scan_poses_sectors(pmap, _t(poses), mode=mode, **kw)
-        assert torch.equal(r, prs.scan_poses_sectors(pmap, _t(poses), **kw))
+        assert torch.equal(r, ref)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prs.scan_poses_sectors(pmap, _t(poses), mode=mode, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prs.scan_poses_sectors(pmap, _t(poses), use_pallas=True, **kw)
+    r = prs.scan_poses_sectors(pmap, _t(poses), use_pallas=True, mode=mode,
+                               **kw)
+    assert torch.equal(r, ref)
+    assert all(w.launches == 0 for w in sweeps.LIST_ROUTES)
+
+
+def test_sorted_pl_route_matches_pallas_kernel(blobby_bigk):
+    """The sorted_pl route (list_sweep_plain on CPU) ==
+    sweep_sorted_tiles_pallas (interpret mode), TPU kernel 2.2."""
+    jmap, pmap, poses = blobby_bigk
+    ids, x0, y0, (ct, st, ic, is_), _ = _jax_rows(jmap, poses, 540)
+    bv_ref, bh_ref = sweep_sorted_tiles_pallas(
+        jmap.table, jmap.meta, jmap.kv_sec, jnp.asarray(ids),
+        jnp.asarray(x0), jnp.asarray(y0),
+        *map(jnp.asarray, (ct, st, ic, is_)), chunk=8, tile_rows=16,
+        interpret=True)
+    bv, bh = sweeps.sorted_tiles_sweep(pmap.table, pmap.meta, _t(ids),
+                                       _t(x0), _t(y0), _t(ct), _t(st),
+                                       _t(ic), _t(is_))
+    _assert_same_result(bv_ref, bh_ref, bv, bh)
+
+
+def test_grp_route_matches_pallas_kernel(blobby_bigk):
+    """The use_pallas route == _raycast_pallas_ids_grp_raw (interpret
+    mode), TPU kernel 2.3; it takes per-beam origins, the port per-row
+    ones (equal here, as on every sector path)."""
+    jmap, pmap, poses = blobby_bigk
+    ids, x0, y0, (ct, st, ic, is_), _ = _jax_rows(jmap, poses, 540)
+    xb = np.repeat(x0[:, None], BB, 1)
+    yb = np.repeat(y0[:, None], BB, 1)
+    bv_ref, bh_ref = _raycast_pallas_ids_grp_raw(
+        jnp.asarray(ids), jmap.meta, jmap.table,
+        *map(jnp.asarray, (xb, yb, ct, st, ic, is_)), grp=4,
+        interpret=True)
+    bv, bh = sweeps.grp_sweep(pmap.table, pmap.meta, _t(ids), _t(x0),
+                              _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
+    _assert_same_result(bv_ref, bh_ref, bv, bh)
 
 
 def test_block_width_matches_jax(blobby_bigk):

@@ -172,7 +172,8 @@ def test_map_swap_through_map_cell(bundles, small_track):
     other = psim.build_sim(TrackMap.from_numpy(
         occ, np.asarray(small_track.edf), resolution=small_track.resolution,
         origin_x=small_track.origin_x, origin_y=small_track.origin_y,
-        height=small_track.height, width=small_track.width))
+        height=small_track.height, width=small_track.width),
+        backend="sectors")
     step.map_cell["map"] = other.segmap
     after = step(ps, act).ranges
     assert not torch.equal(before, after)
@@ -182,11 +183,18 @@ def test_map_swap_through_map_cell(bundles, small_track):
 
 def test_unported_paths_raise(bundles, small_track):
     _, pb = bundles
-    for backend in ("segments", "segments_pallas", "edf"):
+    for backend in ("segments_simplified", "edf", "edf_bilinear",
+                    "edf_implicit"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             psim.build_sim(_port_track(small_track), backend=backend)
+    with pytest.raises(ValueError, match="unknown backend"):
+        psim.build_sim(_port_track(small_track), backend="segment")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         psim.make_scan_fn(pb, map_grad=True)
+    # the backend must match the bundle's map type, as in the JAX facade
+    for backend in ("segments", "segments_pallas"):
+        with pytest.raises(ValueError, match="map type"):
+            psim.make_scan_fn(pb, backend=backend)
     with pytest.raises(ValueError, match="dynamics"):
         psim.make_step_fn(pb._replace(sim=P.SimParams(dynamics="mb")))
 
@@ -195,7 +203,7 @@ def test_facade_drives_scalar_car(small_track):
     """RacecarSimulator with batch shape (): the reference call sequence."""
     sim = P.RacecarSimulator(_port_track(small_track), seed=1,
                              scan_params=P.ScanParams(num_beams=270))
-    assert sim.backend == "sectors"
+    assert sim.backend == "segments"            # the JAX facade's default
     sim.set_pose(-4.0, -4.0, 0.0)
     sim.drive(2.0, 0.1)
     for _ in range(3):
