@@ -33,7 +33,32 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 8. times (CUDA events, warm-up, inputs that change between repetitions):
    each kernel and its plain version, the full scans, the closed-loop
    steps, one train step; peak device memory;
-9. the reference-style facade ``RacecarSimulator`` with batch shape ().
+9. the reference-style facade ``RacecarSimulator`` with batch shape ();
+10. per map, the "edf" march (plain PyTorch, no kernel): the CUDA march
+    against the CPU march on 64 poses given the same fan (bit-identical),
+    the scan against the NumPy oracle ``oracle/raycast.py`` on 2 poses
+    (tests/test_raymarch.py's bound), the full scan's time and its device
+    operations per scan (profiler); the "edf" step and a 20-step rollout,
+    counted (no kernel of the five may run), and the step's time;
+11. per map, "edf_implicit" forward and backward at full width (EDF and
+    pose gradients finite and non-zero); "edf_bilinear" forward at full
+    width, forward and backward at 256 agents (autograd keeps every trip);
+12. ``make_scan_fn(map_grad=True)`` on berlin's sector backend: forward
+    equal to ``scan_poses_sectors`` bit for bit, EDF cotangent finite and
+    non-zero, ``sector_sweep`` launched exactly once per scan; the dedup
+    cotangent against the scatter one;
+13. per map, ``soft_edt`` of the occupancy on the card against the CPU
+    (hard min: bit-identical; softmin: 1e-4), and its time;
+14. per map, "segments_simplified": the CUDA scan against the CPU scan
+    given the same fan (bit-identical), the scan, step and rollout,
+    counted (no kernel), and times;
+15. per map, the obstacle cycle through ``RacecarSimulator(device="cuda")``
+    on "segments", "sectors", "edf" and "segments_simplified": a box 1 m
+    ahead of the scanner shortens the beam straight ahead; the sector
+    incremental edit gives exactly the full rebuild's ranges; the launch
+    counters show the dense or tile kernel, or the sector kernel, on the
+    edited map; ``clear_obstacles`` restores the earlier scan bit for bit;
+    the host time of ``add_obstacle``.
 
 Prints a JSON line describing the five TPU kernels' counterparts, then as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -285,7 +310,7 @@ def drive(bundles, backend_label, poses_by_map):
     return used
 
 
-def step_ms(bundle, poses):
+def step_ms(bundle, poses, reps=50):
     import torch
     from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
     step = make_step_fn(bundle, with_noise=True)
@@ -297,7 +322,7 @@ def step_ms(bundle, poses):
 
     def one(i):
         state[0] = step(state[0], act, gen).state
-    return timed_ms(one, 50, warmup=5)
+    return timed_ms(one, reps, warmup=min(5, reps))
 
 
 def train_phase(bundle, poses, label):
@@ -341,6 +366,315 @@ def train_phase(bundle, poses, label):
     check(moved > 0, f"{label}: parameters did not move")
     ms = timed_ms(lambda i: train(params, opt, s0), 3, warmup=1)
     return losses, ms, used
+
+
+def device_ops(fn):
+    """CUDA kernels and copies one call of ``fn()`` puts on the card,
+    counted by the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA))
+
+
+def same_fan_check(label, fn, dev_args, exact=True, tol=0.0):
+    """``fn(*args)`` on the card against ``fn`` on CPU copies of the same
+    tensors and maps: bit-identical (``exact``) or within ``tol``."""
+    import torch
+    cpu = [a.to("cpu") for a in dev_args]
+    got = fn(*dev_args).cpu()
+    ref = fn(*cpu)
+    err = float((got.double() - ref.double()).abs().max())
+    same = bool(torch.equal(got, ref))
+    log(f"[{label}] cuda vs CPU on {tuple(got.shape)}: bit-identical = "
+        f"{same}, max abs err = {err}")
+    check(same if exact else err <= tol, f"{label}: cuda differs from CPU")
+    return err
+
+
+def march_phases(card, name, track, poses):
+    """10-11: the EDF march backends on one map. Returns the times."""
+    import numpy as np
+    import torch
+    from pyracecarsimulator_tpu_torch import build_sim, make_scan_fn
+    from pyracecarsimulator_tpu_torch.oracle import raycast as orc
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
+    from pyracecarsimulator_tpu_torch.ops.raymarch_diff import (
+        scan_poses_implicit)
+    out = {}
+    bundle = build_sim(track, backend="edf", device="cuda")
+    sc = bundle.scan
+    org = torch.tensor([track.origin_x, track.origin_y], device="cuda")
+    hw = (track.height, track.width)
+    kw = dict(max_range=MAX_RANGE, eps=sc.ray_tracing_epsilon,
+              max_iters=sc.max_march_iters, bounds_hw=hw)
+    p = torch.as_tensor(poses, device="cuda")
+    _, _, xb, yb, ct, st = rays_from_poses(p[:64], BEAMS, FOV)
+    same_fan_check(f"{name} edf march, 64 poses", lambda e, o, *r:
+                   rx.march_rays(e, track.resolution, o, *r, **kw),
+                   (track.edf, org, xb, yb, ct, st))
+    scan = make_scan_fn(bundle)
+    edf_np = track.edf.cpu().numpy()
+    for i in range(2):
+        ref = orc.scan(edf_np, track.resolution,
+                       (track.origin_x, track.origin_y), poses[i],
+                       num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE,
+                       eps=sc.ray_tracing_epsilon, bounds_hw=hw)
+        d = np.abs(scan(p[i]).cpu().numpy() - ref)
+        log(f"[{name}] edf scan vs NumPy oracle, pose {i}: share within "
+            f"1e-3 m = {float((d < 1e-3).mean())}, max abs diff = "
+            f"{float(d.max())}")
+        check((d < 1e-3).mean() > 0.99 and d.max() < 3 * track.resolution,
+              f"{name}: edf scan disagrees with the oracle")
+    sets = pose_sets(poses)
+    out["edf_scan_ms"] = timed_ms(lambda i: scan(sets[i % 5]), 5, warmup=1)
+    out["edf_scan_device_ops"] = device_ops(lambda: scan(sets[0]))
+    out["edf_step_ms"] = step_ms(bundle, poses, reps=10)
+    log(f"[{name}] {card}: edf scan {out['edf_scan_ms']:.4f} ms "
+        f"({out['edf_scan_device_ops']} device ops per scan), closed-loop "
+        f"edf step {out['edf_step_ms']:.4f} ms")
+
+    # 11. the differentiable marches
+    def implicit(edf, q):
+        return scan_poses_implicit(edf, track.resolution, org, q,
+                                   num_beams=BEAMS, fov=FOV, **kw)
+
+    def fwd_bwd(scan_fn, q):
+        edf = track.edf.clone().requires_grad_(True)
+        q = q.clone().requires_grad_(True)
+        scan_fn(edf, q).sum().backward()
+        return edf.grad, q.grad
+
+    def bilinear(edf, q):
+        return rx.scan_poses(edf, track.resolution, org, q, num_beams=BEAMS,
+                             fov=FOV, interp="bilinear", **kw)
+
+    for label, fn, q in (("edf_implicit", implicit, p),
+                         ("edf_bilinear", bilinear, p[:256])):
+        g_edf, g_pose = fwd_bwd(fn, q)
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+                 for g in (g_edf, g_pose))
+        log(f"[{name}] {label} fwd+bwd on {q.shape[0]} x {BEAMS}: EDF grad "
+            f"|.|_1 {float(g_edf.abs().sum()):.4f}, pose grad |.|_1 "
+            f"{float(g_pose.abs().sum()):.4f}, finite and non-zero = {ok}")
+        check(ok, f"{name}: {label} gradients")
+        torch.cuda.reset_peak_memory_stats()
+        out[f"{label}_fwd_bwd_ms"] = timed_ms(
+            lambda i: fwd_bwd(fn, sets[i % 5][: q.shape[0]]), 2, warmup=1)
+        out[f"{label}_fwd_bwd_agents"] = q.shape[0]
+        out[f"{label}_fwd_bwd_peak_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            out[f"{label}_fwd_ms"] = timed_ms(
+                lambda i: fn(track.edf, sets[i % 5]), 3, warmup=1)
+        log(f"[{name}] {card}: {label} forward {AGENTS} x {BEAMS} "
+            f"{out[f'{label}_fwd_ms']:.4f} ms; forward + backward "
+            f"{q.shape[0]} x {BEAMS} {out[f'{label}_fwd_bwd_ms']:.4f} ms, "
+            f"peak {out[f'{label}_fwd_bwd_peak_gb']:.2f} GB")
+    out["edf_launches"] = drive({name: bundle}, "edf", {name: poses})[name]
+    check(out["edf_launches"] == {},
+          f"{name}: the edf path launched {out['edf_launches']}")
+    return out
+
+
+def mapgrad_phase(card, smap_bundle, poses):
+    """12: make_scan_fn(map_grad=True) on a sector bundle."""
+    import torch
+    from pyracecarsimulator_tpu_torch import make_scan_fn
+    from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+    track = smap_bundle.track
+    scan_g = make_scan_fn(smap_bundle, map_grad=True)
+    p = torch.as_tensor(poses, device="cuda")
+    edf = track.edf.clone().requires_grad_(True)
+    reset_counts()
+    r = scan_g(p, edf)
+    torch.cuda.synchronize()
+    used = {k: v for k, v in counts().items() if v}
+    ref = rs.scan_poses_sectors(smap_bundle.segmap, p, num_beams=BEAMS,
+                                fov=FOV, max_range=MAX_RANGE)
+    same = bool(torch.equal(r.detach(), ref))
+    (r ** 2).sum().backward()
+    g = edf.grad
+    ok = bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    log(f"[berlin] map_grad sector scan: launches {used}, forward equal to "
+        f"scan_poses_sectors = {same}, EDF cotangent |.|_1 "
+        f"{float(g.abs().sum()):.4f}, finite and non-zero = {ok}")
+    check(used == {"sector_sweep": 1} and same and ok, "map_grad scan")
+    sets = pose_sets(poses)
+    n_scans = 3
+    reset_counts()
+
+    def fwd_bwd(i):
+        e = track.edf.clone().requires_grad_(True)
+        (scan_g(sets[i % 5], e) ** 2).sum().backward()
+    ms = timed_ms(fwd_bwd, n_scans, warmup=0)
+    grown = counts()
+    log(f"[berlin] {card}: map_grad sector scan forward + backward "
+        f"{ms:.4f} ms at {AGENTS} x {BEAMS}; launches over {n_scans} "
+        f"scans {grown}")
+    check(grown == {**{k: 0 for k in KERNELS}, "sector_sweep": n_scans},
+          f"map_grad: {n_scans} scans launched {grown}")
+    # dedup against scatter, on the forward's own rays
+    from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
+    _, _, xb, yb, cts, sts = rays_from_poses(p[:512], BEAMS, FOV)
+    with torch.no_grad():
+        r512 = rs.scan_poses_sectors(smap_bundle.segmap, p[:512],
+                                     num_beams=BEAMS, fov=FOV,
+                                     max_range=MAX_RANGE)
+    grads = []
+    for dedup in (False, True):
+        e = track.edf.clone().requires_grad_(True)
+        org = torch.tensor([track.origin_x, track.origin_y], device="cuda")
+        (rd.with_map_gradient(e, r512, xb, yb, cts, sts, track.resolution,
+                              org, 1e-4, (track.height, track.width),
+                              dedup) ** 2).sum().backward()
+        grads.append(e.grad)
+    err = float((grads[0] - grads[1]).abs().max())
+    scale = float(grads[0].abs().max())
+    log(f"[berlin] with_map_gradient dedup vs scatter, 512 x {BEAMS}: max "
+        f"abs diff {err} (max |cotangent| {scale})")
+    check(err <= 1e-5 * scale + 1e-6, "dedup cotangent differs")
+    return {"fwd_bwd_ms": ms, "launches": used, "dedup_err": err}
+
+
+def soft_edt_phase(card, name, track):
+    """13: soft_edt of the map's occupancy, card against CPU."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops.soft_edt import soft_edt
+    out = {}
+    for label, kw, exact, tol in (("hard", {}, True, 0.0),
+                                  ("soft", dict(temperature=0.25), False,
+                                   1e-4)):
+        out[f"{label}_err"] = same_fan_check(
+            f"{name} soft_edt {label} {tuple(track.occupancy.shape)}",
+            lambda occ: soft_edt(occ, track.resolution, **kw),
+            (track.occupancy,), exact=exact, tol=tol)
+        out[f"{label}_ms"] = timed_ms(
+            lambda i: soft_edt(track.occupancy, track.resolution, **kw), 3,
+            warmup=1)
+        log(f"[{name}] {card}: soft_edt {label} (64 iters) "
+            f"{out[f'{label}_ms']:.4f} ms")
+    return out
+
+
+def simplified_phase(card, name, track, poses):
+    """14: the "segments_simplified" backend on one map."""
+    import torch
+    from pyracecarsimulator_tpu_torch import build_sim, make_scan_fn
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
+    from pyracecarsimulator_tpu_torch.ops.common import (apply_extent_mask,
+                                                         rays_from_poses)
+    out = {}
+    t0 = time.perf_counter()
+    bundle = build_sim(track, backend="segments_simplified", device="cuda")
+    gmap = bundle.segmap
+    out["build_s"] = time.perf_counter() - t0
+    log(f"[{name}] segments_simplified: {gmap.n_segments} general segments "
+        f"(params {tuple(gmap.params.shape)}, tiles "
+        f"{None if gmap.tiles is None else tuple(gmap.tiles.shape)}), host "
+        f"build {out['build_s']:.2f} s")
+
+    def scan_rays(m, q, xb, yb, ct, st):
+        if m.tiles is not None:
+            r = rg.raycast_general_tiled(m.tiles, m.tiles_shape, m.tile_size,
+                                         m.tile_origin, q[:, 0], q[:, 1],
+                                         xb, yb, ct, st, MAX_RANGE)
+        else:
+            r = rg.raycast_general(m.params, xb, yb, ct, st, MAX_RANGE)
+        return apply_extent_mask(r, q[:, 0], q[:, 1], m.extent, MAX_RANGE)
+
+    p = torch.as_tensor(poses, device="cuda")
+    _, q, xb, yb, ct, st = rays_from_poses(p[:64], BEAMS, FOV)
+    same_fan_check(f"{name} segments_simplified scan, 64 poses",
+                   lambda m, *a: scan_rays(m, *a),
+                   (gmap, q, xb, yb, ct, st))
+    scan = make_scan_fn(bundle)
+    sets = pose_sets(poses)
+    out["scan_ms"] = timed_ms(lambda i: scan(sets[i % 5]), 5, warmup=1)
+    out["step_ms"] = step_ms(bundle, poses, reps=10)
+    out["launches"] = drive({name: bundle}, "segments_simplified",
+                            {name: poses})[name]
+    check(out["launches"] == {},
+          f"{name}: segments_simplified launched {out['launches']}")
+    log(f"[{name}] {card}: segments_simplified scan {out['scan_ms']:.4f} "
+        f"ms, step {out['step_ms']:.4f} ms")
+    return out
+
+
+def obstacle_phase(card, name, track, poses):
+    """15: the facade's obstacle cycle on four backends of one map."""
+    import numpy as np
+    import torch
+    from pyracecarsimulator_tpu_torch import RacecarSimulator
+    from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
+    edf = track.edf.cpu().numpy()[: track.height, : track.width]
+    iy, ix = np.unravel_index(np.argmax(edf), edf.shape)
+    x = track.origin_x + (ix + 0.5) * track.resolution
+    y = track.origin_y + (iy + 0.5) * track.resolution
+    ahead = BEAMS // 2                 # the beam straight ahead
+    box_x = x + 0.275 + 1.0            # 1 m ahead of the scanner
+    expect = {"segments": {"levine": "dense_sweep",
+                           "berlin": "tile_sweep"}[name],
+              "sectors": "sector_sweep", "edf": None,
+              "segments_simplified": None}
+    out = {}
+    for backend, kname in expect.items():
+        sim = RacecarSimulator(track, backend=backend, device="cuda",
+                               with_noise=False)
+        sim.set_pose(x, y, 0.0)
+        before = sim.run_scan()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.add_obstacle(box_x, y, size=0.4)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        reset_counts()
+        with_box = sim.run_scan()
+        stepped = sim.update_pose()
+        torch.cuda.synchronize()
+        used = {k: v for k, v in counts().items() if v}
+        r0, r1 = float(before[ahead]), float(with_box[ahead])
+        res = {"add_obstacle_host_ms": host_ms, "launches": used,
+               "ahead_before": r0, "ahead_with_box": r1}
+        check(0.7 < r1 < 0.9 and r1 < r0 - 0.1
+              and float(stepped.ranges[ahead]) < 0.9,
+              f"{name} {backend}: the box does not shorten the beam ahead "
+              f"({r0} -> {r1})")
+        check(used == ({kname: 2} if kname else {}),
+              f"{name} {backend}: the edited map launched {used}")
+        if backend == "sectors":
+            inc = sim.bundle.segmap
+            res["incremental"] = (
+                inc.n_segments == sim._pristine_segmap.n_segments + 4
+                and inc.table.shape == sim._pristine_segmap.table.shape)
+            full = sim._build_segmap(sim.bundle.track)
+            q = torch.as_tensor(poses[:256], device="cuda")
+            kw = dict(num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE)
+            same = bool(torch.equal(rs.scan_poses_sectors(inc, q, **kw),
+                                    rs.scan_poses_sectors(full, q, **kw)))
+            log(f"[{name}] sectors: incremental add_segments = "
+                f"{res['incremental']}, ranges equal to the full rebuild's "
+                f"on 256 x {BEAMS} = {same}")
+            check(res["incremental"] and same, f"{name}: add_segments")
+        sim.set_pose(x, y, 0.0)
+        sim.clear_obstacles()
+        restored = bool(torch.equal(sim.run_scan(), before))
+        log(f"[{name}] {card}: {backend} add_obstacle {host_ms:.1f} ms "
+            f"host; beam ahead {r0:.4f} -> {r1:.4f} m; launches on the "
+            f"edited map (scan + step) {used}; clear_obstacles restores "
+            f"the scan bit for bit = {restored}")
+        check(restored, f"{name} {backend}: clear_obstacles")
+        out[backend] = res
+    return out
 
 
 def run():
@@ -553,6 +887,30 @@ def run():
         f"{float(sim.get_state().x):.4f}, collision "
         f"{bool(sim.check_collision())}")
 
+    # 10-15. the EDF marches, map gradients, soft_edt, simplified
+    # geometry and the obstacle cycle
+    slice_out = {"edf": {}, "soft_edt": {}, "segments_simplified": {},
+                 "obstacles": {}}
+    for name in MAPS:
+        slice_out["edf"][name] = march_phases(card, name, tracks[name],
+                                              poses_by_map[name])
+    slice_out["map_grad"] = mapgrad_phase(card, sec_bundles[big],
+                                          poses_by_map[big])
+    for name in MAPS:
+        slice_out["soft_edt"][name] = soft_edt_phase(card, name,
+                                                     tracks[name])
+        slice_out["segments_simplified"][name] = simplified_phase(
+            card, name, tracks[name], poses_by_map[name])
+        slice_out["obstacles"][name] = obstacle_phase(
+            card, name, tracks[name], poses_by_map[name])
+    slice_launches = dict(slice_out["map_grad"]["launches"])
+    for per_map in slice_out["obstacles"].values():
+        for res in per_map.values():
+            for k, v in res["launches"].items():
+                slice_launches[k] = slice_launches.get(k, 0) + v
+    log(f"this slice's paths launched {slice_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
     launches = {"sector_sweep": sum(c.get("sector_sweep", 0)
                                     for c in sec_counts.values()),
                 "dense_sweep": main_counts["levine"]["dense_sweep"],
@@ -571,7 +929,8 @@ def run():
         "ms_by_shape": times[name]}
         for name, (src, rep, path) in KERNELS.items()],
         "scans_ms": times["scans"], "steps_ms": times["steps"],
-        "train": train, "card": card}))
+        "train": train, "slice_launches": slice_launches,
+        "slice": slice_out, "card": card}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 

@@ -46,9 +46,9 @@ class CarParams:
 
 @dataclasses.dataclass(frozen=True)
 class ScanParams:
-    """Lidar scan-simulation parameters. ``max_march_iters`` and ``interp``
-    belong to the EDF march backends, which are not ported yet; they are
-    kept so that configurations carry over unchanged."""
+    """Lidar scan-simulation parameters. ``ray_tracing_epsilon``,
+    ``max_march_iters`` and ``interp`` belong to the EDF march backends
+    ("edf", "edf_bilinear", "edf_implicit")."""
 
     num_beams: Any = 1080            # beams per scan
     fov: Any = 4.712388980384690     # field of view [rad] (270 deg)

@@ -212,6 +212,35 @@ def load_builtin(name: str, device="cpu") -> TrackMap:
     return load_map_yaml(path, device=device)
 
 
+def obstacle_cells(track: TrackMap, x: float, y: float, size: float):
+    """The cell rows [i0, i1) and columns [j0, j1) that ``add_obstacle``
+    fills for a square of edge ``size`` meters centered at (x, y)."""
+    r = max(1, int(round(size / track.resolution / 2)))
+    ci = int((y - track.origin_y) / track.resolution)
+    cj = int((x - track.origin_x) / track.resolution)
+    return (max(0, ci - r), min(track.height, ci + r + 1),
+            max(0, cj - r), min(track.width, cj + r + 1))
+
+
+def add_obstacle(track: TrackMap, x: float, y: float,
+                 size: float = 0.2) -> TrackMap:
+    """Rasterize a square obstacle of edge ``size`` meters centered at
+    (x, y) and rebuild the EDF on the host (reference ``addObstacle``;
+    obstacles change at episode frequency, not step frequency). Returns a
+    new map on the track's device; ``track`` is left as it was."""
+    occ = track.occupancy[: track.height, : track.width].cpu().numpy().copy()
+    i0, i1, j0, j1 = obstacle_cells(track, x, y, size)
+    occ[i0:i1, j0:j1] = 1.0
+    return build_track_map(occ, track.resolution,
+                           (track.origin_x, track.origin_y), name=track.name,
+                           device=track.occupancy.device)
+
+
+def clear_obstacles(track: TrackMap, original: TrackMap) -> TrackMap:
+    """Reference ``clearObstacles``: restore the pristine map."""
+    return original
+
+
 def sample_free_poses(track: TrackMap, n: int, rng=None,
                       margin: float = 0.3, theta_range=(-np.pi, np.pi)):
     """Sample n collision-free poses (x, y, theta) in open space.

@@ -7,12 +7,15 @@ beam-block half-width and by parallax). At scan time each beam block sweeps
 only its own (tile, sector) list. Culling is conservative, so values are
 those of a sweep over every segment (proof in the JAX module's doc).
 
+``add_segments`` appends an obstacle's boundary into the lists' headroom
+slots (the facade's incremental ``add_obstacle``).
+
 Left out, because they serve the TPU only: ``table_ck`` and
 ``build_table_ck`` (the chunk-grouped layout of the TPU's fused kernel; the
-Hopper kernel reads the plain ``(L, 4, K)`` table), and the native C++
-membership call (loading it goes through the JAX package; the NumPy body
-below is the same geometry). ``add_segments`` (the obstacle path) and the
-stacked multi-map tables are not ported yet.
+Hopper kernel reads the plain ``(L, 4, K)`` table), so ``add_segments`` has
+no ``table_ck`` branch either; and the native C++ membership call (loading
+it goes through the JAX package; the NumPy body below is the same
+geometry). The stacked multi-map tables are not ported yet.
 """
 
 from __future__ import annotations
@@ -138,6 +141,65 @@ def _membership(segs: np.ndarray, nr: int, nc: int, ns: int,
         rel = np.mod(sec_starts[s] - lo_pad, 2.0 * np.pi)
         memb[s] = ((rel <= span) | (rel >= 2.0 * np.pi - wsec) | full) & near
     return memb.transpose(1, 0, 2).reshape(nr * nc * ns, len(segs))
+
+
+def add_segments(smap: SectorSegmentMap, new_segs: np.ndarray
+                 ) -> SectorSegmentMap:
+    """Append boundary segments (e.g. a rasterized obstacle's 4-segment
+    box) into the cull lists' headroom slots: O(tiles x new segments) host
+    geometry and one small device scatter, instead of a full rebuild. The
+    table's shape is unchanged.
+
+    Segments are only ever added, and a segment inside the occupied union
+    is occluded by the union's own boundary, so first-hit ranges from
+    free-space origins are exactly those of a full rebuild. The table is
+    cloned before the write: ``smap`` (which the facade keeps as the
+    pristine map for ``clear_obstacles``) is left as it was.
+
+    Raises ValueError when a list's capacity would overflow; the caller
+    then rebuilds the map.
+    """
+    new_segs = np.atleast_2d(np.asarray(new_segs, np.float64))
+    nr, nc = smap.tiles_shape
+    ox, oy = smap.tile_origin
+    memb = _membership(new_segs, nr, nc, smap.ns, smap.tile_size, ox, oy,
+                       smap.rt, smap.reach, smap.block_half)     # (L, n)
+    meta = smap.meta.cpu().numpy()
+    kv = smap.kv_sec
+    k_tot = smap.table.shape[2]
+    counts_v = meta[:, 0].copy()
+    counts_h = (meta[:, 2] - meta[:, 1]).copy()
+    lids, slots, rows = [], [], []
+    for i, seg in enumerate(new_segs):
+        lid = np.where(memb[:, i])[0]
+        if len(lid) == 0:
+            continue
+        if seg[3] > 0.5:
+            if (counts_v[lid] >= kv).any():
+                raise ValueError(
+                    "sector headroom exhausted (V); full rebuild needed")
+            slot = counts_v[lid].copy()
+            counts_v[lid] += 1
+        else:
+            if (counts_h[lid] >= k_tot - kv).any():
+                raise ValueError(
+                    "sector headroom exhausted (H); full rebuild needed")
+            slot = kv + counts_h[lid]
+            counts_h[lid] += 1
+        lids.append(lid)
+        slots.append(slot)
+        rows.append(np.repeat(seg[None, :].astype(np.float32), len(lid), 0))
+    table = smap.table.clone()
+    if lids:
+        dev = table.device
+        table[torch.as_tensor(np.concatenate(lids), device=dev), :,
+              torch.as_tensor(np.concatenate(slots), device=dev)] = \
+            torch.as_tensor(np.concatenate(rows), device=dev)
+    meta2 = np.stack([counts_v, np.full(len(meta), kv, counts_v.dtype),
+                      kv + counts_h], axis=1).astype(np.int32)
+    return dataclasses.replace(
+        smap, table=table, meta=torch.as_tensor(meta2, device=smap.device),
+        n_segments=smap.n_segments + len(new_segs))
 
 
 def build_sector_map(occupancy: np.ndarray, resolution: float,

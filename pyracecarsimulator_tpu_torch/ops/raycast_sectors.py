@@ -21,6 +21,8 @@ Left out as TPU machinery: ``table_ck``, the sort of rows into tiles, the
 ``raycast_sectors`` is differentiable in the rays: its forward runs under
 ``raycast_grad._WinnerRaycast``, whose backward is the closed-form
 ``_winner_vjp``; the table, meta and the lookup positions get no gradient.
+``scan_poses_sectors_mapgrad`` adds a d(range)/d(map) cotangent into an
+EDF (``raymarch_diff.with_map_gradient``) to the same sector scan.
 """
 
 from __future__ import annotations
@@ -165,4 +167,44 @@ def scan_poses_sectors(smap, poses, num_beams: int = 1080,
     else:
         r = _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
                         sweep)
+    return r.reshape(*batch, num_beams)
+
+
+def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
+                               num_beams: int = 1080,
+                               fov: float = 4.712388980384690,
+                               max_range=10.0,
+                               theta_discretization: int = 0,
+                               eps: float = 1e-4, bounds_hw=None,
+                               bb=None, dedup: bool = False) -> torch.Tensor:
+    """Sector-culled scan with a d(range)/d(map) cotangent.
+
+    Values equal ``scan_poses_sectors`` bit for bit (the sector sweep,
+    ``sector_sweep``, computes them; ``with_map_gradient`` is
+    straight-through). Backward: the ray cotangents through the sector
+    scan's closed-form VJP, plus the implicit-function map cotangent into
+    ``edf`` at each hit (4 bilinear taps per ray).
+
+    ``edf``: the distance field the map cotangent lands in (for example
+    ``track.edf``), on the map's device. It must describe the occupancy
+    boundary the sector map was compiled from. ``bounds_hw``: the real
+    (h, w) if ``edf`` is padded.
+    """
+    from .raymarch_diff import with_map_gradient
+    bb = sector_block_width(smap, num_beams, fov, bb)
+    batch = tuple(poses.shape[:-1])
+    poses2 = poses.reshape(-1, 3).to(torch.float32)
+    offs = _padded_offsets(num_beams, fov, bb, poses2.device)
+    ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
+    xb = poses2[:, 0:1].expand(ct.shape)
+    yb = poses2[:, 1:2].expand(ct.shape)
+    r = raycast_sectors(
+        smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
+        smap.tile_origin, smap.ns, poses2[:, 0], poses2[:, 1], xb, yb, ct,
+        st, max_range, bb, sector_sweep)[:, :num_beams]
+    r = apply_extent_mask(r, poses2[:, 0], poses2[:, 1], smap.extent,
+                          max_range)
+    r = with_map_gradient(edf, r, xb[:, :num_beams], yb[:, :num_beams],
+                          ct[:, :num_beams], st[:, :num_beams], resolution,
+                          origin_xy, eps, bounds_hw, dedup)
     return r.reshape(*batch, num_beams)

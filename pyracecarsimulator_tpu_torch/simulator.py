@@ -4,44 +4,55 @@ Counterpart of ``pyracecarsimulator_tpu/simulator.py``. ``make_step_fn``
 returns one function that runs the closed-loop step for any agent batch:
 input processing -> dynamics -> scan from the lidar origin -> optional
 range noise -> TTC latch. ``RacecarSimulator`` is a thin stateful wrapper
-over it with the reference's method names.
+over it with the reference's method names, obstacle edits included.
 
-Ported backends, with the JAX package's default, ``"segments"``:
+Backends, as in the JAX package, with its default ``"segments"``:
 ``"segments"`` (dense exact geometry, tile-culled on large maps),
 ``"segments_pallas"`` (the same geometry through the JAX package's Pallas
 kernels; in the port both run the same Hopper kernels and give the same
 values), ``"sectors"`` (per-(tile, angular-sector) culled exact geometry)
-and its alias ``"auto"``. The scan of every ported backend is
-differentiable in the poses (analytic VJP). The simplified-geometry and
-EDF backends, the obstacle edits and ``map_grad`` raise
-NotImplementedError, each naming its ROADMAP item. PyTorch runs eagerly,
-so swapping a map through ``step.map_cell`` simply replaces the tensors
-the next call reads; there is no compiled program to keep.
+and its alias ``"auto"``, ``"segments_simplified"`` (contour-simplified
+general segments, ~1-cell tolerance), ``"edf"`` (the reference-exact
+distance-transform march), ``"edf_bilinear"`` (the bilinear march,
+differentiable in the map by autograd) and ``"edf_implicit"`` (the
+nearest march with the implicit-function VJP). ``make_scan_fn(...,
+map_grad=True)`` gives the sector scan a d(range)/d(map) cotangent.
+
+PyTorch runs eagerly, so swapping a map through ``step.map_cell`` simply
+replaces the tensors the next call reads: there is no compiled program to
+keep, and the JAX facade's retrace checks (``_swap_or_rebuild``'s shape
+signature, ``jitted._cache_size``) have no counterpart.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from .config import CarParams, ScanParams, SimParams
 from .state import CarState, zero_state, state_from_pose, set_field
 from .models import dynamics as dyn
 from .models.ttc import ttc_tables, check_ttc
-from .maps.loader import TrackMap, load_builtin
-from .maps.sectors import SectorSegmentMap, build_sector_map
+from .maps.contours import GeneralSegmentMap, build_general_segment_map
+from .maps.loader import (TrackMap, add_obstacle as _add_obs, load_builtin,
+                          obstacle_cells)
+from .maps.sectors import SectorSegmentMap, add_segments, build_sector_map
 from .maps.segments import SegmentMap, build_segment_map
+from .ops.raycast_general import scan_poses_general as _scan_general
 from .ops.raycast_pallas import scan_poses_pallas as _scan_pallas
-from .ops.raycast_sectors import scan_poses_sectors as _scan_sectors
+from .ops.raycast_sectors import (scan_poses_sectors as _scan_sectors,
+                                  scan_poses_sectors_mapgrad)
 from .ops.raycast_segments import scan_poses_segments as _scan_segments
+from .ops.raymarch_diff import scan_poses_implicit as _scan_implicit
+from .ops.raymarch_xla import scan_poses as _scan_edf
 from .ops.noise import add_scan_noise
 
-# backends of the JAX package that the port does not run yet, with the
-# ROADMAP.md queue-1 item that ports each
-_UNPORTED_BACKENDS = {"segments_simplified": 12, "edf": 15,
-                      "edf_bilinear": 15, "edf_implicit": 15}
-_BACKENDS = ("segments", "segments_pallas", "sectors", "auto")
+# backends whose map object is a compiled segment table (vs the EDF track)
+_SEGMENT_BACKENDS = ("segments", "segments_simplified", "segments_pallas",
+                     "sectors", "auto")
+_EDF_BACKENDS = ("edf", "edf_bilinear", "edf_implicit")
 
 
 class StepOutput(NamedTuple):
@@ -56,7 +67,8 @@ class SimBundle(NamedTuple):
     """Everything a step function reads."""
 
     track: TrackMap
-    segmap: Union[SegmentMap, SectorSegmentMap]
+    # None for the EDF backends, whose map object is the track
+    segmap: Union[SegmentMap, SectorSegmentMap, GeneralSegmentMap, None]
     car: CarParams
     scan: ScanParams
     sim: SimParams
@@ -64,13 +76,16 @@ class SimBundle(NamedTuple):
 
 
 def _check_backend(backend: str):
-    if backend in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: ROADMAP.md queue 1, "
-            f"item {_UNPORTED_BACKENDS[backend]}")
-    if backend not in _BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; the port runs "
-                         f"{', '.join(_BACKENDS)}")
+    if backend not in _SEGMENT_BACKENDS + _EDF_BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}; choose one of "
+            f"{', '.join(_SEGMENT_BACKENDS + _EDF_BACKENDS)}")
+
+
+def _map_args(track: TrackMap):
+    """The host occupancy and geometry every map compile takes."""
+    return (track.occupancy.cpu().numpy(), track.resolution,
+            (track.origin_x, track.origin_y))
 
 
 def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
@@ -81,11 +96,8 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
     """Load or accept a map and compile everything the step needs on the
     host, then place the tensors on ``device``.
 
-    ``backend``: "segments" (dense exact geometry, no angular culling),
-    "segments_pallas" (the same geometry and values through the kernel
-    entry points of ``ops/raycast_pallas.py``), "sectors" (per-(tile,
-    angular-sector) culled exact geometry) or "auto" (alias for
-    "sectors").
+    ``backend``: one of the module doc's; "auto" resolves to "sectors".
+    The EDF backends need no compiled geometry (``segmap`` is None).
     ``tile_size``: culling tile edge in meters; None = per-backend default
     (4.0 for the dense backends, 2.0 for the sector backend, whose parallax
     pad shrinks with the tile).
@@ -99,61 +111,112 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
     car = car or CarParams()
     scan = scan or ScanParams()
     sim = sim or SimParams()
-    args = (track.occupancy.cpu().numpy(), track.resolution,
-            (track.origin_x, track.origin_y))
     kw = dict(max_range=float(scan.max_range),
               real_hw=(track.height, track.width), device=device)
+    segmap = None
     if backend == "sectors":
         segmap = build_sector_map(
-            *args, tile_size=tile_size if tile_size is not None else 2.0,
+            *_map_args(track),
+            tile_size=tile_size if tile_size is not None else 2.0,
             ns=sector_ns, headroom=sector_headroom, **kw)
-    else:
+    elif backend == "segments_simplified":
+        segmap = build_general_segment_map(
+            *_map_args(track),
+            tile_size=tile_size if tile_size is not None else 4.0, **kw)
+    elif backend in ("segments", "segments_pallas"):
         segmap = build_segment_map(
-            *args, tile_size=tile_size if tile_size is not None else 4.0,
-            **kw)
+            *_map_args(track),
+            tile_size=tile_size if tile_size is not None else 4.0, **kw)
     return SimBundle(track=track, segmap=segmap, car=car, scan=scan,
                      sim=sim, backend=backend)
+
+
+def _origin(track: TrackMap):
+    """The map origin as a (2,) float32 tensor on the track's device."""
+    return torch.tensor([track.origin_x, track.origin_y],
+                        dtype=torch.float32, device=track.edf.device)
 
 
 def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
                  map_cell: Optional[dict] = None,
                  map_grad: bool = False,
                  agent_chunk: Optional[int] = None) -> Callable[[Any], Any]:
-    """Returns ``scan(poses) -> ranges`` for poses (..., 3), noiseless and
-    differentiable in the poses.
+    """Returns ``scan(poses) -> ranges`` for poses (..., 3), noiseless.
+    The segment backends are differentiable in the poses (analytic VJP),
+    "edf_bilinear" and "edf_implicit" in the poses and the map.
 
     ``backend=None`` uses the backend the bundle was built with. The map
-    is read from ``map_cell["map"]`` at every call, so a caller may swap in
-    another map. ``agent_chunk`` is forwarded to ``scan_poses_sectors``.
+    (segment table, or the track for the EDF backends) is read from
+    ``map_cell["map"]`` at every call, so a caller may swap in another
+    map. ``agent_chunk`` is forwarded to ``scan_poses_sectors``.
+
+    ``map_grad=True`` (sector backend only) returns ``scan(poses, edf) ->
+    ranges`` instead: values equal the sector scan's bit for bit, and
+    autograd reaches ``edf`` through the implicit-function map cotangent
+    at each hit (``ops/raycast_sectors.scan_poses_sectors_mapgrad``). Pass
+    ``bundle.track.edf`` or any EDF of the same boundary.
     """
     backend = backend or bundle.backend
     _check_backend(backend)
-    if map_grad:
-        raise NotImplementedError(
-            "map_grad (the dRange/dMap path) is not ported yet: ROADMAP.md "
-            "queue 1, item 14")
-    if map_cell is None:
-        map_cell = {"map": bundle.segmap}
-    sectors = backend in ("sectors", "auto")
-    if sectors != isinstance(bundle.segmap, SectorSegmentMap):
-        raise ValueError(
-            f"backend={backend!r} does not match the bundle's map type "
-            f"{type(bundle.segmap).__name__}; build the bundle with "
-            f"build_sim(backend={backend!r})")
-    if backend == "segments_pallas" and not isinstance(bundle.segmap,
-                                                       SegmentMap):
-        raise ValueError(
-            "backend='segments_pallas' needs an exact SegmentMap "
-            "(build_sim(backend='segments_pallas'))")
     sc = bundle.scan
     kw = dict(num_beams=sc.num_beams, fov=sc.fov, max_range=sc.max_range,
               theta_discretization=(sc.theta_discretization
                                     if sc.use_theta_table else 0))
-    if sectors:
-        return lambda poses: _scan_sectors(map_cell["map"], poses,
-                                           agent_chunk=agent_chunk, **kw)
-    scan = _scan_pallas if backend == "segments_pallas" else _scan_segments
-    return lambda poses: scan(map_cell["map"], poses, **kw)
+    track = bundle.track
+    bounds = (track.height, track.width)
+    if map_grad:
+        if backend != "sectors":
+            raise ValueError(
+                "map_grad=True is the sector backend's hybrid path; "
+                f"backend={backend!r} either cannot attach the implicit "
+                "map cotangent or (edf_bilinear/edf_implicit) is already "
+                "differentiable in the map")
+        if not isinstance(bundle.segmap, SectorSegmentMap):
+            raise ValueError("bundle was not built with the sector backend")
+        if map_cell is None:
+            map_cell = {"map": bundle.segmap}
+        org = _origin(track)
+        return lambda poses, edf: scan_poses_sectors_mapgrad(
+            map_cell["map"], edf, track.resolution, org, poses,
+            eps=sc.ray_tracing_epsilon, bounds_hw=bounds, **kw)
+    if backend in _SEGMENT_BACKENDS:
+        if bundle.segmap is None:
+            raise ValueError("bundle built without a segment backend")
+        if map_cell is None:
+            map_cell = {"map": bundle.segmap}
+        sectors = backend in ("sectors", "auto")
+        if sectors != isinstance(bundle.segmap, SectorSegmentMap):
+            raise ValueError(
+                f"backend={backend!r} does not match the bundle's map type "
+                f"{type(bundle.segmap).__name__}; build the bundle with "
+                f"build_sim(backend={backend!r})")
+        if sectors:
+            return lambda poses: _scan_sectors(map_cell["map"], poses,
+                                               agent_chunk=agent_chunk, **kw)
+        if backend == "segments_pallas":
+            if not isinstance(bundle.segmap, SegmentMap):
+                raise ValueError(
+                    "backend='segments_pallas' needs an exact SegmentMap "
+                    "(build_sim(backend='segments_pallas')), but this "
+                    f"bundle carries {type(bundle.segmap).__name__} "
+                    "geometry")
+            return lambda poses: _scan_pallas(map_cell["map"], poses, **kw)
+        # "segments" and "segments_simplified": the map type decides
+        if isinstance(bundle.segmap, GeneralSegmentMap):
+            return lambda poses: _scan_general(map_cell["map"], poses, **kw)
+        return lambda poses: _scan_segments(map_cell["map"], poses, **kw)
+
+    if map_cell is None:
+        map_cell = {"map": track}
+    org = _origin(track)
+    march = dict(eps=sc.ray_tracing_epsilon, max_iters=sc.max_march_iters,
+                 bounds_hw=bounds, **kw)
+    if backend == "edf_implicit":
+        return lambda poses: _scan_implicit(
+            map_cell["map"].edf, track.resolution, org, poses, **march)
+    interp = "bilinear" if backend == "edf_bilinear" else sc.interp
+    return lambda poses: _scan_edf(map_cell["map"].edf, track.resolution,
+                                   org, poses, interp=interp, **march)
 
 
 def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
@@ -164,14 +227,18 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
     Returns ``step(state, action, generator=None) -> StepOutput``; action
     is ``(v_des, steer_des)`` with shapes broadcastable to the state batch,
     and ``generator`` (a ``torch.Generator`` on the map's device) drives
-    the range noise when ``with_noise``.
+    the range noise when ``with_noise``. ``step.map_cell["map"]`` holds the
+    map the scan reads (the segment table, or the track for the EDF
+    backends).
     """
-    map_cell = {"map": bundle.segmap}
+    backend = backend or bundle.backend
+    map_cell = {"map": (bundle.segmap if backend in _SEGMENT_BACKENDS
+                        else bundle.track)}
     scan_fn = make_scan_fn(bundle, backend, map_cell,
                            agent_chunk=agent_chunk)
     car, sc, sim = bundle.car, bundle.scan, bundle.sim
     cosines, car_dists = ttc_tables(sc.num_beams, sc.fov, car,
-                                    bundle.segmap.device)
+                                    bundle.track.edf.device)
     dynamics = sim.dynamics
     if dynamics not in ("st", "ks", "ackermann"):
         raise ValueError(f"unknown dynamics {dynamics!r}")
@@ -229,11 +296,15 @@ class RacecarSimulator:
         self.bundle = build_sim(track_or_name, car_params, scan_params,
                                 sim_params, backend=backend,
                                 sector_headroom=8, device=device)
+        # clear_obstacles swaps these back in, no rebuild
+        self._pristine_track = self.bundle.track
+        self._pristine_segmap = self.bundle.segmap
         self.device = torch.device(device)
         self.backend = self.bundle.backend
         self.with_noise = with_noise
         self.batch_shape = tuple(batch_shape)
         self._step = make_step_fn(self.bundle, self.backend, with_noise)
+        # the scan shares the step's cell: one swap serves both
         self._scan = make_scan_fn(self.bundle, self.backend,
                                   self._step.map_cell)
         self.state = zero_state(self.batch_shape, device=self.device)
@@ -307,15 +378,74 @@ class RacecarSimulator:
         self.state = state.to(self.device)
         self._last = None
 
+    def _swap_map(self):
+        """Point the step and the scan at the bundle's current map."""
+        self._step.map_cell["map"] = (
+            self.bundle.segmap if self.backend in _SEGMENT_BACKENDS
+            else self.bundle.track)
+
+    def _build_segmap(self, track: TrackMap):
+        """Recompile the current backend's geometry from ``track`` (None
+        for the EDF backends)."""
+        if self.backend not in _SEGMENT_BACKENDS:
+            return None
+        old = self.bundle.segmap
+        kw = dict(max_range=float(self.bundle.scan.max_range),
+                  real_hw=(track.height, track.width), device=self.device)
+        if self.backend == "sectors":
+            sec = dict(tile_size=old.tile_size, ns=old.ns,
+                       block_half=old.block_half, **kw)
+            try:
+                # keep the previous capacity split while it fits
+                return build_sector_map(
+                    *_map_args(track),
+                    kvh=(old.kv_sec, old.table.shape[2] - old.kv_sec), **sec)
+            except ValueError:      # capacity overflow: auto-size instead
+                return build_sector_map(*_map_args(track), **sec)
+        build = (build_general_segment_map
+                 if self.backend == "segments_simplified"
+                 else build_segment_map)
+        return build(*_map_args(track), tile_size=old.tile_size, **kw)
+
+    def _obstacle_box_segments(self, track: TrackMap, x, y, size):
+        """The 4 boundary segments of the rasterized obstacle box, in the
+        cell snapping of ``maps.loader.add_obstacle``."""
+        res = track.resolution
+        i0, i1, j0, j1 = obstacle_cells(track, x, y, size)
+        ox, oy = track.origin_x, track.origin_y
+        return np.asarray([
+            (ox + j0 * res, oy + i0 * res, oy + i1 * res, 1.0),
+            (ox + j1 * res, oy + i0 * res, oy + i1 * res, 1.0),
+            (oy + i0 * res, ox + j0 * res, ox + j1 * res, 0.0),
+            (oy + i1 * res, ox + j0 * res, ox + j1 * res, 0.0)],
+            np.float64)
+
     def add_obstacle(self, x, y, size=0.2):
-        raise NotImplementedError(
-            "add_obstacle (maps.sectors.add_segments and the dense map "
-            "rebuild) is not ported yet: ROADMAP.md queue 1, item 5b")
+        """Rasterize an obstacle and update the EDF and the geometry
+        (reference addObstacle; a host path at episode frequency). On the
+        sector backend the cull lists are appended to in their headroom
+        (``maps.sectors.add_segments``, ray-exact), with a full rebuild
+        when the headroom runs out; the other segment backends rebuild."""
+        track = _add_obs(self.bundle.track, x, y, size)
+        if self.backend == "sectors":
+            try:
+                segmap = add_segments(
+                    self.bundle.segmap,
+                    self._obstacle_box_segments(self.bundle.track, x, y,
+                                                size))
+            except ValueError:
+                segmap = self._build_segmap(track)
+        else:
+            segmap = self._build_segmap(track)
+        self.bundle = self.bundle._replace(track=track, segmap=segmap)
+        self._swap_map()
 
     def clear_obstacles(self):
-        raise NotImplementedError(
-            "clear_obstacles pairs with add_obstacle, not ported yet: "
-            "ROADMAP.md queue 1, item 5b")
+        """Restore the pristine map (reference clearObstacles): a swap of
+        the cached pristine geometry, no rebuild."""
+        self.bundle = self.bundle._replace(track=self._pristine_track,
+                                           segmap=self._pristine_segmap)
+        self._swap_map()
 
     # camelCase aliases matching the reference lineage's method names
     updatePose = update_pose

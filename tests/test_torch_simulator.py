@@ -182,19 +182,31 @@ def test_map_swap_through_map_cell(bundles, small_track):
 
 
 def test_unported_paths_raise(bundles, small_track):
+    """Every backend of the JAX package is ported; what still raises are
+    the JAX facade's ValueError guards."""
     _, pb = bundles
-    for backend in ("segments_simplified", "edf", "edf_bilinear",
-                    "edf_implicit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            psim.build_sim(_port_track(small_track), backend=backend)
     with pytest.raises(ValueError, match="unknown backend"):
         psim.build_sim(_port_track(small_track), backend="segment")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        psim.make_scan_fn(pb, map_grad=True)
     # the backend must match the bundle's map type, as in the JAX facade
-    for backend in ("segments", "segments_pallas"):
+    for backend in ("segments", "segments_pallas", "segments_simplified"):
         with pytest.raises(ValueError, match="map type"):
             psim.make_scan_fn(pb, backend=backend)
+    # map_grad is the sector backend's path only
+    dense = psim.build_sim(_port_track(small_track), backend="segments")
+    edf = psim.build_sim(_port_track(small_track), backend="edf")
+    for bundle, backend in ((dense, None), (edf, None), (pb, "auto"),
+                            (pb, "edf_implicit")):
+        with pytest.raises(ValueError, match="map_grad"):
+            psim.make_scan_fn(bundle, backend=backend, map_grad=True)
+    with pytest.raises(ValueError, match="sector backend"):
+        psim.make_scan_fn(dense, backend="sectors", map_grad=True)
+    # the EDF bundle carries no compiled geometry
+    with pytest.raises(ValueError, match="segment backend"):
+        psim.make_scan_fn(edf, backend="segments")
+    simple = psim.build_sim(_port_track(small_track),
+                            backend="segments_simplified")
+    with pytest.raises(ValueError, match="segments_pallas"):
+        psim.make_scan_fn(simple, backend="segments_pallas")
     with pytest.raises(ValueError, match="dynamics"):
         psim.make_step_fn(pb._replace(sim=P.SimParams(dynamics="mb")))
 
@@ -219,7 +231,14 @@ def test_facade_drives_scalar_car(small_track):
     assert float(sim.state.velocity) > 0.0
     sim.setPose(-4.0, -4.0)
     assert sim.checkCollision().item() is False
-    with pytest.raises(NotImplementedError, match="add_segments"):
-        sim.add_obstacle(0.0, 0.0)
-    with pytest.raises(NotImplementedError):
-        sim.clearObstacles()
+    # the obstacle cycle: a box 1 m ahead of the scanner shortens the beam
+    # straight ahead, and clearing it restores the scan bit for bit (the
+    # noise generator is reseeded before each scan)
+    sim.set_pose(-4.0, -4.0, 0.0)
+    scan = lambda: (sim.generator.manual_seed(5), sim.run_scan())[1]
+    before = scan()
+    sim.addObstacle(-4.0 + 0.275 + 1.0, -4.0, 0.4)
+    ahead = scan()[135]
+    assert 0.7 < float(ahead) < 0.85                # 1 m - half the box
+    sim.clearObstacles()
+    assert torch.equal(scan(), before)
