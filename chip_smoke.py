@@ -58,9 +58,35 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     incremental edit gives exactly the full rebuild's ranges; the launch
     counters show the dense or tile kernel, or the sector kernel, on the
     edited map; ``clear_obstacles`` restores the earlier scan bit for bit;
-    the host time of ``add_obstacle``.
+    the host time of ``add_obstacle``;
+16. multitrack at full width: levine + berlin stacked, 2048 agents per
+    map: the list kernel against its plain version over the stacked
+    table, ``scan_poses_sectors_multi`` equal bit for bit to the two
+    per-map scans, exactly one ``sector_sweep`` launch per multi scan (one
+    ``sorted_tiles_sweep`` launch with ``mode="sorted_pl"``), forward +
+    backward, times;
+17. a 1 x 1 mesh on the card, backend NCCL, in this process: the sharded
+    sector step equal to ``make_step_fn``'s, the stacked step equal to the
+    multitrack scan, the ring scan (one slab) equal to
+    ``scan_poses_sectors``, all bit for bit, counted and timed; the
+    ring's one launch (the gathered buffer as the table) against its plain
+    version;
+18. four gloo ranks on the one card through ``parallel.dryrun`` (mesh
+    2 x 2, berlin, 1024 agents): the dense, sector and ring sweeps at the
+    wedges' shapes against their plain versions; gathered ranges,
+    collisions and pose gradients against the unsharded run and the
+    oracle, each rank's launches;
+19. ``utils.debug.checked`` on a clean and on a poisoned step;
+    ``utils.profiling.rays_per_second`` of the berlin sector scan.
 
-Prints a JSON line describing the five TPU kernels' counterparts, then as
+Every kernel's time stands beside its bound: the larger of its
+instruction slots (``OPS_PER_TEST`` per ray-segment test, counted from the
+real slots of the lists this run visits) over the card's FP32 instruction
+rate at ``clocks.max.sm``, and its bytes (each input and output once) over
+the HBM rate.
+
+Prints a JSON line describing the five TPU kernels' counterparts (their
+launches path by path, each path counted from 0), then as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Exits non-zero, without that line, on any failure or
 without a CUDA card.
@@ -71,6 +97,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +126,15 @@ KERNELS = {
 }
 
 
+# the bound's model: instruction slots per ray-segment test (7 separately
+# rounded float32 operations, 2 compares, 1 select; -fmad=false forbids
+# fusing), FP32 lanes per SM, and the HBM rate of an H100 SXM (NVIDIA's
+# data sheet)
+OPS_PER_TEST = 10
+LANES_PER_SM = 128
+HBM_BYTES_PER_S = 3.35e12
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -116,21 +152,30 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def card_rates():
+    """The card's FP32 instruction rate (SMs x lanes x the maximum SM clock
+    that nvidia-smi reports) and HBM rate: what the bounds divide by."""
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):    # "[N/A]": take PyTorch's figure
+        mhz = props.clock_rate / 1e3
+    sms = props.multi_processor_count
+    return {"sm_clock_max_mhz": mhz, "sms": sms,
+            "slots_per_s": sms * LANES_PER_SM * mhz * 1e6,
+            "hbm_bytes_per_s": HBM_BYTES_PER_S}
+
+
 def timed_ms(fn, reps, warmup=2):
     """Mean milliseconds per call of ``fn(i)`` over ``reps`` calls, after
     ``warmup`` calls; CUDA events on the card."""
-    import torch
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        fn(warmup + i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from pyracecarsimulator_tpu_torch.utils.profiling import timed_loop
+    return timed_loop(fn, reps=reps, warmup=warmup, index=True,
+                      device="cuda") * 1e3
 
 
 def wrappers():
@@ -201,6 +246,104 @@ def plain_of(name):
             else sweeps.list_sweep_plain)
 
 
+def bound_of(name, args, rates):
+    """The least time the card could take for one call of wrapper ``name``
+    on ``args``: the larger of instruction slots over the instruction rate
+    and bytes over the HBM rate. Tests are counted from the real slots of
+    the lists the rows visit; bytes count each visited list, each ray
+    tensor and each output once."""
+    import torch
+    if name == "dense_sweep":
+        params, sweep_meta, x = args[0], args[1], args[2]
+        k = params.shape[1]
+        v_hi, h_lo, h_end = (int(v) for v in sweep_meta.tolist())
+        h_lo = min(max(h_lo, 0), k)
+        slots = min(max(v_hi, 0), k) + min(max(h_end, h_lo), k) - h_lo
+        rays = x.numel()
+        tests = rays * slots
+        nbytes = 12 * slots + 12 + 4 * rays * (6 + 2)
+    else:
+        table, meta, ids, _, _, ct = args[:6]
+        k = table.shape[2]
+
+        def real_slots(rows):
+            m = meta[rows.long()].long()
+            h_lo = m[:, 1].clamp(0, k)
+            nv = torch.minimum(m[:, 0].clamp(min=0), h_lo)
+            return nv + torch.maximum(m[:, 2], h_lo).clamp(max=k) - h_lo
+
+        g, bb = ct.shape
+        tests = int(real_slots(ids).sum()) * bb
+        uniq = torch.unique(ids)
+        nbytes = (12 * int(real_slots(uniq).sum()) + 12 * uniq.numel()
+                  + 12 * g + 4 * g * bb * (4 + 2))
+    ops_ms = tests * OPS_PER_TEST / rates["slots_per_s"] * 1e3
+    bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
+    out = {"tests": tests, "bytes": nbytes, "bound_ops_ms": ops_ms,
+           "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    # what the compiled loop spends per test (sass_report), where known:
+    # the time its instruction stream needs at the full instruction rate
+    per_test = rates.get("sass_per_test", {}).get(
+        "dense_sweep" if name == "dense_sweep" else "sector_sweep")
+    if per_test:
+        out["compiled_slots_ms"] = (tests * per_test / rates["slots_per_s"]
+                                    * 1e3)
+    return out
+
+
+def sass_report():
+    """Where the toolkit has cuobjdump: the instructions each built
+    kernel spends per ray-segment test, read from its SASS. A sweep loop
+    is a backward branch whose body holds FSEL instructions, one per test
+    (the select of the new minimum); the loop's instruction count over its
+    FSEL count is what the compiled code spends per test, against the
+    ``OPS_PER_TEST`` the function needs at least. With ``CHIP_SMOKE_OUT``
+    set, the SASS is also written into that directory."""
+    import shutil
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: the instruction slots per test are reasoned "
+            "from the sources")
+        return {}
+    out_dir = os.environ.get("CHIP_SMOKE_OUT")
+    report = {}
+    for name, info in _kernels.build_info.items():
+        sass = subprocess.run([tool, "-sass", info["path"]],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, f"sass_{name}.txt"), "w") as f:
+                f.write(sass)
+        ins = [(int(a, 16), op, tgt) for a, op, tgt in re.findall(
+            r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+            r"(?:[^;]*?\s(0x[0-9a-f]+)\s*;)?", sass, flags=re.M)]
+        back = [(int(tgt, 16), addr) for addr, op, tgt in ins
+                if op == "BRA" and tgt and int(tgt, 16) < addr]
+        loops = []
+        for lo, hi in back:
+            if any((a, b) != (lo, hi) and lo <= a and b <= hi
+                   for a, b in back):
+                continue                 # not innermost
+            body = [o for a, o, _ in ins if lo <= a <= hi]
+            if "FSEL" in body:
+                mix = {o: body.count(o) for o in sorted(set(body))}
+                loops.append({"instructions": len(body),
+                              "tests": mix["FSEL"],
+                              "per_test": len(body) / mix["FSEL"],
+                              "mix": mix})
+        report[name] = loops
+        for lp in loops:
+            log(f"{name}: SASS sweep loop of {lp['tests']} test(s): "
+                f"{lp['instructions']} instructions = {lp['per_test']:.2f} "
+                f"per test {lp['mix']}")
+        check(loops, f"{name}: no sweep loop found in the SASS")
+    return report
+
+
 def kernel_vs_plain(label, name, args):
     """One launch of wrapper ``name`` against its plain version on the same
     tensors; 0 mismatches required. Returns the max abs error."""
@@ -250,14 +393,18 @@ def scan_checks(label, track, scan_rays, dev_map, cpu_map, poses, fan):
     check(share >= 0.999, f"{label}: scan disagrees with the oracle")
 
 
-def time_kernel(name, sets, plain_reps=5):
-    """Kernel, plain, kernel over the argument sets in turn."""
+def time_kernel(name, sets, rates, plain_reps=5):
+    """Kernel, plain, kernel over the argument sets in turn, beside the
+    bound of the first set."""
     w, plain = wrappers()[name], plain_of(name)
     n = len(sets)
     k_ms = timed_ms(lambda i: w(*sets[i % n]), 50)
     p_ms = timed_ms(lambda i: plain(*sets[i % n]), plain_reps, warmup=1)
     k2_ms = timed_ms(lambda i: w(*sets[i % n]), 50)
-    return {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms}
+    out = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
+           **bound_of(name, sets[0], rates)}
+    out["share_of_bound"] = out["bound_ms"] / min(k_ms, k2_ms)
+    return out
 
 
 def pose_sets(poses, n=5):
@@ -677,6 +824,395 @@ def obstacle_phase(card, name, track, poses):
     return out
 
 
+def lidar_poses(state, car):
+    """(A, 3) scanner poses of a state."""
+    import torch
+    d = car.scan_distance_to_base_link
+    return torch.stack([state.x + d * torch.cos(state.theta),
+                        state.y + d * torch.sin(state.theta), state.theta],
+                       dim=-1)
+
+
+def multitrack_phase(card, sec_bundles, poses_by_map, rates, errs):
+    """16: multitrack serving over the two bundled maps, stacked."""
+    import torch
+    from pyracecarsimulator_tpu_torch.maps import stack_sector_maps
+    from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
+    half = AGENTS // 2
+    t0 = time.perf_counter()
+    stack = stack_sector_maps([sec_bundles[m].segmap for m in MAPS])
+    torch.cuda.synchronize()
+    out = {"stack_s": time.perf_counter() - t0,
+           "table": list(stack.table.shape),
+           "table_bytes": stack.table.numel() * 4}
+    log(f"[stack] {' + '.join(MAPS)} stacked in {out['stack_s']:.2f} s: "
+        f"table {tuple(stack.table.shape)}, {out['table_bytes'] / 1e6:.1f} "
+        f"MB, kv_sec {stack.kv_sec}, offsets {stack.offsets.tolist()}")
+    check(stack.table.is_cuda and stack.table.shape[0] == sum(
+        sec_bundles[m].segmap.table.shape[0] for m in MAPS), "stack shape")
+    poses = torch.cat([torch.as_tensor(poses_by_map[m][:half], device="cuda")
+                       for m in MAPS])
+    mid = torch.arange(len(MAPS), device="cuda",
+                       dtype=torch.int32).repeat_interleave(half)
+    kw = dict(num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE)
+
+    def case(p):
+        bb = rs.sector_block_width(stack, BEAMS, FOV)
+        ct, st = rs.fan_cos_sin(p[:, 2], rs._padded_offsets(BEAMS, FOV, bb,
+                                                            p.device))
+        ids, _ = rs.stack_block_ids(stack, mid, p[:, 0], p[:, 1], ct, st,
+                                    BEAMS, bb)
+        return list_args(stack.table, stack.meta, ids, p, ct, st)
+
+    sets = []
+    for j in range(5):
+        q = poses.clone()
+        q[:, 2] += j * 1e-3
+        sets.append(q)
+    args = [case(q) for q in sets]
+    for name in ("sector_sweep", "sorted_tiles_sweep"):
+        errs[name].append(kernel_vs_plain("stack", name, args[0]))
+    out["kernel"] = time_kernel("sector_sweep", args, rates)
+    log(f"[stack] {card}: sector_sweep over the stacked table "
+        f"{out['kernel']}")
+
+    # the multi scan against the two per-map scans, counted
+    per_map = lambda p: torch.cat([
+        rs.scan_poses_sectors(sec_bundles[m].segmap,
+                              p[i * half:(i + 1) * half], **kw)
+        for i, m in enumerate(MAPS)])
+    ref = per_map(poses)
+    out["launches"] = {}
+    for mode, wname in (("auto", "sector_sweep"),
+                        ("sorted_pl", "sorted_tiles_sweep")):
+        reset_counts()
+        got = rs.scan_poses_sectors_multi(stack, mid, poses, mode=mode, **kw)
+        torch.cuda.synchronize()
+        used = {k: v for k, v in counts().items() if v}
+        same = bool(torch.equal(got, ref))
+        log(f"[stack] scan_poses_sectors_multi(mode={mode!r}) on "
+            f"{tuple(got.shape)}: launches {used}, equal to the two "
+            f"per-map scans bit for bit = {same}")
+        check(same and used == {wname: 1},
+              f"multitrack scan, mode {mode}: {used}, equal={same}")
+        out["launches"][wname] = used[wname]
+
+    # forward + backward once
+    reset_counts()
+    p = poses.clone().requires_grad_(True)
+    (rs.scan_poses_sectors_multi(stack, mid, p, **kw) ** 2).sum().backward()
+    g = p.grad
+    ok = (bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+          and counts()["sector_sweep"] == 1)
+    out["launches"]["sector_sweep"] += counts()["sector_sweep"]
+    log(f"[stack] multi scan forward + backward: pose grad |.|_1 "
+        f"{float(g.abs().sum()):.4f}, finite and non-zero, one launch = {ok}")
+    check(ok, "multitrack gradients")
+
+    def fwd_bwd(i):
+        q = sets[i % 5].clone().requires_grad_(True)
+        (rs.scan_poses_sectors_multi(stack, mid, q, **kw) ** 2
+         ).sum().backward()
+
+    out["multi_scan_ms"] = timed_ms(lambda i: rs.scan_poses_sectors_multi(
+        stack, mid, sets[i % 5], **kw), 20)
+    out["per_map_scans_ms"] = timed_ms(lambda i: per_map(sets[i % 5]), 20)
+    out["multi_scan_ms_2"] = timed_ms(lambda i: rs.scan_poses_sectors_multi(
+        stack, mid, sets[i % 5], **kw), 20)
+    out["multi_fwd_bwd_ms"] = timed_ms(fwd_bwd, 10)
+    log(f"[stack] {card}: multi scan {out['multi_scan_ms']:.4f} / "
+        f"{out['multi_scan_ms_2']:.4f} ms, the two per-map scans "
+        f"{out['per_map_scans_ms']:.4f} ms, multi forward + backward "
+        f"{out['multi_fwd_bwd_ms']:.4f} ms at {AGENTS} x {BEAMS}")
+    return out, stack, poses, mid
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_phase(card, bundle, stack, stack_poses, mid, poses, errs):
+    """17: a 1 x 1 mesh on the card, backend NCCL, in this process."""
+    import torch
+    import torch.distributed as dist
+    from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
+    from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
+    from pyracecarsimulator_tpu_torch.parallel import (
+        make_mesh, make_ring_scan, make_sharded_step, multihost, ringmap)
+    multihost.initialize("nccl", f"tcp://localhost:{free_port()}",
+                         world_size=1, rank=0, timeout_s=120)
+    try:
+        mesh = make_mesh()
+        one = torch.ones(4, device="cuda")
+        dist.all_reduce(one)
+        check(dist.get_backend() == "nccl" and mesh.shape == {
+            "agents": 1, "beams": 1} and float(one.sum()) == 4.0,
+              "the 1 x 1 NCCL mesh")
+        kw = dict(num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE)
+        act = (torch.full((AGENTS,), 2.0, device="cuda"),
+               torch.zeros(AGENTS, device="cuda"))
+        p = torch.as_tensor(poses, device="cuda")
+        s0 = state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+        out = {"launches": {}}
+
+        # the sharded sector step against make_step_fn
+        sharded = make_sharded_step(mesh, bundle, with_noise=False)
+        plain = make_step_fn(bundle, with_noise=False)
+        reset_counts()
+        a = sharded(s0, act)
+        out["launches"]["sharded sector step"] = dict(
+            (k, v) for k, v in counts().items() if v)
+        b = plain(s0, act)
+        same = all(bool(torch.equal(u, v)) for u, v in (
+            (a.ranges, b.ranges), (a.state.pose, b.state.pose),
+            (a.collision, b.collision), (a.state.velocity,
+                                         b.state.velocity)))
+        log(f"[mesh 1x1 nccl] sharded sector step on {tuple(a.ranges.shape)}"
+            f": launches {out['launches']['sharded sector step']}, equal to "
+            f"make_step_fn's bit for bit = {same}")
+        check(same and out["launches"]["sharded sector step"] == {
+            "sector_sweep": 1}, "sharded sector step")
+
+        # the stacked step against the multitrack scan
+        q = stack_poses
+        stacked = make_sharded_step(mesh, bundle, with_noise=False,
+                                    stack=stack)
+        reset_counts()
+        c = stacked(state_from_pose(q[:, 0], q[:, 1], q[:, 2]), act, mid)
+        out["launches"]["stacked step"] = dict(
+            (k, v) for k, v in counts().items() if v)
+        ref = rs.scan_poses_sectors_multi(
+            stack, mid, lidar_poses(c.state, bundle.car), **kw)
+        same = bool(torch.equal(c.ranges, ref))
+        log(f"[mesh 1x1 nccl] stacked step: launches "
+            f"{out['launches']['stacked step']}, ranges equal to "
+            f"scan_poses_sectors_multi at the stepped poses = {same}; "
+            f"{int(c.collision.sum())} of {AGENTS} cars latched")
+        check(same and out["launches"]["stacked step"] == {
+            "sector_sweep": 1}, "stacked sharded step")
+
+        # the ring scan, one slab: its one launch sweeps the gathered
+        # (G, 4, K) buffer as the table, row by row
+        smap = bundle.segmap
+        _, (_, meta, ids, *rays) = sector_case(smap, p)
+        slab, ls = ringmap.shard_sector_table(mesh, smap)
+        buf = ringmap._ring_gather(mesh, slab, ids, ls)
+        errs["sector_sweep"].append(kernel_vs_plain(
+            f"ring buffer {tuple(buf.shape)}", "sector_sweep",
+            (buf, meta.index_select(0, ids.long()).contiguous(),
+             torch.arange(ids.numel(), dtype=torch.int32, device="cuda"),
+             *rays)))
+        del slab, buf
+        ring = make_ring_scan(mesh, smap, BEAMS, FOV, MAX_RANGE)
+        reset_counts()
+        r = ring(p)
+        out["launches"]["ring scan"] = dict(
+            (k, v) for k, v in counts().items() if v)
+        ref = rs.scan_poses_sectors(bundle.segmap, p, **kw)
+        same = bool(torch.equal(r, ref))
+        log(f"[mesh 1x1 nccl] ring scan, S = 1, slab rows {ring.slab_rows}: "
+            f"launches {out['launches']['ring scan']}, equal to "
+            f"scan_poses_sectors bit for bit = {same}")
+        check(same and out["launches"]["ring scan"] == {"sector_sweep": 1}
+              and ring.slab_rows == bundle.segmap.table.shape[0],
+              "ring scan")
+
+        sets = pose_sets(poses)
+        state = [s0]
+
+        def run(step, *extra):
+            def one(i):
+                state[0] = step(state[0], act, *extra).state
+            state[0] = s0
+            return timed_ms(one, 30, warmup=5)
+
+        out["sharded_step_ms"] = run(sharded)
+        out["plain_step_ms"] = run(plain)
+        out["stacked_step_ms"] = run(stacked, mid)
+        out["ring_scan_ms"] = timed_ms(lambda i: ring(sets[i % 5]), 20)
+        out["replicated_scan_ms"] = timed_ms(
+            lambda i: rs.scan_poses_sectors(bundle.segmap, sets[i % 5],
+                                            **kw), 20)
+        log(f"[mesh 1x1 nccl] {card}: noiseless sector step, sharded "
+            f"{out['sharded_step_ms']:.4f} ms, make_step_fn "
+            f"{out['plain_step_ms']:.4f} ms, stacked "
+            f"{out['stacked_step_ms']:.4f} ms; ring scan "
+            f"{out['ring_scan_ms']:.4f} ms, replicated scan "
+            f"{out['replicated_scan_ms']:.4f} ms, at {AGENTS} x {BEAMS}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_phase(card, bundle, flat, track, poses, errs):
+    """18: four gloo ranks on the one card, mesh 2 x 2, berlin."""
+    import numpy as np
+    import torch
+    from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
+    from pyracecarsimulator_tpu_torch.maps.segments import (
+        extract_segments, raycast_segments_numpy)
+    from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
+    from pyracecarsimulator_tpu_torch.ops.common import (
+        _ray_invs, fan_cos_sin, rays_from_poses)
+    from pyracecarsimulator_tpu_torch.ops.raycast_grad import (
+        raycast_all_diff)
+    from pyracecarsimulator_tpu_torch.parallel import mesh as pmesh
+    from pyracecarsimulator_tpu_torch.parallel.dryrun import dryrun
+    n = 1024
+    case = {"maps": ["berlin"], "poses": poses[:n], "action": (2.0, 0.0),
+            "num_beams": BEAMS, "fov": FOV, "max_range": MAX_RANGE}
+    t0 = time.perf_counter()
+    res = dryrun(4, beams_axis=2, device="cuda", case=case, backend="gloo",
+                 timeout_s=300)
+    out = {"wall_s": time.perf_counter() - t0, "launches": res["launches"],
+           "mesh": res["mesh"], "backend": res["backend"]}
+    log(f"[4 ranks] dryrun(4, beams_axis=2, device='cuda') on berlin, {n} x "
+        f"{BEAMS}: mesh {res['mesh']}, backend {res['backend']}, "
+        f"{out['wall_s']:.1f} s wall; launches per rank {res['launches']}")
+    check(res["mesh"] == (2, 2) and res["backend"] == "gloo"
+          and res["launches"] == [{"sector_sweep": 3, "dense_sweep": 2}] * 4,
+          "the four ranks' mesh, backend or launches")
+
+    kw = dict(num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE)
+    p = torch.as_tensor(poses[:n], device="cuda")
+
+    # the sweeps the ranks launched, rebuilt here at the wedges' shapes (all
+    # 1024 agents x each half of the fan), against their plain versions
+    smap = bundle.segmap
+    bb = rs.sector_block_width(smap, BEAMS, FOV)
+    flat_rays = lambda *v: [t.reshape(-1).contiguous() for t in v]
+    for b in range(2):
+        wedge = pmesh.Mesh(agents=2, beams=2, agents_index=0, beams_index=b,
+                           beams_ranks=(0, 1))
+        ct, st = fan_cos_sin(p[:, 2], pmesh._wedge_offsets(
+            wedge, BEAMS, FOV, 0, "cuda"))
+        errs["dense_sweep"].append(kernel_vs_plain(
+            f"berlin untiled, wedge {b} of 2", "dense_sweep",
+            (flat.params, flat.sweep_meta, *flat_rays(
+                p[:, 0:1].expand(ct.shape), p[:, 1:2].expand(ct.shape), ct,
+                st, *_ray_invs(ct, st)))))
+        ct, st = fan_cos_sin(p[:, 2], pmesh._wedge_offsets(
+            wedge, BEAMS, FOV, bb, "cuda"))
+        ids = rs._list_ids(smap.tiles_shape, smap.tile_size,
+                           smap.tile_origin, smap.ns, p[:, 0], p[:, 1], ct,
+                           st, bb)
+        args = list_args(smap.table, smap.meta, ids, p, ct, st)
+        errs["sector_sweep"].append(kernel_vs_plain(
+            f"berlin sectors, wedge {b} of 2", "sector_sweep", args))
+        rows = args[2].long()
+        errs["sector_sweep"].append(kernel_vs_plain(
+            f"berlin ring buffer, wedge {b} of 2", "sector_sweep",
+            (smap.table.index_select(0, rows),
+             smap.meta.index_select(0, rows).contiguous(),
+             torch.arange(rows.numel(), dtype=torch.int32, device="cuda"),
+             *args[3:])))
+
+    def with_grad(fn):
+        q = p.clone().requires_grad_(True)
+        r = fn(q)
+        (r ** 2).sum().backward()
+        return r.detach().cpu().numpy(), q.grad.cpu().numpy()
+
+    def dense(q):
+        _, _, xb, yb, ct, st = rays_from_poses(q, BEAMS, FOV)
+        return raycast_all_diff(flat.params, flat.sweep_meta, xb, yb, ct,
+                                st, MAX_RANGE)
+
+    refs = {"sectors": with_grad(lambda q: rs.scan_poses_sectors(
+        bundle.segmap, q, **kw)), "dense": with_grad(dense)}
+    for kind, keys in (("sectors", ("scan_sectors", "grad_sectors")),
+                       ("dense", ("scan_dense", "grad_dense")),
+                       ("sectors", ("ring", "ring_grad"))):
+        r_ref, g_ref = refs[kind]
+        d = np.abs(res[keys[0]] - r_ref)
+        share = float(np.mean(d <= 1e-5))
+        g_err = float(np.abs(res[keys[1]] - g_ref).max()
+                      / np.abs(g_ref).max())
+        out[keys[0]] = {"share_within_1e-5": share,
+                        "max_abs_diff": float(d.max()),
+                        "equal": bool(np.array_equal(res[keys[0]], r_ref)),
+                        "grad_rel_err": g_err}
+        log(f"[4 ranks] {keys[0]} vs the unsharded run: {out[keys[0]]}")
+        check(share >= 0.999 and g_err <= 1e-4,
+              f"four ranks: {keys[0]} differs from the unsharded run")
+
+    # the gathered ranges against the float64 oracle
+    segs = extract_segments(track.occupancy.cpu().numpy(), track.resolution,
+                            (track.origin_x, track.origin_y))
+    _, _, _, _, ct, st = rays_from_poses(p[:4], BEAMS, FOV)
+    ora = np.stack([raycast_segments_numpy(
+        segs, np.full(BEAMS, poses[i, 0], np.float64),
+        np.full(BEAMS, poses[i, 1], np.float64),
+        ct[i].cpu().numpy().astype(np.float64),
+        st[i].cpu().numpy().astype(np.float64), MAX_RANGE)
+        for i in range(4)])
+    for key in ("scan_sectors", "scan_dense", "ring"):
+        share = float(np.mean(np.abs(res[key][:4] - ora) <= 1e-4))
+        log(f"[4 ranks] gathered {key} ranges vs the float64 oracle, 4 "
+            f"poses: share within 1e-4 m = {share}")
+        check(share >= 0.999,
+              f"four ranks: {key} ranges disagree with the oracle")
+
+    # the sharded steps against make_step_fn
+    s0 = state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    act = (torch.full((n,), 2.0, device="cuda"),
+           torch.zeros(n, device="cuda"))
+    for kind, b in (("sectors", bundle),
+                    ("dense", bundle._replace(segmap=flat,
+                                              backend="segments"))):
+        ref = make_step_fn(b, with_noise=False)(s0, act)
+        got = res[f"step_{kind}"]
+        share = float(np.mean(np.abs(
+            got["ranges"] - ref.ranges.cpu().numpy()) <= 1e-5))
+        same = bool(np.array_equal(got["collision"],
+                                   ref.collision.cpu().numpy()))
+        dx = float(np.abs(got["state"]["x"]
+                          - ref.state.x.cpu().numpy()).max())
+        out[f"step_{kind}"] = {"share_within_1e-5": share,
+                               "collisions_equal": same, "max_dx": dx}
+        log(f"[4 ranks] step_{kind} vs make_step_fn: "
+            f"{out[f'step_{kind}']}")
+        check(share >= 0.999 and same and dx <= 1e-6,
+              f"four ranks: step_{kind} differs from the unsharded step")
+    check(res["slab_rows"] * 2 == res["table_rows"], "ring slab rows")
+    return out
+
+
+def tooling_phase(card, bundle, poses):
+    """19: utils.debug.checked and utils.profiling.rays_per_second."""
+    import torch
+    from pyracecarsimulator_tpu_torch import (make_scan_fn, make_step_fn,
+                                              state_from_pose)
+    from pyracecarsimulator_tpu_torch.state import set_field
+    from pyracecarsimulator_tpu_torch.utils.debug import checked
+    from pyracecarsimulator_tpu_torch.utils.profiling import rays_per_second
+    p = torch.as_tensor(poses, device="cuda")
+    s0 = state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    act = (torch.full((AGENTS,), 2.0, device="cuda"),
+           torch.zeros(AGENTS, device="cuda"))
+    safe = checked(make_step_fn(bundle, with_noise=False))
+    out = safe(s0, act)
+    check(bool(torch.isfinite(out.ranges).all()), "checked: clean step")
+    x = s0.x.clone()
+    x[7] = float("nan")
+    raised = ""
+    try:
+        safe(set_field(s0, x=x), act)
+    except FloatingPointError as e:
+        raised = str(e)
+    log(f"checked(step): a clean step passes; an injected NaN raises "
+        f"{raised!r}")
+    check("non-finite x" in raised, "checked did not raise on a NaN")
+    rate = rays_per_second(make_scan_fn(bundle), p, BEAMS, reps=20)
+    log(f"[berlin] {card}: rays_per_second of the sector scan at {AGENTS} "
+        f"x {BEAMS}: {rate:.4e} rays/s")
+    check(rate > 0 and math.isfinite(rate), "rays_per_second")
+    return {"rays_per_second": rate}
+
+
 def run():
     import numpy as np
     import torch
@@ -701,6 +1237,15 @@ def run():
         f"nvcc: {' '.join(_kernels.NVCC_FLAGS)}")
     for name, info in _kernels.build_info.items():
         log(f"{name}: {info['seconds']:.2f} s\n{info['log']}")
+    sass = sass_report()
+    rates = card_rates()
+    # the unrolled main loop is the cheapest per test
+    rates["sass_per_test"] = {k: min(lp["per_test"] for lp in v)
+                              for k, v in sass.items()}
+    log(f"bounds: {OPS_PER_TEST} instruction slots per test over "
+        f"{rates['sms']} SMs x {LANES_PER_SM} lanes x "
+        f"{rates['sm_clock_max_mhz']:.0f} MHz (clocks.max.sm) = {rates['slots_per_s']:.4e} slots/s; HBM "
+        f"{HBM_BYTES_PER_S:.3e} B/s")
 
     errs = {name: [] for name in KERNELS}
     times = {name: {} for name in KERNELS}
@@ -758,10 +1303,11 @@ def run():
         scan_checks(f"{name} segments", track, segment_scan, segmap,
                     segmap.to("cpu"), poses, fan)
         times[kname][name] = time_kernel(
-            kname, [segment_case(segmap, q)[1] for q in pose_sets(poses)])
+            kname, [segment_case(segmap, q)[1] for q in pose_sets(poses)],
+            rates)
         times["sector_sweep"][name] = time_kernel(
             "sector_sweep",
-            [sector_case(smap, q)[1] for q in pose_sets(poses)])
+            [sector_case(smap, q)[1] for q in pose_sets(poses)], rates)
 
     # 4b. the dense kernel over berlin's untiled set: several smem chunks
     flat = build_segment_map(
@@ -775,7 +1321,7 @@ def run():
         "berlin untiled, 256 agents", "dense_sweep",
         segment_case(flat, few[0])[1]))
     times["dense_sweep"]["berlin_untiled_256"] = time_kernel(
-        "dense_sweep", [segment_case(flat, q)[1] for q in few])
+        "dense_sweep", [segment_case(flat, q)[1] for q in few], rates)
     full = [segment_case(flat, q)[1]
             for q in pose_sets(poses_by_map["berlin"], 2)]
     times["dense_sweep"]["berlin_untiled_4096_kernel_only_ms"] = timed_ms(
@@ -802,12 +1348,14 @@ def run():
             f"the default sector scan = {same}")
         check(same and route_counts[name] == 1 and sum(counts().values()) == 1,
               f"{name}: the route did not run alone or changed the scan")
-        times[name][big] = time_kernel(name, sets)
+        times[name][big] = time_kernel(name, sets, rates)
 
     # 6. the main path: the default backend, then the sector backend
-    seg_bundles = {name: build_sim(name, device="cuda") for name in MAPS}
-    check(all(b.backend == "segments" for b in seg_bundles.values()),
-          "build_sim's default backend is not 'segments'")
+    # no device named: the entry points put everything on the card
+    seg_bundles = {name: build_sim(name) for name in MAPS}
+    check(all(b.backend == "segments" and b.track.edf.is_cuda
+              and b.segmap.params.is_cuda for b in seg_bundles.values()),
+          "build_sim's default is not the 'segments' backend on the card")
     main_counts = drive(seg_bundles, "segments", poses_by_map)
     check(main_counts["levine"] == {"dense_sweep": STEPS + 1}
           and main_counts["berlin"] == {"tile_sweep": STEPS + 1},
@@ -874,7 +1422,9 @@ def run():
         "GB")
 
     # 9. the facade, default backend
-    sim = RacecarSimulator(MAPS[0], device="cuda", seed=0)
+    sim = RacecarSimulator(MAPS[0], seed=0)
+    check(sim.device.type == "cuda" and sim.state.x.is_cuda,
+          "the facade's default device is not the card")
     sim.set_pose(*map(float, poses_by_map[MAPS[0]][0]))
     sim.drive(1.0, 0.05)
     for _ in range(3):
@@ -903,34 +1453,67 @@ def run():
             card, name, tracks[name], poses_by_map[name])
         slice_out["obstacles"][name] = obstacle_phase(
             card, name, tracks[name], poses_by_map[name])
-    slice_launches = dict(slice_out["map_grad"]["launches"])
-    for per_map in slice_out["obstacles"].values():
-        for res in per_map.values():
-            for k, v in res["launches"].items():
-                slice_launches[k] = slice_launches.get(k, 0) + v
-    log(f"this slice's paths launched {slice_launches}; peak device memory "
+    log(f"after phases 10-15: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    launches = {"sector_sweep": sum(c.get("sector_sweep", 0)
-                                    for c in sec_counts.values()),
-                "dense_sweep": main_counts["levine"]["dense_sweep"],
-                "tile_sweep": main_counts["berlin"]["tile_sweep"],
-                **route_counts}
+    # 16-19. multitrack, the 1 x 1 mesh, four ranks on the card, tooling
+    slice_out["multitrack"], stack, stack_poses, mid = multitrack_phase(
+        card, sec_bundles, poses_by_map, rates, errs)
+    slice_out["mesh_1x1"] = mesh_phase(card, sec_bundles[big], stack,
+                                       stack_poses, mid, poses_by_map[big],
+                                       errs)
+    del stack
+    torch.cuda.empty_cache()
+    slice_out["four_ranks"] = ranks_phase(card, sec_bundles[big], flat,
+                                          tracks[big], poses_by_map[big],
+                                          errs)
+    slice_out["tooling"] = tooling_phase(card, sec_bundles[big],
+                                         poses_by_map[big])
+    log(f"the four ranks of phase 18 launched "
+        f"{slice_out['four_ranks']['launches']}")
+
+    # launches of this process, path by path: each path was driven with the
+    # counts set to 0 just before it and read just after
+    by_path = {
+        **{f"default step + rollout, {m}": c for m, c in main_counts.items()},
+        **{f"sector step + rollout, {m}": c for m, c in sec_counts.items()},
+        "sector scan, mode sorted_pl": {
+            "sorted_tiles_sweep": route_counts["sorted_tiles_sweep"]},
+        "sector scan, use_pallas": {"grp_sweep": route_counts["grp_sweep"]},
+        **{f"BPTT train steps, {k}": v["launches"] for k, v in train.items()},
+        "map_grad scans": slice_out["map_grad"]["launches"],
+        **{f"obstacle cycle, {m} {backend}": res["launches"]
+           for m, per_map in slice_out["obstacles"].items()
+           for backend, res in per_map.items()},
+        "multitrack scans": slice_out["multitrack"]["launches"],
+        **{f"1 x 1 mesh, {k}": v
+           for k, v in slice_out["mesh_1x1"]["launches"].items()}}
+    launches_by_path = {name: {path: c[name] for path, c in by_path.items()
+                               if c.get(name)} for name in KERNELS}
+    log(f"launches by path: {launches_by_path}")
+    check(all(launches_by_path.values()),
+          f"a kernel was never launched: {launches_by_path}")
     shape_of = {"dense_sweep": "levine", "tile_sweep": "berlin",
                 "sector_sweep": "berlin", "sorted_tiles_sweep": "berlin",
                 "grp_sweep": "berlin"}
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
-        "path": path, "launches": launches[name],
+        "path": path, "launches": sum(launches_by_path[name].values()),
+        "launches_by_path": launches_by_path[name],
         "max_abs_err": max(errs[name]),
         "ms": times[name][shape_of[name]]["ms"],
         "plain_ms": times[name][shape_of[name]]["plain_ms"],
+        "bound_ms": times[name][shape_of[name]]["bound_ms"],
+        "bound_by": times[name][shape_of[name]]["bound_by"],
+        # no PyTorch call computes the first-hit sweep
+        "library_ms": None,
         "shape_of_ms": f"{shape_of[name]} {AGENTS}x{BEAMS}",
         "ms_by_shape": times[name]}
         for name, (src, rep, path) in KERNELS.items()],
         "scans_ms": times["scans"], "steps_ms": times["steps"],
-        "train": train, "slice_launches": slice_launches,
-        "slice": slice_out, "card": card}))
+        "train": train,
+        "slice": slice_out, "card": card, "rates": rates,
+        "ops_per_test": OPS_PER_TEST, "sass_loops": sass}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import torch
+
 _STEER_MODES = ("bang", "smooth")
 
 
@@ -91,6 +93,22 @@ STATIC_SCAN_FIELDS = (
     "interp",
 )
 STATIC_SIM_FIELDS = ("dynamics", "steer_mode")
+
+
+def default_device() -> torch.device:
+    """The device an entry point uses when its caller names none: the CUDA
+    card. Raises where there is none; the CPU is never picked silently."""
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(
+        "no CUDA device: the port's entry points run on the card unless "
+        'the caller passes device="cpu"')
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means
+    ``default_device()``."""
+    return default_device() if device is None else torch.device(device)
 
 
 def replace(params, **kw):

@@ -22,6 +22,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from .edt import edt
 
 # The bundled map assets live in the JAX package's tree; they are read by
@@ -107,6 +108,15 @@ def read_pgm(path: str) -> np.ndarray:
     raise ValueError(f"unsupported PGM magic {magic!r} in {path}")
 
 
+def write_pgm(path: str, img: np.ndarray) -> None:
+    """Write a uint8 (H, W) array as binary P5 PGM."""
+    img = np.asarray(img, dtype=np.uint8)
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n255\n" % (w, h))
+        f.write(img.tobytes())
+
+
 def _read_image(path: str) -> np.ndarray:
     if os.path.splitext(path)[1].lower() == ".pgm":
         return read_pgm(path)
@@ -163,12 +173,14 @@ def occupancy_from_image(img: np.ndarray, negate: int = 0,
 def build_track_map(occupancy: np.ndarray, resolution: float,
                     origin_xy=(0.0, 0.0), name: str = "map",
                     occupied_thresh: float = 0.5,
-                    device="cpu") -> TrackMap:
-    """Pad, run the EDT on the host, and put the grids on ``device``.
+                    device=None) -> TrackMap:
+    """Pad, run the EDT on the host, and put the grids on ``device``
+    (``None``: the card, ``config.default_device``).
 
     ``occupancy`` is (H, W) float32 in [0,1] (row 0 = world bottom; callers
     loading image files flip rows first).
     """
+    device = resolve_device(device)
     h, w = occupancy.shape
     hp, wp = _align_up(h), _align_up(w)
     occ_p = np.zeros((hp, wp), dtype=np.float32)  # pad = free (module doc)
@@ -180,8 +192,10 @@ def build_track_map(occupancy: np.ndarray, resolution: float,
         height=h, width=w, name=name)
 
 
-def load_map_yaml(yaml_path: str, device="cpu") -> TrackMap:
-    """Load a ROS map YAML + image pair into a TrackMap."""
+def load_map_yaml(yaml_path: str, device=None) -> TrackMap:
+    """Load a ROS map YAML + image pair into a TrackMap on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     with open(yaml_path) as f:
         meta = parse_map_yaml(f.read())
     img_path = meta["image"]
@@ -200,11 +214,13 @@ def load_map_yaml(yaml_path: str, device="cpu") -> TrackMap:
                            device=device)
 
 
-def load_builtin(name: str, device="cpu") -> TrackMap:
-    """Load a bundled map asset by name ('levine', 'berlin').
+def load_builtin(name: str, device=None) -> TrackMap:
+    """Load a bundled map asset by name ('levine', 'berlin') onto
+    ``device`` (``None``: the card).
 
     Raises FileNotFoundError when the asset is missing: the port never
     regenerates assets."""
+    device = resolve_device(device)
     path = os.path.join(ASSETS_DIR, f"{name}.yaml")
     if not os.path.exists(path):
         raise FileNotFoundError(

@@ -13,9 +13,12 @@ slots (the facade's incremental ``add_obstacle``).
 Left out, because they serve the TPU only: ``table_ck`` and
 ``build_table_ck`` (the chunk-grouped layout of the TPU's fused kernel; the
 Hopper kernel reads the plain ``(L, 4, K)`` table), so ``add_segments`` has
-no ``table_ck`` branch either; and the native C++ membership call (loading
-it goes through the JAX package; the NumPy body below is the same
-geometry). The stacked multi-map tables are not ported yet.
+no ``table_ck`` branch either, and ``StackedSectorMap`` carries none; and
+the native C++ membership call (loading it goes through the JAX package;
+the NumPy body below is the same geometry).
+
+``stack_sector_maps`` stacks several maps' tables into one for multitrack
+serving (``ops/raycast_sectors.scan_poses_sectors_multi``).
 """
 
 from __future__ import annotations
@@ -277,3 +280,100 @@ def build_sector_map(occupancy: np.ndarray, resolution: float,
         block_half=float(block_half), tile_size=float(tile_size),
         tiles_shape=(nr, nc), tile_origin=(ox, oy), extent=extent,
         rt=float(rt), reach=float(reach))
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedSectorMap:
+    """M sector maps stacked for multitrack batched serving: one scan call
+    over agents living on different maps (for example RL across a track
+    distribution). Tables are padded to a common capacity and concatenated;
+    the per-map tile-grid geometry rides in small per-map tensors gathered
+    per agent (O(agents) scalar gathers beside the sweep).
+    """
+
+    table: Any        # (sum_m L_m, 4, K) float32, common capacity K
+    meta: Any         # (sum_m L_m, 3) int32
+    offsets: Any      # (M,) int32: row offset of each map's lists
+    grids: Any        # (M, 4) float32: [nr, nc, tox, toy] per map
+    extents: Any      # (M, 4) float32: [x0, x1, y0, y1] per map
+    ns: int = 16
+    kv_sec: int = 0
+    block_half: float = 0.285
+    tile_size: float = 0.0
+
+    @classmethod
+    def from_numpy(cls, table, meta, offsets, grids, extents, device="cpu",
+                   **statics):
+        """Build from host arrays (for example the JAX stack's leaves
+        converted with ``np.asarray``) and the static fields."""
+        table = np.array(table, np.float32, order="C")     # own, writable
+        meta = np.array(meta, np.int32, order="C")
+        if table.ndim != 3 or table.shape[1] != 4:
+            raise ValueError(f"table must be (L, 4, K), got {table.shape}")
+        if meta.shape != (table.shape[0], 3):
+            raise ValueError(f"meta must be (L, 3), got {meta.shape}")
+        own = lambda a, dt: torch.as_tensor(np.array(a, dt, order="C"),
+                                            device=device)
+        return cls(table=torch.as_tensor(table, device=device),
+                   meta=torch.as_tensor(meta, device=device),
+                   offsets=own(offsets, np.int32),
+                   grids=own(grids, np.float32),
+                   extents=own(extents, np.float32), **statics)
+
+    def to(self, device) -> "StackedSectorMap":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device)
+                     for f in ("table", "meta", "offsets", "grids",
+                               "extents")})
+
+    @property
+    def device(self):
+        return self.table.device
+
+
+def stack_sector_maps(maps) -> StackedSectorMap:
+    """Stack sector maps (same ns/tile_size/block_half; capacities are
+    re-padded to the common maximum) for ``scan_poses_sectors_multi``. The
+    stack lands on the maps' device. The common capacity K must stay
+    <= 4096: the list kernel stages a list's [p, lo, hi] rows in 48 KB of
+    shared memory (``ops/sweeps``)."""
+    m0 = maps[0]
+    for m in maps:
+        if (m.ns != m0.ns or m.tile_size != m0.tile_size
+                or m.block_half != m0.block_half):
+            raise ValueError("stacked maps must share ns/tile_size/"
+                             "block_half (rebuild with common settings)")
+        if m.device != m0.device:
+            raise ValueError("stacked maps must share a device; got "
+                             f"{m0.device} and {m.device}")
+    kv = max(m.kv_sec for m in maps)
+    kh = max(m.table.shape[2] - m.kv_sec for m in maps)
+    tables, metas, offsets, grids, extents = [], [], [], [], []
+    row = 0
+    for m in maps:
+        t = m.table.cpu().numpy()                 # (L, 4, K_m)
+        l_m, _, _ = t.shape
+        kv_m = m.kv_sec
+        kh_m = t.shape[2] - kv_m
+        out = np.zeros((l_m, 4, kv + kh), np.float32)
+        out[:, 0, :] = _FAR                       # never-hit sentinels
+        out[:, 1, :] = 1.0
+        out[:, 2, :] = -1.0
+        out[:, 3, :kv] = 1.0
+        out[:, :, :kv_m] = t[:, :, :kv_m]
+        out[:, :, kv:kv + kh_m] = t[:, :, kv_m:]
+        meta = m.meta.cpu().numpy().copy()        # [n_v, h_lo, h_end]
+        n_h = meta[:, 2] - meta[:, 1]
+        meta[:, 1] = kv
+        meta[:, 2] = kv + n_h
+        tables.append(out)
+        metas.append(meta)
+        offsets.append(row)
+        row += l_m
+        nr, nc = m.tiles_shape
+        grids.append((nr, nc, m.tile_origin[0], m.tile_origin[1]))
+        extents.append(m.extent)
+    return StackedSectorMap.from_numpy(
+        np.concatenate(tables, axis=0), np.concatenate(metas, axis=0),
+        offsets, grids, extents, device=m0.device, ns=m0.ns, kv_sec=kv,
+        block_half=m0.block_half, tile_size=m0.tile_size)

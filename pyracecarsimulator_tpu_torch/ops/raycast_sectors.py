@@ -23,6 +23,13 @@ Left out as TPU machinery: ``table_ck``, the sort of rows into tiles, the
 ``_winner_vjp``; the table, meta and the lookup positions get no gradient.
 ``scan_poses_sectors_mapgrad`` adds a d(range)/d(map) cotangent into an
 EDF (``raymarch_diff.with_map_gradient``) to the same sector scan.
+
+Multitrack serving: ``scan_poses_sectors_multi`` scans agents that live on
+different maps of a ``maps.sectors.StackedSectorMap`` in one sweep;
+``stack_block_ids`` routes each agent's blocks to rows of the stacked
+table and ``raycast_sectors_ids`` is ``raycast_sectors`` with those rows
+handed in. Left out there as TPU machinery: ``resolve_sector_mode``,
+``_auto_agent_chunk``'s SMEM caps and ``interpret``.
 """
 
 from __future__ import annotations
@@ -207,4 +214,117 @@ def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
     r = with_map_gradient(edf, r, xb[:, :num_beams], yb[:, :num_beams],
                           ct[:, :num_beams], st[:, :num_beams], resolution,
                           origin_xy, eps, bounds_hw, dedup)
+    return r.reshape(*batch, num_beams)
+
+
+def raycast_sectors_ids(table, meta, ids, x, y, cos_t, sin_t,
+                        max_range: float = 10.0, sweep=sector_sweep):
+    """Sector sweep over precomputed list ids (the multitrack path).
+
+    Ray args are (A, NBLK, bb); ``ids`` (A, NBLK) rows into ``table``. The
+    values and the VJP are those of ``raycast_sectors``; only the routing
+    differs (per-agent map offsets, ``maps.sectors.StackedSectorMap``).
+    ``table``, ``meta`` and ``ids`` get no gradient. ``sweep`` is one of
+    the list-kernel wrappers (module doc). Returns (A, NBLK*bb) clamped
+    ranges."""
+    a_n, nblk, bb = cos_t.shape
+    g_n = a_n * nblk
+
+    def minima(x, y, cos_t, sin_t):
+        inv_c, inv_s = _ray_invs(cos_t, sin_t)
+        rows = lambda v: v.reshape(g_n, bb).contiguous()
+        bv, bh = sweep(table, meta,
+                       ids.reshape(g_n).to(torch.int32).contiguous(),
+                       x[:, :, 0].reshape(g_n).contiguous(),
+                       y[:, :, 0].reshape(g_n).contiguous(), rows(cos_t),
+                       rows(sin_t), rows(inv_c), rows(inv_s))
+        return bv.reshape(a_n, nblk, bb), bh.reshape(a_n, nblk, bb)
+
+    return raycast_with_vjp(minima, x, y, cos_t, sin_t,
+                            max_range).reshape(a_n, nblk * bb)
+
+
+def stack_block_ids(stack, mid, x0, y0, ct, st, b_real: int, bb: int):
+    """Per-agent routing for the stacked multi-map sweep.
+
+    ``mid``: (A,) int map ids; ``x0``/``y0``: (A,) agent positions;
+    ``ct``/``st``: (A, NBLK*bb) padded beam fan; ``b_real``: real beam
+    count (block lookup indices are capped there so padded beams never
+    route). Returns ``(ids, inside)``: (A, NBLK) int32 rows into
+    ``stack.table`` and the (A,) per-agent map-extent mask. The float32
+    arithmetic follows the JAX package operation for operation (subtract,
+    a correctly rounded divide by a device scalar, truncate)."""
+    nblk = ct.shape[1] // bb
+    dev = ct.device
+    mid = mid.long()
+    g = stack.grids.index_select(0, mid)            # [nr, nc, tox, toy]
+    base = stack.offsets.index_select(0, mid)       # (A,)
+    nr = g[:, 0].to(torch.int32)
+    nc = g[:, 1].to(torch.int32)
+    ts = _f32(stack.tile_size, dev)
+    ci = torch.minimum(torch.clamp(((x0 - g[:, 2]) / ts).to(torch.int32),
+                                   min=0), nc - 1)
+    ri = torch.minimum(torch.clamp(((y0 - g[:, 3]) / ts).to(torch.int32),
+                                   min=0), nr - 1)
+    tid = ri * nc + ci
+    mids = torch.as_tensor(
+        np.minimum(np.arange(nblk) * bb + bb // 2, b_real - 1), device=dev)
+    th = torch.remainder(torch.atan2(st[:, mids], ct[:, mids]),
+                         _f32(_TWO_PI, dev))
+    sec = torch.clamp((th * _f32(np.float32(stack.ns) / _TWO_PI, dev))
+                      .to(torch.int32), 0, stack.ns - 1)
+    ids = ((base + tid * stack.ns)[:, None] + sec).to(torch.int32)
+    e = stack.extents.index_select(0, mid)
+    inside = ((x0 >= e[:, 0]) & (x0 < e[:, 1])
+              & (y0 >= e[:, 2]) & (y0 < e[:, 3]))
+    return ids, inside
+
+
+def _scan_chunk_multi(stack, poses2, mid, ct, st, num_beams, max_range, bb,
+                      sweep=sector_sweep):
+    """Stacked raycast + per-agent extent mask for one (A, 3) pose chunk
+    whose padded fan (ct, st) was built outside the chunk loop."""
+    a_n = poses2.shape[0]
+    shp = (a_n, ct.shape[1] // bb, bb)
+    ids, inside = stack_block_ids(stack, mid, poses2[:, 0], poses2[:, 1],
+                                  ct, st, num_beams, bb)
+    r = raycast_sectors_ids(
+        stack.table, stack.meta, ids,
+        poses2[:, 0:1].expand(ct.shape).reshape(shp),
+        poses2[:, 1:2].expand(ct.shape).reshape(shp), ct.reshape(shp),
+        st.reshape(shp), max_range, sweep)[:, :num_beams]
+    # per-agent extent mask (reference out-of-map => max_range)
+    return torch.where(inside[:, None], r, max_range)
+
+
+def scan_poses_sectors_multi(stack, map_ids, poses, num_beams: int = 1080,
+                             fov: float = 4.712388980384690,
+                             max_range=10.0, theta_discretization: int = 0,
+                             bb=None, mode: str = "auto",
+                             agent_chunk=None) -> torch.Tensor:
+    """Multitrack batched scan: agent i scans on map ``map_ids[i]`` of
+    ``stack`` (a ``maps.sectors.StackedSectorMap``). One sweep serves the
+    whole agent batch across all stacked tracks; values equal each map's
+    own ``scan_poses_sectors``, and the scan is differentiable in the
+    poses. ``poses`` and ``map_ids`` must be on the stack's device.
+
+    ``mode`` and ``agent_chunk`` as ``scan_poses_sectors``."""
+    sweep = _sweep_for(mode, None)
+    bb = sector_block_width(stack, num_beams, fov, bb)
+    batch = tuple(poses.shape[:-1])
+    poses2 = poses.reshape(-1, 3).to(torch.float32)
+    mid = torch.as_tensor(map_ids, device=poses2.device).reshape(-1)
+    a_n = poses2.shape[0]
+    offs = _padded_offsets(num_beams, fov, bb, poses2.device)
+    # the fan is built once for the whole batch (see scan_poses_sectors)
+    ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
+    args = (num_beams, max_range, bb, sweep)
+    if agent_chunk and a_n > agent_chunk:
+        r = torch.cat([
+            _scan_chunk_multi(stack, *(v[i:i + agent_chunk]
+                                       for v in (poses2, mid, ct, st)),
+                              *args)
+            for i in range(0, a_n, agent_chunk)])
+    else:
+        r = _scan_chunk_multi(stack, poses2, mid, ct, st, *args)
     return r.reshape(*batch, num_beams)

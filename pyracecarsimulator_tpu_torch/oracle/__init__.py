@@ -1,3 +1,3 @@
 """Frozen NumPy parity oracles (copies of the JAX package's)."""
 
-from . import raycast
+from . import dynamics, raycast

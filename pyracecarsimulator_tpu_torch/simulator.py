@@ -31,7 +31,7 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from .config import CarParams, ScanParams, SimParams
+from .config import CarParams, ScanParams, SimParams, resolve_device
 from .state import CarState, zero_state, state_from_pose, set_field
 from .models import dynamics as dyn
 from .models.ttc import ttc_tables, check_ttc
@@ -92,9 +92,11 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
               sim: SimParams = None, backend: str = "segments",
               tile_size: Optional[float] = None,
               sector_ns: int = 16, sector_headroom: int = 0,
-              device="cpu") -> SimBundle:
+              device=None) -> SimBundle:
     """Load or accept a map and compile everything the step needs on the
-    host, then place the tensors on ``device``.
+    host, then place the tensors on ``device``. ``device=None`` is the
+    CUDA card (``config.default_device``, which raises where there is
+    none); pass ``device="cpu"`` to run on the CPU.
 
     ``backend``: one of the module doc's; "auto" resolves to "sectors".
     The EDF backends need no compiled geometry (``segmap`` is None).
@@ -105,6 +107,7 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
     _check_backend(backend)
     if backend == "auto":
         backend = "sectors"
+    device = resolve_device(device)
     track = (load_builtin(track_or_name, device=device)
              if isinstance(track_or_name, str)
              else track_or_name.to(device))
@@ -219,6 +222,44 @@ def make_scan_fn(bundle: SimBundle, backend: Optional[str] = None,
                                    org, poses, interp=interp, **march)
 
 
+def advance(state: CarState, action, car: CarParams, sim: SimParams):
+    """Input processing and one dynamics update (reference ``drive()`` +
+    ``compute_accel``, then ``update_pose()``). Returns ``(new_state, sx,
+    sy)``: the state before the scan and the lidar origin, which sits
+    ``scan_distance_to_base_link`` ahead of the base link."""
+    v_des, steer_des = action
+    accel, steer_vel = dyn.process_input(
+        v_des, steer_des, state, car, kp=sim.speed_kp,
+        steer_mode=sim.steer_mode, steer_kp=sim.steer_kp)
+    if sim.dynamics == "st":
+        new = dyn.st_step(state, accel, steer_vel, car, sim.dt)
+    elif sim.dynamics == "ks":
+        new = dyn.ks_step(state, accel, steer_vel, car, sim.dt)
+    elif sim.dynamics == "ackermann":
+        new = dyn.ackermann_step(state, v_des, steer_des, car, sim.dt)
+    else:
+        raise ValueError(f"unknown dynamics {sim.dynamics!r}")
+    new = dyn.apply_standstill(state, new)
+    sx = new.x + car.scan_distance_to_base_link * torch.cos(new.theta)
+    sy = new.y + car.scan_distance_to_base_link * torch.sin(new.theta)
+    return new, sx, sy
+
+
+def latch(new: CarState, ranges, hit) -> StepOutput:
+    """TTC collision -> latch (reference ``checkCollision`` + ``stop()``):
+    a car that hit, now or earlier, stands still."""
+    latched = new.collision | hit
+    zero = torch.zeros_like(new.velocity)
+    out_state = set_field(
+        new,
+        velocity=torch.where(latched, zero, new.velocity),
+        steer_angle=torch.where(latched, zero, new.steer_angle),
+        angular_velocity=torch.where(latched, zero, new.angular_velocity),
+        slip_angle=torch.where(latched, zero, new.slip_angle),
+        collision=latched)
+    return StepOutput(ranges=ranges, collision=latched, state=out_state)
+
+
 def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
                  with_noise: bool = True,
                  agent_chunk: Optional[int] = None) -> Callable:
@@ -239,45 +280,21 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
     car, sc, sim = bundle.car, bundle.scan, bundle.sim
     cosines, car_dists = ttc_tables(sc.num_beams, sc.fov, car,
                                     bundle.track.edf.device)
-    dynamics = sim.dynamics
-    if dynamics not in ("st", "ks", "ackermann"):
-        raise ValueError(f"unknown dynamics {dynamics!r}")
+    if sim.dynamics not in ("st", "ks", "ackermann"):
+        raise ValueError(f"unknown dynamics {sim.dynamics!r}")
 
     def step(state: CarState, action, generator=None) -> StepOutput:
-        v_des, steer_des = action
-        # 1. input processing (reference drive() + compute_accel)
-        accel, steer_vel = dyn.process_input(
-            v_des, steer_des, state, car, kp=sim.speed_kp,
-            steer_mode=sim.steer_mode, steer_kp=sim.steer_kp)
-        # 2. dynamics update (reference update_pose())
-        if dynamics == "st":
-            new = dyn.st_step(state, accel, steer_vel, car, sim.dt)
-        elif dynamics == "ks":
-            new = dyn.ks_step(state, accel, steer_vel, car, sim.dt)
-        else:
-            new = dyn.ackermann_step(state, v_des, steer_des, car, sim.dt)
-        new = dyn.apply_standstill(state, new)
-        # 3. scan from the lidar origin (scan_distance_to_base_link ahead)
-        sx = new.x + car.scan_distance_to_base_link * torch.cos(new.theta)
-        sy = new.y + car.scan_distance_to_base_link * torch.sin(new.theta)
+        # 1-2. input processing and the dynamics update
+        new, sx, sy = advance(state, action, car, sim)
+        # 3. scan from the lidar origin
         ranges = scan_fn(torch.stack([sx, sy, new.theta], dim=-1))
         if with_noise and generator is not None:
             # unclamped, matching the reference/oracle noise model
             ranges = add_scan_noise(ranges, generator, sc.scan_std_dev)
-        # 4. TTC collision -> latch (reference checkCollision + stop())
+        # 4. TTC collision -> latch
         hit = check_ttc(ranges, new.velocity, cosines, car_dists,
                         sim.ttc_threshold)
-        latched = new.collision | hit
-        zero = torch.zeros_like(new.velocity)
-        out_state = set_field(
-            new,
-            velocity=torch.where(latched, zero, new.velocity),
-            steer_angle=torch.where(latched, zero, new.steer_angle),
-            angular_velocity=torch.where(latched, zero,
-                                         new.angular_velocity),
-            slip_angle=torch.where(latched, zero, new.slip_angle),
-            collision=latched)
-        return StepOutput(ranges=ranges, collision=latched, state=out_state)
+        return latch(new, ranges, hit)
 
     step.map_cell = map_cell        # swap maps here
     return step
@@ -285,12 +302,14 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
 
 class RacecarSimulator:
     """Reference-style OO facade over the functional core; the state lives
-    in ``self.state`` with an arbitrary agent batch shape, on ``device``."""
+    in ``self.state`` with an arbitrary agent batch shape, on ``device``
+    (``None``: the CUDA card, as ``build_sim``)."""
 
     def __init__(self, track_or_name="levine", car_params: CarParams = None,
                  scan_params: ScanParams = None, sim_params: SimParams = None,
                  backend: str = "segments", batch_shape=(), seed: int = 0,
-                 with_noise: bool = True, device="cpu"):
+                 with_noise: bool = True, device=None):
+        device = resolve_device(device)
         # sector_headroom as in the JAX facade: slack in the cull-list
         # capacity for the obstacle edits
         self.bundle = build_sim(track_or_name, car_params, scan_params,
@@ -299,7 +318,7 @@ class RacecarSimulator:
         # clear_obstacles swaps these back in, no rebuild
         self._pristine_track = self.bundle.track
         self._pristine_segmap = self.bundle.segmap
-        self.device = torch.device(device)
+        self.device = device
         self.backend = self.bundle.backend
         self.with_noise = with_noise
         self.batch_shape = tuple(batch_shape)

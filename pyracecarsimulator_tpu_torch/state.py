@@ -13,6 +13,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from .config import resolve_device
+
 FIELDS = ("x", "y", "theta", "velocity", "steer_angle", "angular_velocity",
           "slip_angle", "st_dyn", "collision")
 _BOOL_FIELDS = ("st_dyn", "collision")
@@ -59,8 +61,10 @@ class CarState:
 
 
 def zero_state(batch_shape=(), dtype=torch.float32,
-               device="cpu") -> CarState:
-    """All-zero state (reference initial condition: zeros, no collision)."""
+               device=None) -> CarState:
+    """All-zero state (reference initial condition: zeros, no collision).
+    ``device=None`` is the card (``config.default_device``)."""
+    device = resolve_device(device)
     z = torch.zeros(batch_shape, dtype=dtype, device=device)
     f = torch.zeros(batch_shape, dtype=torch.bool, device=device)
     return CarState(x=z, y=z, theta=z, velocity=z, steer_angle=z,
@@ -83,9 +87,11 @@ def state_from_pose(x, y, theta, device=None) -> CarState:
                     st_dyn=f, collision=f)
 
 
-def state_from_numpy(fields: dict, device="cpu") -> CarState:
+def state_from_numpy(fields: dict, device=None) -> CarState:
     """Build a state from a dict of arrays keyed by field name (for example
-    the leaves of the JAX package's state, converted with ``np.asarray``)."""
+    the leaves of the JAX package's state, converted with ``np.asarray``).
+    ``device=None`` is the card (``config.default_device``)."""
+    device = resolve_device(device)
     out = {}
     for f in FIELDS:
         dtype = torch.bool if f in _BOOL_FIELDS else torch.float32

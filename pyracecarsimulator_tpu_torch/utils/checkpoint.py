@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..state import CarState, FIELDS, state_from_numpy
 
 
@@ -31,8 +32,10 @@ def save_npz(path: str, state: CarState, key=None, step: int = 0) -> None:
     os.replace(tmp, path)
 
 
-def load_npz(path: str, device="cpu") -> Tuple[CarState, Optional[Any], int]:
-    """Returns (state on ``device``, key as a CPU tensor or None, step)."""
+def load_npz(path: str, device=None) -> Tuple[CarState, Optional[Any], int]:
+    """Returns (state on ``device``, key as a CPU tensor or None, step).
+    ``device=None`` is the card (``config.default_device``)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         state = state_from_numpy({k: z[f"state_{k}"] for k in FIELDS},
                                  device=device)

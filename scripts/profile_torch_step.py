@@ -38,6 +38,7 @@ def main() -> int:
     from pyracecarsimulator_tpu_torch import (build_sim, make_step_fn,
                                               state_from_pose)
     from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.utils.profiling import timed_loop
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -56,18 +57,12 @@ def main() -> int:
         act = (torch.full((AGENTS,), 2.0, device="cuda"),
                torch.zeros(AGENTS, device="cuda"))
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for _ in range(5):
+        def advance():
+            nonlocal state
             state = step(state, act, gen).state
-        torch.cuda.synchronize()
 
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMED_STEPS):
-            state = step(state, act, gen).state
-        end.record()
-        torch.cuda.synchronize()
-        step_ms = start.elapsed_time(end) / TIMED_STEPS
+        step_ms = timed_loop(advance, reps=TIMED_STEPS, warmup=5,
+                             device="cuda") * 1e3
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -182,7 +182,7 @@ def test_simplified_step_matches_jax(small_track):
     jb = jsim.build_sim(t, scan=jsim.ScanParams(num_beams=64),
                         backend="segments_simplified")
     pb = psim.build_sim(pt, scan=P.ScanParams(num_beams=64),
-                        backend="segments_simplified")
+                        backend="segments_simplified", device="cpu")
     assert isinstance(pb.segmap, pc.GeneralSegmentMap)
     np.testing.assert_array_equal(pb.segmap.params.numpy(),
                                   np.asarray(jb.segmap.params))

@@ -49,7 +49,7 @@ def _random_state(rng, n=N):
 
 def _pair(d):
     j = jstate.CarState(**{k: jnp.asarray(v) for k, v in d.items()})
-    return j, pstate.state_from_numpy(d)
+    return j, pstate.state_from_numpy(d, device="cpu")
 
 
 def _actions(rng, n=N):
@@ -79,7 +79,7 @@ def test_params_match_jax():
 
 
 def test_state_helpers():
-    z = pstate.zero_state((2, 3))
+    z = pstate.zero_state((2, 3), device="cpu")
     assert z.batch_shape == (2, 3) and z.collision.dtype == torch.bool
     s = pstate.state_from_pose(torch.ones(4), 2.0, 0.5)
     assert s.pose.shape == (4, 3)
@@ -130,7 +130,7 @@ def test_steps_match_jax(rng, model, mode):
         _close_states(ps, js)
         # hand the reference state over so ulp drift does not compound
         ps = pstate.state_from_numpy(
-            {k: np.asarray(getattr(js, k)) for k in pstate.FIELDS})
+            {k: np.asarray(getattr(js, k)) for k in pstate.FIELDS}, device="cpu")
 
 
 def test_ttc_tables_match_jax():

@@ -43,7 +43,7 @@ def _corridor(ns, tile_size):
     occ[:4, :] = 1; occ[-4:, :] = 1; occ[:, :4] = 1; occ[:, -4:] = 1
     occ[60:132, 60:132] = 1
     occ[100:104, 20:40] = 1
-    track = build_track_map(occ, 0.05, (-4.8, -4.8))
+    track = build_track_map(occ, 0.05, (-4.8, -4.8), device="cpu")
     return track, build_sector_map(
         track.occupancy.numpy(), 0.05, (-4.8, -4.8), tile_size=tile_size,
         ns=ns, real_hw=(192, 192))

@@ -35,7 +35,8 @@ def _occ(track):
 
 @pytest.fixture(scope="module")
 def levine_pair():
-    return jloader.load_builtin("levine"), ploader.load_builtin("levine")
+    return (jloader.load_builtin("levine"),
+            ploader.load_builtin("levine", device="cpu"))
 
 
 def test_edt_exact(rng):
@@ -142,4 +143,4 @@ def test_track_map_from_numpy_and_missing_asset(small_track):
     np.testing.assert_array_equal(pt.to("cpu").edf.numpy(),
                                   np.asarray(t.edf))
     with pytest.raises(FileNotFoundError):
-        ploader.load_builtin("no_such_track")
+        ploader.load_builtin("no_such_track", device="cpu")

@@ -83,7 +83,8 @@ def test_add_segments_equals_jax_and_full_rebuild(small_track):
     table0 = p0.table.clone()
     box = P.RacecarSimulator(
         _port_track(t), scan_params=P.ScanParams(num_beams=64),
-        backend="sectors")._obstacle_box_segments(_port_track(t), x, y, 0.4)
+        backend="sectors", device="cpu")._obstacle_box_segments(
+            _port_track(t), x, y, 0.4)
     jsim_box = jsim.RacecarSimulator(
         t, scan_params=jsim.ScanParams(num_beams=64), backend="sectors",
         with_noise=False)._obstacle_box_segments(t, x, y, 0.4)
@@ -124,7 +125,7 @@ def test_facade_obstacle_cycle(small_track, backend):
     x, y = _open_cell(t)
     scan = dict(num_beams=64)
     sim = P.RacecarSimulator(_port_track(t), scan_params=P.ScanParams(
-        **scan), backend=backend, with_noise=False)
+        **scan), backend=backend, with_noise=False, device="cpu")
     jfac = jsim.RacecarSimulator(t, scan_params=jsim.ScanParams(**scan),
                                  backend=backend, with_noise=False)
     sim.set_pose(x + 1.2, y, np.pi)                # looking at the box
@@ -159,14 +160,14 @@ def test_facade_sector_rebuild_when_headroom_runs_out(small_track):
     t = small_track
     x, y = _open_cell(t)
     sim = P.RacecarSimulator(_port_track(t), scan_params=P.ScanParams(
-        num_beams=128), backend="sectors", with_noise=False)
+        num_beams=128), backend="sectors", with_noise=False, device="cpu")
     n0 = sim._pristine_segmap.n_segments
     for k in range(20):
         sim.add_obstacle(x + 0.1 * (k % 5), y + 0.1 * (k // 5), size=0.2)
     edited = sim.bundle.segmap
     assert edited.n_segments != n0 + 4 * 20        # a rebuild happened
     fresh = P.build_sim(sim.bundle.track, scan=P.ScanParams(num_beams=128),
-                        backend="sectors").segmap
+                        backend="sectors", device="cpu").segmap
     poses = torch.tensor([[x - 1.0, y, 0.0], [x + 2.0, y + 0.2, np.pi],
                           [x, y - 1.2, np.pi / 2]])
     scan = lambda m: scan_poses_sectors(m, poses, num_beams=128,

@@ -231,7 +231,7 @@ def test_edf_step_matches_jax(small_track):
     jb = jsim.build_sim(small_track, scan=jsim.ScanParams(**scan),
                         backend="edf")
     pb = psim.build_sim(_port_track(small_track),
-                        scan=P.ScanParams(**scan), backend="edf")
+                        scan=P.ScanParams(**scan), backend="edf", device="cpu")
     assert pb.segmap is None and jb.segmap is None
     poses = _free_poses(small_track, n, 12, margin=0.3)
     js = jstate.state_from_pose(*map(jnp.asarray, poses.T))

@@ -214,7 +214,7 @@ def test_map_grad_sector_scan(small_track):
                                                 max_range=6.0),
                         backend="sectors")
     pb = psim.build_sim(pt, scan=P.ScanParams(num_beams=128, max_range=6.0),
-                        backend="sectors")
+                        backend="sectors", device="cpu")
     rng = np.random.RandomState(11)
     e_real = np.asarray(t.edf)[: t.height, : t.width]
     ys, xs = np.where(e_real > 0.5)

@@ -128,7 +128,7 @@ def test_builtin_maps_exact(name, tile_size, tiled, split):
     levine drops its tiles (dense kernel, mixed layout), berlin keeps them
     (tile-routed kernel, split layout)."""
     jt = jloader.load_builtin(name)
-    pt = ploader.load_builtin(name)
+    pt = ploader.load_builtin(name, device="cpu")
     np.testing.assert_array_equal(pt.occupancy.numpy(),
                                   np.asarray(jt.occupancy))
     kw = dict(max_range=10.0, tile_size=tile_size,

@@ -48,7 +48,7 @@ def _port_track(track):
 def bundles(small_track):
     jb = jsim.build_sim(small_track, sim=JSimP(**SIM_KW), backend="sectors")
     pb = psim.build_sim(_port_track(small_track), sim=P.SimParams(**SIM_KW),
-                        backend="auto")
+                        backend="auto", device="cpu")
     return jb, pb
 
 
@@ -61,7 +61,7 @@ def _initial(small_track):
              st_dyn=np.zeros(N_AGENTS, bool),
              collision=np.zeros(N_AGENTS, bool))
     return (jstate.CarState(**{k: jnp.asarray(v) for k, v in d.items()}),
-            P.state_from_numpy(d))
+            P.state_from_numpy(d, device="cpu"))
 
 
 def _close_ranges(got, ref):
@@ -173,7 +173,7 @@ def test_map_swap_through_map_cell(bundles, small_track):
         occ, np.asarray(small_track.edf), resolution=small_track.resolution,
         origin_x=small_track.origin_x, origin_y=small_track.origin_y,
         height=small_track.height, width=small_track.width),
-        backend="sectors")
+        backend="sectors", device="cpu")
     step.map_cell["map"] = other.segmap
     after = step(ps, act).ranges
     assert not torch.equal(before, after)
@@ -186,14 +186,15 @@ def test_unported_paths_raise(bundles, small_track):
     the JAX facade's ValueError guards."""
     _, pb = bundles
     with pytest.raises(ValueError, match="unknown backend"):
-        psim.build_sim(_port_track(small_track), backend="segment")
+        psim.build_sim(_port_track(small_track), backend="segment", device="cpu")
     # the backend must match the bundle's map type, as in the JAX facade
     for backend in ("segments", "segments_pallas", "segments_simplified"):
         with pytest.raises(ValueError, match="map type"):
             psim.make_scan_fn(pb, backend=backend)
     # map_grad is the sector backend's path only
-    dense = psim.build_sim(_port_track(small_track), backend="segments")
-    edf = psim.build_sim(_port_track(small_track), backend="edf")
+    dense = psim.build_sim(_port_track(small_track), backend="segments",
+                           device="cpu")
+    edf = psim.build_sim(_port_track(small_track), backend="edf", device="cpu")
     for bundle, backend in ((dense, None), (edf, None), (pb, "auto"),
                             (pb, "edf_implicit")):
         with pytest.raises(ValueError, match="map_grad"):
@@ -204,7 +205,7 @@ def test_unported_paths_raise(bundles, small_track):
     with pytest.raises(ValueError, match="segment backend"):
         psim.make_scan_fn(edf, backend="segments")
     simple = psim.build_sim(_port_track(small_track),
-                            backend="segments_simplified")
+                            backend="segments_simplified", device="cpu")
     with pytest.raises(ValueError, match="segments_pallas"):
         psim.make_scan_fn(simple, backend="segments_pallas")
     with pytest.raises(ValueError, match="dynamics"):
@@ -214,7 +215,8 @@ def test_unported_paths_raise(bundles, small_track):
 def test_facade_drives_scalar_car(small_track):
     """RacecarSimulator with batch shape (): the reference call sequence."""
     sim = P.RacecarSimulator(_port_track(small_track), seed=1,
-                             scan_params=P.ScanParams(num_beams=270))
+                             scan_params=P.ScanParams(num_beams=270),
+                             device="cpu")
     assert sim.backend == "segments"            # the JAX facade's default
     sim.set_pose(-4.0, -4.0, 0.0)
     sim.drive(2.0, 0.1)

@@ -45,7 +45,7 @@ def _initial(track, n, seed):
              velocity=np.linspace(0.5, 6.0, n).astype(np.float32),
              st_dyn=np.zeros(n, bool), collision=np.zeros(n, bool))
     return (jstate.CarState(**{k: jnp.asarray(v) for k, v in d.items()}),
-            P.state_from_numpy(d))
+            P.state_from_numpy(d, device="cpu"))
 
 
 def _steps_match(jb, pb, js, ps, n_steps):
@@ -72,7 +72,7 @@ def _steps_match(jb, pb, js, ps, n_steps):
 def test_noiseless_steps_match_jax(small_track, backend):
     jb = jsim.build_sim(small_track, sim=JSimP(**SIM_KW), backend=backend)
     pb = psim.build_sim(_port_track(small_track),
-                        sim=P.SimParams(**SIM_KW), backend=backend)
+                        sim=P.SimParams(**SIM_KW), backend=backend, device="cpu")
     assert pb.backend == jb.backend == backend
     assert isinstance(pb.segmap, SegmentMap)
     np.testing.assert_array_equal(pb.segmap.params.numpy(),
@@ -88,7 +88,8 @@ def test_bundled_maps_match_jax(name):
     levine runs the dense sweep, berlin the tile-routed one."""
     jt = jloader.load_builtin(name)
     jb = jsim.build_sim(jt)
-    pb = psim.build_sim(ploader.load_builtin(name))
+    pb = psim.build_sim(ploader.load_builtin(name, device="cpu"),
+                        device="cpu")
     assert jb.backend == pb.backend == "segments"
     assert (pb.segmap.tiles is not None) == (name == "berlin")
     js, ps = _initial(jt, 8, 3)
@@ -101,11 +102,11 @@ def test_segments_and_segments_pallas_are_identical(small_track):
     act = (torch.full((12,), 2.0), torch.linspace(-0.2, 0.2, 12))
     outs = []
     for backend in ("segments", "segments_pallas"):
-        b = psim.build_sim(track, backend=backend)
+        b = psim.build_sim(track, backend=backend, device="cpu")
         o = psim.make_step_fn(b, with_noise=False)(ps, act)
         outs.append((o.ranges, o.state.pose, o.collision))
         assert torch.equal(psim.make_scan_fn(b)(ps.pose), psim.make_scan_fn(
-            psim.build_sim(track, backend="segments"))(ps.pose))
+            psim.build_sim(track, backend="segments", device="cpu"))(ps.pose))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
 
@@ -114,9 +115,10 @@ def test_default_backend_and_tile_sizes(small_track):
     """build_sim and the facade default to "segments" with 4.0 m tiles;
     the sector backend keeps 2.0 m tiles."""
     track = _port_track(small_track)
-    b = psim.build_sim(track)
+    b = psim.build_sim(track, device="cpu")
     assert b.backend == "segments" and b.segmap.tile_size == 4.0
-    assert psim.build_sim(track, backend="auto").segmap.tile_size == 2.0
-    assert P.RacecarSimulator(track).backend == "segments"
+    assert psim.build_sim(track, backend="auto",
+                          device="cpu").segmap.tile_size == 2.0
+    assert P.RacecarSimulator(track, device="cpu").backend == "segments"
     with pytest.raises(ValueError, match="map type"):
         psim.make_scan_fn(b, backend="sectors")

@@ -55,9 +55,10 @@ def _corridor():
 
 
 def _bundle(backend, num_beams=64, **sim):
-    track = build_track_map(_corridor(), 0.05, (-4.8, -4.8), name="small")
+    track = build_track_map(_corridor(), 0.05, (-4.8, -4.8), name="small",
+                            device="cpu")
     return psim.build_sim(track, scan=P.ScanParams(num_beams=num_beams),
-                          sim=P.SimParams(**sim), backend=backend)
+                          sim=P.SimParams(**sim), backend=backend, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -223,7 +224,7 @@ def test_bptt_train_step_learns():
     smooth steering, 180 beams, T=5; the loss falls and the weights move."""
     bundle = psim.build_sim("levine", scan=P.ScanParams(num_beams=B),
                             sim=P.SimParams(dt=0.05, steer_mode="smooth"),
-                            backend="sectors")
+                            backend="sectors", device="cpu")
     step = psim.make_step_fn(bundle, with_noise=False)
     s0 = P.state_from_pose(*map(torch.from_numpy, _start(bundle)))
     train, init = make_bptt_train_fn(
@@ -305,7 +306,7 @@ def test_state_checkpoints_cross_over(tmp_path):
     x, y, th = (rng.randn(5).astype(np.float32) for _ in range(3))
     js = jax_from_pose(jnp.asarray(x), jnp.asarray(y), jnp.asarray(th))
     jckpt.save_npz(str(tmp_path / "j.npz"), js, jax.random.PRNGKey(3), 7)
-    ps, key, step = pckpt.load_npz(str(tmp_path / "j.npz"))
+    ps, key, step = pckpt.load_npz(str(tmp_path / "j.npz"), device="cpu")
     assert step == 7
     np.testing.assert_array_equal(key.numpy(),
                                   np.asarray(jax.random.PRNGKey(3)))
@@ -317,7 +318,7 @@ def test_state_checkpoints_cross_over(tmp_path):
     assert jstep == 9
     for f, v in ps.numpy().items():
         np.testing.assert_array_equal(np.asarray(getattr(js2, f)), v)
-    _, key2, _ = pckpt.load_npz(str(tmp_path / "p.npz"))
+    _, key2, _ = pckpt.load_npz(str(tmp_path / "p.npz"), device="cpu")
     assert torch.equal(key2, gen.get_state())
 
 
