@@ -36,8 +36,9 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 9. the reference-style facade ``RacecarSimulator`` with batch shape ();
 10. per map, the "edf" march (plain PyTorch, no kernel): the CUDA march
     against the CPU march on 64 poses given the same fan (bit-identical),
-    the scan against the NumPy oracle ``oracle/raycast.py`` on 2 poses
-    (tests/test_raymarch.py's bound), the full scan's time and its device
+    the scan against the NumPy oracle ``oracle/raycast.py`` (its native
+    body) on 64 poses, pose by pose (tests/test_raymarch.py's bound), the
+    full scan's time and its device
     operations per scan (profiler); the "edf" step and a 20-step rollout,
     counted (no kernel of the five may run), and the step's time;
 11. per map, "edf_implicit" forward and backward at full width (EDF and
@@ -77,7 +78,21 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     collisions and pose gradients against the unsharded run and the
     oracle, each rank's launches;
 19. ``utils.debug.checked`` on a clean and on a poisoned step;
-    ``utils.profiling.rays_per_second`` of the berlin sector scan.
+    ``utils.profiling.rays_per_second`` of the berlin sector scan;
+20. the native host tier (``_native/loader.py``, run first, before any map
+    is loaded): built with the host's C++ compiler; per map at full size
+    each of the five entry points against its NumPy or Python body (EDT
+    bit for bit, membership entry for entry, the same segment set, the
+    segment raycast within 1e-9 m, the EDF march within 1e-6 m) and both
+    bodies' host times; ``load_builtin``, ``build_sim(name,
+    backend="sectors")`` and ``add_obstacle`` host seconds with either
+    body, the call counters showing which one ran;
+21. the eight demos of ``examples/torch/`` through their ``main([...])``
+    on the card, at 4096 x 1080 where a demo has agents (its own default
+    where that is larger), steps and iterations cut: losses finite and
+    falling where a demo optimises, ``demo_gradients`` within 0.01 m of
+    the true pose, launch counters read around each (a demo that is meant
+    to run a kernel and launched none fails the run).
 
 Every kernel's time stands beside its bound: the larger of its
 instruction slots (``OPS_PER_TEST`` per ray-segment test, counted from the
@@ -107,6 +122,7 @@ BEAMS = 1080
 FOV = 4.712388980384690
 MAX_RANGE = 10.0
 STEPS = 20
+ORACLE_POSES = 64
 TRAIN_T = 5
 MAPS = ("levine", "berlin")
 SRC = "pyracecarsimulator_tpu_torch/csrc/"
@@ -550,6 +566,7 @@ def march_phases(card, name, track, poses):
     import numpy as np
     import torch
     from pyracecarsimulator_tpu_torch import build_sim, make_scan_fn
+    from pyracecarsimulator_tpu_torch._native import loader as native
     from pyracecarsimulator_tpu_torch.oracle import raycast as orc
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
@@ -569,17 +586,21 @@ def march_phases(card, name, track, poses):
                    (track.edf, org, xb, yb, ct, st))
     scan = make_scan_fn(bundle)
     edf_np = track.edf.cpu().numpy()
-    for i in range(2):
-        ref = orc.scan(edf_np, track.resolution,
-                       (track.origin_x, track.origin_y), poses[i],
-                       num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE,
-                       eps=sc.ray_tracing_epsilon, bounds_hw=hw)
-        d = np.abs(scan(p[i]).cpu().numpy() - ref)
-        log(f"[{name}] edf scan vs NumPy oracle, pose {i}: share within "
-            f"1e-3 m = {float((d < 1e-3).mean())}, max abs diff = "
-            f"{float(d.max())}")
-        check((d < 1e-3).mean() > 0.99 and d.max() < 3 * track.resolution,
-              f"{name}: edf scan disagrees with the oracle")
+    served = native.trace_rays.calls
+    ref = orc.scan_batch(edf_np, track.resolution,
+                         (track.origin_x, track.origin_y),
+                         poses[:ORACLE_POSES], num_beams=BEAMS, fov=FOV,
+                         max_range=MAX_RANGE, eps=sc.ray_tracing_epsilon,
+                         max_iters=1000, bounds_hw=hw)
+    check(native.trace_rays.calls == served + 1,
+          "the oracle did not take its native body")
+    d = np.abs(scan(p[:ORACLE_POSES]).cpu().numpy() - ref)
+    share = (d < 1e-3).mean(axis=1)
+    log(f"[{name}] edf scan vs the oracle on {ORACLE_POSES} poses: least "
+        f"share of a pose's beams within 1e-3 m = {float(share.min())}, "
+        f"max abs diff = {float(d.max())}")
+    check(share.min() > 0.99 and d.max() < 3 * track.resolution,
+          f"{name}: edf scan disagrees with the oracle")
     sets = pose_sets(poses)
     out["edf_scan_ms"] = timed_ms(lambda i: scan(sets[i % 5]), 5, warmup=1)
     out["edf_scan_device_ops"] = device_ops(lambda: scan(sets[0]))
@@ -1213,10 +1234,280 @@ def tooling_phase(card, bundle, poses):
     return {"rays_per_second": rate}
 
 
+def host_ms(fn, reps=1):
+    """Mean host milliseconds of ``fn()`` over ``reps`` calls, and the last
+    result."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def host_cpu() -> str:
+    """The host CPU as ``lscpu`` or ``/proc/cpuinfo`` name it: the model
+    name, with vendor, family and model numbers beside it (a virtual
+    machine may report the name as "unknown")."""
+    texts = []
+    try:
+        texts.append(subprocess.run(["lscpu"], capture_output=True,
+                                    text=True, timeout=60).stdout)
+    except OSError:
+        pass
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            texts.append(f.read())
+
+    def field(key):
+        for text in texts:
+            m = re.search(rf"^{key}\s*:\s*(\S.*)$", text,
+                          re.IGNORECASE | re.MULTILINE)
+            if m:
+                return m.group(1).strip()
+        return "not reported"
+
+    return (f"model name {field('model name')!r} (vendor "
+            f"{field('vendor(?: |_)id')}, family {field('cpu family')}, "
+            f"model {field('model')})")
+
+
+def native_phase(card):
+    """20: the native host tier against its NumPy bodies, per map at full
+    size, and the map builds' host times with either body."""
+    import numpy as np
+    import torch
+    from pyracecarsimulator_tpu_torch import build_sim
+    from pyracecarsimulator_tpu_torch._native import loader as native
+    from pyracecarsimulator_tpu_torch.maps import (add_obstacle, edt_numpy,
+                                                   load_builtin,
+                                                   sample_free_poses)
+    from pyracecarsimulator_tpu_torch.maps import sectors, segments
+    from pyracecarsimulator_tpu_torch.oracle import raycast as orc
+    host = f"{host_cpu()}, {os.cpu_count()} cores"
+    check(native.compiler() is not None,
+          "no C++ compiler on PATH ($CXX, else g++): the native tier "
+          "cannot be built on this machine")
+    t0 = time.perf_counter()
+    check(native.available(), "the native library did not load")
+    log(f"native host library: {native.build_info['path']} built in "
+        f"{native.build_info['seconds']:.2f} s (available after "
+        f"{time.perf_counter() - t0:.2f} s) with "
+        f"{' '.join(native.compiler())} {' '.join(native.CXX_FLAGS)}; host: "
+        f"{host}")
+    out = {"host": host, "build_s": native.build_info["seconds"]}
+    set_of = lambda segs: set(map(tuple, np.round(segs, 9)))
+    for name in MAPS:
+        res = {}
+        native.reset_call_counts()
+        with native.numpy_only():
+            res["load_builtin_numpy_ms"], track = host_ms(
+                lambda: load_builtin(name, device="cuda"))
+        check(sum(native.call_counts().values()) == 0,
+              "numpy_only() let a native call through")
+        res["load_builtin_native_ms"], track_n = host_ms(
+            lambda: load_builtin(name, device="cuda"), 3)
+        check(native.edt.calls == 3, "load_builtin: the native EDT did not "
+              f"run ({native.call_counts()})")
+        check(bool(torch.equal(track.edf, track_n.edf))
+              and bool(torch.equal(track.occupancy, track_n.occupancy)),
+              f"{name}: load_builtin differs between the bodies")
+        occ_p = track.occupancy.cpu().numpy()
+        occ = occ_p[: track.height, : track.width]
+        org = (track.origin_x, track.origin_y)
+        hw = (track.height, track.width)
+
+        # rc_edt against edt_numpy on the padded grid
+        filled = occ_p >= 0.5
+        res["edt_numpy_ms"], ref = host_ms(lambda: edt_numpy(filled))
+        res["edt_native_ms"], got = host_ms(lambda: native.edt(filled), 3)
+        res["edt_max_abs_diff_cells"] = float(np.abs(got - ref).max())
+        check(np.array_equal(got, ref), f"{name}: rc_edt differs from "
+              f"edt_numpy by {res['edt_max_abs_diff_cells']} cells")
+
+        # rc_extract_segments against extract_segments (grid units)
+        res["extract_python_ms"], segs_grid = host_ms(
+            lambda: segments.extract_segments(occ, 1.0, (0.0, 0.0)))
+        res["extract_native_ms"], got = host_ms(
+            lambda: native.extract_segments(occ >= 0.5), 3)
+        check(len(got) == len(segs_grid)
+              and set_of(got) == set_of(segs_grid),
+              f"{name}: rc_extract_segments gives another segment set")
+        res["segments"] = len(got)
+
+        # rc_sector_membership against the NumPy body, the sector
+        # backend's geometry (tile 2 m, 16 sectors)
+        segs = segments.extract_segments(occ_p, track.resolution, org)
+        ts, ns = 2.0, 16
+        nr = int(np.ceil(occ_p.shape[0] * track.resolution / ts))
+        nc = int(np.ceil(occ_p.shape[1] * track.resolution / ts))
+        rt = ts * np.sqrt(2.0) / 2.0 + 2.0 * track.resolution
+        margs = (segs, nr, nc, ns, ts, org[0], org[1], rt, MAX_RANGE + rt,
+                 0.285)
+        with native.numpy_only():
+            res["membership_numpy_ms"], ref = host_ms(
+                lambda: sectors._membership(*margs))
+        res["membership_native_ms"], got = host_ms(
+            lambda: sectors._membership(*margs), 3)
+        differ = int((got != ref).sum())
+        res["membership_entries"] = int(ref.size)
+        res["membership_differing"] = differ
+        log(f"[{name}] membership {ref.shape}: {differ} differing entries; "
+            f"list lengths in all {int(got.sum())} native, {int(ref.sum())} "
+            "NumPy")
+        check(differ == 0, f"{name}: rc_sector_membership differs from the "
+              f"NumPy body in {differ} entries")
+
+        # the two oracles on rays from 64 free poses
+        poses = sample_free_poses(track, ORACLE_POSES,
+                                  np.random.RandomState(1))
+        ang = poses[:, 2:3].astype(np.float64) + orc.beam_angles(64, FOV)
+        xs = np.repeat(poses[:, 0].astype(np.float64), 64)
+        ys = np.repeat(poses[:, 1].astype(np.float64), 64)
+        cts, sts = np.cos(ang).ravel(), np.sin(ang).ravel()
+        res["raycast_numpy_ms"], ref = host_ms(
+            lambda: segments.raycast_segments_numpy(segs, xs, ys, cts, sts,
+                                                    MAX_RANGE))
+        res["raycast_native_ms"], got = host_ms(
+            lambda: native.raycast_segments(segs, xs, ys, cts, sts,
+                                            MAX_RANGE), 3)
+        res["raycast_max_abs_diff"] = float(np.abs(got - ref).max())
+        check(res["raycast_max_abs_diff"] <= 1e-9,
+              f"{name}: rc_raycast_segments off by "
+              f"{res['raycast_max_abs_diff']}")
+        edf_np = track.edf.cpu().numpy()
+        # the Python body on a float64 copy of the EDF: on the float32 grid
+        # NumPy 2 sums a ray's steps as float32 scalars, rc_trace_rays in
+        # double
+        edf64 = edf_np.astype(np.float64)
+        res["trace_python_ms"], ref = host_ms(lambda: np.array([
+            orc.trace_ray(edf64, track.resolution, org, xs[i], ys[i],
+                          cts[i], sts[i], MAX_RANGE, 1e-4, 2000,
+                          bounds_hw=hw) for i in range(len(xs))]))
+        res["trace_native_ms"], got = host_ms(
+            lambda: native.trace_rays(edf_np, hw, track.resolution, org, xs,
+                                      ys, cts, sts, MAX_RANGE, 1e-4, 2000),
+            3)
+        res["trace_rays"] = len(xs)
+        res["trace_max_abs_diff"] = float(np.abs(got - ref).max())
+        check(res["trace_max_abs_diff"] <= 1e-6,
+              f"{name}: rc_trace_rays off by {res['trace_max_abs_diff']}")
+
+        # the entry points a user calls, with either body
+        x, y = float(poses[0, 0]), float(poses[0, 1])
+        for label, fn, counted in (
+                ("build_sim_sectors",
+                 lambda: build_sim(name, backend="sectors", device="cuda"),
+                 ("edt", "sector_membership")),
+                ("add_obstacle",
+                 lambda: add_obstacle(track, x, y, size=0.4), ("edt",))):
+            with native.numpy_only():
+                res[f"{label}_numpy_ms"], ref = host_ms(fn)
+            native.reset_call_counts()
+            res[f"{label}_native_ms"], got = host_ms(fn, 3)
+            used = native.call_counts()
+            check(all(used[k] == 3 for k in counted),
+                  f"{name} {label}: the native bodies did not run ({used})")
+            same = bool(torch.equal(getattr(ref, "track", ref).edf,
+                                    getattr(got, "track", got).edf))
+            if label == "build_sim_sectors":
+                same = same and all(
+                    bool(torch.equal(getattr(ref.segmap, f),
+                                     getattr(got.segmap, f)))
+                    for f in ("table", "meta"))
+            check(same, f"{name} {label}: the bodies' maps differ")
+        log(f"[{name}] {card}; host {host}: native vs NumPy/Python body, "
+            f"host ms: " + ", ".join(
+                f"{k} {res[f'{k}_native_ms']:.2f} vs {res[other]:.2f}"
+                for k, other in (
+                    ("edt", "edt_numpy_ms"),
+                    ("extract", "extract_python_ms"),
+                    ("membership", "membership_numpy_ms"),
+                    ("raycast", "raycast_numpy_ms"),
+                    ("trace", "trace_python_ms"),
+                    ("load_builtin", "load_builtin_numpy_ms"),
+                    ("build_sim_sectors", "build_sim_sectors_numpy_ms"),
+                    ("add_obstacle", "add_obstacle_numpy_ms"))))
+        out[name] = res
+    native.reset_call_counts()
+    return out
+
+
+def examples_phase(card):
+    """21: every demo of examples/torch/ through its main([...]) on the
+    card. Returns {demo: {"seconds", "launches", "result"}}."""
+    import importlib.util
+    import numpy as np
+    import torch
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch")
+    wide = ["--agents", str(AGENTS), "--beams", str(BEAMS)]
+    runs = (
+        ("demo_rollout", [*wide, "--steps", "200"], "dense_sweep"),
+        ("demo_gradients", [], "dense_sweep"),
+        ("demo_mpc", ["--candidates", str(AGENTS), "--beams", str(BEAMS),
+                      "--control-steps", "5"], "dense_sweep"),
+        ("demo_bptt", ["--iters", "10"], "dense_sweep"),
+        ("demo_train", [*wide, "--iters", "8"], "sector_sweep"),
+        ("demo_mapping", ["--iters", "60"], None),
+        ("demo_mapping --fast", [], "sector_sweep"),
+        ("demo_multitrack", wide, "sector_sweep"),
+        # one rank, as torchrun would set it; the demo's own 65536 agents
+        ("demo_multihost", ["--beams", str(BEAMS), "--steps", "5"],
+         "sector_sweep"),
+    )
+    rendezvous = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+                  "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    out = {}
+    for label, argv, kname in runs:
+        name, *flags = label.split()
+        argv = flags + argv
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", os.path.join(root, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if name == "demo_multihost":
+            os.environ.update(rendezvous)
+        log(f"--- {name} {' '.join(argv)}")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        used = {k: v for k, v in counts().items() if v}
+        if name == "demo_multihost":
+            for k in rendezvous:
+                del os.environ[k]
+        log(f"--- {label}: {seconds:.2f} s on {card}; launches {used}")
+        check(not torch.distributed.is_initialized(),
+              f"{label} left its process group open")
+        check(used.get(kname, 0) > 0 if kname else not used,
+              f"{label}: expected launches of {kname}, got {used}")
+        out[label] = {"seconds": seconds, "launches": used, "result": res}
+    r = {k: v["result"] for k, v in out.items()}
+    check(r["demo_gradients"]["xy_err"] < 0.01,
+          f"demo_gradients ends {r['demo_gradients']['xy_err']} m off")
+    check(r["demo_bptt"]["final_loss"] < r["demo_bptt"]["first_loss"],
+          "demo_bptt did not improve its objective")
+    for k in ("demo_train", "demo_mapping"):
+        losses = r[k]["losses"]
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"{k}: the loss does not fall: {losses[0]} -> {losses[-1]}")
+    fast = r["demo_mapping --fast"]
+    check(fast["final_rmse"] < fast["rmse_trace"][0]
+          and fast["native_calls"]["edt"] > 0
+          and fast["native_calls"]["sector_membership"] > 0,
+          f"demo_mapping --fast: {fast}")
+    check(0.0 <= r["demo_rollout"]["crashed"] <= 1.0
+          and r["demo_rollout"]["mean_speed"] > 0
+          and r["demo_mpc"]["control_steps"] >= 1, "demo_rollout / demo_mpc")
+    return out
+
+
 def run():
     import numpy as np
     import torch
     from pyracecarsimulator_tpu_torch import RacecarSimulator, build_sim
+    from pyracecarsimulator_tpu_torch._native import loader as native
     from pyracecarsimulator_tpu_torch.maps import (build_sector_map,
                                                    load_builtin,
                                                    sample_free_poses)
@@ -1239,6 +1530,9 @@ def run():
         log(f"{name}: {info['seconds']:.2f} s\n{info['log']}")
     sass = sass_report()
     rates = card_rates()
+
+    # 20. the native host tier, before any map is loaded
+    native_out = native_phase(card)
     # the unrolled main loop is the cheapest per test
     rates["sass_per_test"] = {k: min(lp["per_test"] for lp in v)
                               for k, v in sass.items()}
@@ -1471,6 +1765,13 @@ def run():
                                          poses_by_map[big])
     log(f"the four ranks of phase 18 launched "
         f"{slice_out['four_ranks']['launches']}")
+    slice_out["native"] = native_out
+    check(sum(native.call_counts().values()) > 0,
+          "phases 3-19 built their maps without the native bodies")
+    log(f"native host calls of phases 3-19: {native.call_counts()}")
+
+    # 21. the demos
+    slice_out["examples"] = examples_phase(card)
 
     # launches of this process, path by path: each path was driven with the
     # counts set to 0 just before it and read just after
@@ -1487,7 +1788,9 @@ def run():
            for backend, res in per_map.items()},
         "multitrack scans": slice_out["multitrack"]["launches"],
         **{f"1 x 1 mesh, {k}": v
-           for k, v in slice_out["mesh_1x1"]["launches"].items()}}
+           for k, v in slice_out["mesh_1x1"]["launches"].items()},
+        **{f"example {k}": v["launches"]
+           for k, v in slice_out["examples"].items()}}
     launches_by_path = {name: {path: c[name] for path, c in by_path.items()
                                if c.get(name)} for name in KERNELS}
     log(f"launches by path: {launches_by_path}")
@@ -1530,7 +1833,9 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     device = run()
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

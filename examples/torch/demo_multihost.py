@@ -29,7 +29,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--agents", type=int, default=65536,
                     help="agents over the whole mesh")
@@ -44,7 +44,7 @@ def main():
                          "--dryrun, the one card all ranks share)")
     ap.add_argument("--dryrun", type=int, default=0, metavar="N",
                     help="spawn N local gloo ranks on a tiny case instead")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import torch
     import pyracecarsimulator_tpu_torch as pt

@@ -23,14 +23,14 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--agents", type=int, default=4096,
                     help="total agents, split across the tracks")
     ap.add_argument("--beams", type=int, default=1080)
     ap.add_argument("--device", default=None,
                     help="'cpu' to run without a card (default: the card)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import torch
     import pyracecarsimulator_tpu_torch as pt

@@ -20,6 +20,8 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 
 def _boundary_edges(occ: np.ndarray):
     """Directed boundary edges (occupied region kept on the LEFT of travel
@@ -200,9 +202,11 @@ class GeneralSegmentMap:
     extent: Tuple[float, float, float, float] = (-1e30, 1e30, -1e30, 1e30)
 
     @classmethod
-    def from_numpy(cls, params, tiles=None, device="cpu", **statics):
+    def from_numpy(cls, params, tiles=None, device=None, **statics):
         """Build from host arrays (for example the JAX map's leaves
-        converted with ``np.asarray``) and the static fields."""
+        converted with ``np.asarray``) and the static fields, on ``device``
+        (``None``: the card, ``config.resolve_device``)."""
+        device = resolve_device(device)
         params = np.array(params, np.float32, order="C")   # own, writable
         if params.ndim != 2 or params.shape[0] != 6:
             raise ValueError(f"params must be (6, K), got {params.shape}")
@@ -246,12 +250,13 @@ def build_general_segment_map(occupancy: np.ndarray, resolution: float,
                               max_range: float = 10.0,
                               tile_size: float = 0.0, k_tile: int = 0,
                               real_hw=None,
-                              device="cpu") -> GeneralSegmentMap:
+                              device=None) -> GeneralSegmentMap:
     """Contour-simplified twin of ``segments.build_segment_map``: the host
-    compile of the JAX package, then the tables on ``device``. With
-    ``tile_size > 0`` each square tile keeps the segments within
-    ``max_range`` + half its diagonal + one cell of its center; tiles are
-    dropped when a tile list is as wide as the full set."""
+    compile of the JAX package, then the tables on ``device`` (``None``:
+    the card). With ``tile_size > 0`` each square tile keeps the segments
+    within ``max_range`` + half its diagonal + one cell of its center;
+    tiles are dropped when a tile list is as wide as the full set."""
+    device = resolve_device(device)
     segs = extract_general_segments(occupancy, resolution, origin_xy,
                                     tol_cells)
     params = pad_general_segments(segs).T

@@ -1,14 +1,17 @@
-"""Euclidean distance transform (Felzenszwalb–Huttenlocher), host NumPy.
+"""Euclidean distance transform (Felzenszwalb–Huttenlocher), on the host.
 
-Counterpart of the NumPy body of ``pyracecarsimulator_tpu/maps/edt.py``.
-The JAX package short-circuits to its native C++ library when that is
-built; the port does not, because loading that library goes through the
-JAX package. The EDT runs once per map load, on the host.
+Counterpart of ``pyracecarsimulator_tpu/maps/edt.py``. The EDT runs once
+per map load and once per obstacle edit, on the host. ``edt`` takes the
+native library's ``rc_edt`` (``_native/loader.py``, built at first use)
+and, on a machine without a C++ compiler, the NumPy body ``edt_numpy``:
+the same two-pass algorithm in float64, a Python loop over the columns.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .._native import loader as _native
 
 _INF = 1e20
 
@@ -67,6 +70,9 @@ def edt_numpy(occupied: np.ndarray) -> np.ndarray:
 
 
 def edt(occupied: np.ndarray, resolution: float = 1.0) -> np.ndarray:
-    """Euclidean distance field in meters."""
+    """Euclidean distance field in meters. Native body first."""
     occupied = np.ascontiguousarray(occupied, dtype=bool)
+    out = _native.edt(occupied)
+    if out is not None:
+        return (out * np.float32(resolution)).astype(np.float32)
     return edt_numpy(occupied) * np.float32(resolution)

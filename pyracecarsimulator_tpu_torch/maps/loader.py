@@ -25,12 +25,9 @@ import torch
 from ..config import resolve_device
 from .edt import edt
 
-# The bundled map assets live in the JAX package's tree; they are read by
-# file path (no import of that package).
-ASSETS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))),
-    "pyracecarsimulator_tpu", "maps", "assets")
+# The bundled maps (levine, berlin) ship inside this package.
+ASSETS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "assets")
 _LANE_ALIGN = 128
 
 
@@ -49,9 +46,11 @@ class TrackMap:
     name: str = "map"
 
     @classmethod
-    def from_numpy(cls, occupancy, edf, device="cpu", **statics):
+    def from_numpy(cls, occupancy, edf, device=None, **statics):
         """Build from host arrays (for example the JAX map's leaves
-        converted with ``np.asarray``) and the static fields."""
+        converted with ``np.asarray``) and the static fields, on ``device``
+        (``None``: the card, ``config.resolve_device``)."""
+        device = resolve_device(device)
         own = lambda a: torch.as_tensor(np.array(a, np.float32, order="C"),
                                         device=device)
         return cls(occupancy=own(occupancy), edf=own(edf), **statics)

@@ -13,9 +13,11 @@ slots (the facade's incremental ``add_obstacle``).
 Left out, because they serve the TPU only: ``table_ck`` and
 ``build_table_ck`` (the chunk-grouped layout of the TPU's fused kernel; the
 Hopper kernel reads the plain ``(L, 4, K)`` table), so ``add_segments`` has
-no ``table_ck`` branch either, and ``StackedSectorMap`` carries none; and
-the native C++ membership call (loading it goes through the JAX package;
-the NumPy body below is the same geometry).
+no ``table_ck`` branch either, and ``StackedSectorMap`` carries none.
+
+``_membership`` takes the native library's ``rc_sector_membership``
+(``_native/loader.py``, built at first use; float64) and, on a machine
+without a C++ compiler, its NumPy body (the same geometry in float32).
 
 ``stack_sector_maps`` stacks several maps' tables into one for multitrack
 serving (``ops/raycast_sectors.scan_poses_sectors_multi``).
@@ -29,6 +31,9 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
+from .._native import loader as _native
 from .segments import extract_segments, _FAR
 
 _SUB = 8  # capacity quantum of each orientation block (JAX layout parity)
@@ -64,9 +69,11 @@ class SectorSegmentMap:
     reach: float = 0.0               # max_range + rt (cull distance)
 
     @classmethod
-    def from_numpy(cls, table, meta, device="cpu", **statics):
+    def from_numpy(cls, table, meta, device=None, **statics):
         """Build from host arrays (for example the JAX map's ``table`` and
-        ``meta`` converted with ``np.asarray``) and the static fields."""
+        ``meta`` converted with ``np.asarray``) and the static fields, on
+        ``device`` (``None``: the card, ``config.resolve_device``)."""
+        device = resolve_device(device)
         table = np.array(table, np.float32, order="C")     # own, writable
         meta = np.array(meta, np.int32, order="C")
         if table.ndim != 3 or table.shape[1] != 4:
@@ -106,8 +113,13 @@ def _membership(segs: np.ndarray, nr: int, nc: int, ns: int,
 
     Vectorized over (tiles, segments) in float32 (the 1e-3 rad safety
     epsilon in ``pad`` dwarfs f32 rounding, so the cover stays
-    conservative).
+    conservative). The native body computes the same geometry in float64,
+    also inside that margin.
     """
+    memb_n = _native.sector_membership(segs, nr, nc, ns, tile_size, ox,
+                                       oy, rt, reach, block_half)
+    if memb_n is not None:
+        return memb_n
     wsec = 2.0 * np.pi / ns
     sec_starts = (np.arange(ns) * wsec).astype(np.float32)
     ax, ay, bx, by = _seg_endpoints(segs)
@@ -210,9 +222,9 @@ def build_sector_map(occupancy: np.ndarray, resolution: float,
                      max_range: float = 10.0, tile_size: float = 2.0,
                      ns: int = 16, block_half: float = 0.285,
                      k_sec: int = 0, kvh=None, headroom: int = 0,
-                     real_hw=None, device="cpu") -> SectorSegmentMap:
+                     real_hw=None, device=None) -> SectorSegmentMap:
     """Compile the occupancy boundary into per-(tile, sector) cull lists
-    on the host and put the tables on ``device``.
+    on the host and put the tables on ``device`` (``None``: the card).
 
     Args as the JAX package's ``build_sector_map``: ``tile_size`` (meters),
     ``ns`` sectors per circle, ``block_half`` the widest beam-block
@@ -220,6 +232,7 @@ def build_sector_map(occupancy: np.ndarray, resolution: float,
     overrides, ``headroom`` extra capacity per orientation, ``real_hw`` the
     unpadded grid shape.
     """
+    device = resolve_device(device)
     segs = extract_segments(occupancy, resolution, origin_xy,
                             occupied_thresh)
     if len(segs) == 0:
@@ -302,10 +315,12 @@ class StackedSectorMap:
     tile_size: float = 0.0
 
     @classmethod
-    def from_numpy(cls, table, meta, offsets, grids, extents, device="cpu",
+    def from_numpy(cls, table, meta, offsets, grids, extents, device=None,
                    **statics):
         """Build from host arrays (for example the JAX stack's leaves
-        converted with ``np.asarray``) and the static fields."""
+        converted with ``np.asarray``) and the static fields, on ``device``
+        (``None``: the card, ``config.resolve_device``)."""
+        device = resolve_device(device)
         table = np.array(table, np.float32, order="C")     # own, writable
         meta = np.array(meta, np.int32, order="C")
         if table.ndim != 3 or table.shape[1] != 4:

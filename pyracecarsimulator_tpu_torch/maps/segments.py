@@ -24,6 +24,8 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 _LANE = 128
 
 # Sentinel plane for padding slots: far away so they never intersect within
@@ -142,9 +144,11 @@ class SegmentMap:
 
     @classmethod
     def from_numpy(cls, params, sweep_meta, tiles=None,
-                   tile_sweep_meta=None, device="cpu", **statics):
+                   tile_sweep_meta=None, device=None, **statics):
         """Build from host arrays (for example the JAX map's leaves
-        converted with ``np.asarray``) and the static fields."""
+        converted with ``np.asarray``) and the static fields, on ``device``
+        (``None``: the card, ``config.resolve_device``)."""
+        device = resolve_device(device)
         params = np.array(params, np.float32, order="C")   # own, writable
         sweep_meta = np.array(sweep_meta, np.int32)
         if params.ndim != 2 or params.shape[0] != 4:
@@ -252,13 +256,15 @@ def build_segment_map(occupancy: np.ndarray, resolution: float,
                       origin_xy=(0.0, 0.0), occupied_thresh: float = 0.5,
                       max_range: float = 10.0, tile_size: float = 0.0,
                       k_tile: int = 0, real_hw=None,
-                      device="cpu") -> SegmentMap:
+                      device=None) -> SegmentMap:
     """Extract the boundary segments, lay them out for the dense sweep and
     (``tile_size > 0``) build per-tile cull lists: each square tile keeps
     the segments within ``max_range`` + half its diagonal + one cell of
     its center. Tiles are dropped when the widest list is as wide as the
-    full set (culling would buy nothing). Puts the tables on ``device``.
+    full set (culling would buy nothing). Puts the tables on ``device``
+    (``None``: the card).
     """
+    device = resolve_device(device)
     segs = extract_segments(occupancy, resolution, origin_xy,
                             occupied_thresh)
     n_vertical = int((segs[:, 3] > 0.5).sum()) if len(segs) else 0

@@ -12,13 +12,14 @@ from ..config import CarParams
 from ..ops.common import beam_angles
 
 
-def ttc_tables(num_beams: int, fov: float, p: CarParams, device="cpu"):
+def ttc_tables(num_beams: int, fov: float, p: CarParams, device=None):
     """Per-beam cos(beam offset) and scanner->footprint-edge distances.
 
     The scanner sits ``scan_distance_to_base_link`` ahead of the rear
     axle; the car rectangle (length x width) is centered on the wheelbase
     midpoint. ``car_distances[i]`` is the exit distance of beam i from
-    inside that rectangle (slab method).
+    inside that rectangle (slab method). The tables land on ``device``
+    (``None``: the card, ``config.resolve_device``).
     """
     offs = beam_angles(num_beams, fov, device)
     rear_overhang = (p.length - p.wheelbase) / 2.0

@@ -20,10 +20,14 @@ import math
 import numpy as np
 import torch
 
+from ..config import resolve_device
 
-def beam_angles(num_beams: int, fov: float, device="cpu") -> torch.Tensor:
+
+def beam_angles(num_beams: int, fov: float, device=None) -> torch.Tensor:
     """(num_beams,) float32 beam offsets in [-fov/2, fov/2], inclusive
-    endpoints."""
+    endpoints, on ``device`` (``None``: the card,
+    ``config.resolve_device``)."""
+    device = resolve_device(device)
     start = np.float32(-fov / 2.0)
     stop = np.float32(fov / 2.0)
     if num_beams == 1:
@@ -37,7 +41,7 @@ def beam_angles(num_beams: int, fov: float, device="cpu") -> torch.Tensor:
     return torch.as_tensor(offs, device=device)
 
 
-def _padded_offsets(num_beams, fov, bb, device="cpu"):
+def _padded_offsets(num_beams, fov, bb, device=None):
     """The (NBLK*bb,) beam-offset row for beam blocks of ``bb``: the last
     offset repeated into the padding beams of the last block (their
     outputs are sliced off)."""

@@ -22,20 +22,26 @@ from __future__ import annotations
 
 import torch
 
+from ..config import resolve_device
+
 from .raycast_grad import raycast_all_diff, raycast_tiled_diff
 from .raycast_segments import scan_poses_segments
 
 
-def sweep_meta_mixed(n_vertical, n_segments, device="cpu"):
+def sweep_meta_mixed(n_vertical, n_segments, device=None):
     """Sweep bounds for the mixed layout (extraction order: verticals, then
-    horizontals, then padding sentinels)."""
+    horizontals, then padding sentinels), on ``device`` (``None``: the
+    card)."""
+    device = resolve_device(device)
     return torch.tensor([n_vertical, n_vertical, n_segments],
                         dtype=torch.int32, device=device)
 
 
-def sweep_meta_split(kv, n_vertical, n_segments, device="cpu"):
+def sweep_meta_split(kv, n_vertical, n_segments, device=None):
     """Sweep bounds for the split layout (vertical block padded to ``kv``):
-    V reals in [0, n_vertical), H reals in [kv, kv + n_h)."""
+    V reals in [0, n_vertical), H reals in [kv, kv + n_h); on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     return torch.tensor([n_vertical, kv, kv + (n_segments - n_vertical)],
                         dtype=torch.int32, device=device)
 

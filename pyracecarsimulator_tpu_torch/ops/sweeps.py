@@ -238,3 +238,9 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
 dense_sweep.launches = 0
 
 LIST_ROUTES = (sector_sweep, sorted_tiles_sweep, grp_sweep, tile_sweep)
+WRAPPERS = LIST_ROUTES + (dense_sweep,)
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: kernel launches so far}`` of every wrapper."""
+    return {w.__name__: w.launches for w in WRAPPERS}

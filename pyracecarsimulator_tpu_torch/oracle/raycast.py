@@ -2,9 +2,9 @@
 
 Copy of ``pyracecarsimulator_tpu/oracle/raycast.py``, so that a machine
 without JAX (the GPU machine of ``chip_smoke.py``) holds the port's EDF
-march to the reference algorithm. One change: ``scan_batch`` always runs
-the per-ray Python loop. The JAX package's version first tries its native
-C++ library, and loading that library goes through the JAX package.
+march to the reference algorithm. ``scan_batch`` takes the port's own
+native library (``_native/loader.trace_rays``, built at first use) and, on
+a machine without a C++ compiler, the per-ray Python loop.
 
 This implements, exactly and readably, the reference scan algorithm from
 SURVEY.md §3.3 (lineage ``ScanSimulator2D::scan`` / ``trace_ray``):
@@ -29,6 +29,8 @@ differences; ``nearest`` is exact reference semantics.
 from __future__ import annotations
 
 import numpy as np
+
+from .._native import loader as _native
 
 
 def beam_angles(num_beams: int, fov: float) -> np.ndarray:
@@ -142,8 +144,9 @@ def scan_batch(edf: np.ndarray, resolution: float, origin_xy, poses,
                num_beams: int = 1080, fov: float = 4.712388980384690,
                max_range: float = 10.0, eps: float = 0.0001,
                max_iters: int = 2000, bounds_hw=None) -> np.ndarray:
-    """Batched noiseless oracle scans by per-ray ``trace_ray``. poses:
-    (N, 3). Returns (N, num_beams).
+    """Batched noiseless oracle scans: the native library's
+    ``rc_trace_rays`` where it is built, else per-ray ``trace_ray``.
+    poses: (N, 3). Returns (N, num_beams).
     """
     poses = np.atleast_2d(np.asarray(poses, np.float64))
     offs = beam_angles(num_beams, fov)
@@ -152,6 +155,10 @@ def scan_batch(edf: np.ndarray, resolution: float, origin_xy, poses,
     ys = np.broadcast_to(poses[:, 1:2], ang.shape).ravel()
     cts, sts = np.cos(ang).ravel(), np.sin(ang).ravel()
     bounds = bounds_hw if bounds_hw is not None else edf.shape
+    out = _native.trace_rays(edf, bounds, resolution, origin_xy, xs, ys,
+                             cts, sts, max_range, eps, max_iters)
+    if out is not None:
+        return out.reshape(len(poses), num_beams).astype(np.float32)
     flat = np.array([trace_ray(edf, resolution, origin_xy, xs[i], ys[i],
                                cts[i], sts[i], max_range, eps, max_iters,
                                bounds_hw=bounds)

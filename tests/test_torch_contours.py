@@ -94,7 +94,7 @@ def test_general_map_equals_jax(tile_size, max_range):
     kw = dict(tol_cells=1.0, max_range=max_range, tile_size=tile_size,
               real_hw=occ.shape)
     jm = jc.build_general_segment_map(occ, RES, org, **kw)
-    pm = pc.build_general_segment_map(occ, RES, org, **kw)
+    pm = pc.build_general_segment_map(occ, RES, org, **kw, device="cpu")
     np.testing.assert_array_equal(pm.params.numpy(), np.asarray(jm.params))
     assert (pm.tiles is None) == (jm.tiles is None) == (tile_size == 0.0)
     if jm.tiles is not None:
@@ -105,7 +105,8 @@ def test_general_map_equals_jax(tile_size, max_range):
     assert pm.params.dtype == torch.float32 and pm.device.type == "cpu"
     back = pc.GeneralSegmentMap.from_numpy(
         np.asarray(jm.params), None if jm.tiles is None
-        else np.asarray(jm.tiles), **{f: getattr(jm, f) for f in STATICS})
+        else np.asarray(jm.tiles), **{f: getattr(jm, f) for f in STATICS},
+        device="cpu")
     assert torch.equal(back.params, pm.params)
 
 
@@ -115,7 +116,7 @@ def test_general_scan_values_and_grads_match_jax(tiled):
     kw = dict(tol_cells=1.0, max_range=1.5,
               tile_size=1.0 if tiled else 0.0, real_hw=occ.shape)
     jm = jc.build_general_segment_map(occ, RES, org, **kw)
-    pm = pc.build_general_segment_map(occ, RES, org, **kw)
+    pm = pc.build_general_segment_map(occ, RES, org, **kw, device="cpu")
     assert (pm.tiles is not None) == tiled
     poses = _free_poses(occ, org, 12, 1)
     w = np.random.RandomState(2).randn(12, 96).astype(np.float32)
@@ -137,7 +138,7 @@ def test_tiled_equals_full_and_numpy_oracle():
     occ, org = disks()
     pm = pc.build_general_segment_map(occ, RES, org, tol_cells=1.0,
                                       max_range=1.5, tile_size=1.0,
-                                      real_hw=occ.shape)
+                                      real_hw=occ.shape, device="cpu")
     poses = T(_free_poses(occ, org, 16, 3))
     rt = pg.scan_poses_general(pm, poses, num_beams=32, max_range=1.5)
     rf = pg.scan_poses_general(pm, poses, num_beams=32, max_range=1.5,
@@ -178,7 +179,7 @@ def test_simplified_step_matches_jax(small_track):
     pt = TrackMap.from_numpy(np.asarray(t.occupancy), np.asarray(t.edf),
                              resolution=t.resolution, origin_x=t.origin_x,
                              origin_y=t.origin_y, height=t.height,
-                             width=t.width)
+                             width=t.width, device="cpu")
     jb = jsim.build_sim(t, scan=jsim.ScanParams(num_beams=64),
                         backend="segments_simplified")
     pb = psim.build_sim(pt, scan=P.ScanParams(num_beams=64),

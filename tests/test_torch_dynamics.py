@@ -136,10 +136,10 @@ def test_steps_match_jax(rng, model, mode):
 def test_ttc_tables_match_jax():
     for nb in (1080, 64):
         jc, jd = jttc.ttc_tables(nb, 4.712388980384690, CAR_J)
-        pc, pd = pttc.ttc_tables(nb, 4.712388980384690, CAR_P)
+        pc, pd = pttc.ttc_tables(nb, 4.712388980384690, CAR_P, device="cpu")
         np.testing.assert_allclose(pc.numpy(), np.asarray(jc), **TOL)
         np.testing.assert_allclose(pd.numpy(), np.asarray(jd), **TOL)
-    offs = beam_angles(1080, 4.712388980384690).numpy()
+    offs = beam_angles(1080, 4.712388980384690, device="cpu").numpy()
     assert offs.dtype == np.float32
     assert offs[0] == np.float32(-4.712388980384690 / 2)
     assert offs[-1] == np.float32(4.712388980384690 / 2)

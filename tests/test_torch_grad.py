@@ -77,7 +77,8 @@ def maps(small_track):
     out = {}
     for name, (occ, org, kw) in cases.items():
         out[name] = (jseg.build_segment_map(occ, 0.05, org, **kw),
-                     pseg.build_segment_map(occ, 0.05, org, **kw))
+                     pseg.build_segment_map(occ, 0.05, org, **kw,
+                                            device="cpu"))
     assert out["mixed"][1].kv == 0 and out["split"][1].kv > 0
     assert out["tiles_mixed"][1].kv_tile == 0
     assert out["tiles_split"][1].kv_tile > 0
@@ -236,7 +237,8 @@ def test_sector_vjp_matches_jax():
         np.asarray(jmap.table), np.asarray(jmap.meta),
         **{f: getattr(jmap, f) for f in (
             "n_segments", "ns", "kv_sec", "block_half", "tile_size",
-            "tiles_shape", "tile_origin", "extent", "rt", "reach")})
+            "tiles_shape", "tile_origin", "extent", "rt", "reach")},
+        device="cpu")
     rng = np.random.RandomState(4)
     a_n, bb = 6, 64
     x0 = rng.uniform(-4.5, 4.5, a_n).astype(np.float32)

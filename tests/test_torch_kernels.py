@@ -46,7 +46,7 @@ def _corridor(ns, tile_size):
     track = build_track_map(occ, 0.05, (-4.8, -4.8), device="cpu")
     return track, build_sector_map(
         track.occupancy.numpy(), 0.05, (-4.8, -4.8), tile_size=tile_size,
-        ns=ns, real_hw=(192, 192))
+        ns=ns, real_hw=(192, 192), device="cpu")
 
 
 @pytest.mark.parametrize("ns, tile_size, num_beams",
@@ -92,7 +92,8 @@ def test_scan_on_card_matches_cpu_scan(cuda):
                                    rng.uniform(-np.pi, np.pi, 64)], -1),
                          dtype=torch.float32)
     bb = rs.sector_block_width(smap, 1080, FOV)
-    ct, st = fan_cos_sin(poses[:, 2], rs._padded_offsets(1080, FOV, bb))
+    ct, st = fan_cos_sin(poses[:, 2], rs._padded_offsets(1080, FOV, bb,
+                                                         "cpu"))
     r_cpu = rs._scan_chunk(smap, poses, ct, st, 1080, 10.0, bb)
     r_dev = rs._scan_chunk(smap.to(cuda), poses.to(cuda), ct.to(cuda),
                            st.to(cuda), 1080, 10.0, bb)
@@ -194,14 +195,14 @@ def test_tile_sweep_and_scans_match_plain(cuda, seed, n_blocks, kw):
     dense and tiled scans on the card against the CPU scans (same fan),
     values and pose gradients."""
     segmap = build_segment_map(_blobby(seed, n_blocks), 0.05, (-5.5, -5.5),
-                               **kw)
+                               **kw, device="cpu")
     assert segmap.tiles is not None
     rng = np.random.RandomState(seed)
     poses = torch.tensor(np.stack([rng.uniform(-5, 5, 40),
                                    rng.uniform(-5, 5, 40),
                                    rng.uniform(-np.pi, np.pi, 40)], -1),
                          dtype=torch.float32)
-    offs = rs._padded_offsets(1080, FOV, 128)
+    offs = rs._padded_offsets(1080, FOV, 128, "cpu")
     ct, st = fan_cos_sin(poses[:, 2], offs)
     dev = segmap.to(cuda)
     p_d, ct_d, st_d = poses.to(cuda), ct.to(cuda), st.to(cuda)

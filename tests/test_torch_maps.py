@@ -1,8 +1,10 @@
 """PyTorch port of the host map compile against the JAX package.
 
-Every comparison here is exact: the map compile is host NumPy on both
-sides (the port's sector membership is the JAX package's NumPy body, which
-equals its native library on these maps, tests/test_native.py).
+Every comparison here is exact: both packages compile maps on the host,
+each through its own native library where that is built (the EDT is the
+same arithmetic in both bodies; the float64 native sector membership
+equals the float32 NumPy body on these maps, tests/test_native.py and
+tests/test_torch_native.py).
 """
 
 import os
@@ -63,7 +65,7 @@ def test_build_sector_map_exact(small_track, kw):
     args = (_occ(t), t.resolution, (t.origin_x, t.origin_y))
     hw = dict(real_hw=(t.height, t.width))
     jmap = jax_build_sector_map(*args, **hw, **kw)
-    pmap = build_sector_map(*args, **hw, **kw)
+    pmap = build_sector_map(*args, **hw, **kw, device="cpu")
     assert pmap.table.dtype == torch.float32 and pmap.meta.dtype == torch.int32
     np.testing.assert_array_equal(pmap.table.numpy(), np.asarray(jmap.table))
     np.testing.assert_array_equal(pmap.meta.numpy(), np.asarray(jmap.meta))
@@ -83,13 +85,13 @@ def test_sector_map_from_numpy_roundtrip(small_track):
                                 (t.origin_x, t.origin_y))
     pmap = SectorSegmentMap.from_numpy(
         np.asarray(jmap.table), np.asarray(jmap.meta),
-        **{f: getattr(jmap, f) for f in STATICS})
+        **{f: getattr(jmap, f) for f in STATICS}, device="cpu")
     np.testing.assert_array_equal(pmap.table.numpy(), np.asarray(jmap.table))
     assert pmap.to("cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="meta"):
         SectorSegmentMap.from_numpy(np.asarray(jmap.table),
                                     np.asarray(jmap.meta)[:-1],
-                                    n_segments=1)
+                                    n_segments=1, device="cpu")
 
 
 def test_load_builtin_matches_jax(levine_pair):
@@ -139,8 +141,86 @@ def test_track_map_from_numpy_and_missing_asset(small_track):
     pt = ploader.TrackMap.from_numpy(
         np.asarray(t.occupancy), np.asarray(t.edf), resolution=t.resolution,
         origin_x=t.origin_x, origin_y=t.origin_y, height=t.height,
-        width=t.width, name=t.name)
+        width=t.width, name=t.name, device="cpu")
     np.testing.assert_array_equal(pt.to("cpu").edf.numpy(),
                                   np.asarray(t.edf))
     with pytest.raises(FileNotFoundError):
         ploader.load_builtin("no_such_track", device="cpu")
+
+
+def test_assets_dir_lies_inside_the_port():
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(
+        ploader.__file__)))
+    assert os.path.basename(pkg) == "pyracecarsimulator_tpu_torch"
+    assert os.path.realpath(ploader.ASSETS_DIR) == os.path.realpath(
+        os.path.join(pkg, "maps", "assets"))
+
+
+@pytest.mark.parametrize("asset", ["levine.pgm", "levine.yaml",
+                                   "berlin.pgm", "berlin.yaml"])
+def test_bundled_asset_equals_the_jax_packages(asset):
+    jdir = os.path.join(os.path.dirname(os.path.abspath(jloader.__file__)),
+                        "assets")
+    with open(os.path.join(ploader.ASSETS_DIR, asset), "rb") as f, \
+            open(os.path.join(jdir, asset), "rb") as g:
+        assert f.read() == g.read()
+
+
+def _builders_without_device():
+    from pyracecarsimulator_tpu_torch.maps import contours, sectors, segments
+    from pyracecarsimulator_tpu_torch.models.ttc import ttc_tables
+    from pyracecarsimulator_tpu_torch.ops import common
+    from pyracecarsimulator_tpu_torch.ops.raycast_pallas import (
+        sweep_meta_mixed, sweep_meta_split)
+    from pyracecarsimulator_tpu_torch.config import CarParams
+    occ = np.zeros((16, 16), np.float32)
+    occ[4:8, 4:8] = 1.0
+    table, meta = np.zeros((2, 4, 8), np.float32), np.zeros((2, 3), np.int32)
+    return {
+        "SegmentMap.from_numpy": lambda: segments.SegmentMap.from_numpy(
+            np.zeros((4, 128), np.float32), np.zeros(3, np.int32)),
+        "build_segment_map": lambda: segments.build_segment_map(occ, 0.05),
+        "SectorSegmentMap.from_numpy":
+            lambda: sectors.SectorSegmentMap.from_numpy(table, meta,
+                                                        n_segments=1),
+        "build_sector_map": lambda: sectors.build_sector_map(occ, 0.05),
+        "StackedSectorMap.from_numpy":
+            lambda: sectors.StackedSectorMap.from_numpy(
+                table, meta, [0], [[1, 1, 0, 0]], [[0, 1, 0, 1]]),
+        "GeneralSegmentMap.from_numpy":
+            lambda: contours.GeneralSegmentMap.from_numpy(
+                np.zeros((6, 128), np.float32)),
+        "build_general_segment_map":
+            lambda: contours.build_general_segment_map(occ, 0.05),
+        "TrackMap.from_numpy": lambda: ploader.TrackMap.from_numpy(
+            occ, occ, resolution=0.05, origin_x=0.0, origin_y=0.0,
+            height=16, width=16),
+        "ttc_tables": lambda: ttc_tables(90, 4.7, CarParams()),
+        "beam_angles": lambda: common.beam_angles(90, 4.7),
+        "_padded_offsets": lambda: common._padded_offsets(90, 4.7, 128),
+        "sweep_meta_mixed": lambda: sweep_meta_mixed(41, 82),
+        "sweep_meta_split": lambda: sweep_meta_split(48, 41, 82),
+    }
+
+
+@pytest.mark.parametrize("builder", [
+    "SegmentMap.from_numpy", "build_segment_map",
+    "SectorSegmentMap.from_numpy", "build_sector_map",
+    "StackedSectorMap.from_numpy", "GeneralSegmentMap.from_numpy",
+    "build_general_segment_map", "TrackMap.from_numpy", "ttc_tables",
+    "beam_angles", "_padded_offsets", "sweep_meta_mixed",
+    "sweep_meta_split"])
+def test_builder_without_a_device_needs_the_card(builder):
+    """No builder falls back to the CPU in silence: without ``device`` each
+    builds on the card, and on a machine without one raises the error that
+    names ``device="cpu"``."""
+    call = _builders_without_device()[builder]
+    if torch.cuda.is_available():
+        out = call()
+        leaf = out if torch.is_tensor(out) else (
+            out[0] if isinstance(out, tuple) else next(
+                v for v in vars(out).values() if torch.is_tensor(v)))
+        assert leaf.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()

@@ -61,7 +61,7 @@ def world(small_track):
               (t.origin_x, t.origin_y))]
     jmaps = [jsec.build_sector_map(occ, res, org, **BUILD)
              for occ, res, org in grids]
-    pmaps = [psec.build_sector_map(occ, res, org, **BUILD)
+    pmaps = [psec.build_sector_map(occ, res, org, **BUILD, device="cpu")
              for occ, res, org in grids]
     rng = np.random.RandomState(2)
     poses = np.concatenate([_free_poses(*g, 12, rng) for g in grids])
@@ -120,7 +120,8 @@ def test_stack_rejects_mixed_settings(world):
     _, pmaps, _, _, _, _ = world
     occ, res, org = _blobby()
     other = psec.build_sector_map(occ, res, org, max_range=MAXR,
-                                  tile_size=2.0, ns=8, block_half=0.62)
+                                  tile_size=2.0, ns=8, block_half=0.62,
+                                  device="cpu")
     with pytest.raises(ValueError, match="share"):
         psec.stack_sector_maps([pmaps[0], other])
 
@@ -131,13 +132,14 @@ def test_stack_from_numpy_and_to(world):
         *(np.asarray(getattr(jstack, f)) for f in (
             "table", "meta", "offsets", "grids", "extents")),
         ns=jstack.ns, kv_sec=jstack.kv_sec, block_half=jstack.block_half,
-        tile_size=jstack.tile_size)
+        tile_size=jstack.tile_size, device="cpu")
     assert torch.equal(again.table, pstack.table)
     assert torch.equal(again.meta, pstack.meta)
     assert again.to("cpu").grids.dtype == torch.float32
     with pytest.raises(ValueError, match="table must be"):
         psec.StackedSectorMap.from_numpy(np.zeros((3, 5)), np.zeros((3, 3)),
-                                         [0], [[1, 1, 0, 0]], [[0, 1, 0, 1]])
+                                         [0], [[1, 1, 0, 0]], [[0, 1, 0, 1]],
+                                         device="cpu")
 
 
 @pytest.mark.parametrize("bb", [64, 128])

@@ -36,7 +36,7 @@ def _port_track(t):
     return ploader.TrackMap.from_numpy(
         np.asarray(t.occupancy), np.asarray(t.edf), resolution=t.resolution,
         origin_x=t.origin_x, origin_y=t.origin_y, height=t.height,
-        width=t.width, name=t.name)
+        width=t.width, name=t.name, device="cpu")
 
 
 def _open_cell(t):
@@ -79,7 +79,8 @@ def test_add_segments_equals_jax_and_full_rebuild(small_track):
               real_hw=(t.height, t.width))
     org = (t.origin_x, t.origin_y)
     j0 = jsec.build_sector_map(occ, t.resolution, org, headroom=8, **kw)
-    p0 = psec.build_sector_map(occ, t.resolution, org, headroom=8, **kw)
+    p0 = psec.build_sector_map(occ, t.resolution, org, headroom=8, **kw,
+                               device="cpu")
     table0 = p0.table.clone()
     box = P.RacecarSimulator(
         _port_track(t), scan_params=P.ScanParams(num_beams=64),
@@ -99,7 +100,7 @@ def test_add_segments_equals_jax_and_full_rebuild(small_track):
     occ2 = ploader.add_obstacle(_port_track(t), x, y, 0.4)
     full = psec.build_sector_map(
         occ2.occupancy.numpy()[: t.height, : t.width], t.resolution, org,
-        **kw)
+        **kw, device="cpu")
     rng = np.random.RandomState(5)
     e = np.asarray(t.edf)[: t.height, : t.width]
     ys, xs = np.where(e > 0.8)
@@ -113,7 +114,8 @@ def test_add_segments_equals_jax_and_full_rebuild(small_track):
     assert torch.equal(scan(inc), scan(full))
     with pytest.raises(ValueError, match="headroom"):
         psec.add_segments(psec.build_sector_map(
-            occ, t.resolution, org, **kw), np.repeat(box, 40, axis=0))
+            occ, t.resolution, org, **kw,
+            device="cpu"), np.repeat(box, 40, axis=0))
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

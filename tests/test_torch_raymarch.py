@@ -47,7 +47,7 @@ def _port_track(track):
         np.asarray(track.occupancy), np.asarray(track.edf),
         resolution=track.resolution, origin_x=track.origin_x,
         origin_y=track.origin_y, height=track.height, width=track.width,
-        name=track.name)
+        name=track.name, device="cpu")
 
 
 def _free_poses(track, n, seed, margin=0.5):
@@ -88,16 +88,25 @@ def test_oracle_copy_equals_jax_oracle(small_track, interp):
 
 
 def test_oracle_scan_batch_equals_jax_scans(small_track):
-    """The port's scan_batch (always the Python loop) against the JAX
-    oracle's per-pose ``scan``."""
+    """The port's scan_batch against the JAX oracle's per-pose ``scan``:
+    its Python loop bit for bit, its native body (which sums the range in
+    float64 where the loop sums NumPy float32 scalars) within 1e-5 m, the
+    bound of ``tests/test_native.py``."""
+    from pyracecarsimulator_tpu_torch._native import loader as pnat
     edf = np.asarray(small_track.edf)
     org = (small_track.origin_x, small_track.origin_y)
     poses = _free_poses(small_track, 3, 4)
-    got = porc.scan_batch(edf, small_track.resolution, org, poses,
-                          num_beams=60, max_iters=1000)
     ref = np.stack([jorc.scan(edf, small_track.resolution, org, p,
                               num_beams=60, max_iters=1000) for p in poses])
+    with pnat.numpy_only():
+        got = porc.scan_batch(edf, small_track.resolution, org, poses,
+                              num_beams=60, max_iters=1000)
     np.testing.assert_array_equal(got, ref)
+    before = pnat.trace_rays.calls
+    got_native = porc.scan_batch(edf, small_track.resolution, org, poses,
+                                 num_beams=60, max_iters=1000)
+    assert pnat.trace_rays.calls == before + pnat.available()
+    np.testing.assert_allclose(got_native, ref, atol=1e-5)
 
 
 @pytest.mark.parametrize("theta_discretization", [0, 2000])

@@ -209,7 +209,7 @@ def test_map_grad_sector_scan(small_track):
     pt = TrackMap.from_numpy(np.asarray(t.occupancy), np.asarray(t.edf),
                              resolution=t.resolution, origin_x=t.origin_x,
                              origin_y=t.origin_y, height=t.height,
-                             width=t.width)
+                             width=t.width, device="cpu")
     jb = jsim.build_sim(t, scan=jsim.ScanParams(num_beams=128,
                                                 max_range=6.0),
                         backend="sectors")

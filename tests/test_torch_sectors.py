@@ -71,7 +71,7 @@ def blobby_bigk():
 def _port_map(jmap):
     return SectorSegmentMap.from_numpy(
         np.asarray(jmap.table), np.asarray(jmap.meta),
-        **{f: getattr(jmap, f) for f in STATICS})
+        **{f: getattr(jmap, f) for f in STATICS}, device="cpu")
 
 
 def _jax_rows(jmap, poses, num_beams):

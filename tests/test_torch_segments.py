@@ -103,7 +103,7 @@ def test_build_segment_map_exact(small_track, name, kw, layout,
     args = (occ, 0.05, org)
     hw = dict(real_hw=occ.shape)
     jmap = jseg.build_segment_map(*args, **hw, **kw)
-    pmap = pseg.build_segment_map(*args, **hw, **kw)
+    pmap = pseg.build_segment_map(*args, **hw, **kw, device="cpu")
     _assert_maps_equal(pmap, jmap)
     assert (pmap.kv > 0) == (layout == "split")
     if tile_layout is None:
@@ -115,9 +115,10 @@ def test_build_segment_map_exact(small_track, name, kw, layout,
 def test_k_tile_overflow_raises_like_jax(small_track):
     occ, org = _occ(small_track, "dense")
     kw = dict(tile_size=2.0, max_range=4.0, k_tile=768)
-    for build in (jseg.build_segment_map, pseg.build_segment_map):
+    for build, dev in ((jseg.build_segment_map, {}),
+                       (pseg.build_segment_map, dict(device="cpu"))):
         with pytest.raises(ValueError, match="k_tile too small"):
-            build(occ, 0.05, org, **kw)
+            build(occ, 0.05, org, **kw, **dev)
 
 
 @pytest.mark.parametrize("name, tile_size, tiled, split", [
@@ -137,7 +138,7 @@ def test_builtin_maps_exact(name, tile_size, tiled, split):
     jmap = jseg.build_segment_map(np.asarray(jt.occupancy), jt.resolution,
                                   org, **kw)
     pmap = pseg.build_segment_map(pt.occupancy.numpy(), pt.resolution, org,
-                                  **kw)
+                                  **kw, device="cpu")
     _assert_maps_equal(pmap, jmap)
     assert (pmap.tiles is not None) == tiled and (pmap.kv > 0) == split
 
@@ -149,14 +150,14 @@ def test_from_numpy_roundtrip(small_track):
     pmap = pseg.SegmentMap.from_numpy(
         np.asarray(jmap.params), np.asarray(jmap.sweep_meta),
         np.asarray(jmap.tiles), np.asarray(jmap.tile_sweep_meta),
-        **{f: getattr(jmap, f) for f in STATICS})
+        **{f: getattr(jmap, f) for f in STATICS}, device="cpu")
     _assert_maps_equal(pmap, jmap)
     moved = pmap.to("cpu")
     assert moved.device.type == "cpu" and moved.kv == pmap.kv
     with pytest.raises(ValueError, match="tiles and tile_sweep_meta"):
         pseg.SegmentMap.from_numpy(np.asarray(jmap.params),
                                    np.asarray(jmap.sweep_meta),
-                                   tiles=np.asarray(jmap.tiles))
+                                   tiles=np.asarray(jmap.tiles), device="cpu")
 
 
 def test_numpy_oracle_exact(small_track, rng):
@@ -205,7 +206,7 @@ def test_dense_plain_matches_pallas_kernel(small_track, rng, name):
     300 rays (mixed layout on small_track, split on blobby)."""
     occ, org = _occ(small_track, name)
     jmap = jseg.build_segment_map(occ, 0.05, org)
-    pmap = pseg.build_segment_map(occ, 0.05, org)
+    pmap = pseg.build_segment_map(occ, 0.05, org, device="cpu")
     x, y, ct, st = _rays(rng, 300)
     ic, is_ = (np.asarray(v) for v in jax_ray_invs(ct, st))
     pad = lambda a: jnp.asarray(np.pad(a, (0, 4096 - 300)).reshape(32, 128))
@@ -228,7 +229,7 @@ def _tile_case(small_track, name):
     kw = (dict(tile_size=1.0, max_range=2.0) if name == "blobby"
           else dict(tile_size=2.0, max_range=4.0))
     jmap = jseg.build_segment_map(occ, 0.05, org, **kw)
-    pmap = pseg.build_segment_map(occ, 0.05, org, **kw)
+    pmap = pseg.build_segment_map(occ, 0.05, org, **kw, device="cpu")
     return jmap, pmap, kw["max_range"]
 
 
@@ -297,7 +298,8 @@ def test_scans_with_jax_fan_are_bit_identical(small_track, rng, name,
     if name == "small":
         occ, org = _occ(small_track, "small")
         jmap = jseg.build_segment_map(occ, 0.05, org, real_hw=occ.shape)
-        pmap = pseg.build_segment_map(occ, 0.05, org, real_hw=occ.shape)
+        pmap = pseg.build_segment_map(occ, 0.05, org, real_hw=occ.shape,
+                                      device="cpu")
         maxr = 10.0
     else:
         jmap, pmap, maxr = _tile_case(small_track, name.split("_")[0])
@@ -334,10 +336,11 @@ def test_untiled_scan_of_a_tiled_map(small_track, rng):
 
 
 def test_sweep_meta_helpers_match_jax():
-    np.testing.assert_array_equal(prp.sweep_meta_mixed(41, 82).numpy(),
+    np.testing.assert_array_equal(prp.sweep_meta_mixed(41, 82,
+                                                       device="cpu").numpy(),
                                   np.asarray(jrp.sweep_meta_mixed(41, 82)))
     np.testing.assert_array_equal(
-        prp.sweep_meta_split(2304, 2221, 4442).numpy(),
+        prp.sweep_meta_split(2304, 2221, 4442, device="cpu").numpy(),
         np.asarray(jrp.sweep_meta_split(2304, 2221, 4442)))
 
 
@@ -346,7 +349,7 @@ def test_cpu_tensors_take_the_plain_sweeps(small_track, rng):
     the kernels' launch counters do not move."""
     occ, org = _occ(small_track, "blobby")
     pmap = pseg.build_segment_map(occ, 0.05, org, tile_size=1.0,
-                                  max_range=2.0)
+                                  max_range=2.0, device="cpu")
     x, y, ct, st = map(_t, _rays(rng, 200))
     ic, is_ = _ray_invs(ct, st)
     args = (pmap.params, pmap.sweep_meta, x, y, ct, st, ic, is_)

@@ -302,7 +302,7 @@ def test_slabs_and_wedges_of_a_mesh():
     assert s.batch_shape == (4,) and s.y.tolist() == [5.0, 6.0, 7.0, 8.0]
     with pytest.raises(ValueError, match="not divisible"):
         pmesh.shard_agents(m, torch.arange(7.0))
-    full = P.ops.beam_angles(128, 4.0)
+    full = P.ops.beam_angles(128, 4.0, device="cpu")
     offs = pmesh._wedge_offsets(m, 128, 4.0, 14, "cpu")
     assert offs.shape == (70,)
     assert torch.equal(offs[:64], full[64:])

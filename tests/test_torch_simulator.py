@@ -41,7 +41,7 @@ def _port_track(track):
         np.asarray(track.occupancy), np.asarray(track.edf),
         resolution=track.resolution, origin_x=track.origin_x,
         origin_y=track.origin_y, height=track.height, width=track.width,
-        name=track.name)
+        name=track.name, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +172,7 @@ def test_map_swap_through_map_cell(bundles, small_track):
     other = psim.build_sim(TrackMap.from_numpy(
         occ, np.asarray(small_track.edf), resolution=small_track.resolution,
         origin_x=small_track.origin_x, origin_y=small_track.origin_y,
-        height=small_track.height, width=small_track.width),
+        height=small_track.height, width=small_track.width, device="cpu"),
         backend="sectors", device="cpu")
     step.map_cell["map"] = other.segmap
     after = step(ps, act).ranges

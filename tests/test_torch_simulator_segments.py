@@ -35,7 +35,7 @@ def _port_track(track):
         np.asarray(track.occupancy), np.asarray(track.edf),
         resolution=track.resolution, origin_x=track.origin_x,
         origin_y=track.origin_y, height=track.height, width=track.width,
-        name=track.name)
+        name=track.name, device="cpu")
 
 
 def _initial(track, n, seed):
