@@ -92,7 +92,18 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     where that is larger), steps and iterations cut: losses finite and
     falling where a demo optimises, ``demo_gradients`` within 0.01 m of
     the true pose, launch counters read around each (a demo that is meant
-    to run a kernel and launched none fails the run).
+    to run a kernel and launched none fails the run);
+22. ``scripts/parity_report_torch.py`` through its ``main([...])`` on the
+    card, 16 poses per map: every exact-geometry row agrees with the
+    float64 oracle on >= 99.9% of its beams within 1e-4 m, the "edf" march
+    with the march oracle on >= 99% within 1e-3 m, both gradient rows lie
+    under 1e-5, and every row that names a kernel launched its wrapper;
+    the theta-bucket quantization on the card equals the CPU's bit for bit
+    on the full fan;
+23. ``bench_torch.py`` through its ``main([...])`` at full width with its
+    defaults: no stage failed, the four parity gates are 0.0, every kernel
+    stage launched its kernel; its rates are logged with the card's name
+    and power limit.
 
 Every kernel's time stands beside its bound: the larger of its
 instruction slots (``OPS_PER_TEST`` per ray-segment test, counted from the
@@ -158,14 +169,6 @@ def log(*a):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def card_rates():
@@ -1503,6 +1506,99 @@ def examples_phase(card):
     return out
 
 
+def load_tool(rel):
+    """A script of the checkout as a module (its ``main`` is called in
+    this process)."""
+    import importlib.util
+    root = os.path.dirname(os.path.abspath(__file__))
+    name = os.path.splitext(os.path.basename(rel))[0]
+    spec = importlib.util.spec_from_file_location(f"tool_{name}",
+                                                  os.path.join(root, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parity_phase(card, poses):
+    """22: the parity report on the card. Returns the report and the
+    launches it caused."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops.common import (beam_angles,
+                                                         quantize_angles)
+    tool = load_tool("scripts/parity_report_torch.py")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tool.main(["--poses", "16"])
+    torch.cuda.synchronize()
+    used = {k: v for k, v in counts().items() if v}
+    log(f"--- parity report: {time.perf_counter() - t0:.1f} s on {card}; "
+        f"launches {used}")
+    check(out["device"] == card, f"the report ran on {out['device']}")
+    check(sorted({r["map"] for r in out["rows"]}) == sorted(MAPS)
+          and len(out["rows"]) == 11 * len(MAPS)
+          and len(out["grads"]) == 2 * len(MAPS), "the report's rows")
+    for r in out["rows"] + out["grads"]:
+        label = f"parity report, {r['map']} {r.get('backend', r.get('check'))}"
+        if r["kernel"]:
+            check(r["launches"].get(r["kernel"], 0) >= 1,
+                  f"{label}: {r['kernel']} was not launched "
+                  f"({r['launches']})")
+        if "check" in r:
+            check(r["max_abs_diff"] <= 1e-5,
+                  f"{label}: max |d| {r['max_abs_diff']}")
+        elif r["kernel"]:
+            check(r["share_within_1e-4"] >= 0.999,
+                  f"{label}: {r['share_within_1e-4']} of the beams within "
+                  "1e-4 m of the geometry oracle")
+        elif r["backend"] == "edf march":
+            check(r["share_within_1e-3"] >= 0.99,
+                  f"{label}: {r['share_within_1e-3']} of the beams within "
+                  "1e-3 m of the march oracle")
+    # the theta-bucket table on the card against the CPU, the full fan
+    ang = (torch.as_tensor(poses[:, 2], device="cuda")[:, None]
+           + beam_angles(BEAMS, FOV, "cuda")[None, :])
+    same = bool(torch.equal(quantize_angles(ang, 2000).cpu(),
+                            quantize_angles(ang.cpu(), 2000)))
+    log(f"quantize_angles on {tuple(ang.shape)} angles, cuda vs CPU: "
+        f"bit-identical = {same}")
+    check(same, "quantize_angles differs between the card and the CPU")
+    return {"rows": out["rows"], "grads": out["grads"], "launches": used}
+
+
+def bench_phase(card):
+    """23: bench_torch.py at full width with its defaults. Returns its
+    record and the launches it caused."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    tool = load_tool("bench_torch.py")
+    out_dir = os.environ.get("CHIP_SMOKE_OUT") or _kernels.BUILD_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    reset_counts()
+    out = tool.main(["--detail",
+                     os.path.join(out_dir, "BENCH_TORCH_DETAIL.json")])
+    torch.cuda.synchronize()
+    used = {k: v for k, v in counts().items() if v}
+    log(f"--- bench_torch: {out['seconds']:.1f} s on {card}; launches "
+        f"{used}")
+    check(out["device"] == card and out["agents"] == AGENTS
+          and out["beams"] == BEAMS, "bench_torch's device or width")
+    check(not out["failed"], f"bench_torch: failed stages {out['failed']}")
+    check(len(out["gates"]) == 4
+          and all(v == 0.0 for v in out["gates"].values()),
+          f"bench_torch: gates {out['gates']}")
+    for key, t in out["timing"].items():
+        log(f"{card}: bench_torch {key} = {out['rates'][key]:.4e} /s "
+            f"(median {t['median_ms']:.4f} ms, spread {t['spread']:.3f}, "
+            f"launches {t['launches']})")
+        check(not t["kernel"] or t["launches"].get(t["kernel"], 0) > 0,
+              f"bench_torch {key}: {t['kernel']} was not launched")
+    check(all(math.isfinite(v) and v > 0 for v in out["rates"].values())
+          and len(out["rates"]) == 37, "bench_torch's rates")
+    return {"rates": out["rates"], "gates": out["gates"],
+            "timing": out["timing"], "seconds": out["seconds"],
+            "launches": used}
+
+
 def run():
     import numpy as np
     import torch
@@ -1516,7 +1612,8 @@ def run():
     from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
     from pyracecarsimulator_tpu_torch.ops import raycast_segments as rseg
 
-    card = card_line()
+    from pyracecarsimulator_tpu_torch.utils.profiling import device_label
+    card = device_label("cuda")
     log(f"card: {card}")
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -1773,6 +1870,10 @@ def run():
     # 21. the demos
     slice_out["examples"] = examples_phase(card)
 
+    # 22-23. the parity report and the bench
+    slice_out["parity_report"] = parity_phase(card, poses_by_map[big])
+    slice_out["bench_torch"] = bench_phase(card)
+
     # launches of this process, path by path: each path was driven with the
     # counts set to 0 just before it and read just after
     by_path = {
@@ -1790,7 +1891,9 @@ def run():
         **{f"1 x 1 mesh, {k}": v
            for k, v in slice_out["mesh_1x1"]["launches"].items()},
         **{f"example {k}": v["launches"]
-           for k, v in slice_out["examples"].items()}}
+           for k, v in slice_out["examples"].items()},
+        "parity report": slice_out["parity_report"]["launches"],
+        "bench_torch": slice_out["bench_torch"]["launches"]}
     launches_by_path = {name: {path: c[name] for path, c in by_path.items()
                                if c.get(name)} for name in KERNELS}
     log(f"launches by path: {launches_by_path}")

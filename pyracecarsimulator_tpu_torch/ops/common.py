@@ -52,11 +52,13 @@ def _padded_offsets(num_beams, fov, bb, device=None):
 
 def quantize_angles(ang, theta_discretization: int):
     """Reference theta-bucket quantization: angle -> bucket-start angle,
-    bucket floor((a mod 2pi)/2pi * D) clipped to [0, D-1]."""
+    bucket floor((a mod 2pi)/2pi * D) clipped to [0, D-1]. The divisor
+    rides as a device scalar (``_f32``), so that the card takes the same
+    correctly rounded quotient as the CPU and the JAX package."""
     if not theta_discretization:
         return ang
     two_pi = 2.0 * math.pi
-    idx = torch.floor(torch.remainder(ang, two_pi) / two_pi
+    idx = torch.floor(torch.remainder(ang, two_pi) / _f32(two_pi, ang.device)
                       * theta_discretization)
     idx = torch.clamp(idx.to(torch.int32), 0, theta_discretization - 1)
     return idx * (two_pi / theta_discretization)

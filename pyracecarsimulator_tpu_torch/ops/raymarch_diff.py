@@ -40,7 +40,7 @@ import torch
 
 from .common import rays_from_poses
 from .raymarch_xla import (_ALIVE_CHECK, _bilinear_taps, _tap_values,
-                           origin_xy_f32, sample_edf_nearest)
+                           count_march, origin_xy_f32, sample_edf_nearest)
 
 _DENOM_FLOOR = 1e-2    # |dE/dr| below this => grazing; zero gradient
 
@@ -75,8 +75,10 @@ def _march_nearest(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
     last = torch.zeros_like(total)
     alive = torch.ones(x0.shape, dtype=torch.bool, device=x0.device)
     hit = torch.zeros_like(alive)
+    trips = max_iters
     for it in range(max_iters):
         if it and it % _ALIVE_CHECK == 0 and not bool(alive.any()):
+            trips = it
             break
         gx = (x - ox) * inv_res
         gy = (y - oy) * inv_res
@@ -92,6 +94,7 @@ def _march_nearest(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
         y = y + step * sin_t
         total = total + step
         alive = live
+    count_march(trips)
     return total, last, hit
 
 

@@ -36,6 +36,16 @@ from .common import rays_from_poses
 
 _ALIVE_CHECK = 32   # trips between host reads of "is any ray still alive"
 
+# marches run and loop trips taken so far, by every march of the port (this
+# module's and ``raymarch_diff``'s); a profiler's or a test's reading
+MARCH_COUNTS = {"calls": 0, "trips": 0}
+
+
+def count_march(trips: int):
+    """Record one march that left its loop after ``trips`` trips."""
+    MARCH_COUNTS["calls"] += 1
+    MARCH_COUNTS["trips"] += trips
+
 
 def origin_xy_f32(origin_xy, device):
     """(ox, oy) as 0-dim float32 tensors on ``device`` from a (2,) tensor
@@ -120,8 +130,10 @@ def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
     x, y, cos_t, sin_t = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
     total = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     alive = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    trips = max_iters
     for it in range(max_iters):
         if it and it % _ALIVE_CHECK == 0 and not bool(alive.any()):
+            trips = it
             break
         gx = (x - ox) * inv_res
         gy = (y - oy) * inv_res
@@ -137,6 +149,7 @@ def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
         x = x + step * cos_t
         y = y + step * sin_t
         total = total + step
+    count_march(trips)
     return torch.clamp(total, max=max_range)
 
 

@@ -59,10 +59,13 @@ def rollout(step_fn: Callable, state0: CarState, policy: Callable,
 
 
 def make_constant_policy(v_des, steer_des):
+    """The same command at every step: each of ``v_des`` and ``steer_des``
+    a number, or a tensor or array that broadcasts to the state's batch
+    shape (one command per agent), as the JAX policy takes them."""
     def policy(state, ranges, t):
-        v = torch.full(state.batch_shape, float(v_des), device=state.device)
-        s = torch.full(state.batch_shape, float(steer_des),
-                       device=state.device)
+        v, s = (torch.as_tensor(c, dtype=torch.float32,
+                                device=state.device).expand(state.batch_shape)
+                for c in (v_des, steer_des))
         return v, s
     return policy
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from typing import Callable
 
@@ -35,6 +36,21 @@ def trace(log_dir: str = "torch-trace"):
             torch.cuda.synchronize()
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_label(device) -> str:
+    """What a report writes beside its numbers: for a CUDA device the
+    card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (a card set below its
+    maximum runs slower under load), for the CPU the word ``cpu``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return lines[device.index or 0].strip()
 
 
 def _first_device(values):

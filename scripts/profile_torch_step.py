@@ -1,94 +1,151 @@
 """Where the time of the port's closed-loop step goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_step.py
+    python3 scripts/profile_torch_step.py [--map levine,berlin]
+                                          [--backend segments,sectors]
+                                          [--agents 4096]
 
-For each bundled map and each of the default backend ("segments") and the
-sector backend, at 4096 agents: builds the step (``build_sim(name,
-backend=...)``, ``make_step_fn(with_noise=True)``) and warms it up. Then
-it times 50 steps with CUDA events, without the profiler, and records 10
-more under ``torch.profiler``. It prints the card's name and power
-limit, the unprofiled step time, the device's busy time per step from the
-trace (the sum of the kernels' device time; one stream, so kernels do not
-overlap), the idle share ``1 - busy / unprofiled step time``, and the kernels
-that take the most device time. The profiled wall time is printed too, only
-to show what the profiler adds. Needs a CUDA card.
+For each named map and backend (default: both bundled maps, the default
+backend "segments" and the sector backend; any backend of ``build_sim``
+may be named, for example ``--map levine --backend edf``), at 4096 agents:
+builds the step (``build_sim(name, backend=...)``,
+``make_step_fn(with_noise=True)``) and warms it up. Then it times 50 steps
+with CUDA events, without the profiler, and records 10 more under
+``torch.profiler``. It prints the card's name and power limit, the
+unprofiled step time, the device's busy time per step from the trace (the
+sum of the kernels' device time; one stream, so kernels do not overlap),
+the idle share ``1 - busy / unprofiled step time``, the EDF march's loop
+trips per step (``ops/raymarch_xla.MARCH_COUNTS``; 0 on the segment
+backends), and the kernels that take the most device time. The profiled
+wall time is printed too, only to show what the profiler adds.
+
+Beside the step it times the scan alone (``make_scan_fn``) twice, with its
+march trips: on the sampled poses, shifted between repetitions, and on the
+scanner poses of the stepped state, which sit 0.275 m ahead of the base
+link; then it times the step a second time. A step that takes longer than
+its scan by more than the dynamics' ~2 ms shows here whether it marches
+further or does other work. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
-import subprocess
 import sys
 import time
 
-AGENTS = 4096
 TIMED_STEPS = 50
 TRACED_STEPS = 10
-MAPS = ("levine", "berlin")
-BACKENDS = ("segments", "sectors")
 
 
-def main() -> int:
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--map", default="levine,berlin",
+                    help="bundled maps, comma-separated")
+    ap.add_argument("--backend", default="segments,sectors",
+                    help="backends of build_sim, comma-separated")
+    ap.add_argument("--agents", type=int, default=4096)
+    args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from pyracecarsimulator_tpu_torch import (build_sim, make_step_fn,
-                                              state_from_pose)
+    from pyracecarsimulator_tpu_torch import (build_sim, make_scan_fn,
+                                              make_step_fn, state_from_pose)
     from pyracecarsimulator_tpu_torch.maps import sample_free_poses
-    from pyracecarsimulator_tpu_torch.utils.profiling import timed_loop
+    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import MARCH_COUNTS
+    from pyracecarsimulator_tpu_torch.utils.profiling import (device_label,
+                                                              timed_loop)
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
-        return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        raise SystemExit(2)
+    agents = args.agents
+    card = device_label("cuda")
     print(f"card: {card}")
-    for name, backend in ((n, b) for n in MAPS for b in BACKENDS):
+
+    def counted(fn, reps, warmup):
+        """(ms per call, march trips per call) of ``fn(i)``."""
+        for i in range(warmup):
+            fn(i)
+        before = dict(MARCH_COUNTS)
+        ms = timed_loop(fn, reps=reps, warmup=0, index=True,
+                        device="cuda") * 1e3
+        return ms, (MARCH_COUNTS["trips"] - before["trips"]) / reps
+
+    results = {}
+    for name, backend in ((n, b) for n in args.map.split(",")
+                          for b in args.backend.split(",")):
         bundle = build_sim(name, backend=backend, device="cuda")
         step = make_step_fn(bundle, with_noise=True)
+        scan = make_scan_fn(bundle)
         poses = torch.as_tensor(sample_free_poses(
-            bundle.track, AGENTS, np.random.RandomState(0)), device="cuda")
+            bundle.track, agents, np.random.RandomState(0)), device="cuda")
         state = state_from_pose(poses[:, 0], poses[:, 1], poses[:, 2])
-        act = (torch.full((AGENTS,), 2.0, device="cuda"),
-               torch.zeros(AGENTS, device="cuda"))
+        act = (torch.full((agents,), 2.0, device="cuda"),
+               torch.zeros(agents, device="cuda"))
         gen = torch.Generator(device="cuda").manual_seed(0)
-        def advance():
+
+        def advance(i=0):
             nonlocal state
             state = step(state, act, gen).state
 
-        step_ms = timed_loop(advance, reps=TIMED_STEPS, warmup=5,
-                             device="cuda") * 1e3
+        marching = bundle.segmap is None
+        reps = TIMED_STEPS if not marching else TIMED_STEPS // 5
+        step_ms, step_trips = counted(advance, reps, 5)
 
+        # the scan alone: on the sampled poses, and where the step scans
+        sets = []
+        for j in range(5):
+            q = poses.clone()
+            q[:, 2] += j * 1e-3
+            sets.append(q)
+        scan_ms, scan_trips = counted(lambda i: scan(sets[i % 5]), reps, 1)
+        d = bundle.car.scan_distance_to_base_link
+        lidar = torch.stack([state.x + d * torch.cos(state.theta),
+                             state.y + d * torch.sin(state.theta),
+                             state.theta], dim=-1)
+        lidar_ms, lidar_trips = counted(lambda i: scan(lidar), reps, 1)
+        # the step once more, after the scans: the spread within one process
+        step_ms_2, step_trips_2 = counted(advance, reps, 1)
+
+        traced = TRACED_STEPS if not marching else 2
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(TRACED_STEPS):
+            for _ in range(traced):
                 state = step(state, act, gen).state
             torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / TRACED_STEPS
+            traced_ms = (time.perf_counter() - t0) * 1e3 / traced
         # kernels only: the aten ops that launch them carry the same
         # device time again
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in events) / 1e3 \
-            / TRACED_STEPS
-        launches = sum(e.count for e in events) / TRACED_STEPS
-        print(f"[{name} {backend}] {card}: {AGENTS} agents, step "
+        busy = sum(e.self_device_time_total for e in events) / 1e3 / traced
+        launches = sum(e.count for e in events) / traced
+        print(f"[{name} {backend}] {card}: {agents} agents, step "
               f"{step_ms:.4f} ms (CUDA events, no profiler), device busy "
               f"{busy:.4f} ms/step (trace), idle share {1 - busy / step_ms:.4f}, "
-              f"{launches:.0f} kernels/step; wall under the profiler "
-              f"{traced_ms:.4f} ms/step")
+              f"{launches:.0f} kernels/step, {step_trips:.1f} march trips/"
+              f"step; wall under the profiler {traced_ms:.4f} ms/step")
+        print(f"[{name} {backend}] scan alone: sampled poses {scan_ms:.4f} "
+              f"ms, {scan_trips:.1f} march trips/scan; the stepped state's "
+              f"scanner poses {lidar_ms:.4f} ms, {lidar_trips:.1f} march "
+              f"trips/scan; the step again {step_ms_2:.4f} ms, "
+              f"{step_trips_2:.1f} march trips/step")
         events.sort(key=lambda e: -e.self_device_time_total)
         for e in events[:12]:
-            print(f"    {e.self_device_time_total / 1e3 / TRACED_STEPS:9.4f} "
-                  f"ms/step  x{e.count // TRACED_STEPS:<3d} {e.key[:90]}")
-    return 0
+            print(f"    {e.self_device_time_total / 1e3 / traced:9.4f} "
+                  f"ms/step  x{e.count // traced:<3d} {e.key[:90]}")
+        results[f"{name} {backend}"] = {
+            "step_ms": step_ms, "step_trips": step_trips,
+            "step_ms_2": step_ms_2, "step_trips_2": step_trips_2,
+            "scan_ms": scan_ms, "scan_trips": scan_trips,
+            "lidar_scan_ms": lidar_ms, "lidar_scan_trips": lidar_trips,
+            "busy_ms": busy, "kernels_per_step": launches}
+    return results
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    main()

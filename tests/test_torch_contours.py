@@ -200,3 +200,21 @@ def test_simplified_step_matches_jax(small_track):
                                np.asarray(jo.state.pose), atol=1e-5)
     np.testing.assert_allclose(po.ranges.numpy(), np.asarray(jo.ranges),
                                atol=2e-5, rtol=0)
+
+
+# -- ScanParams.use_theta_table on the "segments_simplified" backend ------------------
+# (tests/test_torch_scan_modes.py states the tolerances)
+
+def test_theta_table_quantizes_directions(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_one_bucket(small_track, "segments_simplified")
+
+
+def test_theta_table_matches_oracle_buckets(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_oracle_buckets(small_track, "segments_simplified")
+
+
+def test_theta_table_scan_matches_jax(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_against_jax(small_track, "segments_simplified")

@@ -257,3 +257,36 @@ def test_edf_step_matches_jax(small_track):
         d = np.abs(po.ranges.numpy() - np.asarray(jo.ranges))
         assert np.mean(d <= 1e-4) >= 0.995 and d.max() < 3 * 0.05
         js, ps = jo.state, po.state
+
+
+@pytest.mark.parametrize("backend", ["edf", "edf_implicit"])
+def test_edf_step_marches_once_and_as_far_as_its_scan(small_track, backend):
+    """A closed-loop step on a march backend runs one march and nothing
+    more: the trips it takes (``raymarch_xla.MARCH_COUNTS``) are those of
+    one scan from the stepped cars' scanner poses, and its ranges are that
+    scan's. The loop leaves only at every 32nd trip, so a step can march a
+    block further than a scan from other poses."""
+    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import (_ALIVE_CHECK,
+                                                               MARCH_COUNTS)
+    bundle = psim.build_sim(_port_track(small_track), backend=backend,
+                            scan=P.ScanParams(num_beams=90), device="cpu")
+    poses = T(_free_poses(small_track, 6, 9))
+    s0 = P.state_from_pose(poses[:, 0], poses[:, 1], poses[:, 2])
+    act = (torch.full((6,), 2.0), torch.zeros(6))
+    step = psim.make_step_fn(bundle, with_noise=False)
+    before = dict(MARCH_COUNTS)
+    out = step(s0, act)
+    stepped = {k: MARCH_COUNTS[k] - before[k] for k in before}
+    assert stepped["calls"] == 1
+    assert 0 < stepped["trips"] <= bundle.scan.max_march_iters
+    assert (stepped["trips"] % _ALIVE_CHECK == 0
+            or stepped["trips"] == bundle.scan.max_march_iters)
+    d = bundle.car.scan_distance_to_base_link
+    s = out.state
+    lidar = torch.stack([s.x + d * torch.cos(s.theta),
+                         s.y + d * torch.sin(s.theta), s.theta], -1)
+    before = dict(MARCH_COUNTS)
+    r = psim.make_scan_fn(bundle)(lidar)
+    assert MARCH_COUNTS["calls"] - before["calls"] == 1
+    assert MARCH_COUNTS["trips"] - before["trips"] == stepped["trips"]
+    assert torch.equal(r, out.ranges)

@@ -306,3 +306,21 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# -- ScanParams.use_theta_table on the "sectors" backend ------------------
+# (tests/test_torch_scan_modes.py states the tolerances)
+
+def test_theta_table_quantizes_directions(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_one_bucket(small_track, "sectors")
+
+
+def test_theta_table_matches_oracle_buckets(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_oracle_buckets(small_track, "sectors")
+
+
+def test_theta_table_scan_matches_jax(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_against_jax(small_track, "sectors")

@@ -371,3 +371,21 @@ def test_sweeps_reject_other_devices():
         sweeps.tile_sweep(meta_dev(4, 4, 128), meta_dev(4, 3), meta_dev(2),
                           meta_dev(2), meta_dev(2),
                           *(meta_dev(2, 128) for _ in range(4)))
+
+
+# -- ScanParams.use_theta_table on the "segments" backend ------------------
+# (tests/test_torch_scan_modes.py states the tolerances)
+
+def test_theta_table_quantizes_directions(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_one_bucket(small_track, "segments")
+
+
+def test_theta_table_matches_oracle_buckets(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_oracle_buckets(small_track, "segments")
+
+
+def test_theta_table_scan_matches_jax(small_track):
+    import test_torch_scan_modes as checks
+    checks.check_against_jax(small_track, "segments")

@@ -129,6 +129,52 @@ def test_constant_policy_rollout(bundles, small_track):
     assert "ranges" not in traj and torch.isfinite(fin.pose).all()
 
 
+_PER_AGENT = np.linspace(0.5, 4.0, N_AGENTS).astype(np.float32)
+
+
+@pytest.mark.parametrize("batch, commands, as_tensor", [
+    ((N_AGENTS,), (np.float32(1.5), np.float32(-0.2)), False),
+    ((N_AGENTS,), (1.5, 0.1), False),
+    ((N_AGENTS,), (_PER_AGENT, -0.1 * _PER_AGENT), True),
+    ((N_AGENTS,), (_PER_AGENT, -0.1 * _PER_AGENT), False),
+    ((2, N_AGENTS), (_PER_AGENT, 0.3), False),
+], ids=["scalar", "float", "tensor", "array", "batch2xA"])
+def test_constant_policy_matches_jax(batch, commands, as_tensor):
+    """One command per agent broadcasts as in the JAX policy: the values
+    are equal bit for bit, float32, of the state's batch shape."""
+    from pyracecarsimulator_tpu.parallel import (make_constant_policy as
+                                                jax_constant_policy)
+    jst = jstate.zero_state(batch)
+    pst = P.zero_state(batch, device="cpu")
+    ref = jax_constant_policy(*commands)(jst, None, 0)
+    got = make_constant_policy(*(map(torch.from_numpy, commands)
+                                 if as_tensor else commands))(pst, None, 0)
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == batch and g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_constant_policy_per_agent_step_matches_jax(bundles, small_track):
+    """One rollout step with one speed per agent against the JAX rollout,
+    poses within the step's 1e-5 m."""
+    from pyracecarsimulator_tpu.parallel import (make_constant_policy as
+                                                jax_constant_policy)
+    jb, pb = bundles
+    nb = jb.scan.num_beams
+    js, ps = _initial(small_track)
+    steer = np.linspace(-0.3, 0.3, N_AGENTS).astype(np.float32)
+    jfin, _ = jax_rollout(jsim.make_step_fn(jb, with_noise=False), js,
+                          jax_constant_policy(_PER_AGENT, steer), 1, nb)
+    pfin, traj = rollout(psim.make_step_fn(pb, with_noise=False), ps,
+                         make_constant_policy(torch.from_numpy(_PER_AGENT),
+                                              steer), 1, nb)
+    np.testing.assert_allclose(pfin.pose.numpy(), np.asarray(jfin.pose),
+                               atol=1e-5)
+    np.testing.assert_allclose(pfin.velocity.numpy(),
+                               np.asarray(jfin.velocity), atol=1e-5)
+    assert len(np.unique(pfin.velocity.numpy())) > 1   # per-agent commands
+
+
 def test_noise_statistics():
     """Mean ~ 0 and std ~ scan_std_dev, as tests/test_scan_modes.py checks
     the JAX noise; std 0 or no generator is the identity; max_range
