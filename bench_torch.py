@@ -17,9 +17,13 @@ on tables of capacity >= 128 also ``<map>_sector_sorted_*`` and
 trip's taps), ``levine_dmap_implicit_fwdbwd`` (512 agents),
 ``levine_dmap_hybrid_fwdbwd`` and ``levine_dmap_hybrid_dedup_fwdbwd``;
 closed-loop rollouts of 25 steps under the gap follower
-(``env_steps_s_4096*``, named for the default agent count); BPTT through
-``--train-T`` steps of the smooth-steering sector step into a linear scan
--> steer head (``train_steps_s_<map>``, ``train_rays_s_<map>``); multitrack
+(``env_steps_s_4096*``, named for the default agent count) on the default
+path, which on the card replays the loop from CUDA graphs, with ``_eager``
+twins on the Python loop and the gate ``rollout_graph_parity_maxabs``
+between the two; one ``make_bptt_train_fn`` step through ``--train-T``
+steps of the smooth-steering sector step into a linear scan -> steer head
+(``train_steps_s_<map>``, ``train_rays_s_<map>``, on the card one CUDA
+graph; ``train_steps_s_<map>_eager``); multitrack
 serving over levine + berlin stacked (``multitrack_fwdbwd``,
 ``multitrack_parity_maxabs``); the ring-sharded map and the sharded step on
 a 1 x 1 mesh (``ring_1dev_rays_s``, ``ring_parity_maxabs``,
@@ -475,63 +479,85 @@ def stage_dmap_fast(b: Bench):
 
 
 def stage_rollouts(b: Bench):
-    """Closed-loop env-steps/s: 25 steps under the gap follower."""
+    """Closed-loop env-steps/s: 25 steps under the gap follower. Each key
+    times the default path (on the card the loop replayed from CUDA
+    graphs, ``parallel/rollout.py``), its ``_eager`` twin the Python loop
+    (``graph=False``); the gate holds the two trajectories against each
+    other."""
     import torch
     from pyracecarsimulator_tpu_torch import make_step_fn
     from pyracecarsimulator_tpu_torch.parallel import (
         make_gap_follower_policy, make_rollout_fn)
     policy = make_gap_follower_policy(b.beams, FOV, speed=3.0)
+    gate = "rollout_graph_parity_maxabs"
+    worst = None
     for name, backend, key, kernel in (
             ("levine", "segments", "env_steps_s_4096", "dense_sweep"),
             ("levine", "sectors", "env_steps_s_4096_sectors",
              "sector_sweep"),
             ("berlin", "sectors", "env_steps_s_4096_sectors_berlin",
              "sector_sweep")):
-        if not b.wanted(key):
+        if not b.wanted(key, f"{key}_eager", gate):
             continue
-        run = make_rollout_fn(
-            make_step_fn(b.bundle(name, backend), with_noise=False), policy,
-            ROLLOUT_T, b.beams)
+        step = make_step_fn(b.bundle(name, backend), with_noise=False)
         s0 = b.state0(name)
-
-        def rollout(j):
+        runs = {key: make_rollout_fn(step, policy, ROLLOUT_T, b.beams),
+                f"{key}_eager": make_rollout_fn(step, policy, ROLLOUT_T,
+                                                b.beams, graph=False)}
+        for k, run in runs.items():
+            def rollout(j, run=run):
+                with torch.no_grad():
+                    run(s0)
+            # a rollout is 25 steps: a tenth of the repetitions
+            b.time(k, rollout, b.agents * ROLLOUT_T, kernel, slow=True)
+        if b.wanted(gate):
             with torch.no_grad():
-                run(s0)
-        # a rollout is 25 steps: a tenth of the repetitions
-        b.time(key, rollout, b.agents * ROLLOUT_T, kernel, slow=True)
+                (fin, traj), (fin_e, traj_e) = (run(s0)
+                                                for run in runs.values())
+            diff = max(float((traj["pose"] - traj_e["pose"]).abs().max()),
+                       float((traj["collision"] != traj_e["collision"]).sum()),
+                       float((fin.velocity - fin_e.velocity).abs().max()))
+            worst = diff if worst is None else max(worst, diff)
+    if worst is not None:
+        b.gate(gate, worst)
 
 
 def stage_train(b: Bench):
     """BPTT through ``--train-T`` steps of the smooth-steering sector step
-    into a linear scan -> steer head: trained agent-steps/s and effective
-    forward + backward rays/s."""
+    into a linear scan -> steer head, one ``make_bptt_train_fn`` step
+    (forward, backward, SGD update): trained agent-steps/s and effective
+    forward + backward rays/s on the default path (on the card the whole
+    step replayed from one CUDA graph), and the eager step under
+    ``train_steps_s_<map>_eager``."""
     import torch
     from pyracecarsimulator_tpu_torch import make_step_fn
+    from pyracecarsimulator_tpu_torch.parallel import make_bptt_train_fn
     from pyracecarsimulator_tpu_torch.state import set_field
+
+    def policy(params, state, ranges, t):
+        return (torch.full(state.batch_shape, 2.0, device=b.device),
+                torch.tanh(ranges @ params["w"]))
+
     for name in MAPS:
         key = f"train_steps_s_{name}"
-        if not b.wanted(key, f"train_rays_s_{name}"):
+        if not b.wanted(key, f"{key}_eager", f"train_rays_s_{name}"):
             continue
         step = make_step_fn(b.bundle(name, "sectors", smooth=True),
                             with_noise=False)
         s0 = b.state0(name)
         states = [set_field(s0, x=s0.x + j * 1e-7) for j in range(N_SETS)]
-        speed = torch.full((b.agents,), 2.0, device=b.device)
-
-        def train(j):
-            w = torch.zeros(b.beams, device=b.device, requires_grad=True)
-            state = states[j]
-            ranges = torch.zeros((b.agents, b.beams), device=b.device)
-            means = []
-            for _ in range(b.train_t):
-                out = step(state, (speed, torch.tanh(ranges @ w)))
-                state, ranges = out.state, out.ranges
-                means.append(out.ranges.mean())
-            torch.autograd.grad(torch.stack(means).sum(), w)
-
-        rate = b.time(key, train, b.agents * b.train_t, "sector_sweep",
-                      slow=True, aliases=(f"train_rays_s_{name}",))
-        b.rates[f"train_rays_s_{name}"] = rate * b.beams
+        for k, graph in ((key, None), (f"{key}_eager", False)):
+            train, init = make_bptt_train_fn(
+                step, policy, lambda out, t: out.ranges.mean(), b.train_t,
+                b.beams, graph=graph)
+            params = {"w": torch.zeros(b.beams, device=b.device)}
+            opt = init(params)
+            rate = b.time(
+                k, lambda j: train(params, opt, states[j]),
+                b.agents * b.train_t, "sector_sweep", slow=True,
+                aliases=(f"train_rays_s_{name}",) if graph is None else ())
+            if graph is None and rate is not None:
+                b.rates[f"train_rays_s_{name}"] = rate * b.beams
 
 
 def _half_poses(b: Bench, name):

@@ -24,10 +24,11 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
    "sorted_pl", ``use_pallas=True``) against the plain version, and their
    scans, counted, against the default sector scan;
 6. the main path: ``build_sim(name)`` (default backend) -> one step plus
-   a 20-step noisy rollout per map, with every launch counter set to 0
-   just before and read just after (levine must have run the dense kernel,
-   berlin the tile route, 21 times each); "segments_pallas" equal to
-   "segments"; then the same drive on the sector backend;
+   a 20-step noisy rollout per map (replayed from CUDA graphs), with every
+   launch counter set to 0 just before and read just after (levine must
+   have run the dense kernel, berlin the tile route, 25 times each: the
+   step, 4 warm-up steps of the capture, 20 replays); "segments_pallas"
+   equal to "segments"; then the same drive on the sector backend;
 7. 3 BPTT train steps (T = 5, 4096 x 1080) on berlin with "segments" and
    with "sectors": loss finite, parameters moved, counters grown;
 8. times (CUDA events, warm-up, inputs that change between repetitions):
@@ -101,9 +102,25 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     the theta-bucket quantization on the card equals the CPU's bit for bit
     on the full fan;
 23. ``bench_torch.py`` through its ``main([...])`` at full width with its
-    defaults: no stage failed, the four parity gates are 0.0, every kernel
+    defaults: no stage failed, the five parity gates are 0.0, every kernel
     stage launched its kernel; its rates are logged with the card's name
-    and power limit.
+    and power limit;
+24. the compiled step (``utils/graph.py``), per map on "segments" and
+    "sectors": the step replayed as a CUDA graph against the eager step
+    over 4 replays with changing inputs, noise on from one seed (ranges,
+    collision and every state field bit for bit); the graphed rollout
+    (gap follower, T = 25, scans kept, noise off and on) against the
+    eager loop; a replayed rollout adds T to its wrapper's counter and
+    the host launches T graphs; the graphed BPTT train step (T = 5, Adam
+    with ``capturable=True``) against the eager one, losses and
+    parameters after 3 steps; the facade with ``graph=True`` across
+    ``add_obstacle`` and ``clear_obstacles`` against the eager facade (a
+    stale table fails here); ``graph=True`` on an "edf" step raises; 10
+    scans after the first make no ``cudaStreamSynchronize`` and no
+    host-to-device copy (profiler); times, eager and graphed: ms per
+    step, per rollout step and per train step, the capture's seconds, and
+    from the profiler the graphed step's device launches, device-busy
+    time and idle share.
 
 Every kernel's time stands beside its bound: the larger of its
 instruction slots (``OPS_PER_TEST`` per ray-segment test, counted from the
@@ -133,6 +150,9 @@ BEAMS = 1080
 FOV = 4.712388980384690
 MAX_RANGE = 10.0
 STEPS = 20
+# a rollout's first call on a backend that can be captured warms up its two
+# graphs (step 0, every later step) with 2 eager steps each: real launches
+WARMUP_STEPS = 4
 ORACLE_POSES = 64
 TRAIN_T = 5
 MAPS = ("levine", "berlin")
@@ -459,7 +479,8 @@ def drive(bundles, backend_label, poses_by_map):
         torch.cuda.synchronize()
         used[name] = {k: v for k, v in counts().items() if v}
         log(f"[{name}] {backend_label} main path (1 step + {STEPS}-step "
-            f"rollout): launches {used[name]}")
+            f"rollout, graphed where the step can be captured: "
+            f"{step.capturable}): launches {used[name]}")
         check(tuple(first.ranges.shape) == (AGENTS, BEAMS)
               and tuple(traj["pose"].shape) == (STEPS, AGENTS, 3)
               and tuple(traj["collision"].shape) == (STEPS, AGENTS),
@@ -492,8 +513,9 @@ def step_ms(bundle, poses, reps=50):
 
 
 def train_phase(bundle, poses, label):
-    """3 BPTT train steps at full width; returns (losses, train-step ms,
-    launch counts of the 3 steps)."""
+    """3 BPTT train steps at full width on the default path (one CUDA
+    graph); returns (losses, train-step ms, launch counts of the 3 steps
+    and the capture's 2 warm-up steps)."""
     import torch
     from pyracecarsimulator_tpu_torch import (SimParams, make_step_fn,
                                               state_from_pose)
@@ -511,7 +533,8 @@ def train_phase(bundle, poses, label):
 
     train, init = make_bptt_train_fn(
         step, policy, loss_fn, TRAIN_T, BEAMS,
-        optimizer=lambda ps: torch.optim.Adam(ps, lr=3e-3))
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=3e-3,
+                                              capturable=True))
     params = {"w": torch.zeros(BEAMS, device="cuda"),
               "b": torch.zeros((), device="cuda")}
     opt = init(params)
@@ -1583,7 +1606,7 @@ def bench_phase(card):
     check(out["device"] == card and out["agents"] == AGENTS
           and out["beams"] == BEAMS, "bench_torch's device or width")
     check(not out["failed"], f"bench_torch: failed stages {out['failed']}")
-    check(len(out["gates"]) == 4
+    check(len(out["gates"]) == 5
           and all(v == 0.0 for v in out["gates"].values()),
           f"bench_torch: gates {out['gates']}")
     for key, t in out["timing"].items():
@@ -1593,10 +1616,303 @@ def bench_phase(card):
         check(not t["kernel"] or t["launches"].get(t["kernel"], 0) > 0,
               f"bench_torch {key}: {t['kernel']} was not launched")
     check(all(math.isfinite(v) and v > 0 for v in out["rates"].values())
-          and len(out["rates"]) == 37, "bench_torch's rates")
+          and len(out["rates"]) == 42, "bench_torch's rates")
     return {"rates": out["rates"], "gates": out["gates"],
             "timing": out["timing"], "seconds": out["seconds"],
             "launches": used}
+
+
+def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
+    """24: the step, the rollout and the BPTT train step replayed as CUDA
+    graphs, each held against its eager version bit for bit, counted and
+    timed. Returns ({cell: results}, {cell: launch counts})."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pyracecarsimulator_tpu_torch import (RacecarSimulator, SimParams,
+                                              build_sim, make_scan_fn,
+                                              make_step_fn, state_from_pose)
+    from pyracecarsimulator_tpu_torch.parallel import (
+        make_bptt_train_fn, make_gap_follower_policy, make_rollout_fn)
+    from pyracecarsimulator_tpu_torch.state import FIELDS
+    T = 25
+    kernel_of = {("levine", "segments"): "dense_sweep",
+                 ("berlin", "segments"): "tile_sweep",
+                 ("levine", "sectors"): "sector_sweep",
+                 ("berlin", "sectors"): "sector_sweep"}
+
+    def same_state(a, b):
+        return all(bool(torch.equal(getattr(a, f), getattr(b, f)))
+                   for f in FIELDS)
+
+    def same_out(a, b):
+        return (bool(torch.equal(a.ranges, b.ranges))
+                and bool(torch.equal(a.collision, b.collision))
+                and same_state(a.state, b.state))
+
+    def seeded(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def train_policy(params, state, ranges, t):
+        steer = torch.tanh(ranges @ params["w"] + params["b"])
+        return torch.full(state.batch_shape, 2.0, device="cuda"), steer
+
+    def train_loss(out, t):
+        return (torch.mean((out.ranges - 10.0) ** 2)
+                + 10.0 * torch.mean(out.collision.float()))
+
+    out, launches = {}, {}
+    for name in MAPS:
+        for backend, bundles in (("segments", seg_bundles),
+                                 ("sectors", sec_bundles)):
+            cell = f"{name} {backend}"
+            kname = kernel_of[name, backend]
+            bundle = bundles[name]
+            res = {}
+            p = torch.as_tensor(poses_by_map[name], device="cuda")
+            s0 = state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+            act = (torch.full((AGENTS,), 2.0, device="cuda"),
+                   torch.zeros(AGENTS, device="cuda"))
+            reset_counts()
+
+            # the step: 4 replays with changing inputs, noise on
+            eager = make_step_fn(bundle, with_noise=True)
+            graphed = make_step_fn(bundle, with_noise=True, graph=True)
+            gen_e, gen_g = seeded(5), seeded(5)
+            t0 = time.perf_counter()
+            graphed.graphed.prepare(s0, act, gen_g)
+            torch.cuda.synchronize()
+            res["step_capture_s"] = time.perf_counter() - t0
+            before = counts()[kname]
+            se, sg, same = s0, s0, []
+            for i in range(4):
+                a = (act[0] + 0.25 * i, act[1] + 0.02 * i)
+                oe, og = eager(se, a, gen_e), graphed(sg, a, gen_g)
+                same.append(same_out(oe, og))
+                se, sg = oe.state, og.state
+            grown = counts()[kname] - before
+            log(f"[{cell}] graphed step against the eager step, 4 replays, "
+                f"noise on from one seed: ranges, collision and every state "
+                f"field bit-identical = {same}; 1 capture = "
+                f"{graphed.graphed.captures == 1}; {kname} launches of the 4 "
+                f"eager and 4 replayed steps {grown}")
+            check(all(same) and graphed.graphed.captures == 1 and grown == 8,
+                  f"{cell}: the graphed step differs from the eager step")
+
+            # the rollout, noise off and on
+            policy = make_gap_follower_policy(BEAMS, bundle.scan.fov)
+            for noise in (False, True):
+                run_e = make_rollout_fn(eager, policy, T, BEAMS,
+                                        keep_scans=True, graph=False)
+                run_g = make_rollout_fn(eager, policy, T, BEAMS,
+                                        keep_scans=True, graph=True)
+                ge, gg = (seeded(9), seeded(9)) if noise else (None, None)
+                fe, te = run_e(s0, ge)
+                fg, tg = run_g(s0, gg)
+                same = (all(bool(torch.equal(te[k], tg[k])) for k in te)
+                        and set(te) == set(tg) == {"pose", "collision",
+                                                   "ranges"}
+                        and same_state(fe, fg))
+                # replayed once more: T launches on the counter, T graph
+                # launches from the host, the next draws of the generators
+                before = counts()[kname]
+                fe, te = run_e(s0, ge)
+                mid = counts()[kname]
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    fg, tg = run_g(s0, gg)
+                    torch.cuda.synchronize()
+                again = all(bool(torch.equal(te[k], tg[k])) for k in te)
+                n_graph = sum(e.count for e in prof.key_averages()
+                              if e.key == "cudaGraphLaunch")
+                log(f"[{cell}] graphed rollout against the eager loop, T = "
+                    f"{T}, noise {'on' if noise else 'off'}: poses, "
+                    f"collisions, kept scans and the final state "
+                    f"bit-identical = {same}, a second rollout too = {again}"
+                    f"; {kname} launches: eager {mid - before}, replayed "
+                    f"{counts()[kname] - mid}; cudaGraphLaunch calls "
+                    f"{n_graph}")
+                check(same and again and mid - before == T
+                      and counts()[kname] - mid == T and n_graph == T,
+                      f"{cell}: the graphed rollout, noise {noise}")
+            res["rollout_cuda_graph_launches"] = n_graph
+
+            # the train step: 3 steps each way
+            smooth = bundle._replace(sim=SimParams(steer_mode="smooth"))
+            tstep = make_step_fn(smooth, with_noise=False)
+            got = {}
+            for graph in (False, True):
+                train, init = make_bptt_train_fn(
+                    tstep, train_policy, train_loss, TRAIN_T, BEAMS,
+                    optimizer=lambda ps: torch.optim.Adam(
+                        ps, lr=3e-3, capturable=True), graph=graph)
+                params = {"w": torch.zeros(BEAMS, device="cuda"),
+                          "b": torch.zeros((), device="cuda")}
+                opt = init(params)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = []
+                for _ in range(3):
+                    params, opt, loss, final = train(params, opt, s0)
+                    losses.append(loss.clone())
+                torch.cuda.synchronize()
+                first3 = time.perf_counter() - t0
+                got[graph] = (torch.stack(losses),
+                              params["w"].detach().clone(),
+                              params["b"].detach().clone(), final)
+                key = "graphed" if graph else "eager"
+                res[f"train_{key}_first_3_steps_s"] = first3
+                res[f"train_{key}_ms"] = timed_ms(
+                    lambda i: train(params, opt, s0), 5, warmup=1)
+                if graph:
+                    check(train.graphed.captures == 1
+                          and train.graphed.replays == 9,
+                          f"{cell}: the train step captured "
+                          f"{train.graphed.captures} times")
+                    train.graphed.release()
+            same = (all(bool(torch.equal(a, b))
+                        for a, b in zip(got[False][:3], got[True][:3]))
+                    and same_state(got[False][3], got[True][3]))
+            moved = float(got[True][1].abs().sum())
+            log(f"[{cell}] graphed BPTT train step against the eager one, T "
+                f"= {TRAIN_T}, Adam(capturable=True), 3 steps: losses "
+                f"{got[True][0].tolist()}, losses, w, b and the final state "
+                f"bit-identical = {same}; |w|_1 {moved}")
+            check(same and moved > 0 and bool(
+                torch.isfinite(got[True][0]).all()),
+                f"{cell}: the graphed train step differs from the eager one")
+
+            # times, eager and graphed
+            state = [s0]
+
+            def stepper(step, gen):
+                def one(i):
+                    state[0] = step(state[0], act, gen).state
+                return one
+
+            run_e = make_rollout_fn(eager, policy, T, BEAMS, graph=False)
+            run_g = make_rollout_fn(eager, policy, T, BEAMS)
+            for key, fn in (("eager", stepper(eager, gen_e)),
+                            ("graphed", stepper(graphed, gen_g))):
+                state[0] = s0
+                res[f"step_{key}_ms"] = timed_ms(fn, 50, warmup=5)
+            t0 = time.perf_counter()
+            run_g(s0)
+            torch.cuda.synchronize()
+            res["rollout_first_call_s"] = time.perf_counter() - t0
+            for key, fn in (("eager", run_e), ("graphed", run_g)):
+                res[f"rollout_{key}_ms_per_step"] = timed_ms(
+                    lambda i: fn(s0), 4, warmup=1) / T
+
+            # the graphed step under the profiler: launches, busy, idle
+            state[0] = s0
+            one = stepper(graphed, gen_g)
+            n_prof = 10
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(n_prof):
+                    one(i)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in events) / 1e3 / n_prof
+            res["graphed_step_device_launches"] = (
+                sum(e.count for e in events) / n_prof)
+            res["graphed_step_cuda_graph_launches"] = sum(
+                e.count for e in prof.key_averages()
+                if e.key == "cudaGraphLaunch") / n_prof
+            # a trace without device time cannot give the two shares
+            res["graphed_step_device_busy_ms"] = busy if busy > 0 else None
+            res["graphed_step_idle_share"] = (
+                1 - busy / res["step_graphed_ms"] if busy > 0 else None)
+
+            # 10 scans after the first: no synchronisation, no host copy
+            scan = make_scan_fn(bundle)
+            scan(p)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    scan(p)
+                torch.cuda.synchronize()    # ends the trace
+            host_calls = {e.key: e.count for e in prof.key_averages()
+                          if e.key in ("cudaStreamSynchronize",
+                                       "cudaMemcpyAsync", "cudaMemcpy")
+                          or e.key.startswith("Memcpy HtoD")}
+            log(f"[{cell}] 10 scans after the first: synchronisations and "
+                f"copies in the trace {host_calls}")
+            check(not host_calls, f"{cell}: a scan still synchronises or "
+                  f"copies from the host: {host_calls}")
+            res["scan_host_syncs_and_copies"] = host_calls
+
+            launches[cell] = {k: v for k, v in counts().items() if v}
+            log(f"[{cell}] {card}: step eager {res['step_eager_ms']:.4f} ms, "
+                f"graphed {res['step_graphed_ms']:.4f} ms (capture "
+                f"{res['step_capture_s']:.3f} s); rollout per step eager "
+                f"{res['rollout_eager_ms_per_step']:.4f} ms, graphed "
+                f"{res['rollout_graphed_ms_per_step']:.4f} ms (first call "
+                f"with its 2 captures {res['rollout_first_call_s']:.3f} s); "
+                f"train step T = {TRAIN_T} eager {res['train_eager_ms']:.4f} "
+                f"ms, graphed {res['train_graphed_ms']:.4f} ms (first 3 "
+                f"steps with the capture "
+                f"{res['train_graphed_first_3_steps_s']:.3f} s); graphed "
+                f"step under the profiler: "
+                f"{res['graphed_step_device_launches']:.0f} device launches, "
+                f"{res['graphed_step_cuda_graph_launches']:.0f} "
+                f"cudaGraphLaunch, device busy "
+                f"{res['graphed_step_device_busy_ms']} ms, idle share "
+                f"{res['graphed_step_idle_share']}; launches of this cell "
+                f"{launches[cell]}")
+            out[cell] = res
+            graphed.graphed.release()
+            del run_g, run_e, graphed
+            torch.cuda.empty_cache()
+
+        # a map swap under the graph: the facade, graphed against eager
+        track = tracks[name]
+        edf = track.edf.cpu().numpy()[: track.height, : track.width]
+        iy, ix = np.unravel_index(np.argmax(edf), edf.shape)
+        x = track.origin_x + (ix + 0.5) * track.resolution
+        y = track.origin_y + (iy + 0.5) * track.resolution
+        for backend in ("segments", "sectors"):
+            sims = [RacecarSimulator(track, backend=backend, device="cuda",
+                                     with_noise=False, graph=g)
+                    for g in (True, False)]
+            for sim in sims:
+                sim.set_pose(x, y, 0.0)
+                sim.drive(1.0, 0.0)
+            same, ahead = [], []
+            for edit in (None, "add", "clear"):
+                for sim in sims:
+                    if edit == "add":
+                        sim.add_obstacle(x + 0.275 + 1.0, y, size=0.4)
+                    elif edit == "clear":
+                        sim.clear_obstacles()
+                a, b = (sim.update_pose() for sim in sims)
+                same.append(same_out(a, b))
+                ahead.append(float(a.ranges[BEAMS // 2]))
+            caps = sims[0]._step.graphed.captures
+            log(f"[{name} {backend}] graphed facade against the eager one "
+                f"across add_obstacle and clear_obstacles: steps "
+                f"bit-identical = {same}; beam ahead {ahead}; captures "
+                f"{caps}")
+            check(all(same) and caps == 3 and ahead[1] < 0.9 < ahead[0]
+                  and ahead[2] > 0.9,
+                  f"{name} {backend}: a map swap under the graph")
+            sims[0]._step.graphed.release()
+
+    # graph=True where the step reads the host
+    raised = ""
+    try:
+        make_step_fn(build_sim(tracks[MAPS[0]], backend="edf",
+                               device="cuda"), graph=True)
+    except RuntimeError as e:
+        raised = str(e)
+    log(f"graph=True on an 'edf' step raises: {raised!r}")
+    check("raymarch_xla" in raised and "graph=False" in raised,
+          "graph=True on an 'edf' step did not raise")
+    return out, launches
 
 
 def run():
@@ -1748,8 +2064,9 @@ def run():
               and b.segmap.params.is_cuda for b in seg_bundles.values()),
           "build_sim's default is not the 'segments' backend on the card")
     main_counts = drive(seg_bundles, "segments", poses_by_map)
-    check(main_counts["levine"] == {"dense_sweep": STEPS + 1}
-          and main_counts["berlin"] == {"tile_sweep": STEPS + 1},
+    n_main = STEPS + 1 + WARMUP_STEPS
+    check(main_counts["levine"] == {"dense_sweep": n_main}
+          and main_counts["berlin"] == {"tile_sweep": n_main},
           f"the default path launched {main_counts}")
     from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
     for name in MAPS:
@@ -1768,7 +2085,7 @@ def run():
     sec_bundles = {name: build_sim(name, backend="sectors", device="cuda")
                    for name in MAPS}
     sec_counts = drive(sec_bundles, "sectors", poses_by_map)
-    check(all(c == {"sector_sweep": STEPS + 1} for c in sec_counts.values()),
+    check(all(c == {"sector_sweep": n_main} for c in sec_counts.values()),
           f"the sector path launched {sec_counts}")
 
     # 7. BPTT on berlin, both backends
@@ -1778,7 +2095,9 @@ def run():
             ("sectors", sec_bundles[big], "sector_sweep")):
         torch.cuda.reset_peak_memory_stats()
         losses, ms, used = train_phase(bundle, poses_by_map[big], label)
-        check(used == {kname: 3 * TRAIN_T},
+        # the default train step is one CUDA graph: 2 warm-up steps of its
+        # capture, then 3 replays
+        check(used == {kname: (2 + 3) * TRAIN_T},
               f"{label} training launched {used}")
         train[label] = {"losses": losses, "train_step_ms": ms,
                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1874,6 +2193,10 @@ def run():
     slice_out["parity_report"] = parity_phase(card, poses_by_map[big])
     slice_out["bench_torch"] = bench_phase(card)
 
+    # 24. the compiled step: CUDA graphs against the eager paths
+    slice_out["graphs"], graph_counts = graph_phase(
+        card, seg_bundles, sec_bundles, poses_by_map, tracks)
+
     # launches of this process, path by path: each path was driven with the
     # counts set to 0 just before it and read just after
     by_path = {
@@ -1893,7 +2216,9 @@ def run():
         **{f"example {k}": v["launches"]
            for k, v in slice_out["examples"].items()},
         "parity report": slice_out["parity_report"]["launches"],
-        "bench_torch": slice_out["bench_torch"]["launches"]}
+        "bench_torch": slice_out["bench_torch"]["launches"],
+        **{f"graphed step, rollout and train step, {cell}": c
+           for cell, c in graph_counts.items()}}
     launches_by_path = {name: {path: c[name] for path, c in by_path.items()
                                if c.get(name)} for name in KERNELS}
     log(f"launches by path: {launches_by_path}")

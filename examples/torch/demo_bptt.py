@@ -5,7 +5,10 @@ Gradient-descends a per-step steering sequence through T simulation steps
 (dynamics + lidar + TTC latch, a Python loop under autograd) to maximize
 worst-beam clearance along the path: the gradient-based counterpart of
 the sampling MPC in ``demo_mpc.py``. The raycast backward is the analytic
-O(rays) VJP (``ops/raycast_grad.py``).
+O(rays) VJP (``ops/raycast_grad.py``). On the card the objective and its
+gradient (T steps forward, one backward) are captured once in a CUDA
+graph and replayed every iteration (``utils.graph.GraphedFunction``);
+with ``--device cpu`` they run eagerly.
 
     python examples/torch/demo_bptt.py [--steps T] [--iters N]
                                        [--device cpu]
@@ -65,6 +68,7 @@ def main(argv=None):
     import pyracecarsimulator_tpu_torch as pt
     from pyracecarsimulator_tpu_torch.config import resolve_device
     from pyracecarsimulator_tpu_torch.ops import sweeps
+    from pyracecarsimulator_tpu_torch.utils.graph import GraphedFunction
 
     device = resolve_device(args.device)
     # planner-scale timestep: T=30 x 50 ms x 3 m/s covers ~4.5 m of track
@@ -83,6 +87,10 @@ def main(argv=None):
         steers = steers.detach().requires_grad_(True)
         value = objective(steers)
         return value.detach(), torch.autograd.grad(value, steers)[0]
+
+    if device.type == "cuda":
+        value_and_grad = GraphedFunction(value_and_grad, grad=True,
+                                         name="objective and gradient")
 
     T = args.steps
     steers = torch.zeros(T, device=device)

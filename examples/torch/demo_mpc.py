@@ -8,6 +8,11 @@ candidate action sequences is ONE batched rollout on the device:
   under N sampled steering sequences -> score (progress, crash penalty)
   -> execute the best sequence's first action.
 
+On the card both replay as CUDA graphs: the H-step evaluation of the N
+clones is captured once (``utils.graph.GraphedFunction``) and the single
+car's step is ``make_step_fn(..., graph=True)``; with ``--device cpu``
+they run eagerly.
+
     python examples/torch/demo_mpc.py [--candidates 256] [--horizon 30]
                                       [--device cpu]
 
@@ -50,15 +55,20 @@ def main(argv=None):
     import pyracecarsimulator_tpu_torch as pt
     from pyracecarsimulator_tpu_torch.config import resolve_device
     from pyracecarsimulator_tpu_torch.ops import sweeps
+    from pyracecarsimulator_tpu_torch.utils.graph import GraphedFunction
 
     device = resolve_device(args.device)
     sync = sync_fn(device)
+    on_card = device.type == "cuda"
     N, H = args.candidates, args.horizon
     bundle = pt.build_sim(load_track(args.map, device),
                           scan=pt.ScanParams(num_beams=args.beams),
                           device=device)
     step = pt.make_step_fn(bundle, with_noise=False)
+    drive = pt.make_step_fn(bundle, with_noise=False, graph=True) \
+        if on_card else step
     speed = torch.full((N,), 3.0, device=device)
+    cruise = torch.tensor(3.0, device=device)
 
     def evaluate(state1, steer_seqs):
         """Rollout N clones under (N, H) steering plans; return scores."""
@@ -68,6 +78,9 @@ def main(argv=None):
             s = step(s, (speed, steer_seqs[:, t])).state
             dist = dist + s.velocity * 0.01
         return dist - 50.0 * s.collision.float()
+
+    if on_card:
+        evaluate = GraphedFunction(evaluate, name="candidate evaluation")
 
     x, y, th = most_open_pose(bundle.track)
     state = pt.state_from_pose(torch.tensor(x, device=device), y, th)
@@ -82,8 +95,7 @@ def main(argv=None):
             seqs = 0.25 * torch.randn(N, H, generator=gen, device=device)
             seqs = (seqs.cumsum(dim=1) * 0.15).clamp(-0.4, 0.4)
             best = int(evaluate(state, seqs).argmax())
-            out = step(state, (torch.tensor(3.0, device=device),
-                               seqs[best, 0]))
+            out = drive(state, (cruise, seqs[best, 0]))
             state = out.state
             crashed = bool(out.collision)
             done += 1

@@ -4,7 +4,9 @@ PyTorch port.
 Every step advances all agents at once: input processing, dynamics, one
 batched lidar scan on the default "segments" backend (one launch of the
 dense sweep kernel on levine) and the TTC latch; a gap-follower policy
-closes the loop (``parallel.rollout``).
+closes the loop (``parallel.rollout``). On the card the loop replays from
+CUDA graphs, one launch from the host per step (``rollout``'s default);
+with ``--device cpu`` it runs eagerly.
 
     python examples/torch/demo_rollout.py [--agents 4096] [--steps 500]
                                           [--device cpu]

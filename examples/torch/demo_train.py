@@ -5,7 +5,10 @@ A linear scan->steer policy (one weight per beam + bias) is trained with
 ``parallel.train.make_bptt_train_fn``: each optimizer step back-propagates
 a T-step closed-loop rollout of the full step (smooth-steering input
 processing -> ST dynamics -> sector-culled raycast on the sector sweep
-kernel -> TTC latch) and applies a ``torch.optim.Adam`` update.
+kernel -> TTC latch) and applies a ``torch.optim.Adam`` update. On the card
+the whole train step replays as one CUDA graph (the default of
+``make_bptt_train_fn``), which is why Adam is built with
+``capturable=True`` there; with ``--device cpu`` it runs eagerly.
 
 The objective rewards forward clearance: the policy learns to steer
 toward open space. Collisions (latched cars) show up directly in the
@@ -80,7 +83,8 @@ def main(argv=None):
 
     train, init = make_bptt_train_fn(
         step, policy, loss_fn, num_steps=args.steps, num_beams=B,
-        optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-2))
+        optimizer=lambda ps: torch.optim.Adam(
+            ps, lr=1e-2, capturable=device.type == "cuda"))
     params = {"w": torch.zeros(B, device=device),
               "b": torch.zeros((), device=device)}
     opt_state = init(params)

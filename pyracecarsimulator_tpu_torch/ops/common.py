@@ -11,6 +11,14 @@ own jitted and eager runs), so about half of the 1080 offsets differ from
 the JAX package's by an ulp, and ``torch.cos``/``torch.sin`` differ from
 XLA's on some inputs. Sweeps given the same fan agree bit for bit; a
 free-running scan agrees within a stated tolerance.
+
+Scan constants live on the device and are made once: the beam fan, the
+padded fan, the block lookup beams and every 0-dim scalar that divides
+(``_f32``) are cached per (arguments, device) in ``_CONSTANTS``. After the
+first scan on a device a scan copies nothing from the host, which is what
+lets the step be captured in a CUDA graph (``utils/graph.py``; a copy from
+pageable host memory is not allowed while a stream captures). The cached
+tensors are shared by every caller: they are never written in place.
 """
 
 from __future__ import annotations
@@ -23,11 +31,31 @@ import torch
 from ..config import resolve_device
 
 
+_CONSTANTS: dict = {}   # (kind, arguments, device) -> tensor on the device
+
+
+def _constant(key, device, make) -> torch.Tensor:
+    """The tensor of ``make()`` (host data) on ``device``, made and copied
+    once per (``key``, device); a CUDA device without an index is the
+    current one. Callers share the tensor: it must not be written."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = _CONSTANTS.get((key, device))
+    if t is None:
+        t = _CONSTANTS[(key, device)] = make().to(device)
+    return t
+
+
 def beam_angles(num_beams: int, fov: float, device=None) -> torch.Tensor:
     """(num_beams,) float32 beam offsets in [-fov/2, fov/2], inclusive
     endpoints, on ``device`` (``None``: the card,
-    ``config.resolve_device``)."""
-    device = resolve_device(device)
+    ``config.resolve_device``). Cached (module doc): do not write it."""
+    return _constant(("beam_angles", int(num_beams), float(fov)), device,
+                     lambda: _beam_angles_host(num_beams, fov))
+
+
+def _beam_angles_host(num_beams: int, fov: float) -> torch.Tensor:
     start = np.float32(-fov / 2.0)
     stop = np.float32(fov / 2.0)
     if num_beams == 1:
@@ -38,16 +66,28 @@ def beam_angles(num_beams: int, fov: float, device=None) -> torch.Tensor:
         offs = np.concatenate(
             [start * (np.float32(1.0) - step) + stop * step,
              np.asarray([stop], np.float32)])
-    return torch.as_tensor(offs, device=device)
+    return torch.from_numpy(offs)
 
 
 def _padded_offsets(num_beams, fov, bb, device=None):
     """The (NBLK*bb,) beam-offset row for beam blocks of ``bb``: the last
     offset repeated into the padding beams of the last block (their
-    outputs are sliced off)."""
-    offs = beam_angles(num_beams, fov, device)
-    b_pad = -num_beams % bb
-    return torch.cat([offs, offs[-1:].expand(b_pad)]) if b_pad else offs
+    outputs are sliced off). Cached (module doc): do not write it."""
+    def make():
+        offs = _beam_angles_host(num_beams, fov)
+        b_pad = -num_beams % bb
+        return torch.cat([offs, offs[-1:].expand(b_pad)]) if b_pad else offs
+    return _constant(("padded_offsets", int(num_beams), float(fov), int(bb)),
+                     device, make)
+
+
+def block_mids(nblk: int, bb: int, b_real: int, device) -> torch.Tensor:
+    """(nblk,) int64 lookup beam of each ``bb``-beam block, its middle beam
+    capped at the last real beam ``b_real - 1``. Cached (module doc)."""
+    return _constant(
+        ("block_mids", int(nblk), int(bb), int(b_real)), device,
+        lambda: torch.from_numpy(
+            np.minimum(np.arange(nblk) * bb + bb // 2, b_real - 1)))
 
 
 def quantize_angles(ang, theta_discretization: int):
@@ -101,8 +141,10 @@ def rays_from_poses(poses, num_beams: int, fov: float,
 def _f32(v, device):
     """A 0-dim float32 tensor on ``device``. Scalars that divide ride as
     device tensors: CUDA divides by a host scalar through its reciprocal,
-    which is not the correctly rounded quotient the JAX package takes."""
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    which is not the correctly rounded quotient the JAX package takes.
+    Cached per (value, device) (module doc): do not write it."""
+    return _constant(("f32", float(v)), device,
+                     lambda: torch.tensor(v, dtype=torch.float32))
 
 
 def tile_ids(tiles_shape, tile_size, tile_origin, x0, y0):

@@ -4,6 +4,14 @@
 Counterpart of ``pyracecarsimulator_tpu/ops/noise.py``; the JAX key becomes
 an explicit ``torch.Generator`` on the ranges' device, so rollouts stay
 deterministic for a seed. The numbers differ from ``jax.random``'s.
+
+Under a CUDA graph (``utils/graph.py``) the generator handed to the step
+is registered with the graph (``CUDAGraph.register_generator_state``):
+the captured ``torch.randn`` reads its Philox seed and offset from device
+memory, each replay starts at the generator's current offset and advances
+it by what the eager call would have consumed, so a graphed rollout draws
+the eager rollout's numbers from the same seed and no replay repeats a
+draw.
 """
 
 from __future__ import annotations

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .common import (_f32, _padded_offsets, _ray_invs, apply_extent_mask,
-                     fan_cos_sin, tile_ids)
+                     block_mids, fan_cos_sin, tile_ids)
 from .raycast_grad import raycast_with_vjp
 from .sweeps import (grp_sweep, list_sweep_plain as sweep_plain,  # noqa: F401
                      sector_sweep, sorted_tiles_sweep)
@@ -76,8 +76,7 @@ def _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, ct, st,
     nblk = -(-b_n // bb)
     dev = ct.device
     tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)   # (A,)
-    mids = torch.as_tensor(
-        np.minimum(np.arange(nblk) * bb + bb // 2, b_n - 1), device=dev)
+    mids = block_mids(nblk, bb, b_n, dev)
     th = torch.atan2(st[:, mids], ct[:, mids])             # (A, NBLK)
     th = torch.remainder(th, _f32(_TWO_PI, dev))
     sec = torch.clamp((th * _f32(np.float32(ns) / _TWO_PI, dev))
@@ -267,8 +266,7 @@ def stack_block_ids(stack, mid, x0, y0, ct, st, b_real: int, bb: int):
     ri = torch.minimum(torch.clamp(((y0 - g[:, 3]) / ts).to(torch.int32),
                                    min=0), nr - 1)
     tid = ri * nc + ci
-    mids = torch.as_tensor(
-        np.minimum(np.arange(nblk) * bb + bb // 2, b_real - 1), device=dev)
+    mids = block_mids(nblk, bb, b_real, dev)
     th = torch.remainder(torch.atan2(st[:, mids], ct[:, mids]),
                          _f32(_TWO_PI, dev))
     sec = torch.clamp((th * _f32(np.float32(stack.ns) / _TWO_PI, dev))
@@ -278,6 +276,25 @@ def stack_block_ids(stack, mid, x0, y0, ct, st, b_real: int, bb: int):
     inside = ((x0 >= e[:, 0]) & (x0 < e[:, 1])
               & (y0 >= e[:, 2]) & (y0 < e[:, 3]))
     return ids, inside
+
+
+_LAST_MAP_IDS: dict = {}    # device -> (host contents, their device copy)
+
+
+def _map_ids_on(map_ids, device):
+    """``map_ids`` as a tensor on ``device``. A tensor is moved only if it
+    lies elsewhere. A host array is copied when its contents differ from
+    the last one served on that device, whose copy is kept (and shared: do
+    not write it), so that serving one assignment again copies nothing."""
+    if torch.is_tensor(map_ids):
+        return map_ids.to(device)
+    ids = np.ascontiguousarray(map_ids)
+    key = (ids.dtype.str, ids.shape, ids.tobytes())
+    last = _LAST_MAP_IDS.get(device)
+    if last is None or last[0] != key:
+        last = _LAST_MAP_IDS[device] = (
+            key, torch.from_numpy(ids.copy()).to(device))
+    return last[1]
 
 
 def _scan_chunk_multi(stack, poses2, mid, ct, st, num_beams, max_range, bb,
@@ -313,7 +330,7 @@ def scan_poses_sectors_multi(stack, map_ids, poses, num_beams: int = 1080,
     bb = sector_block_width(stack, num_beams, fov, bb)
     batch = tuple(poses.shape[:-1])
     poses2 = poses.reshape(-1, 3).to(torch.float32)
-    mid = torch.as_tensor(map_ids, device=poses2.device).reshape(-1)
+    mid = _map_ids_on(map_ids, poses2.device).reshape(-1)
     a_n = poses2.shape[0]
     offs = _padded_offsets(num_beams, fov, bb, poses2.device)
     # the fan is built once for the whole batch (see scan_poses_sectors)

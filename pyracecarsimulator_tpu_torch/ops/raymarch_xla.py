@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import rays_from_poses
+from .common import _constant, rays_from_poses
 
 _ALIVE_CHECK = 32   # trips between host reads of "is any ray still alive"
 
@@ -49,11 +49,14 @@ def count_march(trips: int):
 
 def origin_xy_f32(origin_xy, device):
     """(ox, oy) as 0-dim float32 tensors on ``device`` from a (2,) tensor
-    or a pair of numbers."""
-    o = (origin_xy.to(device=device, dtype=torch.float32)
-         if torch.is_tensor(origin_xy)
-         else torch.tensor([float(origin_xy[0]), float(origin_xy[1])],
-                           dtype=torch.float32, device=device))
+    or a pair of numbers (copied to the device once per pair,
+    ``common._constant``)."""
+    if torch.is_tensor(origin_xy):
+        o = origin_xy.to(device=device, dtype=torch.float32)
+    else:
+        xy = (float(origin_xy[0]), float(origin_xy[1]))
+        o = _constant(("origin_xy", xy), device,
+                      lambda: torch.tensor(xy, dtype=torch.float32))
     return o[0], o[1]
 
 

@@ -244,3 +244,13 @@ WRAPPERS = LIST_ROUTES + (dense_sweep,)
 def launch_counts() -> dict:
     """``{wrapper name: kernel launches so far}`` of every wrapper."""
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def add_launches(delta: dict):
+    """Add ``delta[name]`` to each named wrapper's counter. A replayed CUDA
+    graph launches the kernels it captured without passing through the
+    wrappers: ``utils/graph.py`` adds the launches of one replay here, and
+    takes back what the capture pass counted while no kernel ran."""
+    by_name = {w.__name__: w for w in WRAPPERS}
+    for name, n in delta.items():
+        by_name[name].launches += n

@@ -410,4 +410,9 @@ def make_sharded_step(mesh: Mesh, bundle, with_noise: bool = False,
         def step(state, action, generator=None):
             return body(state, action, None, generator)
     step.map_cell = map_cell
+    # collectives across ranks (gloo stages them through the host): the
+    # sharded steps are not captured in a CUDA graph
+    step.capturable = False
+    step.host_read = ("parallel/mesh.py: the sharded step reduces the TTC "
+                      "flag across ranks with torch.distributed")
     return step

@@ -9,9 +9,23 @@ its analytic O(rays) VJP, the TTC latch) and applies an optimizer update.
 PyTorch idiom: parameters are a dict of tensors, the optimizer is a
 ``torch.optim.Optimizer`` built over them, and ``train`` updates the
 parameter tensors in place (JAX returns new arrays); it returns the same
-dict. The T-step rollout is a Python loop under autograd (the JAX package
-compiles it into one ``lax.scan``). The JAX module's ``has_compiler_opts``
-guard is left out: it rejects a JAX-only kind of sharded step.
+dict. The JAX module's ``has_compiler_opts`` guard is left out: it rejects
+a JAX-only kind of sharded step.
+
+The JAX train step is one compiled program. Here the whole step
+(``zero_grad`` with the gradients kept allocated, the T-step forward,
+``backward`` and the optimizer's update) is captured in one CUDA graph
+(``utils/graph.py``) over a static copy of ``state0`` where the state
+lies on a CUDA device and the step can be captured, and is a Python loop
+under autograd everywhere else. Losses and parameters after N graphed
+steps equal the eager ones bit for bit. The T steps are unrolled into the
+graph (one backward spans them all), so the policy's and the loss's
+Python branches on ``t`` are resolved exactly. What Python computes from
+the optimizer's hyper-parameters is frozen at capture: a learning rate
+changed afterwards needs a new train function. An optimizer that counts
+its steps on the host (``torch.optim.Adam`` and its kin by default)
+would replay its first update for ever: it is built with
+``capturable=True``, or the capture raises. SGD captures as it is.
 """
 
 from __future__ import annotations
@@ -21,11 +35,34 @@ from typing import Callable, Optional
 import torch
 
 from ..state import CarState, FIELDS
+from ..utils.graph import GraphedFunction, require_capturable
+
+
+def _optimizer_snapshot(params: list, optimizer):
+    """Keep the parameters' and the optimizer state's values; returns the
+    function that puts them back in place. State tensors that exist only
+    afterwards (an optimizer creates its state at its first step, and
+    ``torch.optim`` starts every such tensor at zero) are zeroed."""
+    state_tensors = lambda: [v for st in optimizer.state.values()
+                             for v in st.values() if torch.is_tensor(v)]
+    with torch.no_grad():
+        kept = [(t, t.clone()) for t in params + state_tensors()]
+
+    def restore():
+        with torch.no_grad():
+            known = {id(t) for t, _ in kept}
+            for t in state_tensors():
+                if id(t) not in known:
+                    t.zero_()
+            for t, value in kept:
+                t.copy_(value)
+    return restore
 
 
 def make_bptt_train_fn(step_fn: Callable, policy: Callable,
                        loss_fn: Callable, num_steps: int, num_beams: int,
-                       optimizer: Optional[Callable] = None):
+                       optimizer: Optional[Callable] = None,
+                       graph: Optional[bool] = None):
     """Build a BPTT train step.
 
     Args:
@@ -41,6 +78,10 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
       optimizer: a callable from the parameter list to a
         ``torch.optim.Optimizer``; None = SGD with lr 1e-2 (the JAX
         default ``optax.sgd(1e-2)``).
+      graph: ``None`` replays the whole train step from one CUDA graph
+        where ``state0`` lies on a CUDA device and ``step_fn.capturable``
+        is true, and runs it eagerly otherwise; ``True`` raises where it
+        cannot capture; ``False`` is the eager step (module doc).
 
     Returns ``(train, init_opt_state)``: ``init_opt_state(params)`` makes
     the parameters leaves that require grad and builds the optimizer over
@@ -51,25 +92,61 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
     """
     if optimizer is None:
         optimizer = lambda ps: torch.optim.SGD(ps, lr=1e-2)
+    inner = getattr(step_fn, "eager", step_fn)   # a graphed step's own step
 
     def init_opt_state(params):
         return optimizer([params[k].requires_grad_(True)
                           for k in sorted(params)])
 
-    def train(params, opt_state, state0: CarState, generator=None):
-        opt_state.zero_grad()
+    def whole_step(step, params, opt_state, state0, generator,
+                   keep_grads: bool):
+        opt_state.zero_grad(set_to_none=not keep_grads)
         state = state0
         ranges = torch.zeros(state0.batch_shape + (num_beams,),
                              dtype=torch.float32, device=state0.device)
         losses = []
         for t in range(num_steps):
-            out = step_fn(state, policy(params, state, ranges, t), generator)
+            out = step(state, policy(params, state, ranges, t), generator)
             losses.append(loss_fn(out, t))
             state, ranges = out.state, out.ranges
         loss = torch.stack(losses).mean()
         loss.backward()
         opt_state.step()
         final = CarState(**{f: getattr(state, f).detach() for f in FIELDS})
-        return params, opt_state, loss.detach(), final
+        return loss.detach(), final
 
+    # what the graph closed over: replaced parameters or another optimizer
+    # capture again
+    cell = {}
+    graphed = GraphedFunction(
+        lambda state0, generator: whole_step(
+            inner, cell["params"], cell["opt"], state0, generator, True),
+        watch=lambda: (cell["opt"], getattr(inner, "map_cell", {}).get("map"),
+                       *(cell["params"][k] for k in sorted(cell["params"]))),
+        grad=True, name="train step",
+        snapshot=lambda: _optimizer_snapshot(
+            [cell["params"][k] for k in sorted(cell["params"])],
+            cell["opt"]))
+
+    def train(params, opt_state, state0: CarState, generator=None):
+        use = graph
+        if use is None:
+            use = (state0.device.type == "cuda"
+                   and getattr(inner, "capturable", False))
+        if not use:
+            loss, final = whole_step(step_fn, params, opt_state, state0,
+                                     generator, False)
+            return params, opt_state, loss, final
+        require_capturable(inner)
+        if any(not g.get("capturable", True) for g in opt_state.param_groups):
+            raise RuntimeError(
+                f"{type(opt_state).__name__} counts its steps on the host, "
+                "so a CUDA graph would replay its first update for ever: "
+                "build it with capturable=True, or pass graph=False to "
+                "make_bptt_train_fn")
+        cell.update(params=params, opt=opt_state)
+        loss, final = graphed(state0, generator)
+        return params, opt_state, loss, final
+
+    train.graphed = graphed         # .captures, .replays, .release()
     return train, init_opt_state

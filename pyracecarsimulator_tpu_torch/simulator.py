@@ -18,10 +18,22 @@ differentiable in the map by autograd) and ``"edf_implicit"`` (the
 nearest march with the implicit-function VJP). ``make_scan_fn(...,
 map_grad=True)`` gives the sector scan a d(range)/d(map) cotangent.
 
-PyTorch runs eagerly, so swapping a map through ``step.map_cell`` simply
-replaces the tensors the next call reads: there is no compiled program to
-keep, and the JAX facade's retrace checks (``_swap_or_rebuild``'s shape
-signature, ``jitted._cache_size``) have no counterpart.
+The JAX step is one compiled program (``jax.jit``, the map a traced
+argument). The port's step runs eagerly by default, kernel by kernel from
+Python; ``make_step_fn(..., graph=True)`` returns it replayed as one CUDA
+graph (``utils/graph.py``), bit for bit the eager step's values. A step
+carries ``step.capturable``: True on the exact and the simplified segment
+backends, whose scans read nothing from the host after their first call
+on a device; False on the EDF backends, whose marches read the host every
+32 trips for their early exit (``step.host_read`` names the read), and
+``graph=True`` on them raises. Swapping a map through ``step.map_cell``
+replaces the tensors the next eager call reads; a graph holds the
+addresses of the table it was captured with, so the graphed step watches
+the identity of ``map_cell["map"]`` and captures again after a swap (the
+JAX facade's retrace checks, ``_swap_or_rebuild``'s shape signature and
+``jitted._cache_size``, have no other counterpart). The rollout and the
+train step capture the eager step inside their own graphs
+(``parallel/rollout.py``, ``parallel/train.py``).
 """
 
 from __future__ import annotations
@@ -48,11 +60,21 @@ from .ops.raycast_segments import scan_poses_segments as _scan_segments
 from .ops.raymarch_diff import scan_poses_implicit as _scan_implicit
 from .ops.raymarch_xla import scan_poses as _scan_edf
 from .ops.noise import add_scan_noise
+from .utils.graph import (CudaGraphBackend, GraphedFunction,
+                          require_capturable)
 
 # backends whose map object is a compiled segment table (vs the EDF track)
 _SEGMENT_BACKENDS = ("segments", "segments_simplified", "segments_pallas",
                      "sectors", "auto")
 _EDF_BACKENDS = ("edf", "edf_bilinear", "edf_implicit")
+# why a step on an EDF backend cannot be captured in a CUDA graph
+_HOST_READS = {
+    backend: f"ops/{module}.py: {march} reads alive.any() on the host every "
+             "32 trips (_ALIVE_CHECK) to leave its loop early"
+    for backend, module, march in (
+        ("edf", "raymarch_xla", "march_rays"),
+        ("edf_bilinear", "raymarch_xla", "march_rays"),
+        ("edf_implicit", "raymarch_diff", "_march_nearest"))}
 
 
 class StepOutput(NamedTuple):
@@ -98,7 +120,9 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
     CUDA card (``config.default_device``, which raises where there is
     none); pass ``device="cpu"`` to run on the CPU.
 
-    ``backend``: one of the module doc's; "auto" resolves to "sectors".
+    ``backend``: one of the module doc's; "auto" resolves to "sectors",
+    the faster exact backend on the H100 on both bundled maps (the
+    measurement stands beside the code).
     The EDF backends need no compiled geometry (``segmap`` is None).
     ``tile_size``: culling tile edge in meters; None = per-backend default
     (4.0 for the dense backends, 2.0 for the sector backend, whose parallax
@@ -106,6 +130,15 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
     """
     _check_backend(backend)
     if backend == "auto":
+        # Decided on the H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+        # phase 24, 4096 agents x 1080 beams), with the host out of the
+        # step: a graphed rollout step takes 0.82 ms on "sectors" against
+        # 0.92 ms on "segments" on levine, and 1.26 against 2.69 ms on
+        # berlin, whose sector lists hold 198 real slots a ray where its
+        # map tiles hold 863. Eagerly both are bound by the host's launch
+        # rate (2.1-4.7 ms a step either way). Values are equal on every
+        # exact backend. (The JAX package picks "sectors" for a TPU v5e
+        # reason of its own.)
         backend = "sectors"
     device = resolve_device(device)
     track = (load_builtin(track_or_name, device=device)
@@ -262,7 +295,8 @@ def latch(new: CarState, ranges, hit) -> StepOutput:
 
 def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
                  with_noise: bool = True,
-                 agent_chunk: Optional[int] = None) -> Callable:
+                 agent_chunk: Optional[int] = None,
+                 graph: bool = False) -> Callable:
     """Build the closed-loop simulation step.
 
     Returns ``step(state, action, generator=None) -> StepOutput``; action
@@ -270,7 +304,14 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
     and ``generator`` (a ``torch.Generator`` on the map's device) drives
     the range noise when ``with_noise``. ``step.map_cell["map"]`` holds the
     map the scan reads (the segment table, or the track for the EDF
-    backends).
+    backends). ``step.capturable`` says whether the step can be captured
+    in a CUDA graph (module doc); where it cannot, ``step.host_read`` says
+    why.
+
+    ``graph=True`` returns the step replayed as one CUDA graph: the same
+    values, forward only (no autograd graph), ``step.map_cell`` kept and
+    watched, ``step.eager`` the step it captured. It raises for a bundle
+    that is not on a CUDA device and for a backend that reads the host.
     """
     backend = backend or bundle.backend
     map_cell = {"map": (bundle.segmap if backend in _SEGMENT_BACKENDS
@@ -297,7 +338,28 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
         return latch(new, ranges, hit)
 
     step.map_cell = map_cell        # swap maps here
-    return step
+    step.capturable = backend in _SEGMENT_BACKENDS
+    step.host_read = _HOST_READS.get(backend)
+    return _graphed_step(step, bundle.track.edf.device) if graph else step
+
+
+def _graphed_step(step, device):
+    """``step`` replayed as a CUDA graph that watches the step's map."""
+    require_capturable(step)
+    CudaGraphBackend().check(device)
+    map_cell = step.map_cell
+    graphed = GraphedFunction(step, watch=lambda: (map_cell["map"],),
+                              name="step")
+
+    def graphed_step(state: CarState, action, generator=None) -> StepOutput:
+        return graphed(state, action, generator)
+
+    graphed_step.map_cell = map_cell
+    graphed_step.capturable = True
+    graphed_step.host_read = None
+    graphed_step.eager = step
+    graphed_step.graphed = graphed      # .captures, .replays, .release()
+    return graphed_step
 
 
 class RacecarSimulator:
@@ -308,7 +370,10 @@ class RacecarSimulator:
     def __init__(self, track_or_name="levine", car_params: CarParams = None,
                  scan_params: ScanParams = None, sim_params: SimParams = None,
                  backend: str = "segments", batch_shape=(), seed: int = 0,
-                 with_noise: bool = True, device=None):
+                 with_noise: bool = True, device=None, graph: bool = False):
+        """``graph=True`` replays the step as a CUDA graph
+        (``make_step_fn``); each ``add_obstacle`` and ``clear_obstacles``
+        swaps the map and costs one capture, so the default stays eager."""
         device = resolve_device(device)
         # sector_headroom as in the JAX facade: slack in the cull-list
         # capacity for the obstacle edits
@@ -322,7 +387,8 @@ class RacecarSimulator:
         self.backend = self.bundle.backend
         self.with_noise = with_noise
         self.batch_shape = tuple(batch_shape)
-        self._step = make_step_fn(self.bundle, self.backend, with_noise)
+        self._step = make_step_fn(self.bundle, self.backend, with_noise,
+                                  graph=graph)
         # the scan shares the step's cell: one swap serves both
         self._scan = make_scan_fn(self.bundle, self.backend,
                                   self._step.map_cell)

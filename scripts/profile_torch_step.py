@@ -2,7 +2,7 @@
 
     python3 scripts/profile_torch_step.py [--map levine,berlin]
                                           [--backend segments,sectors]
-                                          [--agents 4096]
+                                          [--agents 4096] [--graph]
 
 For each named map and backend (default: both bundled maps, the default
 backend "segments" and the sector backend; any backend of ``build_sim``
@@ -24,6 +24,13 @@ scanner poses of the stepped state, which sit 0.275 m ahead of the base
 link; then it times the step a second time. A step that takes longer than
 its scan by more than the dynamics' ~2 ms shows here whether it marches
 further or does other work. Needs a CUDA card.
+
+``--graph`` profiles the step replayed as one CUDA graph
+(``make_step_fn(..., graph=True)``; the segment backends only): the same
+figures, with the capture's seconds and, from the trace, the host's
+``cudaGraphLaunch`` calls per step. The kernels per step then count what
+the replay runs plus the copies into the graph's static inputs and the
+clones of its outputs.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default="segments,sectors",
                     help="backends of build_sim, comma-separated")
     ap.add_argument("--agents", type=int, default=4096)
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the step replayed as a CUDA graph")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -78,7 +87,8 @@ def main(argv=None) -> dict:
     for name, backend in ((n, b) for n in args.map.split(",")
                           for b in args.backend.split(",")):
         bundle = build_sim(name, backend=backend, device="cuda")
-        step = make_step_fn(bundle, with_noise=True)
+        step = make_step_fn(bundle, with_noise=True, graph=args.graph)
+        mode = "graphed" if args.graph else "eager"
         scan = make_scan_fn(bundle)
         poses = torch.as_tensor(sample_free_poses(
             bundle.track, agents, np.random.RandomState(0)), device="cuda")
@@ -93,6 +103,10 @@ def main(argv=None) -> dict:
 
         marching = bundle.segmap is None
         reps = TIMED_STEPS if not marching else TIMED_STEPS // 5
+        t0 = time.perf_counter()
+        advance()               # the first call: builds, and captures
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
         step_ms, step_trips = counted(advance, reps, 5)
 
         # the scan alone: on the sampled poses, and where the step scans
@@ -124,6 +138,10 @@ def main(argv=None) -> dict:
                   if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in events) / 1e3 / traced
         launches = sum(e.count for e in events) / traced
+        graph_launches = sum(e.count for e in prof.key_averages()
+                             if e.key == "cudaGraphLaunch") / traced
+        print(f"[{name} {backend}] {mode} step; its first call "
+              f"{first_s:.3f} s; {graph_launches:.1f} cudaGraphLaunch/step")
         print(f"[{name} {backend}] {card}: {agents} agents, step "
               f"{step_ms:.4f} ms (CUDA events, no profiler), device busy "
               f"{busy:.4f} ms/step (trace), idle share {1 - busy / step_ms:.4f}, "
@@ -139,6 +157,9 @@ def main(argv=None) -> dict:
             print(f"    {e.self_device_time_total / 1e3 / traced:9.4f} "
                   f"ms/step  x{e.count // traced:<3d} {e.key[:90]}")
         results[f"{name} {backend}"] = {
+            "mode": mode, "first_call_s": first_s,
+            "graph_launches_per_step": graph_launches,
+            "idle_share": 1 - busy / step_ms,
             "step_ms": step_ms, "step_trips": step_trips,
             "step_ms_2": step_ms_2, "step_trips_2": step_trips_2,
             "scan_ms": scan_ms, "scan_trips": scan_trips,

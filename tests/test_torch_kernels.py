@@ -254,3 +254,53 @@ def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas, route):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert torch.equal(got, ref)
+
+
+# -- the step and the rollout replayed as CUDA graphs ------------------------
+
+@pytest.mark.parametrize("backend", ["segments", "sectors"])
+def test_graphed_step_and_rollout_equal_eager(cuda, backend):
+    """``make_step_fn(graph=True)`` and the default rollout on the card
+    against the eager step and loop, noise on from one seed: bit for bit;
+    a replayed rollout of T steps adds T to its wrapper's counter."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.parallel import (
+        make_gap_follower_policy, make_rollout_fn)
+    from pyracecarsimulator_tpu_torch.state import FIELDS
+    beams, steps = 256, 10
+    bundle = P.build_sim("levine", backend=backend,
+                         scan=P.ScanParams(num_beams=beams), device=cuda)
+    p = torch.as_tensor(sample_free_poses(bundle.track, 64,
+                                          np.random.RandomState(0)),
+                        device=cuda)
+    state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    act = (torch.full((64,), 2.0, device=cuda), torch.zeros(64, device=cuda))
+    same = lambda a, b: all(torch.equal(getattr(a, f), getattr(b, f))
+                            for f in FIELDS)
+    seeded = lambda: torch.Generator(device=cuda).manual_seed(2)
+    eager = P.make_step_fn(bundle, with_noise=True)
+    graphed = P.make_step_fn(bundle, with_noise=True, graph=True)
+    ge, gg = seeded(), seeded()
+    se = sg = state
+    for _ in range(3):
+        oe, og = eager(se, act, ge), graphed(sg, act, gg)
+        assert torch.equal(oe.ranges, og.ranges)
+        assert torch.equal(oe.collision, og.collision)
+        assert same(oe.state, og.state)
+        se, sg = oe.state, og.state
+    assert graphed.graphed.captures == 1
+    policy = make_gap_follower_policy(beams, FOV)
+    run = make_rollout_fn(eager, policy, steps, beams, keep_scans=True)
+    run_eager = make_rollout_fn(eager, policy, steps, beams, keep_scans=True,
+                                graph=False)
+    ge, gg = seeded(), seeded()
+    for call in range(2):
+        before = sweeps.launch_counts()
+        fg, tg = run(state, gg)
+        grown = [n - before[k] for k, n in sweeps.launch_counts().items()
+                 if n != before[k]]
+        # the first call warms up its two graphs with 2 steps each
+        assert grown == [steps + (4 if call == 0 else 0)]
+        fe, te = run_eager(state, ge)
+        assert all(torch.equal(te[k], tg[k]) for k in te) and same(fe, fg)

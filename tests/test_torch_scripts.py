@@ -46,9 +46,14 @@ BENCH_RATES = (
        "env_steps_s_4096", "env_steps_s_4096_sectors",
        "env_steps_s_4096_sectors_berlin", "train_steps_s_levine",
        "train_rays_s_levine", "train_steps_s_berlin", "train_rays_s_berlin",
-       "multitrack_fwdbwd", "ring_1dev_rays_s", "sharded_step_1dev_rays_s"])
+       "multitrack_fwdbwd", "ring_1dev_rays_s", "sharded_step_1dev_rays_s"]
+    # the eager twins of the paths that replay as CUDA graphs on the card
+    + ["env_steps_s_4096_eager", "env_steps_s_4096_sectors_eager",
+       "env_steps_s_4096_sectors_berlin_eager", "train_steps_s_levine_eager",
+       "train_steps_s_berlin_eager"])
 BENCH_GATES = ("levine_sector_parity_maxabs", "berlin_sector_parity_maxabs",
-               "multitrack_parity_maxabs", "ring_parity_maxabs")
+               "multitrack_parity_maxabs", "ring_parity_maxabs",
+               "rollout_graph_parity_maxabs")
 
 
 def _load(rel):
