@@ -111,15 +111,20 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     collision and every state field bit for bit); the graphed rollout
     (gap follower, T = 25, scans kept, noise off and on) against the
     eager loop; a replayed rollout adds T to its wrapper's counter and
-    the host launches T graphs; the graphed BPTT train step (T = 5, Adam
+    the host launches T graphs; the graphed rollout under an open-loop
+    policy ``steer_seq[t]`` against the eager loop (after step 0 the
+    policy's ``t`` is the device's step index), and a policy that branches
+    on ``t`` in Python raises; a host-counting Adam under ``graph=None``
+    trains eagerly; the graphed BPTT train step (T = 5, Adam
     with ``capturable=True``) against the eager one, losses and
     parameters after 3 steps; the facade with ``graph=True`` across
     ``add_obstacle`` and ``clear_obstacles`` against the eager facade (a
     stale table fails here); ``graph=True`` on an "edf" step raises; 10
     scans after the first make no ``cudaStreamSynchronize`` and no
     host-to-device copy (profiler); times, eager and graphed: ms per
-    step, per rollout step and per train step, the capture's seconds, and
-    from the profiler the graphed step's device launches, device-busy
+    step, per rollout step and per train step, the capture's seconds, the
+    steps after which a rollout's first call is paid back, and from the
+    profiler the graphed step's device launches, device-busy
     time and idle share.
 
 Every kernel's time stands beside its bound: the larger of its
@@ -1738,6 +1743,40 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                       f"{cell}: the graphed rollout, noise {noise}")
             res["rollout_cuda_graph_launches"] = n_graph
 
+            # a policy that depends on t: after step 0 it gets the device's
+            # step index; a Python branch on it fails the capture
+            seq = torch.linspace(-0.4, 0.4, T, device="cuda")
+            open_loop = lambda s, r, t: (act[0], seq[t].expand(AGENTS))
+            stale_loop = lambda s, r, t: open_loop(s, r, min(t, 1))
+            fe, te = make_rollout_fn(eager, open_loop, T, BEAMS,
+                                     graph=False)(s0)
+            _, stale = make_rollout_fn(eager, stale_loop, T, BEAMS,
+                                       graph=False)(s0)
+            run_g = make_rollout_fn(eager, open_loop, T, BEAMS)
+            same = []
+            for _ in range(2):
+                fg, tg = run_g(s0)
+                same.append(all(bool(torch.equal(te[k], tg[k])) for k in te)
+                            and same_state(fe, fg))
+            differs = not bool(torch.equal(stale["pose"], te["pose"]))
+            raised = ""
+            try:
+                make_rollout_fn(
+                    eager, lambda s, r, t: open_loop(s, r, 0 if t < 3 else 1),
+                    T, BEAMS)(s0)
+            except RuntimeError as e:
+                raised = str(e)
+            log(f"[{cell}] graphed rollout with the open-loop policy "
+                f"steer_seq[t], T = {T}, twice: poses, collisions and the "
+                f"final state bit-identical to the eager loop = {same}; the "
+                f"eager loop with t held at 1 differs = {differs}; a policy "
+                f"that branches on t in Python raises: {raised[:160]!r}")
+            check(all(same) and differs and "t >= 1" in raised
+                  and "graph=False" in raised,
+                  f"{cell}: the graphed rollout with a policy that depends "
+                  f"on t")
+            del run_g
+
             # the train step: 3 steps each way
             smooth = bundle._replace(sim=SimParams(steer_mode="smooth"))
             tstep = make_step_fn(smooth, with_noise=False)
@@ -1783,6 +1822,22 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                 torch.isfinite(got[True][0]).all()),
                 f"{cell}: the graphed train step differs from the eager one")
 
+            # graph=None and an Adam that counts its steps on the host: the
+            # eager step, not an error
+            train, init = make_bptt_train_fn(
+                tstep, train_policy, train_loss, TRAIN_T, BEAMS,
+                optimizer=lambda ps: torch.optim.Adam(ps, lr=3e-3))
+            params = {"w": torch.zeros(BEAMS, device="cuda"),
+                      "b": torch.zeros((), device="cuda")}
+            opt = init(params)
+            for _ in range(2):
+                params, opt, loss, _ = train(params, opt, s0)
+            check(train.graphed.captures == 0
+                  and bool(torch.isfinite(loss))
+                  and float(params["w"].detach().abs().sum()) > 0,
+                  f"{cell}: graph=None with a host-counting Adam did not "
+                  f"train eagerly")
+
             # times, eager and graphed
             state = [s0]
 
@@ -1804,6 +1859,14 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
             for key, fn in (("eager", run_e), ("graphed", run_g)):
                 res[f"rollout_{key}_ms_per_step"] = timed_ms(
                     lambda i: fn(s0), 4, warmup=1) / T
+            # steps after which a rollout's first call (warm-up, 2 captures)
+            # has cost less than the eager loop
+            saved = (res["rollout_eager_ms_per_step"]
+                     - res["rollout_graphed_ms_per_step"])
+            extra = (res["rollout_first_call_s"] * 1e3
+                     - T * res["rollout_graphed_ms_per_step"])
+            res["rollout_break_even_steps"] = (
+                extra / saved if saved > 0 else math.inf)
 
             # the graphed step under the profiler: launches, busy, idle
             state[0] = s0
@@ -1822,10 +1885,10 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
             res["graphed_step_cuda_graph_launches"] = sum(
                 e.count for e in prof.key_averages()
                 if e.key == "cudaGraphLaunch") / n_prof
-            # a trace without device time cannot give the two shares
-            res["graphed_step_device_busy_ms"] = busy if busy > 0 else None
-            res["graphed_step_idle_share"] = (
-                1 - busy / res["step_graphed_ms"] if busy > 0 else None)
+            check(busy > 0, f"{cell}: the trace of the graphed step holds "
+                  f"no device time")
+            res["graphed_step_device_busy_ms"] = busy
+            res["graphed_step_idle_share"] = 1 - busy / res["step_graphed_ms"]
 
             # 10 scans after the first: no synchronisation, no host copy
             scan = make_scan_fn(bundle)
@@ -1852,7 +1915,9 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                 f"{res['step_capture_s']:.3f} s); rollout per step eager "
                 f"{res['rollout_eager_ms_per_step']:.4f} ms, graphed "
                 f"{res['rollout_graphed_ms_per_step']:.4f} ms (first call "
-                f"with its 2 captures {res['rollout_first_call_s']:.3f} s); "
+                f"with its 2 captures {res['rollout_first_call_s']:.3f} s, "
+                f"paid back after {res['rollout_break_even_steps']:.0f} "
+                f"steps); "
                 f"train step T = {TRAIN_T} eager {res['train_eager_ms']:.4f} "
                 f"ms, graphed {res['train_graphed_ms']:.4f} ms (first 3 "
                 f"steps with the capture "
@@ -1861,8 +1926,9 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                 f"{res['graphed_step_device_launches']:.0f} device launches, "
                 f"{res['graphed_step_cuda_graph_launches']:.0f} "
                 f"cudaGraphLaunch, device busy "
-                f"{res['graphed_step_device_busy_ms']} ms, idle share "
-                f"{res['graphed_step_idle_share']}; launches of this cell "
+                f"{res['graphed_step_device_busy_ms']:.4f} ms, idle share "
+                f"{res['graphed_step_idle_share']:.4f}; launches of this "
+                f"cell "
                 f"{launches[cell]}")
             out[cell] = res
             graphed.graphed.release()

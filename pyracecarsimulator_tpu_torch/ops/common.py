@@ -18,7 +18,10 @@ padded fan, the block lookup beams and every 0-dim scalar that divides
 first scan on a device a scan copies nothing from the host, which is what
 lets the step be captured in a CUDA graph (``utils/graph.py``; a copy from
 pageable host memory is not allowed while a stream captures). The cached
-tensors are shared by every caller: they are never written in place.
+tensors are shared by every caller: they are never written in place. And
+they are never evicted: a captured graph holds their addresses, so a
+freed constant would be read stale. The cache grows by a fan per (beams,
+fov) and a few 0-dim scalars per map geometry (tile size, origin).
 """
 
 from __future__ import annotations

@@ -28,14 +28,24 @@ captured once and replayed T times, not T steps unrolled into one graph:
 The host issues T graph launches a rollout, plus a few small launches a
 block.
 
-A policy's Python code runs at capture, not at replay. Its branches on
-``t`` are resolved there: step 0 has a graph of its own, captured with
-``t = 0`` (no scan yet: the ranges are zeros), and every later step
-replays the graph captured with ``t = 1``. A policy may therefore branch
-on ``t == 0``, as ``make_gap_follower_policy`` does; any other dependence
-on ``t`` has to ride in a tensor, or the rollout takes ``graph=False``. A
-policy that reads the host fails the capture, and the error names
-``graph=False``.
+A policy's Python code runs at capture, not at replay. Step 0 has a graph
+of its own, captured with the int ``t = 0`` (no scan yet: the ranges are
+zeros). Every later step replays one graph, and there the policy's ``t``
+is the step index as a one-element int64 tensor on the state's device,
+counted up inside the graph, as ``lax.scan`` hands the JAX policy a
+traced index: ``steer_seq[t]`` and arithmetic on ``t`` take each step's
+own value, with a leading axis of 1 that broadcasts (the tensor is not
+0-dim, because PyTorch reads a 0-dim index on the host). A Python branch
+on that tensor (``if t < k``) would read the host: like any
+policy that reads the host it fails the capture, and the error names
+``graph=False``. Branch on ``torch.is_tensor(t)`` first (as
+``make_gap_follower_policy`` does for its ``t == 0``), or use
+``torch.where``.
+
+A capture is paid back after some tens of steps (``PERF.md`` has the
+measured break-even), so ``make_rollout_fn`` keeps its capture for the
+next call, and the one-shot ``rollout`` keeps the last function it built
+and replays it when it is handed the same step and policy again.
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ from ..utils.graph import (CudaGraphBackend, GraphedFunction,
 
 # bytes the graphed loop's trajectory block buffers may hold
 _BLOCK_BYTES = 1 << 28
+# (arguments, run function) of the last one-shot ``rollout`` call
+_LAST_ROLLOUT = None
 
 
 def _eager_rollout(step_fn, policy, num_steps, num_beams, keep_scans,
@@ -95,6 +107,7 @@ class _GraphedRollout:
             self.ranges = torch.zeros(shape + (num_beams,),
                                       dtype=torch.float32, device=dev)
             self.index = torch.zeros(1, dtype=torch.int64, device=dev)
+            self.t = torch.zeros(1, dtype=torch.int64, device=dev)
             rows = lambda *tail, dtype: torch.zeros(
                 (self.block,) + shape + tail, dtype=dtype, device=dev)
             self.blocks = {"pose": rows(3, dtype=torch.float32),
@@ -104,16 +117,20 @@ class _GraphedRollout:
         cell = getattr(step_fn, "map_cell", None)
         watch = (lambda: (cell["map"],)) if cell is not None else None
         self.graphs = [
-            GraphedFunction(self._one_step(step_fn, policy, t), watch=watch,
-                            device=dev, backend=backend,
-                            name=f"rollout step (t = {t})")
-            for t in (0, 1)]
+            GraphedFunction(self._one_step(step_fn, policy, first),
+                            watch=watch, device=dev, backend=backend,
+                            name=name)
+            for first, name in (
+                (True, "rollout step t = 0"),
+                (False, "rollout steps t >= 1 (the policy's t is a "
+                        "device tensor there)"))]
 
-    def _one_step(self, step_fn, policy, t):
-        """Policy, step, carry and trajectory writes of step ``t``, all on
-        the static buffers."""
+    def _one_step(self, step_fn, policy, first: bool):
+        """Policy, step, carry and trajectory writes of step 0 (``first``)
+        or of any later step, all on the static buffers."""
         def one(generator):
             state, ranges = self.state, self.ranges
+            t = 0 if first else self.t
             out = step_fn(state, policy(state, ranges, t), generator)
             rows = {"pose": out.state.pose, "collision": out.collision,
                     "ranges": out.ranges}
@@ -125,6 +142,7 @@ class _GraphedRollout:
                 getattr(state, f).copy_(getattr(out.state, f))
             ranges.copy_(out.ranges)
             self.index.add_(1)
+            self.t.add_(1)
         return one
 
     def run(self, state0: CarState, generator):
@@ -137,6 +155,7 @@ class _GraphedRollout:
             for f in FIELDS:
                 getattr(self.state, f).copy_(getattr(state0, f))
             self.ranges.zero_()
+            self.t.zero_()
             traj = {k: torch.empty((total,) + tuple(b.shape[1:]),
                                    dtype=b.dtype, device=b.device)
                     for k, b in self.blocks.items()}
@@ -166,9 +185,10 @@ def make_rollout_fn(step_fn: Callable, policy: Callable, num_steps: int,
     with ``None``, a state that requires grad takes the eager loop.
     """
     inner = getattr(step_fn, "eager", step_fn)   # a graphed step's own step
-    graphed = {}        # (batch shape, device) -> _GraphedRollout, one kept
+    kept = None         # ((batch shape, device), _GraphedRollout): one
 
     def run(state0: CarState, generator=None):
+        nonlocal kept
         use = graph
         wants_grad = torch.is_grad_enabled() and any(
             getattr(state0, f).requires_grad for f in FIELDS)
@@ -184,11 +204,11 @@ def make_rollout_fn(step_fn: Callable, policy: Callable, num_steps: int,
                 "graph=True: the graphed rollout carries no autograd graph, "
                 "and the state requires grad: pass graph=False")
         key = (state0.batch_shape, state0.device)
-        if key not in graphed:
-            graphed.clear()     # one batch shape's buffers at a time
-            graphed[key] = _GraphedRollout(inner, policy, num_steps,
-                                           num_beams, keep_scans, state0)
-        return graphed[key].run(state0, generator)
+        if kept is None or kept[0] != key:
+            kept = None         # one batch shape's buffers at a time
+            kept = key, _GraphedRollout(inner, policy, num_steps, num_beams,
+                                        keep_scans, state0)
+        return kept[1].run(state0, generator)
 
     return run
 
@@ -203,10 +223,20 @@ def rollout(step_fn: Callable, state0: CarState, policy: Callable,
     traj holding poses (T, ..., 3) and collision (T, ...), plus ranges
     (T, ..., num_beams) if ``keep_scans``. ``graph`` as
     ``make_rollout_fn``'s (module doc).
+
+    The last function built is kept and used again when the next call
+    names the same ``step_fn`` and ``policy`` objects and the same sizes:
+    only the first of such calls pays for a capture. It keeps that
+    capture's buffers (at most ``_BLOCK_BYTES`` and one step's working
+    set) until a call with other arguments replaces it.
     """
-    run = make_rollout_fn(step_fn, policy, num_steps, num_beams, keep_scans,
-                          graph)
-    return run(state0, generator)
+    global _LAST_ROLLOUT
+    key = (step_fn, policy, num_steps, num_beams, keep_scans, graph)
+    last = _LAST_ROLLOUT
+    if last is None or last[0] != key:  # functions compare by identity
+        _LAST_ROLLOUT = last = key, make_rollout_fn(
+            step_fn, policy, num_steps, num_beams, keep_scans, graph)
+    return last[1](state0, generator)
 
 
 def make_constant_policy(v_des, steer_des):
@@ -234,7 +264,7 @@ def make_gap_follower_policy(num_beams: int, fov: float, speed: float = 3.0,
     def policy(state, ranges, t):
         dev = ranges.device
         v = torch.full(state.batch_shape, float(speed), device=dev)
-        if t == 0:                      # no scan yet
+        if not torch.is_tensor(t) and t == 0:       # no scan yet
             return v, torch.zeros(state.batch_shape, device=dev)
         best = torch.argmax(ranges, dim=-1)
         return v, steer_gain * beam_angles(num_beams, fov, dev)[best]

@@ -24,8 +24,12 @@ Python branches on ``t`` are resolved exactly. What Python computes from
 the optimizer's hyper-parameters is frozen at capture: a learning rate
 changed afterwards needs a new train function. An optimizer that counts
 its steps on the host (``torch.optim.Adam`` and its kin by default)
-would replay its first update for ever: it is built with
-``capturable=True``, or the capture raises. SGD captures as it is.
+would replay its first update for ever: built with ``capturable=True``
+it is captured; without, ``graph=None`` takes the eager step and
+``graph=True`` raises. SGD captures as it is, but for momentum with a
+dampening: its first update sets the buffer to the whole gradient and
+the later ones add the damped gradient, two rules where a graph replays
+one (``_why_not_graphed``).
 """
 
 from __future__ import annotations
@@ -42,7 +46,9 @@ def _optimizer_snapshot(params: list, optimizer):
     """Keep the parameters' and the optimizer state's values; returns the
     function that puts them back in place. State tensors that exist only
     afterwards (an optimizer creates its state at its first step, and
-    ``torch.optim`` starts every such tensor at zero) are zeroed."""
+    ``torch.optim`` starts every such tensor at zero) are zeroed. Where
+    an update from a zeroed state is not the optimizer's first update,
+    ``_why_not_graphed`` keeps the optimizer away from the graph."""
     state_tensors = lambda: [v for st in optimizer.state.values()
                              for v in st.values() if torch.is_tensor(v)]
     with torch.no_grad():
@@ -57,6 +63,25 @@ def _optimizer_snapshot(params: list, optimizer):
             for t, value in kept:
                 t.copy_(value)
     return restore
+
+
+def _why_not_graphed(optimizer) -> Optional[str]:
+    """Why one captured update would not equal this optimizer's eager
+    updates, or None where it does."""
+    kind = type(optimizer).__name__
+    for group in optimizer.param_groups:
+        if not group.get("capturable", True):
+            return (f"{kind} counts its steps on the host, so a CUDA graph "
+                    "would replay its first update for ever: build it with "
+                    "capturable=True, or pass graph=False to "
+                    "make_bptt_train_fn")
+        if (isinstance(optimizer, torch.optim.SGD) and group["momentum"]
+                and group["dampening"]):
+            return (f"{kind} with momentum and dampening sets its buffer to "
+                    "the whole gradient at the first update and adds the "
+                    "damped gradient afterwards; a CUDA graph replays one "
+                    "rule: pass graph=False to make_bptt_train_fn")
+    return None
 
 
 def make_bptt_train_fn(step_fn: Callable, policy: Callable,
@@ -79,9 +104,10 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
         ``torch.optim.Optimizer``; None = SGD with lr 1e-2 (the JAX
         default ``optax.sgd(1e-2)``).
       graph: ``None`` replays the whole train step from one CUDA graph
-        where ``state0`` lies on a CUDA device and ``step_fn.capturable``
-        is true, and runs it eagerly otherwise; ``True`` raises where it
-        cannot capture; ``False`` is the eager step (module doc).
+        where ``state0`` lies on a CUDA device, ``step_fn.capturable`` is
+        true and the optimizer's update can be captured, and runs it
+        eagerly otherwise; ``True`` raises where it cannot capture;
+        ``False`` is the eager step (module doc).
 
     Returns ``(train, init_opt_state)``: ``init_opt_state(params)`` makes
     the parameters leaves that require grad and builds the optimizer over
@@ -130,20 +156,17 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
 
     def train(params, opt_state, state0: CarState, generator=None):
         use = graph
+        why_not = _why_not_graphed(opt_state) if use is not False else None
         if use is None:
-            use = (state0.device.type == "cuda"
+            use = (state0.device.type == "cuda" and why_not is None
                    and getattr(inner, "capturable", False))
         if not use:
             loss, final = whole_step(step_fn, params, opt_state, state0,
                                      generator, False)
             return params, opt_state, loss, final
         require_capturable(inner)
-        if any(not g.get("capturable", True) for g in opt_state.param_groups):
-            raise RuntimeError(
-                f"{type(opt_state).__name__} counts its steps on the host, "
-                "so a CUDA graph would replay its first update for ever: "
-                "build it with capturable=True, or pass graph=False to "
-                "make_bptt_train_fn")
+        if why_not is not None:
+            raise RuntimeError(why_not)
         cell.update(params=params, opt=opt_state)
         loss, final = graphed(state0, generator)
         return params, opt_state, loss, final

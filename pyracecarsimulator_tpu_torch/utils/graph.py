@@ -46,11 +46,26 @@ A graph is captured on a CUDA device or the call raises: nothing runs
 eagerly in silence where a graph was asked for. A function that reads the
 host (``.item()``, ``bool(tensor)``, ``.cpu()``, a tensor built from host
 data) cannot be captured; the error says so and names ``graph=False``.
+It is caught in the last warm-up call, which runs with PyTorch's
+synchronisation check set to raise, before a capture is begun; what that
+check misses fails in the capture.
+
+Python's collector is switched off while a stream captures. A dead
+cycle (the traceback of a failed capture, say) may own an earlier graph,
+and the collector runs at any allocation: were it to run during a
+capture, the graph's destructor would free its pool there, which CUDA
+forbids and answers by invalidating the capture
+(``cudaErrorStreamCaptureInvalidated`` in an unrelated function, seen on
+the card). Collecting before every capture instead, as ``torch.cuda.graph``
+once did, costs tenths of a second a capture in a large process
+(``PERF.md``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -129,24 +144,43 @@ class CudaGraphBackend:
                 f"are on {device}: run on a CUDA device or pass graph=False")
 
     def warm_up(self, run: Callable, device, n: int):
-        """``n`` eager calls of ``run()`` on a side stream."""
+        """``n`` eager calls of ``run()`` on a side stream. The last of
+        several runs with PyTorch's synchronisation check set to raise
+        (``torch.cuda.set_sync_debug_mode``): a function that reads the
+        host, or copies from it, fails here and not inside the capture."""
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(n):
-                    run()
-            torch.cuda.current_stream().wait_stream(side)
+            mode = torch.cuda.get_sync_debug_mode()
+            try:
+                with torch.cuda.stream(side):
+                    for i in range(n):
+                        if n > 1 and i == n - 1:
+                            with warnings.catch_warnings():
+                                # "a prototype feature": what it misses
+                                # still fails in the capture
+                                warnings.simplefilter("ignore")
+                                torch.cuda.set_sync_debug_mode("error")
+                        run()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                torch.cuda.current_stream().wait_stream(side)
 
     def capture(self, run: Callable, device, generators):
         """Capture one call of ``run()``; returns ``(outputs, replay)``:
         the static output tensors and the function that replays."""
-        with torch.cuda.device(device):
-            graph = torch.cuda.CUDAGraph()
-            for g in generators:
-                graph.register_generator_state(g)
-            with torch.cuda.graph(graph, pool=self.pool):
-                outs = run()
+        collecting = gc.isenabled()
+        gc.disable()        # no earlier graph dies during this capture
+        try:
+            with torch.cuda.device(device):
+                graph = torch.cuda.CUDAGraph()
+                for g in generators:
+                    graph.register_generator_state(g)
+                with torch.cuda.graph(graph, pool=self.pool):
+                    outs = run()
+        finally:
+            if collecting:
+                gc.enable()
         return outs, graph.replay
 
 

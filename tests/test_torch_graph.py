@@ -444,6 +444,49 @@ def test_train_refuses_an_optimizer_that_counts_on_the_host(bundles,
         train(params, init(params), state)
 
 
+@pytest.mark.parametrize("name, make, reason", [
+    ("sgd", lambda ps: torch.optim.SGD(ps, lr=1e-2), None),
+    ("momentum", lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9), None),
+    ("nesterov", lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9,
+                                            nesterov=True), None),
+    ("dampening", lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9,
+                                             dampening=0.5),
+     "(?s)SGD.*dampening.*graph=False"),
+    ("adam", lambda ps: torch.optim.Adam(ps, lr=1e-3),
+     "(?s)Adam.*capturable=True.*graph=False"),
+    ("adam_capturable", lambda ps: torch.optim.Adam(ps, lr=1e-3,
+                                                    capturable=True), None),
+])
+def test_which_optimizers_one_captured_update_serves(bundles, small_track,
+                                                     name, make, reason):
+    """``graph=None`` trains eagerly where one captured update would not
+    equal the optimizer's eager updates (a step count on the host, a
+    momentum buffer with dampening: its first update differs from the
+    later ones); ``graph=True`` raises there and says why."""
+    ptrain = importlib.import_module(
+        "pyracecarsimulator_tpu_torch.parallel.train")
+    why = ptrain._why_not_graphed(make([torch.zeros(2, requires_grad=True)]))
+    assert (why is None) == (reason is None)
+    if name == "adam_capturable":
+        return              # torch runs a capturable Adam on a card only
+    state = P.state_from_numpy(_initial(small_track), device="cpu")
+    step = psim.make_step_fn(bundles["sectors"], with_noise=False)
+    for graph in (None, True):
+        train, init = make_bptt_train_fn(
+            step, lambda p, s, r, t: (torch.full(s.batch_shape, 2.0),
+                                      torch.tanh(r @ p["w"])),
+            lambda out, t: out.ranges.mean(), 2, BEAMS, optimizer=make,
+            graph=graph)
+        train.graphed.backend = _ReRun()
+        params = {"w": torch.zeros(BEAMS)}
+        if graph and reason:
+            with pytest.raises(RuntimeError, match=reason):
+                train(params, init(params), state)
+            continue
+        train(params, init(params), state)
+        assert train.graphed.captures == (1 if graph else 0)
+
+
 # -- GraphedFunction's bookkeeping, with the stand-in backend -----------------
 
 def test_graphed_function_copies_in_and_clones_out():
@@ -656,6 +699,82 @@ def test_graphed_rollout_matches_jax(small_track):
                                   np.asarray(jtraj["collision"]))
     np.testing.assert_allclose(pfin.pose.numpy(), np.asarray(jfin.pose),
                                atol=1e-5)
+
+
+def test_graphed_rollout_hands_the_policy_its_step_index(small_track):
+    """After step 0 the graphed loop's policy gets ``t`` as the step
+    index carried beside the state (a one-element int64 tensor), the int 0 at
+    step 0: an open-loop ``steer_seq[t]`` equals the eager loop bit for
+    bit across blocks (3 steps a block) and at a second call, and the JAX
+    package's ``lax.scan`` rollout within 1e-5 m in the poses."""
+    sim_kw = dict(ttc_threshold=0.3)
+    from pyracecarsimulator_tpu.config import SimParams as JSimP
+    jb = jsim.build_sim(small_track, sim=JSimP(**sim_kw), backend="sectors")
+    pb = psim.build_sim(_port_track(small_track), sim=P.SimParams(**sim_kw),
+                        backend="sectors", device="cpu")
+    nb = jb.scan.num_beams
+    d = _initial(small_track)
+    seq = np.linspace(-0.4, 0.4, STEPS).astype(np.float32)
+    jseq, pseq = jnp.asarray(seq), torch.from_numpy(seq)
+    seen = []
+
+    def policy(state, ranges, t):
+        seen.append(t)
+        return (torch.full(state.batch_shape, 2.0),
+                pseq[t].expand(state.batch_shape))
+
+    ps = P.state_from_numpy(d, device="cpu")
+    step = psim.make_step_fn(pb, with_noise=False)
+    fe, te = make_rollout_fn(step, policy, STEPS, nb, graph=False)(ps)
+    assert seen == list(range(STEPS))
+    del seen[:]
+    run = prollout._GraphedRollout(step, policy, STEPS, nb, False, ps,
+                                   backend=_ReRun())
+    run.block = 3
+    for _ in range(2):
+        fg, tg = run.run(ps, None)
+        assert torch.equal(te["pose"], tg["pose"]) and _same_state(fe, fg)
+    assert int(run.t) == STEPS
+    assert {type(t) for t in seen} == {int, torch.Tensor}
+    assert all(t == 0 for t in seen if isinstance(t, int))
+    assert all(t.dtype == torch.int64 and t.shape == (1,)
+               for t in seen if torch.is_tensor(t))
+    # a loop that replayed step 1's command for ever would show here
+    _, stale = make_rollout_fn(
+        step, lambda s, r, t: policy(s, r, min(t, 1)), STEPS, nb,
+        graph=False)(ps)
+    assert not torch.equal(stale["pose"], te["pose"])
+    js = jstate.CarState(**{k: jnp.asarray(v) for k, v in d.items()})
+    _, jtraj = jax_rollout(
+        jsim.make_step_fn(jb, with_noise=False), js,
+        lambda s, r, t: (jnp.full(s.batch_shape, 2.0),
+                         jnp.broadcast_to(jseq[t], s.batch_shape)),
+        STEPS, nb)
+    np.testing.assert_allclose(tg["pose"].numpy(), np.asarray(jtraj["pose"]),
+                               atol=1e-5)
+
+
+def test_one_shot_rollout_keeps_the_last_function(bundles, small_track):
+    """``rollout`` builds its function once per (step, policy, sizes):
+    the same objects again reuse it (on the card: its capture), other
+    arguments replace it."""
+    from pyracecarsimulator_tpu_torch.parallel import rollout
+    state = P.state_from_numpy(_initial(small_track), device="cpu")
+    step = psim.make_step_fn(bundles["sectors"], with_noise=False)
+    policy = make_gap_follower_policy(BEAMS, FOV)
+    _, a = rollout(step, state, policy, 3, BEAMS)
+    kept = prollout._LAST_ROLLOUT[1]
+    _, b = rollout(step, state, policy, 3, BEAMS)
+    assert prollout._LAST_ROLLOUT[1] is kept
+    assert torch.equal(a["pose"], b["pose"])
+    _, c = rollout(step, state, policy, 4, BEAMS)
+    assert prollout._LAST_ROLLOUT[1] is not kept and c["pose"].shape[0] == 4
+    kept = prollout._LAST_ROLLOUT[1]
+    rollout(step, state, make_gap_follower_policy(BEAMS, FOV), 4, BEAMS)
+    assert prollout._LAST_ROLLOUT[1] is not kept
+    _, e = rollout(step, state, policy, 3, BEAMS, keep_scans=True, graph=False)
+    assert set(e) == {"pose", "collision", "ranges"}
+    assert torch.equal(e["pose"], a["pose"])
 
 
 def test_graphed_rollout_sizes_its_blocks(bundles, small_track):

@@ -304,3 +304,90 @@ def test_graphed_step_and_rollout_equal_eager(cuda, backend):
         assert grown == [steps + (4 if call == 0 else 0)]
         fe, te = run_eager(state, ge)
         assert all(torch.equal(te[k], tg[k]) for k in te) and same(fe, fg)
+
+
+def test_graphed_rollout_policy_that_depends_on_t(cuda):
+    """After step 0 the policy's ``t`` is the device-side step index: an
+    open-loop ``steer_seq[t]`` equals the eager loop bit for bit, also at
+    a second call; a Python branch on ``t`` fails the capture and the
+    error names ``graph=False``; the one-shot ``rollout`` keeps its
+    capture for the next call; a host-counting Adam under ``graph=None``
+    trains eagerly."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.parallel import (make_bptt_train_fn,
+                                                       make_rollout_fn,
+                                                       rollout)
+    beams, steps, n = 128, 9, 32
+    bundle = P.build_sim("levine", backend="sectors",
+                         scan=P.ScanParams(num_beams=beams), device=cuda)
+    p = torch.as_tensor(sample_free_poses(bundle.track, n,
+                                          np.random.RandomState(0)),
+                        device=cuda)
+    state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    step = P.make_step_fn(bundle, with_noise=False)
+    seq = torch.linspace(-0.4, 0.4, steps, device=cuda)
+    v = torch.full((n,), 2.0, device=cuda)
+    open_loop = lambda s, r, t: (v, seq[t].expand(n))
+    fe, te = make_rollout_fn(step, open_loop, steps, beams, graph=False)(state)
+    run = make_rollout_fn(step, open_loop, steps, beams, graph=True)
+    for _ in range(2):
+        fg, tg = run(state)
+        assert torch.equal(te["pose"], tg["pose"])
+        assert torch.equal(fe.steer_angle, fg.steer_angle)
+    # a loop that replayed step 1's command for ever would show here
+    _, stale = make_rollout_fn(
+        step, lambda s, r, t: open_loop(s, r, min(t, 1)), steps, beams,
+        graph=False)(state)
+    assert not torch.equal(stale["pose"], te["pose"])
+
+    branching = lambda s, r, t: (v, seq[0 if t < 3 else 1].expand(n))
+    # caught in the warm-up, by PyTorch's synchronisation check, before a
+    # capture is begun; the check is put back to what it was
+    with pytest.raises(RuntimeError,
+                       match="(?s)t >= 1.*synchroniz.*graph=False"):
+        make_rollout_fn(step, branching, steps, beams)(state)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+    # the failed call's traceback is a dead cycle that owns its step-0
+    # graph. Were it collected in the middle of a later capture, the
+    # graph's pool would be freed there and that capture invalidated:
+    # the collector is off while a stream captures, and on again after.
+    import gc
+    seen = []
+
+    def collecting(ps, s, r, t):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return v, torch.tanh(r @ ps["w"])
+
+    smooth = bundle._replace(sim=P.SimParams(steer_mode="smooth"))
+    train, init = make_bptt_train_fn(
+        P.make_step_fn(smooth, with_noise=False), collecting,
+        lambda out, t: out.ranges.mean(), 2, beams,
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-3, capturable=True))
+    params = {"w": torch.zeros(beams, device=cuda)}
+    opt = init(params)
+    for _ in range(2):
+        params, opt, loss, _ = train(params, opt, state)
+    assert train.graphed.captures == 1 and bool(torch.isfinite(loss))
+    assert seen == [False, False] and gc.isenabled()
+
+    first = rollout(step, state, open_loop, steps, beams)
+    before = sweeps.launch_counts()
+    again = rollout(step, state, open_loop, steps, beams)
+    grown = [k - before[name] for name, k in sweeps.launch_counts().items()
+             if k != before[name]]
+    assert grown == [steps]                     # no warm-up step: a replay
+    assert torch.equal(first[1]["pose"], again[1]["pose"])
+
+    train, init = make_bptt_train_fn(
+        P.make_step_fn(smooth, with_noise=False),
+        lambda ps, s, r, t: (v, torch.tanh(r @ ps["w"])),
+        lambda out, t: out.ranges.mean(), 2, beams,
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-3))
+    params = {"w": torch.zeros(beams, device=cuda)}
+    opt = init(params)
+    for _ in range(2):
+        params, opt, loss, _ = train(params, opt, state)
+    assert train.graphed.captures == 0 and bool(torch.isfinite(loss))
