@@ -14,7 +14,8 @@ on tables of capacity >= 128 also ``<map>_sector_sorted_*`` and
 ``<map>_sector_fused_*``) with the gate ``<map>_sector_parity_maxabs``;
 ``levine_1024_fwd``; ``berlin_simplified_*``; the map-gradient paths
 ``levine_dmap_fwdbwd`` (bilinear march, 128 agents: autograd keeps every
-trip's taps), ``levine_dmap_implicit_fwdbwd`` (512 agents),
+trip's taps), ``levine_dmap_implicit_fwdbwd`` (512 agents; its march
+runs in ``csrc/edf_march.cu`` on the card),
 ``levine_dmap_hybrid_fwdbwd`` and ``levine_dmap_hybrid_dedup_fwdbwd``;
 closed-loop rollouts of 25 steps under the gap follower
 (``env_steps_s_4096*``, named for the default agent count) on the default
@@ -453,7 +454,8 @@ def stage_dmap_fast(b: Bench):
     implicit = lambda e, p: scan_poses_implicit(
         e, m.resolution, org, p, num_beams=b.beams, max_iters=256,
         bounds_hw=hw)
-    b.time(keys[0], _fwd_bwd_of(implicit, sets), n * b.beams, slow=True)
+    b.time(keys[0], _fwd_bwd_of(implicit, sets), n * b.beams, "edf_march",
+           slow=True)
 
     smap = b.smap("levine")
     edf = m.edf[: m.height, : m.width].contiguous()

@@ -6,9 +6,9 @@ Drives the port's paths at full width (4096 agents, 1080 beams, 270 deg,
 max_range 10) on both bundled maps, levine and berlin, and checks them:
 
 1. the card's name and power limit, the PyTorch and CUDA versions;
-2. builds the two kernels, ``csrc/sector_sweep.cu`` (the list-routed
-   sweep) and ``csrc/dense_sweep.cu``, with one nvcc per source, started
-   together;
+2. builds the three kernels, ``csrc/sector_sweep.cu`` (the list-routed
+   sweep), ``csrc/dense_sweep.cu`` and ``csrc/edf_march.cu`` (the EDF
+   march), with one nvcc per source, started together;
 3. per map, the sector backend: the list kernel against its plain PyTorch
    version on the card on the full 4096 x 1080 fan (mismatches must be 0),
    the CUDA scan against the CPU scan on 64 poses given the same fan
@@ -35,16 +35,22 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
    each kernel and its plain version, the full scans, the closed-loop
    steps, one train step; peak device memory;
 9. the reference-style facade ``RacecarSimulator`` with batch shape ();
-10. per map, the "edf" march (plain PyTorch, no kernel): the CUDA march
-    against the CPU march on 64 poses given the same fan (bit-identical),
-    the scan against the NumPy oracle ``oracle/raycast.py`` (its native
-    body) on 64 poses, pose by pose (tests/test_raymarch.py's bound), the
-    full scan's time and its device
-    operations per scan (profiler); the "edf" step and a 20-step rollout,
-    counted (no kernel of the five may run), and the step's time;
+10. per map, the EDF march kernel ``edf_march`` against its plain
+    PyTorch loops on the card on the full 4096 x 1080 fan, in its three
+    variants (nearest, bilinear, bracket: 0 mismatches on the ranges, and
+    on ``last`` and ``hit``), with per-ray trips, time, plain time and
+    bound; the "edf" march on the card against the CPU march on 64 poses
+    given the same fan (bit-identical), the scan against the NumPy oracle
+    ``oracle/raycast.py`` (its native body) on 64 poses, pose by pose
+    (tests/test_raymarch.py's bound), the full scan's time and its device
+    operations per scan (profiler); the "edf" step and a 20-step rollout
+    (replayed from CUDA graphs), counted (``edf_march`` 25 times, no other
+    kernel), and the step's time;
 11. per map, "edf_implicit" forward and backward at full width (EDF and
-    pose gradients finite and non-zero); "edf_bilinear" forward at full
-    width, forward and backward at 256 agents (autograd keeps every trip);
+    pose gradients finite and non-zero, one ``edf_march`` launch a
+    forward); "edf_bilinear" forward at full width (the kernel),
+    forward and backward at 256 agents (the autograd loop: autograd keeps
+    every trip);
 12. ``make_scan_fn(map_grad=True)`` on berlin's sector backend: forward
     equal to ``scan_poses_sectors`` bit for bit, EDF cotangent finite and
     non-zero, ``sector_sweep`` launched exactly once per scan; the dedup
@@ -55,11 +61,13 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     given the same fan (bit-identical), the scan, step and rollout,
     counted (no kernel), and times;
 15. per map, the obstacle cycle through ``RacecarSimulator(device="cuda")``
-    on "segments", "sectors", "edf" and "segments_simplified": a box 1 m
+    on "segments", "sectors", "edf" (with ``graph=True``: the step
+    captured again after each edit) and "segments_simplified": a box 1 m
     ahead of the scanner shortens the beam straight ahead; the sector
     incremental edit gives exactly the full rebuild's ranges; the launch
-    counters show the dense or tile kernel, or the sector kernel, on the
-    edited map; ``clear_obstacles`` restores the earlier scan bit for bit;
+    counters show the dense or tile kernel, the sector kernel or the
+    march on the edited map; ``clear_obstacles`` restores the earlier scan
+    bit for bit (and the graphed "edf" step's beam ahead);
     the host time of ``add_obstacle``;
 16. multitrack at full width: levine + berlin stacked, 2048 agents per
     map: the list kernel against its plain version over the stacked
@@ -105,35 +113,42 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     defaults: no stage failed, the five parity gates are 0.0, every kernel
     stage launched its kernel; its rates are logged with the card's name
     and power limit;
-24. the compiled step (``utils/graph.py``), per map on "segments" and
-    "sectors": the step replayed as a CUDA graph against the eager step
+24. the compiled step (``utils/graph.py``), per map on "segments",
+    "sectors", "edf", "edf_implicit" and "edf_bilinear": the step replayed
+    as a CUDA graph against the eager step
     over 4 replays with changing inputs, noise on from one seed (ranges,
     collision and every state field bit for bit); the graphed rollout
     (gap follower, T = 25, scans kept, noise off and on) against the
     eager loop; a replayed rollout adds T to its wrapper's counter and
-    the host launches T graphs; the graphed rollout under an open-loop
-    policy ``steer_seq[t]`` against the eager loop (after step 0 the
-    policy's ``t`` is the device's step index), and a policy that branches
-    on ``t`` in Python raises; a host-counting Adam under ``graph=None``
-    trains eagerly; the graphed BPTT train step (T = 5, Adam
-    with ``capturable=True``) against the eager one, losses and
-    parameters after 3 steps; the facade with ``graph=True`` across
+    the host launches T graphs; on the exact backends the graphed rollout
+    under an open-loop policy ``steer_seq[t]`` against the eager loop
+    (after step 0 the policy's ``t`` is the device's step index), a
+    policy that branches on ``t`` in Python raises, and a host-counting
+    Adam under ``graph=None`` trains eagerly; the graphed BPTT train step
+    (T = 5, Adam with ``capturable=True``) against the eager one, losses
+    and parameters after 3 steps ("edf_bilinear" refuses ``graph=True``
+    and names its autograd loop); the facade with ``graph=True`` across
     ``add_obstacle`` and ``clear_obstacles`` against the eager facade (a
-    stale table fails here); ``graph=True`` on an "edf" step raises; 10
-    scans after the first make no ``cudaStreamSynchronize`` and no
-    host-to-device copy (profiler); times, eager and graphed: ms per
+    stale table fails here); 10 scans after the first make no
+    ``cudaStreamSynchronize`` and no host-to-device copy (profiler);
+    times, eager and graphed: ms per
     step, per rollout step and per train step, the capture's seconds, the
     steps after which a rollout's first call is paid back, and from the
     profiler the graphed step's device launches, device-busy
     time and idle share.
 
 Every kernel's time stands beside its bound: the larger of its
-instruction slots (``OPS_PER_TEST`` per ray-segment test, counted from the
-real slots of the lists this run visits) over the card's FP32 instruction
-rate at ``clocks.max.sm``, and its bytes (each input and output once) over
-the HBM rate.
+instruction slots over the card's FP32 instruction rate at
+``clocks.max.sm``, and its bytes (each input and output once) over the HBM
+rate. A sweep's slots are ``OPS_PER_TEST`` per ray-segment test, counted
+from the real slots of the lists this run visits; the march's are the
+trips its rays took in this run (the kernel reports each ray's) times the
+instructions a trip of its SASS loop issues (``MARCH_SLOTS_PER_TRIP``
+where the toolkit has no ``cuobjdump``), its bytes the rays once, the
+ranges once and the EDF once.
 
-Prints a JSON line describing the five TPU kernels' counterparts (their
+Prints a JSON line describing the six kernels (the five TPU kernels'
+counterparts and the EDF march, which replaces two XLA loops; their
 launches path by path, each path counted from 0), then as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Exits non-zero, without that line, on any failure or
@@ -175,6 +190,11 @@ KERNELS = {
                     "segments backend, untiled maps (levine)"),
     "tile_sweep": (SRC + "sector_sweep.cu", TPU + "186",
                    "segments backend, tiled maps (berlin)"),
+    # two XLA loops, no pallas_call: the JAX package has no Pallas march
+    "edf_march": (SRC + "edf_march.cu",
+                  "pyracecarsimulator_tpu/ops/raymarch_xla.py:139, "
+                  "pyracecarsimulator_tpu/ops/raymarch_diff.py:116",
+                  "the EDF backends: edf, edf_bilinear, edf_implicit"),
 }
 
 
@@ -185,6 +205,12 @@ KERNELS = {
 OPS_PER_TEST = 10
 LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12
+# the march's instruction slots per trip where no SASS can be read: the
+# nearest loop's count in the SASS of csrc/edf_march.cu as nvcc 12.9 built
+# it for sm_90a (march_sass; bilinear 70, bracket 61)
+MARCH_SLOTS_PER_TRIP = 50
+# the march's variants, and the gathers a trip of each issues
+MARCH_VARIANTS = {"nearest": 1, "bilinear": 4, "bracket": 1}
 
 
 def log(*a):
@@ -223,8 +249,9 @@ def timed_ms(fn, reps, warmup=2):
 
 
 def wrappers():
-    from pyracecarsimulator_tpu_torch.ops import sweeps
-    return {name: getattr(sweeps, name) for name in KERNELS}
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla, sweeps
+    return {name: getattr(sweeps, name, None) or getattr(raymarch_xla, name)
+            for name in KERNELS}
 
 
 def reset_counts():
@@ -362,17 +389,11 @@ def sass_report():
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, f"sass_{name}.txt"), "w") as f:
                 f.write(sass)
-        ins = [(int(a, 16), op, tgt) for a, op, tgt in re.findall(
-            r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
-            r"(?:[^;]*?\s(0x[0-9a-f]+)\s*;)?", sass, flags=re.M)]
-        back = [(int(tgt, 16), addr) for addr, op, tgt in ins
-                if op == "BRA" and tgt and int(tgt, 16) < addr]
+        if name == "edf_march":
+            report[name] = march_sass(sass)
+            continue
         loops = []
-        for lo, hi in back:
-            if any((a, b) != (lo, hi) and lo <= a and b <= hi
-                   for a, b in back):
-                continue                 # not innermost
-            body = [o for a, o, _ in ins if lo <= a <= hi]
+        for body in innermost_loops(sass):
             if "FSEL" in body:
                 mix = {o: body.count(o) for o in sorted(set(body))}
                 loops.append({"instructions": len(body),
@@ -386,6 +407,54 @@ def sass_report():
                 f"per test {lp['mix']}")
         check(loops, f"{name}: no sweep loop found in the SASS")
     return report
+
+
+def innermost_loops(sass):
+    """The opcodes of each innermost loop of a SASS listing (a backward
+    branch with no other backward branch inside it), function by
+    function: addresses restart at every function."""
+    loops = []
+    for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        ins = [(int(a, 16), op, tgt) for a, op, tgt in re.findall(
+            r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+            r"(?:[^;]*?\s(0x[0-9a-f]+)\s*;)?", fn, flags=re.M)]
+        back = [(int(tgt, 16), addr) for addr, op, tgt in ins
+                if op == "BRA" and tgt and int(tgt, 16) < addr]
+        for lo, hi in back:
+            if any((a, b) != (lo, hi) and lo <= a and b <= hi
+                   for a, b in back):
+                continue                 # not innermost
+            loops.append([o for a, o, _ in ins if lo <= a <= hi])
+    return loops
+
+
+def march_sass(sass):
+    """The instructions a trip of each variant's march loop issues: per
+    function (one per variant, the template argument in its name), the
+    innermost loop that gathers (LDG), its instructions over its trips
+    (its gathers over the variant's gathers a trip)."""
+    out = {}
+    names = {f"ILi{i}E": v for i, v in enumerate(MARCH_VARIANTS)}
+    for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        variant = next((v for k, v in names.items()
+                        if k in fn.splitlines()[0]), None)
+        loops = [b for b in innermost_loops("Function : " + fn)
+                 if "LDG" in b]
+        if variant is None or not loops:
+            continue
+        body = max(loops, key=len)
+        trips = body.count("LDG") / MARCH_VARIANTS[variant]
+        out[variant] = {"instructions": len(body), "trips": trips,
+                        "per_trip": len(body) / trips,
+                        "mix": {o: body.count(o) for o in sorted(set(body))}}
+        log(f"edf_march {variant}: SASS loop of {trips:g} trip(s): "
+            f"{len(body)} instructions = {len(body) / trips:.2f} per trip "
+            f"{out[variant]['mix']}")
+    missing = set(MARCH_VARIANTS) - set(out)
+    if missing:
+        log(f"edf_march: no march loop found in the SASS of {missing}: "
+            f"their bounds take {MARCH_SLOTS_PER_TRIP} slots a trip")
+    return out
 
 
 def kernel_vs_plain(label, name, args):
@@ -592,7 +661,93 @@ def same_fan_check(label, fn, dev_args, exact=True, tol=0.0):
     return err
 
 
-def march_phases(card, name, track, poses):
+def march_bound(edf, xb, trips, variant, rates):
+    """The least time the card could take for one march of these rays:
+    the larger of the issue slots (the trips this run's rays took, each
+    the instructions a trip of the variant's SASS loop issues, over the
+    instruction rate) and the bytes (the EDF, each agent's origin, each
+    ray's direction and output once, over the HBM rate). Beside it, the
+    warp-level trips: per warp of 32 rays, 32 x its longest ray's."""
+    import torch
+    ray_trips = int(trips.sum())
+    flat = trips.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 32)])
+    warp_trips = 32 * int(flat.reshape(-1, 32).max(dim=1).values.sum())
+    rays = xb.numel()
+    agents = rays // xb.shape[-1]
+    nbytes = (4 * edf.numel() + 8 * agents + 8 * rays
+              + (9 if variant == "bracket" else 4) * rays)
+    per_trip = rates["march_slots_per_trip"][variant]
+    ops_ms = ray_trips * per_trip / rates["slots_per_s"] * 1e3
+    bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
+    return {"ray_trips": ray_trips, "warp_trips": warp_trips,
+            "max_trips": int(trips.max()), "slots_per_trip": per_trip,
+            "bytes": nbytes, "bound_ops_ms": ops_ms,
+            "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def march_kernel_checks(name, track, poses, rates, errs, times):
+    """10: ``edf_march`` against its plain loops on the card, the full
+    4096 x 1080 fan of ``poses``, all three variants: 0 mismatches; each
+    variant's time, plain time and bound."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
+    from pyracecarsimulator_tpu_torch.config import ScanParams
+    sc = ScanParams()
+    org = torch.tensor([track.origin_x, track.origin_y], device="cuda")
+    ox, oy = rx.origin_xy_f32(org, "cuda")
+    tail = (MAX_RANGE, sc.ray_tracing_epsilon, sc.max_march_iters,
+            (track.height, track.width))
+    ray_sets = [rays_from_poses(q, BEAMS, FOV)[2:] for q in pose_sets(poses)]
+    head = (track.edf, 1.0 / track.resolution, ox, oy)
+
+    def plain(variant, rays):
+        if variant == "bracket":
+            return rd._march_nearest_plain(*head, *rays, *tail)
+        return rx.march_rays_plain(*head, *rays, *tail[:3], variant,
+                                   tail[3])
+
+    def kernel(variant, rays, ray_trips=None):
+        return rx.edf_march(*head, *rays, *tail, variant,
+                            ray_trips=ray_trips)
+
+    for variant in MARCH_VARIANTS:
+        rays = ray_sets[0]
+        trips = torch.zeros(rays[0].shape, dtype=torch.int32, device="cuda")
+        got, ref = kernel(variant, rays, trips), plain(variant, rays)
+        torch.cuda.synchronize()
+        got, ref = ((got,), (ref,)) if torch.is_tensor(got) else (got, ref)
+        mism = [int((a != b).sum()) for a, b in zip(got, ref)]
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, ref) if a.dtype == torch.float32)
+        log(f"[{name}] edf_march {variant} vs plain on "
+            f"{tuple(got[0].shape)} rays: mismatches "
+            f"{dict(zip(('total', 'last', 'hit'), mism))}, max abs err = "
+            f"{err}")
+        check(not any(mism), f"{name}: edf_march {variant} disagrees with "
+              "its plain version")
+        errs["edf_march"].append(err)
+        n = len(ray_sets)
+        k_ms = timed_ms(lambda i: kernel(variant, ray_sets[i % n]), 50)
+        p_ms = timed_ms(lambda i: plain(variant, ray_sets[i % n]), 2,
+                        warmup=1)
+        k2_ms = timed_ms(lambda i: kernel(variant, ray_sets[i % n]), 50)
+        res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
+               **march_bound(track.edf, rays[0], trips, variant, rates)}
+        res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
+        times["edf_march"][f"{name} {variant}"] = res
+        log(f"[{name}] edf_march {variant}: {k_ms:.4f} / {k2_ms:.4f} ms vs "
+            f"plain {p_ms:.2f} ms; bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}), share {res['share_of_bound']:.3f}; trips "
+            f"per ray {res['ray_trips'] / rays[0].numel():.2f}, longest "
+            f"{res['max_trips']}, warp-level / per-ray "
+            f"{res['warp_trips'] / res['ray_trips']:.3f}")
+
+
+def march_phases(card, name, track, poses, rates, errs, times):
     """10-11: the EDF march backends on one map. Returns the times."""
     import numpy as np
     import torch
@@ -603,6 +758,7 @@ def march_phases(card, name, track, poses):
     from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
     from pyracecarsimulator_tpu_torch.ops.raymarch_diff import (
         scan_poses_implicit)
+    march_kernel_checks(name, track, poses, rates, errs, times)
     out = {}
     bundle = build_sim(track, backend="edf", device="cuda")
     sc = bundle.scan
@@ -633,9 +789,9 @@ def march_phases(card, name, track, poses):
     check(share.min() > 0.99 and d.max() < 3 * track.resolution,
           f"{name}: edf scan disagrees with the oracle")
     sets = pose_sets(poses)
-    out["edf_scan_ms"] = timed_ms(lambda i: scan(sets[i % 5]), 5, warmup=1)
+    out["edf_scan_ms"] = timed_ms(lambda i: scan(sets[i % 5]), 20)
     out["edf_scan_device_ops"] = device_ops(lambda: scan(sets[0]))
-    out["edf_step_ms"] = step_ms(bundle, poses, reps=10)
+    out["edf_step_ms"] = step_ms(bundle, poses)
     log(f"[{name}] {card}: edf scan {out['edf_scan_ms']:.4f} ms "
         f"({out['edf_scan_device_ops']} device ops per scan), closed-loop "
         f"edf step {out['edf_step_ms']:.4f} ms")
@@ -655,16 +811,28 @@ def march_phases(card, name, track, poses):
         return rx.scan_poses(edf, track.resolution, org, q, num_beams=BEAMS,
                              fov=FOV, interp="bilinear", **kw)
 
-    for label, fn, q in (("edf_implicit", implicit, p),
-                         ("edf_bilinear", bilinear, p[:256])):
+    # the implicit march's bracket runs in the kernel under autograd too;
+    # the bilinear march's gradient takes the autograd loop
+    for label, fn, q, kernel_runs in (("edf_implicit", implicit, p, 1),
+                                      ("edf_bilinear", bilinear, p[:256],
+                                       0)):
+        reset_counts()
+        loops = rx.march_rays.autograd_loops
         g_edf, g_pose = fwd_bwd(fn, q)
         torch.cuda.synchronize()
+        used = counts()
         ok = all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
                  for g in (g_edf, g_pose))
         log(f"[{name}] {label} fwd+bwd on {q.shape[0]} x {BEAMS}: EDF grad "
             f"|.|_1 {float(g_edf.abs().sum()):.4f}, pose grad |.|_1 "
-            f"{float(g_pose.abs().sum()):.4f}, finite and non-zero = {ok}")
+            f"{float(g_pose.abs().sum()):.4f}, finite and non-zero = {ok}; "
+            f"edf_march launches {used['edf_march']}, autograd loops "
+            f"{rx.march_rays.autograd_loops - loops}")
         check(ok, f"{name}: {label} gradients")
+        check(used["edf_march"] == kernel_runs and sum(used.values())
+              == kernel_runs and rx.march_rays.autograd_loops - loops
+              == 1 - kernel_runs, f"{name}: {label} took another route "
+              f"({used})")
         torch.cuda.reset_peak_memory_stats()
         out[f"{label}_fwd_bwd_ms"] = timed_ms(
             lambda i: fwd_bwd(fn, sets[i % 5][: q.shape[0]]), 2, warmup=1)
@@ -678,8 +846,10 @@ def march_phases(card, name, track, poses):
             f"{out[f'{label}_fwd_ms']:.4f} ms; forward + backward "
             f"{q.shape[0]} x {BEAMS} {out[f'{label}_fwd_bwd_ms']:.4f} ms, "
             f"peak {out[f'{label}_fwd_bwd_peak_gb']:.2f} GB")
+    # the main path of the EDF family: the "edf" step and its rollout,
+    # replayed from CUDA graphs
     out["edf_launches"] = drive({name: bundle}, "edf", {name: poses})[name]
-    check(out["edf_launches"] == {},
+    check(out["edf_launches"] == {"edf_march": STEPS + 1 + WARMUP_STEPS},
           f"{name}: the edf path launched {out['edf_launches']}")
     return out
 
@@ -810,7 +980,8 @@ def simplified_phase(card, name, track, poses):
 
 
 def obstacle_phase(card, name, track, poses):
-    """15: the facade's obstacle cycle on four backends of one map."""
+    """15: the facade's obstacle cycle on four backends of one map, the
+    "edf" facade with its step replayed as a CUDA graph."""
     import numpy as np
     import torch
     from pyracecarsimulator_tpu_torch import RacecarSimulator
@@ -823,12 +994,13 @@ def obstacle_phase(card, name, track, poses):
     box_x = x + 0.275 + 1.0            # 1 m ahead of the scanner
     expect = {"segments": {"levine": "dense_sweep",
                            "berlin": "tile_sweep"}[name],
-              "sectors": "sector_sweep", "edf": None,
+              "sectors": "sector_sweep", "edf": "edf_march",
               "segments_simplified": None}
     out = {}
     for backend, kname in expect.items():
+        graphed = backend == "edf"
         sim = RacecarSimulator(track, backend=backend, device="cuda",
-                               with_noise=False)
+                               with_noise=False, graph=graphed)
         sim.set_pose(x, y, 0.0)
         before = sim.run_scan()
         torch.cuda.synchronize()
@@ -848,7 +1020,9 @@ def obstacle_phase(card, name, track, poses):
               and float(stepped.ranges[ahead]) < 0.9,
               f"{name} {backend}: the box does not shorten the beam ahead "
               f"({r0} -> {r1})")
-        check(used == ({kname: 2} if kname else {}),
+        # the scan, and the step: one launch eagerly; graphed, the capture
+        # on the edited map (2 warm-up steps) and its replay
+        check(used == ({kname: 4 if graphed else 2} if kname else {}),
               f"{name} {backend}: the edited map launched {used}")
         if backend == "sectors":
             inc = sim.bundle.segmap
@@ -867,6 +1041,14 @@ def obstacle_phase(card, name, track, poses):
         sim.set_pose(x, y, 0.0)
         sim.clear_obstacles()
         restored = bool(torch.equal(sim.run_scan(), before))
+        if graphed:
+            cleared = float(sim.update_pose().ranges[ahead])
+            caps = sim._step.graphed.captures
+            res["graphed_step_captures"] = caps
+            log(f"[{name}] {backend} graphed facade: beam ahead after "
+                f"clear_obstacles {cleared:.4f} m; captures {caps}")
+            check(cleared > 0.9 and caps == 2,
+                  f"{name} {backend}: the graphed step read a stale EDF")
         log(f"[{name}] {card}: {backend} add_obstacle {host_ms:.1f} ms "
             f"host; beam ahead {r0:.4f} -> {r1:.4f} m; launches on the "
             f"edited map (scan + step) {used}; clear_obstacles restores "
@@ -1478,7 +1660,7 @@ def examples_phase(card):
                       "--control-steps", "5"], "dense_sweep"),
         ("demo_bptt", ["--iters", "10"], "dense_sweep"),
         ("demo_train", [*wide, "--iters", "8"], "sector_sweep"),
-        ("demo_mapping", ["--iters", "60"], None),
+        ("demo_mapping", ["--iters", "60"], "edf_march"),
         ("demo_mapping --fast", [], "sector_sweep"),
         ("demo_multitrack", wide, "sector_sweep"),
         # one rank, as torchrun would set it; the demo's own 65536 agents
@@ -1574,7 +1756,7 @@ def parity_phase(card, poses):
         if "check" in r:
             check(r["max_abs_diff"] <= 1e-5,
                   f"{label}: max |d| {r['max_abs_diff']}")
-        elif r["kernel"]:
+        elif r["kernel"] and r["kernel"] != "edf_march":
             check(r["share_within_1e-4"] >= 0.999,
                   f"{label}: {r['share_within_1e-4']} of the beams within "
                   "1e-4 m of the geometry oracle")
@@ -1630,7 +1812,8 @@ def bench_phase(card):
 def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
     """24: the step, the rollout and the BPTT train step replayed as CUDA
     graphs, each held against its eager version bit for bit, counted and
-    timed. Returns ({cell: results}, {cell: launch counts})."""
+    timed, on the exact backends and the three EDF backends. Returns
+    ({cell: results}, {cell: launch counts})."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1667,13 +1850,23 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
         return (torch.mean((out.ranges - 10.0) ** 2)
                 + 10.0 * torch.mean(out.collision.float()))
 
+    def edf_train_loss(out, t):
+        # the nearest march's ranges carry no gradient (its cell indices
+        # are integers, as in JAX): a steering target keeps one
+        return train_loss(out, t) + torch.mean(
+            (out.state.steer_angle - 0.1) ** 2)
+
     out, launches = {}, {}
     for name in MAPS:
-        for backend, bundles in (("segments", seg_bundles),
-                                 ("sectors", sec_bundles)):
+        cells = [("segments", seg_bundles[name]),
+                 ("sectors", sec_bundles[name])]
+        cells += [(b, build_sim(tracks[name], backend=b, device="cuda"))
+                  for b in ("edf", "edf_implicit", "edf_bilinear")]
+        for backend, bundle in cells:
             cell = f"{name} {backend}"
-            kname = kernel_of[name, backend]
-            bundle = bundles[name]
+            exact = backend in ("segments", "sectors")
+            kname = kernel_of.get((name, backend), "edf_march")
+            reps = 50 if exact else 20
             res = {}
             p = torch.as_tensor(poses_by_map[name], device="cuda")
             s0 = state_from_pose(p[:, 0], p[:, 1], p[:, 2])
@@ -1743,100 +1936,126 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                       f"{cell}: the graphed rollout, noise {noise}")
             res["rollout_cuda_graph_launches"] = n_graph
 
-            # a policy that depends on t: after step 0 it gets the device's
-            # step index; a Python branch on it fails the capture
-            seq = torch.linspace(-0.4, 0.4, T, device="cuda")
-            open_loop = lambda s, r, t: (act[0], seq[t].expand(AGENTS))
-            stale_loop = lambda s, r, t: open_loop(s, r, min(t, 1))
-            fe, te = make_rollout_fn(eager, open_loop, T, BEAMS,
-                                     graph=False)(s0)
-            _, stale = make_rollout_fn(eager, stale_loop, T, BEAMS,
-                                       graph=False)(s0)
-            run_g = make_rollout_fn(eager, open_loop, T, BEAMS)
-            same = []
-            for _ in range(2):
-                fg, tg = run_g(s0)
-                same.append(all(bool(torch.equal(te[k], tg[k])) for k in te)
-                            and same_state(fe, fg))
-            differs = not bool(torch.equal(stale["pose"], te["pose"]))
-            raised = ""
-            try:
-                make_rollout_fn(
-                    eager, lambda s, r, t: open_loop(s, r, 0 if t < 3 else 1),
-                    T, BEAMS)(s0)
-            except RuntimeError as e:
-                raised = str(e)
-            log(f"[{cell}] graphed rollout with the open-loop policy "
-                f"steer_seq[t], T = {T}, twice: poses, collisions and the "
-                f"final state bit-identical to the eager loop = {same}; the "
-                f"eager loop with t held at 1 differs = {differs}; a policy "
-                f"that branches on t in Python raises: {raised[:160]!r}")
-            check(all(same) and differs and "t >= 1" in raised
-                  and "graph=False" in raised,
-                  f"{cell}: the graphed rollout with a policy that depends "
-                  f"on t")
-            del run_g
+            if exact:
+                # a policy that depends on t: after step 0 it gets the device's
+                # step index; a Python branch on it fails the capture (the
+                # exact backends: the EDF cells share the policy code)
+                seq = torch.linspace(-0.4, 0.4, T, device="cuda")
+                open_loop = lambda s, r, t: (act[0], seq[t].expand(AGENTS))
+                stale_loop = lambda s, r, t: open_loop(s, r, min(t, 1))
+                fe, te = make_rollout_fn(eager, open_loop, T, BEAMS,
+                                         graph=False)(s0)
+                _, stale = make_rollout_fn(eager, stale_loop, T, BEAMS,
+                                           graph=False)(s0)
+                run_g = make_rollout_fn(eager, open_loop, T, BEAMS)
+                same = []
+                for _ in range(2):
+                    fg, tg = run_g(s0)
+                    same.append(all(bool(torch.equal(te[k], tg[k])) for k in te)
+                                and same_state(fe, fg))
+                differs = not bool(torch.equal(stale["pose"], te["pose"]))
+                raised = ""
+                try:
+                    make_rollout_fn(
+                        eager, lambda s, r, t: open_loop(s, r, 0 if t < 3 else 1),
+                        T, BEAMS)(s0)
+                except RuntimeError as e:
+                    raised = str(e)
+                log(f"[{cell}] graphed rollout with the open-loop policy "
+                    f"steer_seq[t], T = {T}, twice: poses, collisions and the "
+                    f"final state bit-identical to the eager loop = {same}; the "
+                    f"eager loop with t held at 1 differs = {differs}; a policy "
+                    f"that branches on t in Python raises: {raised[:160]!r}")
+                check(all(same) and differs and "t >= 1" in raised
+                      and "graph=False" in raised,
+                      f"{cell}: the graphed rollout with a policy that depends "
+                      f"on t")
+                del run_g
 
             # the train step: 3 steps each way
             smooth = bundle._replace(sim=SimParams(steer_mode="smooth"))
             tstep = make_step_fn(smooth, with_noise=False)
-            got = {}
-            for graph in (False, True):
+            loss_fn = train_loss if exact else edf_train_loss
+            if tstep.grad_host_read:
+                # the bilinear march's gradient runs the autograd loop,
+                # which reads the host: graph=True refuses, naming it
+                train, init = make_bptt_train_fn(
+                    tstep, train_policy, loss_fn, TRAIN_T, BEAMS,
+                    optimizer=lambda ps: torch.optim.Adam(
+                        ps, lr=3e-3, capturable=True), graph=True)
+                params = {"w": torch.zeros(BEAMS, device="cuda"),
+                          "b": torch.zeros((), device="cuda")}
+                raised = ""
+                try:
+                    train(params, init(params), s0)
+                except RuntimeError as e:
+                    raised = str(e)
+                log(f"[{cell}] graph=True on the BPTT train step raises: "
+                    f"{raised!r}")
+                check("raymarch_xla" in raised and "autograd loop" in raised
+                      and "graph=False" in raised
+                      and train.graphed.captures == 0,
+                      f"{cell}: graph=True on the train step did not refuse")
+                res["train_graph_refused"] = raised
+            else:
+                got = {}
+                for graph in (False, True):
+                    train, init = make_bptt_train_fn(
+                        tstep, train_policy, loss_fn, TRAIN_T, BEAMS,
+                        optimizer=lambda ps: torch.optim.Adam(
+                            ps, lr=3e-3, capturable=True), graph=graph)
+                    params = {"w": torch.zeros(BEAMS, device="cuda"),
+                              "b": torch.zeros((), device="cuda")}
+                    opt = init(params)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses = []
+                    for _ in range(3):
+                        params, opt, loss, final = train(params, opt, s0)
+                        losses.append(loss.clone())
+                    torch.cuda.synchronize()
+                    first3 = time.perf_counter() - t0
+                    got[graph] = (torch.stack(losses),
+                                  params["w"].detach().clone(),
+                                  params["b"].detach().clone(), final)
+                    key = "graphed" if graph else "eager"
+                    res[f"train_{key}_first_3_steps_s"] = first3
+                    res[f"train_{key}_ms"] = timed_ms(
+                        lambda i: train(params, opt, s0), 5, warmup=1)
+                    if graph:
+                        check(train.graphed.captures == 1
+                              and train.graphed.replays == 9,
+                              f"{cell}: the train step captured "
+                              f"{train.graphed.captures} times")
+                        train.graphed.release()
+                same = (all(bool(torch.equal(a, b))
+                            for a, b in zip(got[False][:3], got[True][:3]))
+                        and same_state(got[False][3], got[True][3]))
+                moved = float(got[True][1].abs().sum())
+                log(f"[{cell}] graphed BPTT train step against the eager one, T "
+                    f"= {TRAIN_T}, Adam(capturable=True), 3 steps: losses "
+                    f"{got[True][0].tolist()}, losses, w, b and the final state "
+                    f"bit-identical = {same}; |w|_1 {moved}")
+                check(same and moved > 0 and bool(
+                    torch.isfinite(got[True][0]).all()),
+                    f"{cell}: the graphed train step differs from the eager one")
+
+            if exact:
+                # graph=None and an Adam that counts its steps on the host: the
+                # eager step, not an error
                 train, init = make_bptt_train_fn(
                     tstep, train_policy, train_loss, TRAIN_T, BEAMS,
-                    optimizer=lambda ps: torch.optim.Adam(
-                        ps, lr=3e-3, capturable=True), graph=graph)
+                    optimizer=lambda ps: torch.optim.Adam(ps, lr=3e-3))
                 params = {"w": torch.zeros(BEAMS, device="cuda"),
                           "b": torch.zeros((), device="cuda")}
                 opt = init(params)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                losses = []
-                for _ in range(3):
-                    params, opt, loss, final = train(params, opt, s0)
-                    losses.append(loss.clone())
-                torch.cuda.synchronize()
-                first3 = time.perf_counter() - t0
-                got[graph] = (torch.stack(losses),
-                              params["w"].detach().clone(),
-                              params["b"].detach().clone(), final)
-                key = "graphed" if graph else "eager"
-                res[f"train_{key}_first_3_steps_s"] = first3
-                res[f"train_{key}_ms"] = timed_ms(
-                    lambda i: train(params, opt, s0), 5, warmup=1)
-                if graph:
-                    check(train.graphed.captures == 1
-                          and train.graphed.replays == 9,
-                          f"{cell}: the train step captured "
-                          f"{train.graphed.captures} times")
-                    train.graphed.release()
-            same = (all(bool(torch.equal(a, b))
-                        for a, b in zip(got[False][:3], got[True][:3]))
-                    and same_state(got[False][3], got[True][3]))
-            moved = float(got[True][1].abs().sum())
-            log(f"[{cell}] graphed BPTT train step against the eager one, T "
-                f"= {TRAIN_T}, Adam(capturable=True), 3 steps: losses "
-                f"{got[True][0].tolist()}, losses, w, b and the final state "
-                f"bit-identical = {same}; |w|_1 {moved}")
-            check(same and moved > 0 and bool(
-                torch.isfinite(got[True][0]).all()),
-                f"{cell}: the graphed train step differs from the eager one")
-
-            # graph=None and an Adam that counts its steps on the host: the
-            # eager step, not an error
-            train, init = make_bptt_train_fn(
-                tstep, train_policy, train_loss, TRAIN_T, BEAMS,
-                optimizer=lambda ps: torch.optim.Adam(ps, lr=3e-3))
-            params = {"w": torch.zeros(BEAMS, device="cuda"),
-                      "b": torch.zeros((), device="cuda")}
-            opt = init(params)
-            for _ in range(2):
-                params, opt, loss, _ = train(params, opt, s0)
-            check(train.graphed.captures == 0
-                  and bool(torch.isfinite(loss))
-                  and float(params["w"].detach().abs().sum()) > 0,
-                  f"{cell}: graph=None with a host-counting Adam did not "
-                  f"train eagerly")
+                for _ in range(2):
+                    params, opt, loss, _ = train(params, opt, s0)
+                check(train.graphed.captures == 0
+                      and bool(torch.isfinite(loss))
+                      and float(params["w"].detach().abs().sum()) > 0,
+                      f"{cell}: graph=None with a host-counting Adam did not "
+                      f"train eagerly")
 
             # times, eager and graphed
             state = [s0]
@@ -1851,14 +2070,14 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
             for key, fn in (("eager", stepper(eager, gen_e)),
                             ("graphed", stepper(graphed, gen_g))):
                 state[0] = s0
-                res[f"step_{key}_ms"] = timed_ms(fn, 50, warmup=5)
+                res[f"step_{key}_ms"] = timed_ms(fn, reps, warmup=5)
             t0 = time.perf_counter()
             run_g(s0)
             torch.cuda.synchronize()
             res["rollout_first_call_s"] = time.perf_counter() - t0
             for key, fn in (("eager", run_e), ("graphed", run_g)):
                 res[f"rollout_{key}_ms_per_step"] = timed_ms(
-                    lambda i: fn(s0), 4, warmup=1) / T
+                    lambda i: fn(s0), 4 if exact else 2, warmup=1) / T
             # steps after which a rollout's first call (warm-up, 2 captures)
             # has cost less than the eager loop
             saved = (res["rollout_eager_ms_per_step"]
@@ -1917,12 +2136,13 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                 f"{res['rollout_graphed_ms_per_step']:.4f} ms (first call "
                 f"with its 2 captures {res['rollout_first_call_s']:.3f} s, "
                 f"paid back after {res['rollout_break_even_steps']:.0f} "
-                f"steps); "
-                f"train step T = {TRAIN_T} eager {res['train_eager_ms']:.4f} "
-                f"ms, graphed {res['train_graphed_ms']:.4f} ms (first 3 "
-                f"steps with the capture "
-                f"{res['train_graphed_first_3_steps_s']:.3f} s); graphed "
-                f"step under the profiler: "
+                f"steps); train step T = {TRAIN_T} "
+                + (f"eager {res['train_eager_ms']:.4f} ms, graphed "
+                   f"{res['train_graphed_ms']:.4f} ms (first 3 steps with "
+                   f"the capture "
+                   f"{res['train_graphed_first_3_steps_s']:.3f} s)"
+                   if "train_eager_ms" in res else "graph=True refused")
+                + "; graphed step under the profiler: "
                 f"{res['graphed_step_device_launches']:.0f} device launches, "
                 f"{res['graphed_step_cuda_graph_launches']:.0f} "
                 f"cudaGraphLaunch, device busy "
@@ -1941,7 +2161,7 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
         iy, ix = np.unravel_index(np.argmax(edf), edf.shape)
         x = track.origin_x + (ix + 0.5) * track.resolution
         y = track.origin_y + (iy + 0.5) * track.resolution
-        for backend in ("segments", "sectors"):
+        for backend in ("segments", "sectors", "edf"):
             sims = [RacecarSimulator(track, backend=backend, device="cuda",
                                      with_noise=False, graph=g)
                     for g in (True, False)]
@@ -1967,17 +2187,6 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                   and ahead[2] > 0.9,
                   f"{name} {backend}: a map swap under the graph")
             sims[0]._step.graphed.release()
-
-    # graph=True where the step reads the host
-    raised = ""
-    try:
-        make_step_fn(build_sim(tracks[MAPS[0]], backend="edf",
-                               device="cuda"), graph=True)
-    except RuntimeError as e:
-        raised = str(e)
-    log(f"graph=True on an 'edf' step raises: {raised!r}")
-    check("raymarch_xla" in raised and "graph=False" in raised,
-          "graph=True on an 'edf' step did not raise")
     return out, launches
 
 
@@ -2002,8 +2211,8 @@ def run():
 
     # 2. build, one nvcc per source, together
     t0 = time.perf_counter()
-    _kernels.build("sector_sweep", "dense_sweep")
-    log(f"built both kernels in {time.perf_counter() - t0:.2f} s wall; "
+    _kernels.build("sector_sweep", "dense_sweep", "edf_march")
+    log(f"built the three kernels in {time.perf_counter() - t0:.2f} s wall; "
         f"nvcc: {' '.join(_kernels.NVCC_FLAGS)}")
     for name, info in _kernels.build_info.items():
         log(f"{name}: {info['seconds']:.2f} s\n{info['log']}")
@@ -2014,7 +2223,11 @@ def run():
     native_out = native_phase(card)
     # the unrolled main loop is the cheapest per test
     rates["sass_per_test"] = {k: min(lp["per_test"] for lp in v)
-                              for k, v in sass.items()}
+                              for k, v in sass.items() if k != "edf_march"}
+    rates["march_slots_per_trip"] = {
+        v: sass.get("edf_march", {}).get(v, {}).get("per_trip",
+                                                    MARCH_SLOTS_PER_TRIP)
+        for v in MARCH_VARIANTS}
     log(f"bounds: {OPS_PER_TEST} instruction slots per test over "
         f"{rates['sms']} SMs x {LANES_PER_SM} lanes x "
         f"{rates['sm_clock_max_mhz']:.0f} MHz (clocks.max.sm) = {rates['slots_per_s']:.4e} slots/s; HBM "
@@ -2218,8 +2431,8 @@ def run():
     slice_out = {"edf": {}, "soft_edt": {}, "segments_simplified": {},
                  "obstacles": {}}
     for name in MAPS:
-        slice_out["edf"][name] = march_phases(card, name, tracks[name],
-                                              poses_by_map[name])
+        slice_out["edf"][name] = march_phases(
+            card, name, tracks[name], poses_by_map[name], rates, errs, times)
     slice_out["map_grad"] = mapgrad_phase(card, sec_bundles[big],
                                           poses_by_map[big])
     for name in MAPS:
@@ -2273,6 +2486,8 @@ def run():
         "sector scan, use_pallas": {"grp_sweep": route_counts["grp_sweep"]},
         **{f"BPTT train steps, {k}": v["launches"] for k, v in train.items()},
         "map_grad scans": slice_out["map_grad"]["launches"],
+        **{f"edf step + rollout, {m}": res["edf_launches"]
+           for m, res in slice_out["edf"].items()},
         **{f"obstacle cycle, {m} {backend}": res["launches"]
            for m, per_map in slice_out["obstacles"].items()
            for backend, res in per_map.items()},
@@ -2292,7 +2507,7 @@ def run():
           f"a kernel was never launched: {launches_by_path}")
     shape_of = {"dense_sweep": "levine", "tile_sweep": "berlin",
                 "sector_sweep": "berlin", "sorted_tiles_sweep": "berlin",
-                "grp_sweep": "berlin"}
+                "grp_sweep": "berlin", "edf_march": "levine nearest"}
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "path": path, "launches": sum(launches_by_path[name].values()),
@@ -2302,7 +2517,7 @@ def run():
         "plain_ms": times[name][shape_of[name]]["plain_ms"],
         "bound_ms": times[name][shape_of[name]]["bound_ms"],
         "bound_by": times[name][shape_of[name]]["bound_by"],
-        # no PyTorch call computes the first-hit sweep
+        # no PyTorch call computes the first-hit sweep or the march
         "library_ms": None,
         "shape_of_ms": f"{shape_of[name]} {AGENTS}x{BEAMS}",
         "ms_by_shape": times[name]}

@@ -35,10 +35,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures: name -> argtypes (restype is int: a cudaError_t)
 _SIGNATURES = {
     "sector_sweep": ("sector_sweep_launch", [_P] * 11 + [_I, _I, _I, _P]),
     "dense_sweep": ("dense_sweep_launch", [_P] * 10 + [_I, _I, _P]),
+    "edf_march": ("edf_march_launch",
+                  [_I, _P, _L, _L, _L, _L, _P, _P, _F, _F, _F, _I]
+                  + [_P] * 4 + [_L] * 10 + [_P] * 6),
 }
 
 _loaded = {}       # kernel name -> ctypes function (process-wide cache)

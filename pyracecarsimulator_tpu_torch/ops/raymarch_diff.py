@@ -20,17 +20,20 @@ and the map cotangent of ``make_scan_fn(map_grad=True)``).
 exact forward (straight-through values); ``dedup=True`` sums it by a
 stable argsort of the rays by cell and sums over the sorted segments.
 
-Plain PyTorch, no hand-written kernel (XLA code in the JAX package). The
-map cotangent is summed with ``index_add_``, which on CUDA adds with
+The nearest march (``_march_nearest``, the JAX ``while_loop``) runs on
+CUDA tensors in the hand-written kernel ``csrc/edf_march.cu``, variant
+"bracket" (``raymarch_xla.edf_march``): one launch, each ray looping until
+it stops, no host read. On CPU tensors its plain version
+``_march_nearest_plain`` runs, the kernel's reference bit for bit: the
+trips in a Python loop that reads ``alive.any()`` every
+``raymarch_xla._ALIVE_CHECK`` trips. The extra trips change nothing: a dead
+ray has ``step = 0``, and its ``total``, ``last``, ``hit``, ``x`` and
+``y`` keep their values. The bisection, the Newton polish and the VJP are
+plain PyTorch (XLA code in the JAX package); they read nothing from the
+host, so the whole forward and backward can be captured in a CUDA graph.
+The map cotangent is summed with ``index_add_``, which on CUDA adds with
 atomics: the order of the sum, and so its last bits, differ from JAX's
 and from run to run.
-
-The JAX forward stops its ``while_loop`` once no ray is alive. The port
-runs the trips in a Python loop and reads ``alive.any()`` only every
-``raymarch_xla._ALIVE_CHECK`` trips (each read is a host synchronisation
-on the card). The extra trips change nothing: a dead ray has ``step =
-0``, and its ``total``, ``last``, ``hit``, ``x`` and ``y`` keep their
-values.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ import torch
 
 from .common import rays_from_poses
 from .raymarch_xla import (_ALIVE_CHECK, _bilinear_taps, _tap_values,
-                           count_march, origin_xy_f32, sample_edf_nearest)
+                           count_march, edf_march, march_route,
+                           origin_xy_f32, sample_edf_nearest)
 
 _DENOM_FLOOR = 1e-2    # |dE/dr| below this => grazing; zero gradient
 
@@ -69,7 +73,23 @@ def _march_nearest(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
     """Reference-rule sphere trace with nearest sampling. Returns
     (total, last_step, hit): ``total`` ends one sample inside the first
     occupied cell; ``[total - last_step, total]`` brackets the boundary
-    crossing."""
+    crossing. CUDA tensors launch ``edf_march`` ("bracket"), CPU tensors
+    run ``_march_nearest_plain``; under autograd with an ``edf`` that
+    requires grad the plain loop runs on the card too
+    (``raymarch_xla.march_route``; ``_MarchImplicit.forward`` runs
+    without grad)."""
+    rays = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
+    if march_route(edf, rays, "nearest") == "kernel":
+        return edf_march(edf, inv_res, ox, oy, *rays, max_range, eps,
+                         max_iters, bounds_hw, "bracket")
+    return _march_nearest_plain(edf, inv_res, ox, oy, *rays, max_range,
+                                eps, max_iters, bounds_hw)
+
+
+def _march_nearest_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t,
+                         max_range, eps, max_iters, bounds_hw):
+    """The plain PyTorch nearest march on any device: the reference of
+    ``edf_march``'s "bracket" variant (module doc)."""
     x, y = x0, y0
     total = torch.zeros(x0.shape, dtype=torch.float32, device=x0.device)
     last = torch.zeros_like(total)

@@ -2,18 +2,30 @@
 "edf_bilinear").
 
 Counterpart of ``pyracecarsimulator_tpu/ops/raymarch_xla.py`` (the module
-keeps its JAX name). Every ray sphere-traces the euclidean distance field
-in lockstep: it steps by the EDF sample until the sample drops to ``eps``
-(hit), the ray leaves the real map (max_range) or the range budget is
-spent. The loop has a fixed trip count, as in JAX; a ray that stopped
-steps by zero.
+keeps its JAX name). Every ray sphere-traces the euclidean distance field:
+it steps by the EDF sample until the sample drops to ``eps`` (hit), the
+ray leaves the real map (max_range) or the range budget is spent. The JAX
+march is a fixed-trip ``lax.scan`` in which a stopped ray steps by zero.
 
-Plain PyTorch, no hand-written kernel: the JAX package runs this march in
-XLA, not Pallas. Each trip is about 25 elementwise launches over the ray
-tensors. Every ``_ALIVE_CHECK`` trips the loop reads ``alive.any()`` on
-the host and stops once every ray has stopped. The values are those of
-the full trip count: a stopped ray has ``step = 0``, so its position and
-``total`` no longer change.
+``march_rays`` is the wrapper of the hand-written kernel
+``csrc/edf_march.cu`` (``edf_march``): on CUDA tensors each thread loops
+one ray's trips in registers until the ray stops and writes its range
+once, one launch a march, no host read; on CPU tensors the plain loop
+``march_rays_plain`` runs. The plain loop is the kernel's reference: the
+same float32 operations in the same order, so the two agree bit for bit.
+It runs the trips in lockstep, about 25 elementwise operations a trip,
+and every ``_ALIVE_CHECK`` trips reads ``alive.any()`` on the host and
+stops once every ray has stopped (a stopped ray has ``step = 0``, so the
+values are those of the full trip count).
+
+One exception, on the card: where grad mode is on and autograd needs the
+march's gradient, the plain loop runs there too, counted on
+``march_rays.autograd_loops`` (the kernel has no backward). That is
+``interp="bilinear"`` with a ray tensor that requires grad, and either
+interpolation with an ``edf`` that requires grad (``march_route``). A
+nearest march of rays that require grad takes the kernel: its range
+carries no gradient in the rays (its cell indices are integers), as in
+JAX.
 
 ``interp="bilinear"`` samples the EDF bilinearly and is differentiable in
 the rays and the EDF through ordinary autograd (the backward scatters
@@ -21,30 +33,76 @@ into the EDF's gradient along every visited cell). Autograd then keeps
 every trip's taps, weights and indices: about 0.3 GB per trip at
 4096 x 1080 rays. ``interp="nearest"`` is the reference's semantics.
 
+``MARCH_COUNTS`` counts marches and their trips. The plain loop counts on
+the host: the trips it ran, a multiple of ``_ALIVE_CHECK`` or
+``max_iters``. The kernel counts on the device, in a counter per device
+that every launch adds to, replayed CUDA graphs included: the trips of
+the launch's longest ray, which is what the JAX ``while_loop`` would run.
+Reading ``MARCH_COUNTS`` reads those counters (a synchronisation). Two
+marches on concurrent streams of one device can mix their trip counts,
+never their values.
+
 Scalars round as in JAX: the origin is a float32 tensor, ``1 /
 resolution`` a float32 multiplier. XLA's CPU backend may contract ``x +
-step * cos_t`` into a fused multiply-add, which PyTorch does not; a
-position that differs by an ulp can put a ray into the neighbouring cell,
-so the two marches differ on a few beams by up to about a cell.
+step * cos_t`` into a fused multiply-add, which neither the plain loop
+nor the kernel (``-fmad=false``) does; a position that differs by an ulp
+can put a ray into the neighbouring cell, so the port's march and JAX's
+differ on a few beams by up to about a cell.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import torch
 
+from . import sweeps
 from .common import _constant, rays_from_poses
 
 _ALIVE_CHECK = 32   # trips between host reads of "is any ray still alive"
+# the kernel's variants (a template argument of csrc/edf_march.cu)
+VARIANTS = {"nearest": 0, "bilinear": 1, "bracket": 2}
 
-# marches run and loop trips taken so far, by every march of the port (this
-# module's and ``raymarch_diff``'s); a profiler's or a test's reading
-MARCH_COUNTS = {"calls": 0, "trips": 0}
+
+class _MarchCounts(Mapping):
+    """``{"calls", "trips"}`` of every march of the port (this module's
+    and ``raymarch_diff``'s): the plain loops' host counts plus the
+    kernel's device counters, read at each lookup (module doc)."""
+
+    _COLUMN = {"trips": 0, "calls": 3}
+
+    def __init__(self):
+        self.host = {"calls": 0, "trips": 0}
+        self.device: dict = {}   # device -> (4,) int64 counter of the kernel
+
+    def counter(self, device) -> torch.Tensor:
+        """The kernel's counter on ``device`` (made at its first march):
+        [trips, scratch, scratch, calls], the scratch left at 0."""
+        c = self.device.get(device)
+        if c is None:
+            c = self.device[device] = torch.zeros(4, dtype=torch.int64,
+                                                  device=device)
+        return c
+
+    def __getitem__(self, key):
+        col = self._COLUMN[key]
+        return self.host[key] + sum(int(c[col]) for c in
+                                    self.device.values())
+
+    def __iter__(self):
+        return iter(self.host)
+
+    def __len__(self):
+        return len(self.host)
+
+
+MARCH_COUNTS = _MarchCounts()
 
 
 def count_march(trips: int):
-    """Record one march that left its loop after ``trips`` trips."""
-    MARCH_COUNTS["calls"] += 1
-    MARCH_COUNTS["trips"] += trips
+    """Record one plain march that left its loop after ``trips`` trips."""
+    MARCH_COUNTS.host["calls"] += 1
+    MARCH_COUNTS.host["trips"] += trips
 
 
 def origin_xy_f32(origin_xy, device):
@@ -110,26 +168,104 @@ def sample_edf_bilinear(edf, gx, gy, bounds_hw=None):
     return torch.where(inb, val, -1.0)
 
 
-def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
-               max_range=10.0, eps=0.0001, max_iters: int = 256,
-               interp: str = "nearest", bounds_hw=None):
-    """March a batch of rays through the EDF; ray args share one shape S
-    (broadcastable).
+def autograd_needs_loop(edf, rays, interp: str) -> bool:
+    """Whether autograd needs the march's gradient here: grad mode on, and
+    an ``edf`` that requires grad, or ``interp="bilinear"`` with a ray
+    tensor that requires grad (module doc)."""
+    return torch.is_grad_enabled() and (
+        edf.requires_grad or (interp == "bilinear"
+                              and any(r.requires_grad for r in rays)))
 
-    ``edf`` (H, W) float32 distance field in meters, ``resolution``
-    meters per cell, ``origin_xy`` world coords of grid corner (0, 0);
-    ``max_iters`` the trip count (``max_range / resolution`` always
-    suffices for reference parity); ``interp`` "nearest" (reference) or
-    "bilinear" (differentiable). Returns ranges, shape S, clamped to
-    ``max_range``.
-    """
-    if interp not in ("nearest", "bilinear"):
-        raise ValueError(f"interp must be 'nearest' or 'bilinear', got "
-                         f"{interp!r}")
+
+def march_route(edf, rays, interp: str) -> str:
+    """Which march runs: ``"plain"`` on CPU tensors, ``"kernel"``
+    (``edf_march``) on CUDA tensors, ``"autograd loop"`` (the plain loop
+    on the card) where ``autograd_needs_loop``; another device raises."""
+    if not sweeps._on_cuda("edf_march", edf):
+        return "plain"
+    return "autograd loop" if autograd_needs_loop(edf, rays, interp) \
+        else "kernel"
+
+
+def _as_rows(v):
+    """A (rows, cols) view of a ray tensor: the last axis is the columns.
+    Two-dimensional tensors (the scans' expanded origin views among them)
+    pass as they are; other shapes are reshaped, copying only where no
+    view exists."""
+    if v.dim() == 2:
+        return v
+    return v.reshape(1, -1) if v.dim() <= 1 else v.reshape(-1, v.shape[-1])
+
+
+def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
+              max_iters: int, bounds_hw, variant: str, ray_trips=None):
+    """The march of ``csrc/edf_march.cu`` on CUDA tensors of one broadcast
+    shape S (``march_rays_plain``'s and ``raymarch_diff._march_nearest``'s
+    arguments; ``ox``/``oy`` 0-dim float32 device tensors). ``variant``:
+    "nearest" and "bilinear" return the clamped ranges (S), "bracket"
+    returns (total, last, hit). ``ray_trips``: an int32 tensor of shape S
+    to receive each ray's trip count, or None. ``edf_march.launches``
+    counts kernel launches."""
+    if variant not in VARIANTS:
+        raise ValueError(f"edf_march: variant must be one of "
+                         f"{', '.join(VARIANTS)}, got {variant!r}")
+    if not sweeps._on_cuda("edf_march", edf):
+        raise ValueError("edf_march: a CUDA kernel; CPU tensors take "
+                         "march_rays_plain")
+    if edf.dtype != torch.float32 or edf.dim() != 2 \
+            or not edf.is_contiguous():
+        raise ValueError(f"edf_march: edf must be a contiguous float32 "
+                         f"(H, W) tensor, got {edf.dtype} "
+                         f"{tuple(edf.shape)}")
+    if max_iters < 0:
+        raise ValueError(f"edf_march: max_iters must be >= 0, got "
+                         f"{max_iters}")
+    rays = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
+    shape = rays[0].shape
+    for v in rays + (ox, oy):
+        if v.device != edf.device or v.dtype != torch.float32:
+            raise ValueError(f"edf_march: expected float32 tensors on "
+                             f"{edf.device}, got {v.dtype} on {v.device}")
+    if ox.dim() or oy.dim():
+        raise ValueError("edf_march: the origin is two 0-dim tensors")
+    hp, wp = edf.shape
+    h, w = bounds_hw if bounds_hw is not None else (hp, wp)
+    total = torch.empty(shape, dtype=torch.float32, device=edf.device)
+    bracket = variant == "bracket"
+    last = torch.empty_like(total) if bracket else None
+    hit = torch.empty(shape, dtype=torch.bool, device=edf.device) \
+        if bracket else None
+    if ray_trips is not None and (ray_trips.dtype != torch.int32
+                                  or ray_trips.shape != shape
+                                  or ray_trips.device != edf.device
+                                  or not ray_trips.is_contiguous()):
+        raise ValueError(f"edf_march: ray_trips must be a contiguous int32 "
+                         f"tensor of shape {tuple(shape)} on {edf.device}")
+    if total.numel():
+        views = [_as_rows(v) for v in rays]
+        rows, cols = views[0].shape
+        strides = [s for v in views for s in v.stride()]
+        sweeps._launch("edf_march", "edf_march", VARIANTS[variant], edf,
+                       hp, wp, h, w, ox, oy, float(inv_res),
+                       float(max_range), float(eps), int(max_iters), *views,
+                       *strides, rows, cols, total, last, hit, ray_trips,
+                       MARCH_COUNTS.counter(edf.device))
+        edf_march.launches += 1
+    return (total, last, hit) if bracket else total
+
+
+edf_march.launches = 0
+sweeps.register(edf_march)
+
+
+def march_rays_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
+                     eps, max_iters: int, interp: str, bounds_hw):
+    """The plain PyTorch march, on any device: the trips in lockstep over
+    the ray tensors, the reference of ``edf_march``'s "nearest" and
+    "bilinear" variants (module doc). Differentiable through autograd.
+    Returns the ranges clamped to ``max_range``."""
     sample = sample_edf_nearest if interp == "nearest" else \
         sample_edf_bilinear
-    inv_res = 1.0 / resolution
-    ox, oy = origin_xy_f32(origin_xy, edf.device)
     x, y, cos_t, sin_t = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
     total = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     alive = torch.ones(x.shape, dtype=torch.bool, device=x.device)
@@ -154,6 +290,40 @@ def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
         total = total + step
     count_march(trips)
     return torch.clamp(total, max=max_range)
+
+
+def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
+               max_range=10.0, eps=0.0001, max_iters: int = 256,
+               interp: str = "nearest", bounds_hw=None):
+    """March a batch of rays through the EDF; ray args share one shape S
+    (broadcastable).
+
+    ``edf`` (H, W) float32 distance field in meters, ``resolution``
+    meters per cell, ``origin_xy`` world coords of grid corner (0, 0);
+    ``max_iters`` the trip count (``max_range / resolution`` always
+    suffices for reference parity); ``interp`` "nearest" (reference) or
+    "bilinear" (differentiable). Returns ranges, shape S, clamped to
+    ``max_range``. CUDA tensors launch ``edf_march``, CPU tensors run the
+    plain loop; the one exception is the autograd loop (module doc,
+    ``march_route``).
+    """
+    if interp not in ("nearest", "bilinear"):
+        raise ValueError(f"interp must be 'nearest' or 'bilinear', got "
+                         f"{interp!r}")
+    inv_res = 1.0 / resolution
+    ox, oy = origin_xy_f32(origin_xy, edf.device)
+    rays = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
+    route = march_route(edf, rays, interp)
+    if route == "kernel":
+        return edf_march(edf, inv_res, ox, oy, *rays, max_range, eps,
+                         max_iters, bounds_hw, interp)
+    if route == "autograd loop":
+        march_rays.autograd_loops += 1
+    return march_rays_plain(edf, inv_res, ox, oy, *rays, max_range, eps,
+                            max_iters, interp, bounds_hw)
+
+
+march_rays.autograd_loops = 0   # plain loops on the card (module doc)
 
 
 def scan_poses(edf, resolution, origin_xy, poses, num_beams: int = 1080,

@@ -143,7 +143,11 @@ def _check(name, ref, specs):
 
 
 def _launch(name, kernel, *args):
-    with torch.cuda.device(args[0].device):
+    """Launch ``kernel`` on the current stream of the first tensor's
+    device: tensors pass as their data pointers, None as a null pointer,
+    numbers as they are."""
+    device = next(a.device for a in args if torch.is_tensor(a))
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.kernel(kernel)(
             *(a.data_ptr() if torch.is_tensor(a) else a for a in args),
@@ -239,11 +243,26 @@ dense_sweep.launches = 0
 
 LIST_ROUTES = (sector_sweep, sorted_tiles_sweep, grp_sweep, tile_sweep)
 WRAPPERS = LIST_ROUTES + (dense_sweep,)
+# wrappers of the port's other kernels by name, registered by their
+# modules at import (``ops/raymarch_xla.edf_march``)
+_OTHER_WRAPPERS: dict = {}
+
+
+def register(wrapper):
+    """Count ``wrapper.launches`` in ``launch_counts`` and
+    ``add_launches`` beside the sweeps' wrappers."""
+    _OTHER_WRAPPERS[wrapper.__name__] = wrapper
+    return wrapper
+
+
+def _all_wrappers():
+    return WRAPPERS + tuple(_OTHER_WRAPPERS.values())
 
 
 def launch_counts() -> dict:
-    """``{wrapper name: kernel launches so far}`` of every wrapper."""
-    return {w.__name__: w.launches for w in WRAPPERS}
+    """``{wrapper name: kernel launches so far}`` of every wrapper: the
+    sweeps' and the registered ones."""
+    return {w.__name__: w.launches for w in _all_wrappers()}
 
 
 def add_launches(delta: dict):
@@ -251,6 +270,6 @@ def add_launches(delta: dict):
     graph launches the kernels it captured without passing through the
     wrappers: ``utils/graph.py`` adds the launches of one replay here, and
     takes back what the capture pass counted while no kernel ran."""
-    by_name = {w.__name__: w for w in WRAPPERS}
+    by_name = {w.__name__: w for w in _all_wrappers()}
     for name, n in delta.items():
         by_name[name].launches += n

@@ -4,8 +4,9 @@ Counterpart of ``pyracecarsimulator_tpu/parallel/rollout.py``. The JAX
 package compiles the T-step loop into one ``lax.scan`` program. Here the
 loop is replayed from CUDA graphs (``utils/graph.py``) where the state
 lies on a CUDA device and the step can be captured (``step.capturable``:
-the segment backends), and runs eagerly, kernel by kernel from Python,
-everywhere else: on the CPU, on the EDF backends, with ``graph=False``.
+every backend of ``simulator.make_step_fn``, the EDF marches included),
+and runs eagerly, kernel by kernel from Python, everywhere else: on the
+CPU, for the sharded steps of ``parallel/mesh.py``, with ``graph=False``.
 Values are the eager loop's bit for bit, trajectories stacked along a
 leading time axis, as in JAX.
 

@@ -22,16 +22,21 @@ The JAX step is one compiled program (``jax.jit``, the map a traced
 argument). The port's step runs eagerly by default, kernel by kernel from
 Python; ``make_step_fn(..., graph=True)`` returns it replayed as one CUDA
 graph (``utils/graph.py``), bit for bit the eager step's values. A step
-carries ``step.capturable``: True on the exact and the simplified segment
-backends, whose scans read nothing from the host after their first call
-on a device; False on the EDF backends, whose marches read the host every
-32 trips for their early exit (``step.host_read`` names the read), and
-``graph=True`` on them raises. Swapping a map through ``step.map_cell``
-replaces the tensors the next eager call reads; a graph holds the
-addresses of the table it was captured with, so the graphed step watches
-the identity of ``map_cell["map"]`` and captures again after a swap (the
-JAX facade's retrace checks, ``_swap_or_rebuild``'s shape signature and
-``jitted._cache_size``, have no other counterpart). The rollout and the
+carries ``step.capturable``: True on every backend, whose scans read
+nothing from the host after their first call on a device (the EDF
+marches run in the kernel ``csrc/edf_march.cu`` on the card, each ray
+looping until it stops); a step that cannot be captured (the sharded
+steps of ``parallel/mesh.py``) names its host read in ``step.host_read``.
+A train step differentiates through the step: ``step.grad_host_read``
+names what then reads the host, the bilinear march's autograd loop on
+"edf_bilinear" (and on "edf" with ``ScanParams.interp="bilinear"``), and
+is None elsewhere (``parallel/train.py``). Swapping a map through
+``step.map_cell`` replaces the tensors the next eager call reads; a graph
+holds the addresses of the table it was captured with, so the graphed
+step watches the identity of ``map_cell["map"]`` and captures again after
+a swap (the JAX facade's retrace checks, ``_swap_or_rebuild``'s shape
+signature and ``jitted._cache_size``, have no other counterpart). The
+rollout and the
 train step capture the eager step inside their own graphs
 (``parallel/rollout.py``, ``parallel/train.py``).
 """
@@ -67,14 +72,12 @@ from .utils.graph import (CudaGraphBackend, GraphedFunction,
 _SEGMENT_BACKENDS = ("segments", "segments_simplified", "segments_pallas",
                      "sectors", "auto")
 _EDF_BACKENDS = ("edf", "edf_bilinear", "edf_implicit")
-# why a step on an EDF backend cannot be captured in a CUDA graph
-_HOST_READS = {
-    backend: f"ops/{module}.py: {march} reads alive.any() on the host every "
-             "32 trips (_ALIVE_CHECK) to leave its loop early"
-    for backend, module, march in (
-        ("edf", "raymarch_xla", "march_rays"),
-        ("edf_bilinear", "raymarch_xla", "march_rays"),
-        ("edf_implicit", "raymarch_diff", "_march_nearest"))}
+# why a train step through a bilinear march cannot be captured
+_BILINEAR_GRAD_READ = (
+    "ops/raymarch_xla.py: march_rays differentiates the bilinear march "
+    "through its plain autograd loop (the edf_march kernel has no "
+    "backward), which reads alive.any() on the host every 32 trips "
+    "(_ALIVE_CHECK) to leave its loop early")
 
 
 class StepOutput(NamedTuple):
@@ -306,12 +309,13 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
     map the scan reads (the segment table, or the track for the EDF
     backends). ``step.capturable`` says whether the step can be captured
     in a CUDA graph (module doc); where it cannot, ``step.host_read`` says
-    why.
+    why; ``step.grad_host_read`` says why a train step through it cannot,
+    or is None.
 
     ``graph=True`` returns the step replayed as one CUDA graph: the same
     values, forward only (no autograd graph), ``step.map_cell`` kept and
     watched, ``step.eager`` the step it captured. It raises for a bundle
-    that is not on a CUDA device and for a backend that reads the host.
+    that is not on a CUDA device.
     """
     backend = backend or bundle.backend
     map_cell = {"map": (bundle.segmap if backend in _SEGMENT_BACKENDS
@@ -338,8 +342,11 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
         return latch(new, ranges, hit)
 
     step.map_cell = map_cell        # swap maps here
-    step.capturable = backend in _SEGMENT_BACKENDS
-    step.host_read = _HOST_READS.get(backend)
+    step.capturable = True
+    step.host_read = None
+    bilinear = backend == "edf_bilinear" or (backend == "edf"
+                                             and sc.interp == "bilinear")
+    step.grad_host_read = _BILINEAR_GRAD_READ if bilinear else None
     return _graphed_step(step, bundle.track.edf.device) if graph else step
 
 
@@ -357,6 +364,7 @@ def _graphed_step(step, device):
     graphed_step.map_cell = map_cell
     graphed_step.capturable = True
     graphed_step.host_read = None
+    graphed_step.grad_host_read = step.grad_host_read
     graphed_step.eager = step
     graphed_step.graphed = graphed      # .captures, .replays, .release()
     return graphed_step

@@ -36,11 +36,13 @@ the warm-up calls change besides their outputs is put back after the
 capture: generator states by this class, anything else (parameters, an
 optimizer's state) by the caller's ``snapshot``.
 
-The launch counters of ``ops/sweeps.py`` count in Python, where a replay
-passes no wrapper. The class takes the difference of
+The launch counters of the kernels' wrappers (``ops/sweeps.py``'s and the
+ones registered there, ``ops/raymarch_xla.edf_march``) count in Python,
+where a replay passes no wrapper. The class takes the difference of
 ``sweeps.launch_counts()`` across the capture pass, takes it back (no
 kernel ran while capturing) and adds it at every replay, so the counters
-go on saying what the device ran.
+go on saying what the device ran. (The EDF march's trip counter lives on
+the device and counts replays by itself.)
 
 A graph is captured on a CUDA device or the call raises: nothing runs
 eagerly in silence where a graph was asked for. A function that reads the

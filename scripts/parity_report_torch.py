@@ -27,7 +27,8 @@ Left out: the JAX report's "sectors exact (sorted sweep)" row. Its
 (``ops/raycast_sectors._sweep_for`` raises for it).
 
 Beside each row stand the launches of the hand-written kernels' wrappers
-while the row ran (``ops/sweeps.launch_counts``). On the card a row that
+while the row ran (``ops/sweeps.launch_counts``, the EDF march's
+``edf_march`` among them: the "edf march" and "edf implicit" rows run it). On the card a row that
 names a kernel and launched none is a fault; on the CPU every wrapper runs
 its plain PyTorch version and every count is 0.
 
@@ -133,7 +134,8 @@ def report(maps, n_poses, beams, device):
         geom = ("geometry oracle", o_geom)
         with torch.no_grad():
             for bname, kernel, oracle, fn in (
-                    ("edf march", None, march, lambda: raymarch_xla.scan_poses(
+                    ("edf march", "edf_march", march,
+                     lambda: raymarch_xla.scan_poses(
                         t.edf, t.resolution, org_t, p, num_beams=beams,
                         max_iters=200, bounds_hw=bounds)),
                     ("segments exact", seg_kernel, geom,
@@ -145,7 +147,8 @@ def report(maps, n_poses, beams, device):
                      lambda: scan_poses_sectors(smap, p, num_beams=beams)),
                     ("simplified tol=1", None, geom,
                      lambda: scan_poses_general(gm, p, num_beams=beams)),
-                    ("edf implicit", None, geom, lambda: scan_poses_implicit(
+                    ("edf implicit", "edf_march", geom,
+                     lambda: scan_poses_implicit(
                         t.edf, t.resolution, org_t, p, num_beams=beams,
                         max_iters=256, bounds_hw=bounds))):
                 r, used = counted(fn)

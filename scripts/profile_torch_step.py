@@ -14,8 +14,10 @@ with CUDA events, without the profiler, and records 10 more under
 unprofiled step time, the device's busy time per step from the trace (the
 sum of the kernels' device time; one stream, so kernels do not overlap),
 the idle share ``1 - busy / unprofiled step time``, the EDF march's loop
-trips per step (``ops/raymarch_xla.MARCH_COUNTS``; 0 on the segment
-backends), and the kernels that take the most device time. The profiled
+trips per step (``ops/raymarch_xla.MARCH_COUNTS``: on the card the
+kernel's device counter, the trips of each march's longest ray, read
+after the timed loop; 0 on the segment backends), and the kernels that
+take the most device time. The profiled
 wall time is printed too, only to show what the profiler adds.
 
 Beside the step it times the scan alone (``make_scan_fn``) twice, with its
@@ -26,7 +28,8 @@ its scan by more than the dynamics' ~2 ms shows here whether it marches
 further or does other work. Needs a CUDA card.
 
 ``--graph`` profiles the step replayed as one CUDA graph
-(``make_step_fn(..., graph=True)``; the segment backends only): the same
+(``make_step_fn(..., graph=True)``; every backend, the EDF ones included,
+whose trips the device counter counts under replay too): the same
 figures, with the capture's seconds and, from the trace, the host's
 ``cudaGraphLaunch`` calls per step. The kernels per step then count what
 the replay runs plus the copies into the graph's static inputs and the
@@ -101,8 +104,7 @@ def main(argv=None) -> dict:
             nonlocal state
             state = step(state, act, gen).state
 
-        marching = bundle.segmap is None
-        reps = TIMED_STEPS if not marching else TIMED_STEPS // 5
+        reps = TIMED_STEPS
         t0 = time.perf_counter()
         advance()               # the first call: builds, and captures
         torch.cuda.synchronize()
@@ -124,7 +126,7 @@ def main(argv=None) -> dict:
         # the step once more, after the scans: the spread within one process
         step_ms_2, step_trips_2 = counted(advance, reps, 1)
 
-        traced = TRACED_STEPS if not marching else 2
+        traced = TRACED_STEPS
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

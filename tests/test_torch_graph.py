@@ -17,17 +17,24 @@ card). Here, on the CPU:
   (``torch.tensor``, ``torch.as_tensor`` and ``torch.from_numpy`` are
   counted under a monkeypatch);
 - ``graph=None`` on the CPU is the eager loop; ``graph=True`` on the CPU
-  raises and names the card; ``graph=True`` on an EDF step raises and
-  names the host read;
+  raises and names the card; every backend's step can be captured, the
+  EDF ones included (their marches run in ``csrc/edf_march.cu`` on the
+  card), and the one host read left is the bilinear march's autograd
+  loop under a train step (``step.grad_host_read``), where ``graph=True``
+  raises and names it;
 - the bookkeeping of ``utils.graph.GraphedFunction`` (copy-in, cloned
   outputs, a new capture after a swapped map, a new shape or another
   generator, restored generator states, the launch counters' replay) and
   the graphed rollout's and train step's own (the carried state, the
   block buffers, the optimizer's snapshot) run with ``_ReRun``, a
   stand-in backend that re-runs the function where the card would replay
-  the graph. With it the graphed rollout equals the eager loop bit for
-  bit and the JAX package's rollout within 1e-5 m in the poses, and the
-  graphed train step equals the eager one bit for bit.
+  the graph. With it the graphed step and rollout equal the eager ones
+  bit for bit on every backend, the EDF ones included; the graphed rollout
+  equals the JAX package's within 1e-5 m in the poses (on "edf" its kept
+  scans within ROADMAP.md's tolerated fault 6: >= 99.5% of the beams
+  within 1e-4 m, all within 3 cells); the graphed train step equals the
+  eager one bit for bit, on "edf" and "edf_implicit" too; a graphed "edf"
+  facade reads each edited map.
 """
 
 import importlib
@@ -72,6 +79,7 @@ N_AGENTS = 12
 STEPS = 7
 BEAMS = 64
 EXACT = ("segments", "segments_pallas", "sectors")
+EDF = ("edf", "edf_implicit", "edf_bilinear")
 
 
 class _ReRun:
@@ -390,29 +398,74 @@ def test_graph_true_on_cpu_raises_and_names_the_card(bundles, small_track,
             train(params, init(params), state)
 
 
+@pytest.fixture()
+def standin(monkeypatch):
+    """``make_step_fn(graph=True)`` and the facade's ``graph=True`` on the
+    CPU: the stand-in backend where the card's would capture."""
+    graph_mod = importlib.import_module(
+        "pyracecarsimulator_tpu_torch.utils.graph")
+    monkeypatch.setattr(graph_mod, "CudaGraphBackend", _ReRun)
+    monkeypatch.setattr(psim, "CudaGraphBackend", _ReRun)
+
+
+def _edf_train_loss(out, t):
+    # the nearest march's ranges carry no gradient: a steering target does
+    return _train_loss(out, t) + torch.mean(
+        (out.state.steer_angle - 0.1) ** 2)
+
+
 @pytest.mark.parametrize("backend, module", [
     ("edf", "raymarch_xla"), ("edf_bilinear", "raymarch_xla"),
     ("edf_implicit", "raymarch_diff")])
 def test_graph_true_on_an_edf_step_names_the_host_read(bundles, small_track,
-                                                       backend, module):
+                                                       backend, module,
+                                                       monkeypatch):
+    """The EDF step reads nothing from the host: it is capturable, its
+    march goes through ``module``'s route (the kernel on the card), and
+    ``graph=True`` on the CPU raises for the card, not for a host read.
+    The host read that is left is the bilinear march's autograd loop
+    under a train step: ``step.grad_host_read`` names it on
+    "edf_bilinear" only, and ``graph=True`` on that train step raises and
+    names it; the other train steps get as far as the capture."""
     bundle = bundles[backend]
+    mod = importlib.import_module(
+        f"pyracecarsimulator_tpu_torch.ops.{module}")
+    routed, route = [], mod.march_route
+    monkeypatch.setattr(mod, "march_route",
+                        lambda *a: routed.append(a[2]) or route(*a))
     step = psim.make_step_fn(bundle, with_noise=False)
-    assert not step.capturable and module in step.host_read
-    pattern = f"(?s){module}.*alive.any\\(\\).*host.*graph=False"
-    with pytest.raises(RuntimeError, match=pattern):
-        psim.make_step_fn(bundle, with_noise=False, graph=True)
+    assert step.capturable and step.host_read is None
     state = P.state_from_numpy(_initial(small_track), device="cpu")
-    policy = make_gap_follower_policy(BEAMS, FOV)
+    act = (torch.full((N_AGENTS,), 2.0), torch.zeros(N_AGENTS))
+    assert step(state, act).ranges.shape == (N_AGENTS, BEAMS)
+    assert routed == ["bilinear" if backend == "edf_bilinear"
+                      else "nearest"]
+    with pytest.raises(RuntimeError, match="(?s)card.*graph=False") as e:
+        psim.make_step_fn(bundle, with_noise=False, graph=True)
+    assert "alive.any()" not in str(e.value)
+    train, init = make_bptt_train_fn(step, _train_policy, _edf_train_loss, 2,
+                                     BEAMS, graph=True)
+    params = {"w": torch.zeros(BEAMS), "b": torch.zeros(())}
+    if backend == "edf_bilinear":
+        assert module in step.grad_host_read
+        pattern = f"(?s){module}.*autograd loop.*alive.any\\(\\).*graph=False"
+    else:
+        assert step.grad_host_read is None
+        pattern = "(?s)card.*graph=False"
     with pytest.raises(RuntimeError, match=pattern):
-        make_rollout_fn(step, policy, 2, BEAMS, graph=True)(state)
-    # graph=None takes the eager loop there
-    _, traj = make_rollout_fn(step, policy, 2, BEAMS)(state)
-    assert traj["pose"].shape == (2, N_AGENTS, 3)
+        train(params, init(params), state)
+    assert train.graphed.captures == 0
 
 
 def test_which_steps_can_be_captured(bundles):
-    for backend in EXACT + ("segments_simplified",):
-        assert psim.make_step_fn(bundles[backend]).capturable
+    for backend in EXACT + ("segments_simplified",) + EDF:
+        step = psim.make_step_fn(bundles[backend])
+        assert step.capturable and step.host_read is None
+        assert (step.grad_host_read is None) == (backend != "edf_bilinear")
+    # "edf" with bilinear sampling differentiates through the same loop
+    bilinear = bundles["edf"]._replace(
+        scan=P.ScanParams(num_beams=BEAMS, interp="bilinear"))
+    assert "autograd loop" in psim.make_step_fn(bilinear).grad_host_read
     import socket
     import torch.distributed as dist
     from pyracecarsimulator_tpu_torch.parallel import (make_sharded_step,
@@ -427,6 +480,62 @@ def test_which_steps_can_be_captured(bundles):
     finally:
         dist.destroy_process_group()
     assert not sharded.capturable and "torch.distributed" in sharded.host_read
+
+
+@pytest.mark.parametrize("backend", EDF)
+def test_graphed_edf_step_equals_eager(bundles, small_track, backend,
+                                       standin):
+    """``make_step_fn(graph=True)`` on an EDF backend, with the stand-in:
+    3 replays with changing inputs, noise on from one seed, equal to the
+    eager step bit for bit, one capture."""
+    state = P.state_from_numpy(_initial(small_track), device="cpu")
+    eager = psim.make_step_fn(bundles[backend], with_noise=True)
+    graphed = psim.make_step_fn(bundles[backend], with_noise=True,
+                                graph=True)
+    assert graphed.eager.capturable
+    assert graphed.grad_host_read == eager.grad_host_read
+    act = (torch.full((N_AGENTS,), 2.0), torch.zeros(N_AGENTS))
+    ge, gg = torch.Generator().manual_seed(3), torch.Generator()
+    # the stand-in's capture pass draws; a real capture does not
+    graphed.graphed.prepare(state, act, gg)
+    gg.manual_seed(3)
+    se = sg = state
+    for i in range(3):
+        a = (act[0] + 0.25 * i, act[1] + 0.02 * i)
+        oe, og = eager(se, a, ge), graphed(sg, a, gg)
+        assert torch.equal(oe.ranges, og.ranges)
+        assert torch.equal(oe.collision, og.collision)
+        assert _same_state(oe.state, og.state)
+        se, sg = oe.state, og.state
+    assert graphed.graphed.captures == 1 and graphed.graphed.replays == 3
+
+
+def test_graphed_edf_facade_reads_each_edited_map(small_track, standin):
+    """``RacecarSimulator(backend="edf", graph=True)`` across
+    ``add_obstacle`` and ``clear_obstacles``: every step equals the eager
+    facade's bit for bit, the box shortens the beam ahead and clearing
+    restores it (a stale EDF would show), one capture per map."""
+    track = _port_track(small_track)
+    sims = [psim.RacecarSimulator(track, backend="edf", device="cpu",
+                                  with_noise=False, graph=g)
+            for g in (True, False)]
+    x, y = -2.3, -1.0          # west of the block, east of the bar, facing +y
+    for sim in sims:
+        sim.set_pose(x, y, np.pi / 2)
+        sim.drive(0.5, 0.0)
+    ahead = []
+    for edit in (None, "add", "clear"):
+        for sim in sims:
+            if edit == "add":
+                sim.add_obstacle(x, y + 0.275 + 1.0, size=0.4)
+            elif edit == "clear":
+                sim.clear_obstacles()
+        a, b = (sim.update_pose() for sim in sims)
+        assert torch.equal(a.ranges, b.ranges)
+        assert _same_state(a.state, b.state)
+        ahead.append(float(a.ranges[sims[0].bundle.scan.num_beams // 2]))
+    assert ahead[1] < 1.0 < ahead[0] and ahead[2] > 1.0
+    assert sims[0]._step.graphed.captures == 3
 
 
 def test_train_refuses_an_optimizer_that_counts_on_the_host(bundles,
@@ -642,7 +751,7 @@ def _graphed_rollout(step, policy, steps, keep_scans, state, block=None):
     return run, backend
 
 
-@pytest.mark.parametrize("backend", EXACT)
+@pytest.mark.parametrize("backend", EXACT + EDF)
 @pytest.mark.parametrize("noise", [False, True])
 def test_graphed_rollout_equals_eager_loop(bundles, small_track, backend,
                                            noise):
@@ -699,6 +808,38 @@ def test_graphed_rollout_matches_jax(small_track):
                                   np.asarray(jtraj["collision"]))
     np.testing.assert_allclose(pfin.pose.numpy(), np.asarray(jfin.pose),
                                atol=1e-5)
+
+
+def test_graphed_edf_rollout_matches_jax(small_track):
+    """The graphed "edf" rollout against the JAX package's ``lax.scan``
+    rollout of its "edf" step, the same numpy inputs: poses within 1e-5 m,
+    collisions equal, the kept scans within tolerated fault 6 (>= 99.5% of
+    the beams within 1e-4 m, all within 3 cells)."""
+    sim_kw = dict(ttc_threshold=0.3)
+    from pyracecarsimulator_tpu.config import SimParams as JSimP
+    jb = jsim.build_sim(small_track, sim=JSimP(**sim_kw), backend="edf")
+    pb = psim.build_sim(_port_track(small_track), sim=P.SimParams(**sim_kw),
+                        backend="edf", device="cpu")
+    nb, fov = jb.scan.num_beams, jb.scan.fov
+    d = _initial(small_track)
+    js = jstate.CarState(**{k: jnp.asarray(v) for k, v in d.items()})
+    ps = P.state_from_numpy(d, device="cpu")
+    jfin, jtraj = jax_rollout(jsim.make_step_fn(jb, with_noise=False), js,
+                              jax_gap_follower(nb, fov), 5, nb,
+                              keep_scans=True)
+    run = prollout._GraphedRollout(
+        psim.make_step_fn(pb, with_noise=False),
+        make_gap_follower_policy(nb, fov), 5, nb, True, ps,
+        backend=_ReRun())
+    pfin, ptraj = run.run(ps, None)
+    np.testing.assert_allclose(ptraj["pose"].numpy(),
+                               np.asarray(jtraj["pose"]), atol=1e-5)
+    np.testing.assert_array_equal(ptraj["collision"].numpy(),
+                                  np.asarray(jtraj["collision"]))
+    np.testing.assert_allclose(pfin.pose.numpy(), np.asarray(jfin.pose),
+                               atol=1e-5)
+    diff = np.abs(ptraj["ranges"].numpy() - np.asarray(jtraj["ranges"]))
+    assert np.mean(diff <= 1e-4) >= 0.995 and diff.max() < 3 * 0.05
 
 
 def test_graphed_rollout_hands_the_policy_its_step_index(small_track):
@@ -876,6 +1017,40 @@ def test_graphed_train_step_equals_eager(small_track, optimizer):
         if graph:
             assert train.graphed.captures == 1
             assert train.graphed.replays == 4
+    assert got[True][0] == got[False][0]
+    for i in (1, 2, 4):
+        assert torch.equal(got[True][i], got[False][i])
+    assert _same_state(got[True][3], got[False][3])
+    assert got[True][0][0] != got[True][0][-1]      # it trains
+
+
+@pytest.mark.parametrize("backend", ["edf", "edf_implicit"])
+def test_graphed_edf_train_step_equals_eager(small_track, backend):
+    """The "edf" and "edf_implicit" train steps captured with the
+    stand-in: losses, parameters, gradients and the final state after 3
+    steps equal the eager trainer's bit for bit."""
+    bundle = psim.build_sim(
+        _port_track(small_track), scan=P.ScanParams(num_beams=BEAMS),
+        sim=P.SimParams(steer_mode="smooth"), backend=backend, device="cpu")
+    step = psim.make_step_fn(bundle, with_noise=True)
+    state = P.state_from_numpy(_initial(small_track, 8), device="cpu")
+    got = {}
+    for graph in (False, True):
+        train, init = make_bptt_train_fn(step, _train_policy,
+                                         _edf_train_loss, 3, BEAMS,
+                                         graph=graph)
+        train.graphed.backend = _ReRun()
+        params = {"w": torch.full((BEAMS,), 0.01), "b": torch.zeros(())}
+        opt = init(params)
+        gen = torch.Generator().manual_seed(1)
+        losses = []
+        for _ in range(3):
+            params, opt, loss, final = train(params, opt, state, gen)
+            losses.append(float(loss))
+        got[graph] = (losses, params["w"].detach().clone(),
+                      params["b"].detach().clone(), final,
+                      params["w"].grad.clone())
+        assert train.graphed.captures == (1 if graph else 0)
     assert got[True][0] == got[False][0]
     for i in (1, 2, 4):
         assert torch.equal(got[True][i], got[False][i])

@@ -8,7 +8,9 @@ the same tests). On a machine with a card:
 
 Tolerance: none. The kernels are compiled without FMA contraction or fast
 math and must equal their plain versions (``list_sweep_plain``,
-``dense_sweep_plain``) bit for bit on the same inputs.
+``dense_sweep_plain``, and for ``csrc/edf_march.cu`` the plain loops
+``raymarch_xla.march_rays_plain`` and ``raymarch_diff._march_nearest_plain``)
+bit for bit on the same inputs.
 """
 
 import numpy as np
@@ -258,7 +260,8 @@ def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas, route):
 
 # -- the step and the rollout replayed as CUDA graphs ------------------------
 
-@pytest.mark.parametrize("backend", ["segments", "sectors"])
+@pytest.mark.parametrize("backend", ["segments", "sectors", "edf",
+                                     "edf_implicit", "edf_bilinear"])
 def test_graphed_step_and_rollout_equal_eager(cuda, backend):
     """``make_step_fn(graph=True)`` and the default rollout on the card
     against the eager step and loop, noise on from one seed: bit for bit;
@@ -391,3 +394,158 @@ def test_graphed_rollout_policy_that_depends_on_t(cuda):
     for _ in range(2):
         params, opt, loss, _ = train(params, opt, state)
     assert train.graphed.captures == 0 and bool(torch.isfinite(loss))
+
+
+# -- the EDF march ------------------------------------------------------------
+
+def _march_case(cuda, case):
+    """(edf, inv_res, ox, oy, rays (4 x (A, B)), bounds) on the card:
+    "random", the corridor map with origins anywhere in and around it
+    (some start outside the map, some in a wall) and random directions;
+    "levine", the bundled map's fan of 1080 beams from 48 free poses, 8
+    poses outside the map and 8 in walls."""
+    from pyracecarsimulator_tpu_torch.maps import (load_builtin,
+                                                   sample_free_poses)
+    from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
+    rng = np.random.RandomState(5)
+    if case == "random":
+        track, _ = _corridor(16, 2.0)
+        n = 3000
+        x = rng.uniform(-6.0, 6.0, (n, 1)).astype(np.float32)
+        y = rng.uniform(-6.0, 6.0, (n, 1)).astype(np.float32)
+        th = rng.uniform(-np.pi, np.pi, (n, 1)).astype(np.float32)
+        rays = [torch.tensor(v, device=cuda) for v in
+                (x, y, np.cos(th), np.sin(th))]
+    else:
+        track = load_builtin("levine", device="cpu")
+        poses = sample_free_poses(track, 64, np.random.RandomState(0))
+        poses[48:56, 0] += 1000.0                       # outside the map
+        occ = track.occupancy.numpy()[: track.height, : track.width]
+        iy, ix = np.nonzero(occ > 0.5)
+        k = rng.randint(len(iy), size=8)
+        poses[56:, 0] = track.origin_x + (ix[k] + 0.5) * track.resolution
+        poses[56:, 1] = track.origin_y + (iy[k] + 0.5) * track.resolution
+        _, _, *rays = rays_from_poses(torch.tensor(poses, device=cuda), 1080,
+                                      FOV)
+    org = torch.tensor([track.origin_x, track.origin_y], device=cuda)
+    return (track.edf.to(cuda), 1.0 / track.resolution, org[0], org[1],
+            rays, (track.height, track.width))
+
+
+@pytest.mark.parametrize("case", ["random", "levine"])
+@pytest.mark.parametrize("variant", ["nearest", "bilinear", "bracket"])
+def test_edf_march_matches_plain(cuda, variant, case):
+    """Each variant against its plain loop on the same tensors, bit for
+    bit: ranges, and for the bracket ``last`` and ``hit``; with 200 trips
+    and with 3, which cuts rays off; each ray's trips within the count;
+    one launch a march."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    edf, inv, ox, oy, rays, hw = _march_case(cuda, case)
+    for max_iters in (200, 3):
+        tail = (10.0, 1e-4, max_iters)
+        trips = torch.zeros(rays[0].shape, dtype=torch.int32, device=cuda)
+        before = rx.edf_march.launches
+        got = rx.edf_march(edf, inv, ox, oy, *rays, *tail, hw, variant,
+                           ray_trips=trips)
+        torch.cuda.synchronize()
+        assert rx.edf_march.launches == before + 1
+        if variant == "bracket":
+            ref = rd._march_nearest_plain(edf, inv, ox, oy, *rays, *tail, hw)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+            assert got[2].dtype == torch.bool
+            ranges = got[0]
+        else:
+            ref = rx.march_rays_plain(edf, inv, ox, oy, *rays, *tail,
+                                      variant, hw)
+            assert torch.equal(got, ref)
+            ranges = got
+        assert 1 <= int(trips.min()) and int(trips.max()) <= max_iters
+        assert bool((ranges < 10.0).any()) and bool((ranges >= 10.0).any())
+
+
+def test_edf_march_counts_its_trips_on_the_device(cuda):
+    """Every launch adds its longest ray's trips and 1 call to the
+    device's counter, the scratch left at 0; a replayed graph of the
+    "edf" step counts too."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    edf, inv, ox, oy, rays, hw = _march_case(cuda, "levine")
+    trips = torch.zeros(rays[0].shape, dtype=torch.int32, device=cuda)
+    rx.edf_march(edf, inv, ox, oy, *rays, 10.0, 1e-4, 200, hw, "nearest")
+    counter = rx.MARCH_COUNTS.counter(edf.device)
+    before = counter.clone()
+    rx.edf_march(edf, inv, ox, oy, *rays, 10.0, 1e-4, 200, hw, "nearest",
+                 ray_trips=trips)
+    grown = (counter - before).tolist()
+    assert grown == [int(trips.max()), 0, 0, 1]
+    assert counter[1:3].tolist() == [0, 0]
+    bundle = P.build_sim("levine", backend="edf",
+                         scan=P.ScanParams(num_beams=256), device=cuda)
+    p = torch.as_tensor(sample_free_poses(bundle.track, 32,
+                                          np.random.RandomState(1)),
+                        device=cuda)
+    state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    act = (torch.full((32,), 2.0, device=cuda), torch.zeros(32, device=cuda))
+    step = P.make_step_fn(bundle, with_noise=False, graph=True)
+    step.graphed.prepare(state, act, None)
+    before = dict(rx.MARCH_COUNTS)
+    for _ in range(3):
+        step(state, act)
+    assert rx.MARCH_COUNTS["calls"] - before["calls"] == 3
+    assert rx.MARCH_COUNTS["trips"] - before["trips"] > 3
+
+
+@pytest.mark.parametrize("backend", ["edf", "edf_implicit"])
+def test_graphed_edf_train_step_equals_eager(cuda, backend):
+    """The "edf" and "edf_implicit" train steps (T = 3, Adam with
+    ``capturable=True``) in one CUDA graph against the eager ones after 3
+    steps, bit for bit; "edf_bilinear" refuses ``graph=True`` and names
+    the autograd loop."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.parallel import make_bptt_train_fn
+    beams, n = 128, 32
+
+    def bundle_of(b):
+        return P.build_sim("levine", backend=b,
+                           scan=P.ScanParams(num_beams=beams),
+                           sim=P.SimParams(steer_mode="smooth"), device=cuda)
+
+    bundle = bundle_of(backend)
+    p = torch.as_tensor(sample_free_poses(bundle.track, n,
+                                          np.random.RandomState(2)),
+                        device=cuda)
+    state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    policy = lambda ps, s, r, t: (torch.full((n,), 2.0, device=cuda),
+                                  torch.tanh(r @ ps["w"] + ps["b"]))
+    loss = lambda out, t: (torch.mean((out.ranges - 10.0) ** 2)
+                           + torch.mean((out.state.steer_angle - 0.1) ** 2))
+    adam = lambda ps: torch.optim.Adam(ps, lr=3e-3, capturable=True)
+    got = {}
+    for graph in (False, True):
+        train, init = make_bptt_train_fn(P.make_step_fn(bundle,
+                                                        with_noise=False),
+                                         policy, loss, 3, beams,
+                                         optimizer=adam, graph=graph)
+        params = {"w": torch.zeros(beams, device=cuda),
+                  "b": torch.zeros((), device=cuda)}
+        opt = init(params)
+        losses = []
+        for _ in range(3):
+            params, opt, l, final = train(params, opt, state)
+            losses.append(l.clone())
+        got[graph] = (torch.stack(losses), params["w"].detach().clone(),
+                      final.pose)
+        assert train.graphed.captures == (1 if graph else 0)
+    assert all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
+    assert float(got[True][1].abs().sum()) > 0          # it trains
+    train, init = make_bptt_train_fn(
+        P.make_step_fn(bundle_of("edf_bilinear"), with_noise=False), policy,
+        loss, 3, beams, optimizer=adam, graph=True)
+    params = {"w": torch.zeros(beams, device=cuda),
+              "b": torch.zeros((), device=cuda)}
+    with pytest.raises(RuntimeError,
+                       match="(?s)raymarch_xla.*autograd loop.*graph=False"):
+        train(params, init(params), state)

@@ -38,6 +38,8 @@ from pyracecarsimulator_tpu_torch.maps.loader import TrackMap
 from pyracecarsimulator_tpu_torch.oracle import raycast as porc
 from pyracecarsimulator_tpu_torch.ops.raymarch_xla import march_rays as pmarch
 from pyracecarsimulator_tpu_torch.ops.raymarch_xla import scan_poses as pscan
+from pyracecarsimulator_tpu_torch.ops.raymarch_diff import (
+    scan_poses_implicit as pdiff_scan)
 
 T = lambda a: torch.tensor(np.asarray(a))      # an own, writable copy
 
@@ -290,3 +292,128 @@ def test_edf_step_marches_once_and_as_far_as_its_scan(small_track, backend):
     assert MARCH_COUNTS["calls"] - before["calls"] == 1
     assert MARCH_COUNTS["trips"] - before["trips"] == stepped["trips"]
     assert torch.equal(r, out.ranges)
+
+
+# -- the kernel's wrapper: its route, its arguments, its counters ------------
+# (the kernel itself runs on the card: tests/test_torch_kernels.py)
+
+@pytest.mark.parametrize("interp, edf_grad, ray_grad, grad_mode, route", [
+    ("nearest", False, False, True, "kernel"),
+    ("nearest", False, True, True, "kernel"),
+    ("nearest", True, False, True, "autograd loop"),
+    ("nearest", True, True, False, "kernel"),
+    ("bilinear", False, False, True, "kernel"),
+    ("bilinear", False, True, True, "autograd loop"),
+    ("bilinear", True, False, True, "autograd loop"),
+    ("bilinear", True, True, False, "kernel"),
+])
+def test_march_route(monkeypatch, interp, edf_grad, ray_grad, grad_mode,
+                     route):
+    """CPU tensors take the plain loop; CUDA tensors the kernel, but for
+    the autograd loop where grad mode is on and autograd needs the march's
+    gradient: an edf that requires grad, or bilinear rays that do."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx, sweeps
+    edf = torch.ones(4, 4, requires_grad=edf_grad)
+    rays = [torch.zeros(3, requires_grad=ray_grad) for _ in range(4)]
+    with torch.set_grad_enabled(grad_mode):
+        assert rx.march_route(edf, rays, interp) == "plain"
+        monkeypatch.setattr(sweeps, "_on_cuda", lambda name, ref: True)
+        assert rx.march_route(edf, rays, interp) == route
+        assert rx.autograd_needs_loop(edf, rays, interp) == (
+            route == "autograd loop")
+
+
+def test_march_entry_points_take_the_route(small_track, monkeypatch):
+    """With the device check saying "the card": ``march_rays`` (both
+    interpolations, through ``scan_poses``) and the implicit march's
+    ``_march_nearest`` hand ``edf_march`` the scan's expanded origin views
+    (stride 0 along the beams, never a copy) and its variant, and return
+    what it returns; under autograd the bilinear march runs the loop and
+    counts it on ``march_rays.autograd_loops``."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx, sweeps
+    calls = []
+
+    def kernel(edf, inv_res, ox, oy, x, y, c, s, max_range, eps, max_iters,
+               bounds_hw, variant, ray_trips=None):
+        calls.append((variant, x.stride(), y.stride()))
+        if variant == "bracket":
+            return rd._march_nearest_plain(edf, inv_res, ox, oy, x, y, c, s,
+                                           max_range, eps, max_iters,
+                                           bounds_hw)
+        return rx.march_rays_plain(edf, inv_res, ox, oy, x, y, c, s,
+                                   max_range, eps, max_iters, variant,
+                                   bounds_hw)
+
+    edf = T(np.asarray(small_track.edf))
+    org = T(_org(small_track))
+    poses = T(_free_poses(small_track, 5, 3))
+    kw = dict(num_beams=40, max_iters=200,
+              bounds_hw=(small_track.height, small_track.width))
+    ref = {i: pscan(edf, small_track.resolution, org, poses, interp=i, **kw)
+           for i in ("nearest", "bilinear")}
+    ref_imp = pdiff_scan(edf, small_track.resolution, org, poses, **kw)
+    monkeypatch.setattr(sweeps, "_on_cuda", lambda name, ref: True)
+    monkeypatch.setattr(rx, "edf_march", kernel)
+    monkeypatch.setattr(rd, "edf_march", kernel)
+    for interp in ("nearest", "bilinear"):
+        got = pscan(edf, small_track.resolution, org, poses, interp=interp,
+                    **kw)
+        assert torch.equal(got, ref[interp])
+    got = pdiff_scan(edf, small_track.resolution, org, poses, **kw)
+    assert torch.equal(got, ref_imp)
+    assert [v for v, _, _ in calls] == ["nearest", "bilinear", "bracket"]
+    assert all(sx == (3, 0) and sy == (3, 0) for _, sx, sy in calls)
+    loops = rx.march_rays.autograd_loops
+    q = poses.clone().requires_grad_(True)
+    pscan(edf, small_track.resolution, org, q, interp="bilinear",
+          **kw).sum().backward()
+    assert len(calls) == 3 and rx.march_rays.autograd_loops == loops + 1
+    assert q.grad.abs().sum() > 0
+
+
+def test_march_wrapper_views_and_checks(monkeypatch):
+    """``_as_rows``: a (rows, cols) view, no copy of a 2-D or expanded
+    tensor; ``edf_march`` refuses CPU tensors, and (the device check
+    patched) what the kernel does not take, before any launch."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx, sweeps
+    x = torch.arange(6.0).reshape(3, 2)[:, :1].expand(3, 5)
+    assert rx._as_rows(x) is x and x.stride() == (2, 0)
+    assert rx._as_rows(torch.zeros(7)).shape == (1, 7)
+    assert rx._as_rows(torch.zeros(())).shape == (1, 1)
+    assert rx._as_rows(torch.zeros(2, 3, 4)).shape == (6, 4)
+    edf = torch.ones(8, 8)
+    o = torch.zeros(2)
+    rays = [torch.zeros(3, 4) for _ in range(4)]
+    args = lambda **kw: {**dict(edf=edf, inv_res=20.0, ox=o[0], oy=o[1],
+                                x0=rays[0], y0=rays[1], cos_t=rays[2],
+                                sin_t=rays[3], max_range=10.0, eps=1e-4,
+                                max_iters=8, bounds_hw=None,
+                                variant="nearest"), **kw}
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        rx.edf_march(**args())
+    monkeypatch.setattr(sweeps, "_on_cuda", lambda name, ref: True)
+    for bad, match in ((dict(variant="cubic"), "variant"),
+                       (dict(edf=edf.double()), "float32"),
+                       (dict(edf=edf.t()), "contiguous"),
+                       (dict(max_iters=-1), "max_iters"),
+                       (dict(x0=rays[0].double()), "float32"),
+                       (dict(ox=o), "0-dim"),
+                       (dict(ray_trips=torch.zeros(3, 4)), "int32")):
+        with pytest.raises(ValueError, match=match):
+            rx.edf_march(**args(**bad))
+
+
+def test_march_counts_add_the_device_counters():
+    """``MARCH_COUNTS`` is the plain loops' host counts plus every
+    device's kernel counter ([trips, scratch, scratch, calls]), read at
+    each lookup; a CPU tensor stands in for a device's counter here."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    counts = rx._MarchCounts()
+    counts.host.update(calls=2, trips=64)
+    c = counts.counter(torch.device("cpu"))
+    assert c.dtype == torch.int64 and c.tolist() == [0, 0, 0, 0]
+    c[0], c[3] = 150, 3
+    assert dict(counts) == {"calls": 5, "trips": 214}
+    assert counts.counter(torch.device("cpu")) is c
+    assert set(rx.MARCH_COUNTS) == {"calls", "trips"}

@@ -4,6 +4,12 @@ package, mirroring tests/test_raymarch_diff.py.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances:
+- the bracket march ``_march_nearest`` (on the card the kernel
+  ``csrc/edf_march.cu``, variant "bracket"; here its plain loop) against
+  the JAX ``while_loop``: ``hit`` equal, ``total`` and ``last`` within
+  1e-5 m (ROADMAP.md's tolerated fault 6 allows up to a cell where XLA
+  contracts the position update; on this CPU they agree), also with a
+  trip count that cuts rays off;
 - ``march_rays_implicit`` values and its VJP in (edf, x0, y0, cos, sin)
   against ``jax.vjp``: 1e-5 absolute + 1e-5 relative on the values,
   1e-4 + 1e-4 on the cotangents (on this CPU both are equal bit for bit;
@@ -75,6 +81,24 @@ def _port_implicit(field, edf, rays, **kw):
     _, _, org, hw = field
     return pdiff.march_rays_implicit(edf, RES, T(org), *rays, MAXR, 1e-4,
                                      kw.get("max_iters", 256), hw)
+
+
+@pytest.mark.parametrize("max_iters", [256, 5])
+def test_march_nearest_bracket_matches_jax(field, max_iters):
+    _, edf, org, hw = field
+    rays = _rays(field, 300, 4)
+    args = (RES ** -1, np.float32(org[0]), np.float32(org[1]))
+    ref = jdiff._march_nearest(jnp.asarray(edf), *args,
+                               *map(jnp.asarray, rays), MAXR, 1e-4,
+                               max_iters, hw)
+    ox, oy = T(org)
+    got = pdiff._march_nearest(T(edf), 1.0 / RES, ox, oy, *map(T, rays),
+                               MAXR, 1e-4, max_iters, hw)
+    total, last, hit = (np.asarray(v) for v in ref)
+    np.testing.assert_array_equal(got[2].numpy(), hit)
+    np.testing.assert_allclose(got[0].numpy(), total, atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), last, atol=1e-5)
+    assert hit.mean() > (0.5 if max_iters > 5 else 0.0)
 
 
 def test_implicit_values_and_vjp_match_jax(field):

@@ -288,14 +288,21 @@ def test_block_width_matches_jax(blobby_bigk):
 
 
 def test_build_command_flags():
-    """Hopper target, no FMA contraction, no fast math."""
-    cmd = _kernels.build_command("sector_sweep", Path("out.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-fmad=false" in cmd
-    assert not any("fast" in c for c in cmd)
-    assert cmd[-1].endswith("csrc/sector_sweep.cu")
-    assert Path(cmd[-1]).exists()
-    assert _kernels.library_path("sector_sweep").parent == _kernels.BUILD_DIR
+    """Hopper target, no FMA contraction, no fast math, for every kernel's
+    source (the sweeps' and the EDF march's), each with its C entry
+    point."""
+    assert set(_kernels._SIGNATURES) == {"sector_sweep", "dense_sweep",
+                                         "edf_march"}
+    for name in _kernels._SIGNATURES:
+        cmd = _kernels.build_command(name, Path("out.so"))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-fmad=false" in cmd
+        assert not any("fast" in c for c in cmd)
+        assert cmd[-1].endswith(f"csrc/{name}.cu")
+        assert Path(cmd[-1]).exists()
+        assert _kernels.library_path(name).parent == _kernels.BUILD_DIR
+        symbol = _kernels._SIGNATURES[name][0]
+        assert f'extern "C" int {symbol}(' in Path(cmd[-1]).read_text()
 
 
 def test_port_imports_no_jax():
