@@ -13,9 +13,10 @@ wrapper of the list kernel (``<map>_sector_*``, ``<map>_sector_pallas_*``,
 on tables of capacity >= 128 also ``<map>_sector_sorted_*`` and
 ``<map>_sector_fused_*``) with the gate ``<map>_sector_parity_maxabs``;
 ``levine_1024_fwd``; ``berlin_simplified_*``; the map-gradient paths
-``levine_dmap_fwdbwd`` (bilinear march, 128 agents: autograd keeps every
-trip's taps), ``levine_dmap_implicit_fwdbwd`` (512 agents; its march
-runs in ``csrc/edf_march.cu`` on the card),
+``levine_dmap_fwdbwd`` (bilinear march, 128 agents as in ``bench.py``;
+on the card its forward and its backward run in ``csrc/edf_march.cu``),
+``levine_dmap_implicit_fwdbwd`` (512 agents; its march runs in the same
+kernel),
 ``levine_dmap_hybrid_fwdbwd`` and ``levine_dmap_hybrid_dedup_fwdbwd``;
 closed-loop rollouts of 25 steps under the gap follower
 (``env_steps_s_4096*``, named for the default agent count) on the default
@@ -434,7 +435,7 @@ def stage_dmap_bilinear(b: Bench):
         e, m.resolution, org, p, num_beams=b.beams, max_iters=256,
         interp="bilinear", bounds_hw=(m.height, m.width))
     b.time("levine_dmap_fwdbwd", _fwd_bwd_of(once, sets), n * b.beams,
-           slow=True)
+           "edf_march_grad", slow=True)
 
 
 def stage_dmap_fast(b: Bench):

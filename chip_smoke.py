@@ -6,9 +6,9 @@ Drives the port's paths at full width (4096 agents, 1080 beams, 270 deg,
 max_range 10) on both bundled maps, levine and berlin, and checks them:
 
 1. the card's name and power limit, the PyTorch and CUDA versions;
-2. builds the three kernels, ``csrc/sector_sweep.cu`` (the list-routed
+2. builds the three sources, ``csrc/sector_sweep.cu`` (the list-routed
    sweep), ``csrc/dense_sweep.cu`` and ``csrc/edf_march.cu`` (the EDF
-   march), with one nvcc per source, started together;
+   march and its gradient), with one nvcc per source, started together;
 3. per map, the sector backend: the list kernel against its plain PyTorch
    version on the card on the full 4096 x 1080 fan (mismatches must be 0),
    the CUDA scan against the CPU scan on 64 poses given the same fan
@@ -39,18 +39,23 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     PyTorch loops on the card on the full 4096 x 1080 fan, in its three
     variants (nearest, bilinear, bracket: 0 mismatches on the ranges, and
     on ``last`` and ``hit``), with per-ray trips, time, plain time and
-    bound; the "edf" march on the card against the CPU march on 64 poses
+    bound; its gradient ``edf_march_grad`` (nearest: the EDF's; bilinear:
+    the EDF's and the rays') against autograd through the plain loop on
+    the same fan (the plain run in blocks of 512 agents): the rays'
+    gradients with 0 mismatches, the EDF's within ``GRAD_TOL`` x max(1,
+    the largest |plain|) (atomics sum in another order); with time, plain
+    time and bound; the
+    "edf" march on the card against the CPU march on 64 poses
     given the same fan (bit-identical), the scan against the NumPy oracle
     ``oracle/raycast.py`` (its native body) on 64 poses, pose by pose
     (tests/test_raymarch.py's bound), the full scan's time and its device
     operations per scan (profiler); the "edf" step and a 20-step rollout
     (replayed from CUDA graphs), counted (``edf_march`` 25 times, no other
     kernel), and the step's time;
-11. per map, "edf_implicit" forward and backward at full width (EDF and
-    pose gradients finite and non-zero, one ``edf_march`` launch a
-    forward); "edf_bilinear" forward at full width (the kernel),
-    forward and backward at 256 agents (the autograd loop: autograd keeps
-    every trip);
+11. per map, "edf_implicit" and "edf_bilinear" forward and backward at
+    full width (EDF and pose gradients finite and non-zero; one
+    ``edf_march`` launch a forward, and one ``edf_march_grad`` launch a
+    bilinear backward, nothing else);
 12. ``make_scan_fn(map_grad=True)`` on berlin's sector backend: forward
     equal to ``scan_poses_sectors`` bit for bit, EDF cotangent finite and
     non-zero, ``sector_sweep`` launched exactly once per scan; the dedup
@@ -126,8 +131,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     policy that branches on ``t`` in Python raises, and a host-counting
     Adam under ``graph=None`` trains eagerly; the graphed BPTT train step
     (T = 5, Adam with ``capturable=True``) against the eager one, losses
-    and parameters after 3 steps ("edf_bilinear" refuses ``graph=True``
-    and names its autograd loop); the facade with ``graph=True`` across
+    and parameters after 3 steps (on "edf_bilinear" its backward launches
+    ``edf_march_grad``); the facade with ``graph=True`` across
     ``add_obstacle`` and ``clear_obstacles`` against the eager facade (a
     stale table fails here); 10 scans after the first make no
     ``cudaStreamSynchronize`` and no host-to-device copy (profiler);
@@ -138,17 +143,21 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     time and idle share.
 
 Every kernel's time stands beside its bound: the larger of its
-instruction slots over the card's FP32 instruction rate at
-``clocks.max.sm``, and its bytes (each input and output once) over the HBM
-rate. A sweep's slots are ``OPS_PER_TEST`` per ray-segment test, counted
-from the real slots of the lists this run visits; the march's are the
-trips its rays took in this run (the kernel reports each ray's) times the
-instructions a trip of its SASS loop issues (``MARCH_SLOTS_PER_TRIP``
-where the toolkit has no ``cuobjdump``), its bytes the rays once, the
-ranges once and the EDF once.
+operations over the card's FP32 instruction rate at ``clocks.max.sm``,
+and its bytes (each input and output once) over the HBM rate. The
+operations are counted from the function's arithmetic, not from the
+compiled code: a sweep's are ``OPS_PER_TEST`` per ray-segment test, over
+the real slots of the lists this run visits; the march's are
+``MARCH_OPS_PER_TRIP`` per trip of each ray (the kernel reports each
+ray's trips in this run), its gradient's ``MARCH_GRAD_OPS_PER_TRIP``; the
+march's bytes are the rays once, the outputs once and the EDF once (and
+its gradient once). Beside the bound stands, where the toolkit has
+``cuobjdump``, what the compiled loop issues per test or per trip (its
+SASS), as a reading.
 
-Prints a JSON line describing the six kernels (the five TPU kernels'
-counterparts and the EDF march, which replaces two XLA loops; their
+Prints a JSON line describing the seven kernels (the five TPU kernels'
+counterparts, the EDF march, which replaces two XLA loops, and its
+gradient, which replaces the scan's transpose under ``jax.grad``; their
 launches path by path, each path counted from 0), then as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Exits non-zero, without that line, on any failure or
@@ -195,6 +204,11 @@ KERNELS = {
                   "pyracecarsimulator_tpu/ops/raymarch_xla.py:139, "
                   "pyracecarsimulator_tpu/ops/raymarch_diff.py:116",
                   "the EDF backends: edf, edf_bilinear, edf_implicit"),
+    "edf_march_grad": (SRC + "edf_march.cu",
+                       "pyracecarsimulator_tpu/ops/raymarch_xla.py:139 "
+                       "(the scan's transpose under jax.grad)",
+                       "the EDF marches' gradient: edf_bilinear, and a "
+                       "march whose EDF requires grad"),
 }
 
 
@@ -205,12 +219,36 @@ KERNELS = {
 OPS_PER_TEST = 10
 LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12
-# the march's instruction slots per trip where no SASS can be read: the
-# nearest loop's count in the SASS of csrc/edf_march.cu as nvcc 12.9 built
-# it for sm_90a (march_sass; bilinear 70, bracket 61)
-MARCH_SLOTS_PER_TRIP = 50
 # the march's variants, and the gathers a trip of each issues
 MARCH_VARIANTS = {"nearest": 1, "bilinear": 4, "bracket": 1}
+# operations per trip that the march's function needs, counted from its
+# arithmetic (-fmad=false: each multiply and add its own operation):
+#   nearest: the grid coordinates 4 (subtract, multiply, twice), 2 floors,
+#     2 float-to-int, the bounds 4, the flat index 1, the gather 1, the
+#     stop tests 3, the step 5 (x += d c, y += d s, total += d), the trip
+#     counter 2 = 24; the bracket's the same (its last step is a copy);
+#   bilinear: the grid coordinates 4, the bounds 4, the half-cell shifts
+#     2, their clamps 4, 2 floors, their clamps 2, the fractions 2,
+#     float-to-int 2, the base index 1 and the 3 other taps' 3, 4 gathers,
+#     1 - fx and 1 - fy 2, the value 9 (6 multiplies, 3 adds), the stop
+#     tests 3, the step 5, the trip counter 2 = 51
+MARCH_OPS_PER_TRIP = {"nearest": 24, "bilinear": 51, "bracket": 24}
+# its gradient's, with the forward's intermediates kept (the kernel marches
+# again instead: that is its own cost, not the function's):
+#   nearest: the forward trip 24 and one add into the EDF's gradient = 25;
+#   bilinear: the forward trip 51 and the reverse 34: the step's adjoint 4,
+#     the directions' 4, the rows' 2, d/dfx 7, d/dfy 3, the position's 6
+#     (two clamp tests, two multiplies, two adds), the 4 taps' weights 4
+#     and their adds 4 = 85
+MARCH_GRAD_OPS_PER_TRIP = {"nearest": 25, "bilinear": 85}
+# the tolerance of the EDF's gradient against autograd through the plain
+# loop, relative to its largest cell (the kernel adds the taps with
+# atomics, autograd's scatter in another order; the rays' gradients are
+# held bit for bit)
+GRAD_TOL = 1e-4
+# agents per block of the gradient's plain run (autograd keeps every
+# trip's taps: ~40 MB a trip per 512 x 1080 rays)
+GRAD_PLAIN_AGENTS = 512
 
 
 def log(*a):
@@ -249,9 +287,10 @@ def timed_ms(fn, reps, warmup=2):
 
 
 def wrappers():
-    from pyracecarsimulator_tpu_torch.ops import raymarch_xla, sweeps
-    return {name: getattr(sweeps, name, None) or getattr(raymarch_xla, name)
-            for name in KERNELS}
+    """The wrappers of ``KERNELS`` from the port's registry."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    by_name = {w.__name__: w for w in _kernels.wrappers()}
+    return {name: by_name[name] for name in KERNELS}
 
 
 def reset_counts():
@@ -429,18 +468,19 @@ def innermost_loops(sass):
 
 
 def march_sass(sass):
-    """The instructions a trip of each variant's march loop issues: per
-    function (one per variant, the template argument in its name), the
-    innermost loop that gathers (LDG), its instructions over its trips
-    (its gathers over the variant's gathers a trip)."""
+    """What a trip of each variant's march loop issues: per function of
+    the march kernel (one per variant, the template argument in its name),
+    the innermost loop that gathers (LDG), its instructions over its trips
+    (its gathers over the variant's gathers a trip). A reading beside the
+    bound, which counts the function's operations."""
     out = {}
     names = {f"ILi{i}E": v for i, v in enumerate(MARCH_VARIANTS)}
     for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
-        variant = next((v for k, v in names.items()
-                        if k in fn.splitlines()[0]), None)
+        head = fn.splitlines()[0]
+        variant = next((v for k, v in names.items() if k in head), None)
         loops = [b for b in innermost_loops("Function : " + fn)
                  if "LDG" in b]
-        if variant is None or not loops:
+        if "edf_march_kernel" not in head or variant is None or not loops:
             continue
         body = max(loops, key=len)
         trips = body.count("LDG") / MARCH_VARIANTS[variant]
@@ -449,11 +489,8 @@ def march_sass(sass):
                         "mix": {o: body.count(o) for o in sorted(set(body))}}
         log(f"edf_march {variant}: SASS loop of {trips:g} trip(s): "
             f"{len(body)} instructions = {len(body) / trips:.2f} per trip "
+            f"(the function needs {MARCH_OPS_PER_TRIP[variant]}) "
             f"{out[variant]['mix']}")
-    missing = set(MARCH_VARIANTS) - set(out)
-    if missing:
-        log(f"edf_march: no march loop found in the SASS of {missing}: "
-            f"their bounds take {MARCH_SLOTS_PER_TRIP} slots a trip")
     return out
 
 
@@ -661,13 +698,17 @@ def same_fan_check(label, fn, dev_args, exact=True, tol=0.0):
     return err
 
 
-def march_bound(edf, xb, trips, variant, rates):
-    """The least time the card could take for one march of these rays:
-    the larger of the issue slots (the trips this run's rays took, each
-    the instructions a trip of the variant's SASS loop issues, over the
-    instruction rate) and the bytes (the EDF, each agent's origin, each
-    ray's direction and output once, over the HBM rate). Beside it, the
-    warp-level trips: per warp of 32 rays, 32 x its longest ray's."""
+def march_bound(edf, xb, trips, variant, rates, grad=None):
+    """The least time the card could take for one march of these rays
+    (``grad`` None) or for its gradient (``grad`` = (EDF's, rays')): the
+    larger of the operations (the trips this run's rays took, each
+    ``MARCH_OPS_PER_TRIP`` or ``MARCH_GRAD_OPS_PER_TRIP`` of the variant,
+    over the instruction rate) and the bytes (the EDF, each agent's
+    origin, each ray's direction, each output once; the gradient also
+    reads the ranges' cotangent, and writes the EDF's gradient and four
+    per ray), over the HBM rate. Beside it, the warp-level trips (per warp
+    of 32 rays, 32 x its longest ray's) and, for the march, what its SASS
+    loop issues for these trips."""
     import torch
     ray_trips = int(trips.sum())
     flat = trips.reshape(-1)
@@ -675,22 +716,36 @@ def march_bound(edf, xb, trips, variant, rates):
     warp_trips = 32 * int(flat.reshape(-1, 32).max(dim=1).values.sum())
     rays = xb.numel()
     agents = rays // xb.shape[-1]
-    nbytes = (4 * edf.numel() + 8 * agents + 8 * rays
-              + (9 if variant == "bracket" else 4) * rays)
-    per_trip = rates["march_slots_per_trip"][variant]
+    nbytes = 4 * edf.numel() + 8 * agents + 8 * rays
+    if grad is None:
+        per_trip = MARCH_OPS_PER_TRIP[variant]
+        nbytes += (9 if variant == "bracket" else 4) * rays
+    else:
+        per_trip = MARCH_GRAD_OPS_PER_TRIP[variant]
+        nbytes += (4 * rays + 4 * edf.numel() * grad[0]
+                   + 16 * rays * grad[1])
     ops_ms = ray_trips * per_trip / rates["slots_per_s"] * 1e3
     bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
-    return {"ray_trips": ray_trips, "warp_trips": warp_trips,
-            "max_trips": int(trips.max()), "slots_per_trip": per_trip,
-            "bytes": nbytes, "bound_ops_ms": ops_ms,
-            "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    out = {"ray_trips": ray_trips, "warp_trips": warp_trips,
+           "max_trips": int(trips.max()), "ops_per_trip": per_trip,
+           "bytes": nbytes, "bound_ops_ms": ops_ms,
+           "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    sass = rates.get("march_sass_per_trip", {}).get(variant)
+    if grad is None and sass:
+        out["sass_per_trip"] = sass
+        out["compiled_slots_ms"] = (ray_trips * sass / rates["slots_per_s"]
+                                    * 1e3)
+    return out
 
 
 def march_kernel_checks(name, track, poses, rates, errs, times):
     """10: ``edf_march`` against its plain loops on the card, the full
     4096 x 1080 fan of ``poses``, all three variants: 0 mismatches; each
-    variant's time, plain time and bound."""
+    variant's time, plain time and bound. Then ``edf_march_grad`` against
+    autograd through the plain loop on the same fan, nearest and
+    bilinear: the rays' gradients bit for bit, the EDF's within
+    ``GRAD_TOL``; time, plain time and bound."""
     import torch
     from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
@@ -745,6 +800,69 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
             f"per ray {res['ray_trips'] / rays[0].numel():.2f}, longest "
             f"{res['max_trips']}, warp-level / per-ray "
             f"{res['warp_trips'] / res['ray_trips']:.3f}")
+
+    # the gradient: the EDF's (nearest), the EDF's and the rays' (bilinear)
+    def grad_plain(variant, rays, g):
+        """autograd through the plain loop, GRAD_PLAIN_AGENTS rows at a
+        time (the EDF's gradient summed over the blocks)."""
+        g_edf, g_rays = torch.zeros_like(track.edf), []
+        for a in range(0, rays[0].shape[0], GRAD_PLAIN_AGENTS):
+            blk = [v[a:a + GRAD_PLAIN_AGENTS] for v in rays]
+            e, r = rx.march_grad_plain(*head, *blk, *tail, variant,
+                                       g[a:a + GRAD_PLAIN_AGENTS], True,
+                                       variant == "bilinear")
+            g_edf += e
+            g_rays.append(r)
+        return g_edf, (tuple(torch.cat(v) for v in zip(*g_rays))
+                       if variant == "bilinear" else None)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for variant in ("nearest", "bilinear"):
+        rays = ray_sets[0]
+        ray_grad = variant == "bilinear"
+        trips = torch.zeros(rays[0].shape, dtype=torch.int32, device="cuda")
+        kernel(variant, rays, trips)
+        g = torch.rand(rays[0].shape, generator=gen, device="cuda") + 0.5
+        args = lambda rs: (*head, *rs, *tail, variant, g, True, ray_grad)
+        got = rx.edf_march_grad(*args(rays))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = grad_plain(variant, rays, g)
+        end.record()
+        torch.cuda.synchronize()
+        p_ms = start.elapsed_time(end)
+        scale = max(1.0, float(ref[0].abs().max()))
+        err_edf = float((got[0] - ref[0]).abs().max())
+        ok = err_edf <= GRAD_TOL * scale and float(ref[0].abs().sum()) > 0
+        err_rays = max([float((a - b).abs().max())
+                        for a, b in zip(got[1] or (), ref[1] or ())],
+                       default=0.0)
+        mism = sum(int((a != b).sum())
+                   for a, b in zip(got[1] or (), ref[1] or ()))
+        ok = ok and mism == 0
+        log(f"[{name}] edf_march_grad {variant} vs autograd through the "
+            f"plain loop on {tuple(rays[0].shape)} rays: EDF gradient max "
+            f"abs err {err_edf} (largest |plain| {scale}, tolerance "
+            f"{GRAD_TOL} x max(1, that)); rays' gradients mismatches "
+            f"{mism}, max abs err {err_rays}")
+        check(ok, f"{name}: edf_march_grad {variant} disagrees with "
+              "autograd through the plain loop")
+        errs["edf_march_grad"].append(max(err_edf, err_rays))
+        n = len(ray_sets)
+        k_ms = timed_ms(lambda i: rx.edf_march_grad(*args(ray_sets[i % n])),
+                        20)
+        k2_ms = timed_ms(lambda i: rx.edf_march_grad(*args(ray_sets[i % n])),
+                         20)
+        res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
+               **march_bound(track.edf, rays[0], trips, variant, rates,
+                             grad=(True, ray_grad))}
+        res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
+        times["edf_march_grad"][f"{name} {variant}"] = res
+        log(f"[{name}] edf_march_grad {variant}: {k_ms:.4f} / {k2_ms:.4f} "
+            f"ms vs plain {p_ms:.2f} ms ({GRAD_PLAIN_AGENTS}-agent blocks); "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), share "
+            f"{res['share_of_bound']:.3f}")
 
 
 def march_phases(card, name, track, poses, rates, errs, times):
@@ -811,28 +929,26 @@ def march_phases(card, name, track, poses, rates, errs, times):
         return rx.scan_poses(edf, track.resolution, org, q, num_beams=BEAMS,
                              fov=FOV, interp="bilinear", **kw)
 
-    # the implicit march's bracket runs in the kernel under autograd too;
-    # the bilinear march's gradient takes the autograd loop
-    for label, fn, q, kernel_runs in (("edf_implicit", implicit, p, 1),
-                                      ("edf_bilinear", bilinear, p[:256],
-                                       0)):
+    # the implicit march's bracket runs in the kernel under autograd, its
+    # VJP is elementwise; the bilinear march's backward is edf_march_grad
+    for label, fn, q, kernels in (
+            ("edf_implicit", implicit, p, {"edf_march": 1}),
+            ("edf_bilinear", bilinear, p, {"edf_march": 1,
+                                           "edf_march_grad": 1})):
         reset_counts()
-        loops = rx.march_rays.autograd_loops
         g_edf, g_pose = fwd_bwd(fn, q)
         torch.cuda.synchronize()
-        used = counts()
+        used = {k: v for k, v in counts().items() if v}
         ok = all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
                  for g in (g_edf, g_pose))
         log(f"[{name}] {label} fwd+bwd on {q.shape[0]} x {BEAMS}: EDF grad "
             f"|.|_1 {float(g_edf.abs().sum()):.4f}, pose grad |.|_1 "
             f"{float(g_pose.abs().sum()):.4f}, finite and non-zero = {ok}; "
-            f"edf_march launches {used['edf_march']}, autograd loops "
-            f"{rx.march_rays.autograd_loops - loops}")
+            f"launches {used}")
         check(ok, f"{name}: {label} gradients")
-        check(used["edf_march"] == kernel_runs and sum(used.values())
-              == kernel_runs and rx.march_rays.autograd_loops - loops
-              == 1 - kernel_runs, f"{name}: {label} took another route "
+        check(used == kernels, f"{name}: {label} took another route "
               f"({used})")
+        out[f"{label}_fwd_bwd_launches"] = used
         torch.cuda.reset_peak_memory_stats()
         out[f"{label}_fwd_bwd_ms"] = timed_ms(
             lambda i: fwd_bwd(fn, sets[i % 5][: q.shape[0]]), 2, warmup=1)
@@ -1976,69 +2092,51 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
             smooth = bundle._replace(sim=SimParams(steer_mode="smooth"))
             tstep = make_step_fn(smooth, with_noise=False)
             loss_fn = train_loss if exact else edf_train_loss
-            if tstep.grad_host_read:
-                # the bilinear march's gradient runs the autograd loop,
-                # which reads the host: graph=True refuses, naming it
+            got = {}
+            for graph in (False, True):
                 train, init = make_bptt_train_fn(
                     tstep, train_policy, loss_fn, TRAIN_T, BEAMS,
                     optimizer=lambda ps: torch.optim.Adam(
-                        ps, lr=3e-3, capturable=True), graph=True)
+                        ps, lr=3e-3, capturable=True), graph=graph)
                 params = {"w": torch.zeros(BEAMS, device="cuda"),
                           "b": torch.zeros((), device="cuda")}
-                raised = ""
-                try:
-                    train(params, init(params), s0)
-                except RuntimeError as e:
-                    raised = str(e)
-                log(f"[{cell}] graph=True on the BPTT train step raises: "
-                    f"{raised!r}")
-                check("raymarch_xla" in raised and "autograd loop" in raised
-                      and "graph=False" in raised
-                      and train.graphed.captures == 0,
-                      f"{cell}: graph=True on the train step did not refuse")
-                res["train_graph_refused"] = raised
-            else:
-                got = {}
-                for graph in (False, True):
-                    train, init = make_bptt_train_fn(
-                        tstep, train_policy, loss_fn, TRAIN_T, BEAMS,
-                        optimizer=lambda ps: torch.optim.Adam(
-                            ps, lr=3e-3, capturable=True), graph=graph)
-                    params = {"w": torch.zeros(BEAMS, device="cuda"),
-                              "b": torch.zeros((), device="cuda")}
-                    opt = init(params)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    losses = []
-                    for _ in range(3):
-                        params, opt, loss, final = train(params, opt, s0)
-                        losses.append(loss.clone())
-                    torch.cuda.synchronize()
-                    first3 = time.perf_counter() - t0
-                    got[graph] = (torch.stack(losses),
-                                  params["w"].detach().clone(),
-                                  params["b"].detach().clone(), final)
-                    key = "graphed" if graph else "eager"
-                    res[f"train_{key}_first_3_steps_s"] = first3
-                    res[f"train_{key}_ms"] = timed_ms(
-                        lambda i: train(params, opt, s0), 5, warmup=1)
-                    if graph:
-                        check(train.graphed.captures == 1
-                              and train.graphed.replays == 9,
-                              f"{cell}: the train step captured "
-                              f"{train.graphed.captures} times")
-                        train.graphed.release()
-                same = (all(bool(torch.equal(a, b))
-                            for a, b in zip(got[False][:3], got[True][:3]))
-                        and same_state(got[False][3], got[True][3]))
-                moved = float(got[True][1].abs().sum())
-                log(f"[{cell}] graphed BPTT train step against the eager one, T "
-                    f"= {TRAIN_T}, Adam(capturable=True), 3 steps: losses "
-                    f"{got[True][0].tolist()}, losses, w, b and the final state "
-                    f"bit-identical = {same}; |w|_1 {moved}")
-                check(same and moved > 0 and bool(
-                    torch.isfinite(got[True][0]).all()),
-                    f"{cell}: the graphed train step differs from the eager one")
+                opt = init(params)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = []
+                for _ in range(3):
+                    params, opt, loss, final = train(params, opt, s0)
+                    losses.append(loss.clone())
+                torch.cuda.synchronize()
+                first3 = time.perf_counter() - t0
+                got[graph] = (torch.stack(losses),
+                              params["w"].detach().clone(),
+                              params["b"].detach().clone(), final)
+                key = "graphed" if graph else "eager"
+                res[f"train_{key}_first_3_steps_s"] = first3
+                res[f"train_{key}_ms"] = timed_ms(
+                    lambda i: train(params, opt, s0), 5, warmup=1)
+                if graph:
+                    check(train.graphed.captures == 1
+                          and train.graphed.replays == 9,
+                          f"{cell}: the train step captured "
+                          f"{train.graphed.captures} times")
+                    train.graphed.release()
+            same = (all(bool(torch.equal(a, b))
+                        for a, b in zip(got[False][:3], got[True][:3]))
+                    and same_state(got[False][3], got[True][3]))
+            moved = float(got[True][1].abs().sum())
+            log(f"[{cell}] graphed BPTT train step against the eager one, T "
+                f"= {TRAIN_T}, Adam(capturable=True), 3 steps: losses "
+                f"{got[True][0].tolist()}, losses, w, b and the final state "
+                f"bit-identical = {same}; |w|_1 {moved}")
+            check(same and moved > 0 and bool(
+                torch.isfinite(got[True][0]).all()),
+                f"{cell}: the graphed train step differs from the eager one")
+            if backend == "edf_bilinear":
+                check(counts()["edf_march_grad"] > 0,
+                      f"{cell}: the train step's backward did not launch "
+                      f"edf_march_grad")
 
             if exact:
                 # graph=None and an Adam that counts its steps on the host: the
@@ -2140,8 +2238,7 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                 + (f"eager {res['train_eager_ms']:.4f} ms, graphed "
                    f"{res['train_graphed_ms']:.4f} ms (first 3 steps with "
                    f"the capture "
-                   f"{res['train_graphed_first_3_steps_s']:.3f} s)"
-                   if "train_eager_ms" in res else "graph=True refused")
+                   f"{res['train_graphed_first_3_steps_s']:.3f} s)")
                 + "; graphed step under the profiler: "
                 f"{res['graphed_step_device_launches']:.0f} device launches, "
                 f"{res['graphed_step_cuda_graph_launches']:.0f} "
@@ -2212,7 +2309,7 @@ def run():
     # 2. build, one nvcc per source, together
     t0 = time.perf_counter()
     _kernels.build("sector_sweep", "dense_sweep", "edf_march")
-    log(f"built the three kernels in {time.perf_counter() - t0:.2f} s wall; "
+    log(f"built the three sources in {time.perf_counter() - t0:.2f} s wall; "
         f"nvcc: {' '.join(_kernels.NVCC_FLAGS)}")
     for name, info in _kernels.build_info.items():
         log(f"{name}: {info['seconds']:.2f} s\n{info['log']}")
@@ -2224,10 +2321,8 @@ def run():
     # the unrolled main loop is the cheapest per test
     rates["sass_per_test"] = {k: min(lp["per_test"] for lp in v)
                               for k, v in sass.items() if k != "edf_march"}
-    rates["march_slots_per_trip"] = {
-        v: sass.get("edf_march", {}).get(v, {}).get("per_trip",
-                                                    MARCH_SLOTS_PER_TRIP)
-        for v in MARCH_VARIANTS}
+    rates["march_sass_per_trip"] = {
+        v: r["per_trip"] for v, r in sass.get("edf_march", {}).items()}
     log(f"bounds: {OPS_PER_TEST} instruction slots per test over "
         f"{rates['sms']} SMs x {LANES_PER_SM} lanes x "
         f"{rates['sm_clock_max_mhz']:.0f} MHz (clocks.max.sm) = {rates['slots_per_s']:.4e} slots/s; HBM "
@@ -2488,6 +2583,10 @@ def run():
         "map_grad scans": slice_out["map_grad"]["launches"],
         **{f"edf step + rollout, {m}": res["edf_launches"]
            for m, res in slice_out["edf"].items()},
+        **{f"{label} forward + backward, {m}":
+           res[f"{label}_fwd_bwd_launches"]
+           for m, res in slice_out["edf"].items()
+           for label in ("edf_implicit", "edf_bilinear")},
         **{f"obstacle cycle, {m} {backend}": res["launches"]
            for m, per_map in slice_out["obstacles"].items()
            for backend, res in per_map.items()},
@@ -2507,7 +2606,8 @@ def run():
           f"a kernel was never launched: {launches_by_path}")
     shape_of = {"dense_sweep": "levine", "tile_sweep": "berlin",
                 "sector_sweep": "berlin", "sorted_tiles_sweep": "berlin",
-                "grp_sweep": "berlin", "edf_march": "levine nearest"}
+                "grp_sweep": "berlin", "edf_march": "levine nearest",
+                "edf_march_grad": "levine bilinear"}
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "path": path, "launches": sum(launches_by_path[name].values()),
@@ -2517,7 +2617,8 @@ def run():
         "plain_ms": times[name][shape_of[name]]["plain_ms"],
         "bound_ms": times[name][shape_of[name]]["bound_ms"],
         "bound_by": times[name][shape_of[name]]["bound_by"],
-        # no PyTorch call computes the first-hit sweep or the march
+        # no PyTorch call computes the first-hit sweep, the march or its
+        # gradient
         "library_ms": None,
         "shape_of_ms": f"{shape_of[name]} {AGENTS}x{BEAMS}",
         "ms_by_shape": times[name]}

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is a ``csrc/<name>.cu`` file with a plain C entry point. At
-first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+Each source is a ``csrc/<name>.cu`` file with plain C entry points (one
+per kernel, ``_SIGNATURES``). At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under the package's ``_build/`` directory (listed in
 ``.gitignore``), named by a hash of the source and the flags so that an
 edited source is rebuilt, and loaded with ``ctypes``. Nothing is built or
@@ -13,6 +13,12 @@ in the plain PyTorch versions the kernels are held against bit for bit;
 fast math is never enabled (it lets the compiler assume there is no NaN,
 which the sweep's zero-direction reciprocals rely on, and approximate
 divisions).
+
+The launch layer of every wrapper lives here too: ``on_cuda`` (the plain
+version on CPU tensors, the kernel on CUDA tensors), ``launch`` (a kernel on
+the current stream) and the registry of wrappers (``register``,
+``wrappers``) whose ``.launches`` counters ``ops/sweeps.launch_counts``
+reads.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -37,17 +45,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# C signatures: name -> argtypes (restype is int: a cudaError_t)
+_MARCH_HEAD = ([_I, _P, _L, _L, _L, _L, _P, _P, _F, _F, _F, _I] + [_P] * 4
+               + [_L] * 10)
+# entry points: name -> (source csrc/<source>.cu, C symbol, argtypes);
+# restype is int: a cudaError_t
 _SIGNATURES = {
-    "sector_sweep": ("sector_sweep_launch", [_P] * 11 + [_I, _I, _I, _P]),
-    "dense_sweep": ("dense_sweep_launch", [_P] * 10 + [_I, _I, _P]),
-    "edf_march": ("edf_march_launch",
-                  [_I, _P, _L, _L, _L, _L, _P, _P, _F, _F, _F, _I]
-                  + [_P] * 4 + [_L] * 10 + [_P] * 6),
+    "sector_sweep": ("sector_sweep", "sector_sweep_launch",
+                     [_P] * 11 + [_I, _I, _I, _P]),
+    "dense_sweep": ("dense_sweep", "dense_sweep_launch",
+                    [_P] * 10 + [_I, _I, _P]),
+    "edf_march": ("edf_march", "edf_march_launch", _MARCH_HEAD + [_P] * 7),
+    "edf_march_grad": ("edf_march", "edf_march_grad_launch",
+                       _MARCH_HEAD + [_P] * 7),
 }
 
-_loaded = {}       # kernel name -> ctypes function (process-wide cache)
-build_info = {}    # kernel name -> {"seconds", "log", "path"} of this process
+_loaded = {}       # entry point -> ctypes function (process-wide cache)
+build_info = {}    # source name -> {"seconds", "log", "path"} of this process
+_WRAPPERS = {}     # wrapper name -> wrapper (``register``)
 
 
 def nvcc_path() -> str:
@@ -109,13 +123,51 @@ def build(*names: str) -> list:
 
 
 def kernel(name: str):
-    """The ctypes entry point of kernel ``name``, built and loaded on first
+    """The ctypes entry point ``name``, its source built and loaded on first
     use."""
     fn = _loaded.get(name)
     if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(build(name)[0])), symbol)
+        source, symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(build(source)[0])), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn
     return fn
+
+
+def on_cuda(name, ref) -> bool:
+    """False for CPU tensors (take the plain version), True for CUDA
+    tensors (launch the kernel); any other device raises."""
+    if ref.device.type == "cpu":
+        return False
+    if ref.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {ref.device}")
+    return True
+
+
+def launch(name, entry, *args):
+    """Launch entry point ``entry`` on the current stream of the first
+    tensor's device: tensors pass as their data pointers, None as a null
+    pointer, numbers as they are. ``name`` (the wrapper) labels a
+    failure."""
+    device = next(a.device for a in args if torch.is_tensor(a))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(entry)(
+            *(a.data_ptr() if torch.is_tensor(a) else a for a in args),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
+
+
+def register(wrapper):
+    """Add ``wrapper`` (a function with a ``.launches`` counter) to the
+    wrappers that ``wrappers()`` lists."""
+    _WRAPPERS[wrapper.__name__] = wrapper
+    return wrapper
+
+
+def wrappers() -> tuple:
+    """Every registered wrapper: the sweeps' (``ops/sweeps.py``) and the
+    march's (``ops/raymarch_xla.py``), once their modules are imported."""
+    return tuple(_WRAPPERS.values())

@@ -23,7 +23,9 @@ stable argsort of the rays by cell and sums over the sorted segments.
 The nearest march (``_march_nearest``, the JAX ``while_loop``) runs on
 CUDA tensors in the hand-written kernel ``csrc/edf_march.cu``, variant
 "bracket" (``raymarch_xla.edf_march``): one launch, each ray looping until
-it stops, no host read. On CPU tensors its plain version
+it stops, no host read. Its bracket carries no gradient: the implicit VJP
+differentiates the refined hit, and ``_MarchImplicit.forward`` runs
+without autograd. On CPU tensors its plain version
 ``_march_nearest_plain`` runs, the kernel's reference bit for bit: the
 trips in a Python loop that reads ``alive.any()`` every
 ``raymarch_xla._ALIVE_CHECK`` trips. The extra trips change nothing: a dead
@@ -42,9 +44,10 @@ import numpy as np
 import torch
 
 from .common import rays_from_poses
+from . import _kernels
 from .raymarch_xla import (_ALIVE_CHECK, _bilinear_taps, _tap_values,
-                           count_march, edf_march, march_route,
-                           origin_xy_f32, sample_edf_nearest)
+                           count_march, edf_march, origin_xy_f32,
+                           sample_edf_nearest)
 
 _DENOM_FLOOR = 1e-2    # |dE/dr| below this => grazing; zero gradient
 
@@ -74,12 +77,9 @@ def _march_nearest(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
     (total, last_step, hit): ``total`` ends one sample inside the first
     occupied cell; ``[total - last_step, total]`` brackets the boundary
     crossing. CUDA tensors launch ``edf_march`` ("bracket"), CPU tensors
-    run ``_march_nearest_plain``; under autograd with an ``edf`` that
-    requires grad the plain loop runs on the card too
-    (``raymarch_xla.march_route``; ``_MarchImplicit.forward`` runs
-    without grad)."""
+    run ``_march_nearest_plain`` (module doc)."""
     rays = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
-    if march_route(edf, rays, "nearest") == "kernel":
+    if _kernels.on_cuda("edf_march", edf):
         return edf_march(edf, inv_res, ox, oy, *rays, max_range, eps,
                          max_iters, bounds_hw, "bracket")
     return _march_nearest_plain(edf, inv_res, ox, oy, *rays, max_range,

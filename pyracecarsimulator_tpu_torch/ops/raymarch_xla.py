@@ -7,40 +7,35 @@ it steps by the EDF sample until the sample drops to ``eps`` (hit), the
 ray leaves the real map (max_range) or the range budget is spent. The JAX
 march is a fixed-trip ``lax.scan`` in which a stopped ray steps by zero.
 
-``march_rays`` is the wrapper of the hand-written kernel
-``csrc/edf_march.cu`` (``edf_march``): on CUDA tensors each thread loops
-one ray's trips in registers until the ray stops and writes its range
-once, one launch a march, no host read; on CPU tensors the plain loop
-``march_rays_plain`` runs. The plain loop is the kernel's reference: the
-same float32 operations in the same order, so the two agree bit for bit.
-It runs the trips in lockstep, about 25 elementwise operations a trip,
-and every ``_ALIVE_CHECK`` trips reads ``alive.any()`` on the host and
-stops once every ray has stopped (a stopped ray has ``step = 0``, so the
-values are those of the full trip count).
-
-One exception, on the card: where grad mode is on and autograd needs the
-march's gradient, the plain loop runs there too, counted on
-``march_rays.autograd_loops`` (the kernel has no backward). That is
-``interp="bilinear"`` with a ray tensor that requires grad, and either
-interpolation with an ``edf`` that requires grad (``march_route``). A
-nearest march of rays that require grad takes the kernel: its range
-carries no gradient in the rays (its cell indices are integers), as in
-JAX.
+``march_rays`` runs the hand-written kernels of ``csrc/edf_march.cu`` on
+CUDA tensors: ``edf_march``, in which each thread loops one ray's trips in
+registers until the ray stops and writes its range once, one launch a
+march, no host read; and, where autograd needs the march's gradient, its
+backward ``edf_march_grad`` (the ``torch.autograd.Function`` ``_March``),
+which marches each ray again and walks its trips backwards (the source
+says how). On CPU tensors the plain loop ``march_rays_plain`` runs under
+ordinary autograd. The plain loop is the kernels' reference: the march
+performs the same float32 operations in the same order, so the two agree
+bit for bit, and ``march_grad_plain`` (autograd through the plain loop) is
+the gradient kernel's, which agrees to float32 rounding (it sums in
+another order and adds the EDF's taps with atomics). The plain loop runs
+the trips in lockstep, about 25 elementwise operations a trip, and every
+``_ALIVE_CHECK`` trips reads ``alive.any()`` on the host and stops once
+every ray has stopped (a stopped ray has ``step = 0``, so the values are
+those of the full trip count).
 
 ``interp="bilinear"`` samples the EDF bilinearly and is differentiable in
-the rays and the EDF through ordinary autograd (the backward scatters
-into the EDF's gradient along every visited cell). Autograd then keeps
-every trip's taps, weights and indices: about 0.3 GB per trip at
-4096 x 1080 rays. ``interp="nearest"`` is the reference's semantics.
+the rays and the EDF (the backward scatters into the EDF's gradient along
+every visited cell). ``interp="nearest"`` is the reference's semantics: its
+range is differentiable in the EDF only (its cell indices are integers,
+as in JAX). The map origin takes no gradient on the card.
 
 ``MARCH_COUNTS`` counts marches and their trips. The plain loop counts on
 the host: the trips it ran, a multiple of ``_ALIVE_CHECK`` or
 ``max_iters``. The kernel counts on the device, in a counter per device
 that every launch adds to, replayed CUDA graphs included: the trips of
 the launch's longest ray, which is what the JAX ``while_loop`` would run.
-Reading ``MARCH_COUNTS`` reads those counters (a synchronisation). Two
-marches on concurrent streams of one device can mix their trip counts,
-never their values.
+Reading ``MARCH_COUNTS`` reads those counters (a synchronisation).
 
 Scalars round as in JAX: the origin is a float32 tensor, ``1 /
 resolution`` a float32 multiplier. XLA's CPU backend may contract ``x +
@@ -56,12 +51,14 @@ from collections.abc import Mapping
 
 import torch
 
-from . import sweeps
+from . import _kernels
 from .common import _constant, rays_from_poses
 
 _ALIVE_CHECK = 32   # trips between host reads of "is any ray still alive"
 # the kernel's variants (a template argument of csrc/edf_march.cu)
 VARIANTS = {"nearest": 0, "bilinear": 1, "bracket": 2}
+# the bilinear gradient's longest march: its checkpoints x its segment
+MAX_GRAD_TRIPS = 64 * 32
 
 
 class _MarchCounts(Mapping):
@@ -69,18 +66,18 @@ class _MarchCounts(Mapping):
     and ``raymarch_diff``'s): the plain loops' host counts plus the
     kernel's device counters, read at each lookup (module doc)."""
 
-    _COLUMN = {"trips": 0, "calls": 3}
+    _COLUMN = {"trips": 0, "calls": 1}
 
     def __init__(self):
         self.host = {"calls": 0, "trips": 0}
-        self.device: dict = {}   # device -> (4,) int64 counter of the kernel
+        self.device: dict = {}   # device -> (2,) int64 counter of the kernel
 
     def counter(self, device) -> torch.Tensor:
         """The kernel's counter on ``device`` (made at its first march):
-        [trips, scratch, scratch, calls], the scratch left at 0."""
+        [trips, calls]."""
         c = self.device.get(device)
         if c is None:
-            c = self.device[device] = torch.zeros(4, dtype=torch.int64,
+            c = self.device[device] = torch.zeros(2, dtype=torch.int64,
                                                   device=device)
         return c
 
@@ -168,25 +165,6 @@ def sample_edf_bilinear(edf, gx, gy, bounds_hw=None):
     return torch.where(inb, val, -1.0)
 
 
-def autograd_needs_loop(edf, rays, interp: str) -> bool:
-    """Whether autograd needs the march's gradient here: grad mode on, and
-    an ``edf`` that requires grad, or ``interp="bilinear"`` with a ray
-    tensor that requires grad (module doc)."""
-    return torch.is_grad_enabled() and (
-        edf.requires_grad or (interp == "bilinear"
-                              and any(r.requires_grad for r in rays)))
-
-
-def march_route(edf, rays, interp: str) -> str:
-    """Which march runs: ``"plain"`` on CPU tensors, ``"kernel"``
-    (``edf_march``) on CUDA tensors, ``"autograd loop"`` (the plain loop
-    on the card) where ``autograd_needs_loop``; another device raises."""
-    if not sweeps._on_cuda("edf_march", edf):
-        return "plain"
-    return "autograd loop" if autograd_needs_loop(edf, rays, interp) \
-        else "kernel"
-
-
 def _as_rows(v):
     """A (rows, cols) view of a ray tensor: the last axis is the columns.
     Two-dimensional tensors (the scans' expanded origin views among them)
@@ -197,6 +175,36 @@ def _as_rows(v):
     return v.reshape(1, -1) if v.dim() <= 1 else v.reshape(-1, v.shape[-1])
 
 
+def _march_launch_args(name, edf, ox, oy, rays, max_iters, bounds_hw):
+    """Check the march's CUDA arguments; returns (shape S of the rays,
+    the entry points' arguments from ``edf`` to ``cols``, without the
+    scalars after ``oy``) as (shape, head, tail)."""
+    if not _kernels.on_cuda(name, edf):
+        raise ValueError(f"{name}: a CUDA kernel; CPU tensors take the "
+                         "plain loop")
+    if edf.dtype != torch.float32 or edf.dim() != 2 \
+            or not edf.is_contiguous():
+        raise ValueError(f"{name}: edf must be a contiguous float32 "
+                         f"(H, W) tensor, got {edf.dtype} "
+                         f"{tuple(edf.shape)}")
+    if max_iters < 0:
+        raise ValueError(f"{name}: max_iters must be >= 0, got {max_iters}")
+    rays = torch.broadcast_tensors(*rays)
+    for v in rays + (ox, oy):
+        if v.device != edf.device or v.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 tensors on "
+                             f"{edf.device}, got {v.dtype} on {v.device}")
+    if ox.dim() or oy.dim():
+        raise ValueError(f"{name}: the origin is two 0-dim tensors")
+    hp, wp = edf.shape
+    h, w = bounds_hw if bounds_hw is not None else (hp, wp)
+    views = [_as_rows(v) for v in rays]
+    rows, cols = views[0].shape
+    strides = [s for v in views for s in v.stride()]
+    return (rays[0].shape, (edf, hp, wp, h, w, ox, oy),
+            (*views, *strides, rows, cols))
+
+
 def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
               max_iters: int, bounds_hw, variant: str, ray_trips=None):
     """The march of ``csrc/edf_march.cu`` on CUDA tensors of one broadcast
@@ -205,31 +213,13 @@ def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
     "nearest" and "bilinear" return the clamped ranges (S), "bracket"
     returns (total, last, hit). ``ray_trips``: an int32 tensor of shape S
     to receive each ray's trip count, or None. ``edf_march.launches``
-    counts kernel launches."""
+    counts kernel launches. No gradient (``march_rays`` has one)."""
     if variant not in VARIANTS:
         raise ValueError(f"edf_march: variant must be one of "
                          f"{', '.join(VARIANTS)}, got {variant!r}")
-    if not sweeps._on_cuda("edf_march", edf):
-        raise ValueError("edf_march: a CUDA kernel; CPU tensors take "
-                         "march_rays_plain")
-    if edf.dtype != torch.float32 or edf.dim() != 2 \
-            or not edf.is_contiguous():
-        raise ValueError(f"edf_march: edf must be a contiguous float32 "
-                         f"(H, W) tensor, got {edf.dtype} "
-                         f"{tuple(edf.shape)}")
-    if max_iters < 0:
-        raise ValueError(f"edf_march: max_iters must be >= 0, got "
-                         f"{max_iters}")
-    rays = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
-    shape = rays[0].shape
-    for v in rays + (ox, oy):
-        if v.device != edf.device or v.dtype != torch.float32:
-            raise ValueError(f"edf_march: expected float32 tensors on "
-                             f"{edf.device}, got {v.dtype} on {v.device}")
-    if ox.dim() or oy.dim():
-        raise ValueError("edf_march: the origin is two 0-dim tensors")
-    hp, wp = edf.shape
-    h, w = bounds_hw if bounds_hw is not None else (hp, wp)
+    shape, head, tail = _march_launch_args(
+        "edf_march", edf, ox, oy, (x0, y0, cos_t, sin_t), max_iters,
+        bounds_hw)
     total = torch.empty(shape, dtype=torch.float32, device=edf.device)
     bracket = variant == "bracket"
     last = torch.empty_like(total) if bracket else None
@@ -242,20 +232,106 @@ def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
         raise ValueError(f"edf_march: ray_trips must be a contiguous int32 "
                          f"tensor of shape {tuple(shape)} on {edf.device}")
     if total.numel():
-        views = [_as_rows(v) for v in rays]
-        rows, cols = views[0].shape
-        strides = [s for v in views for s in v.stride()]
-        sweeps._launch("edf_march", "edf_march", VARIANTS[variant], edf,
-                       hp, wp, h, w, ox, oy, float(inv_res),
-                       float(max_range), float(eps), int(max_iters), *views,
-                       *strides, rows, cols, total, last, hit, ray_trips,
-                       MARCH_COUNTS.counter(edf.device))
+        # the launch's own scratch for its trip count (the source's doc)
+        scratch = torch.zeros(2, dtype=torch.int64, device=edf.device)
+        _kernels.launch("edf_march", "edf_march", VARIANTS[variant],
+                        *head, float(inv_res), float(max_range), float(eps),
+                        int(max_iters), *tail, total, last, hit, ray_trips,
+                        MARCH_COUNTS.counter(edf.device), scratch)
         edf_march.launches += 1
     return (total, last, hit) if bracket else total
 
 
 edf_march.launches = 0
-sweeps.register(edf_march)
+_kernels.register(edf_march)
+
+
+def edf_march_grad(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
+                   eps, max_iters: int, bounds_hw, interp: str, g,
+                   edf_grad: bool, ray_grad: bool):
+    """The gradient of ``edf_march``'s clamped ranges (variants "nearest"
+    and "bilinear") by the kernel of ``csrc/edf_march.cu``, on CUDA
+    tensors: ``g`` (shape S) is the ranges' cotangent. Returns (the EDF's
+    gradient or None, (g_x0, g_y0, g_cos, g_sin) or None), each ray
+    gradient of shape S; ``edf_grad`` and ``ray_grad`` say which to
+    compute (the rays only for "bilinear", and with ``max_iters <=
+    MAX_GRAD_TRIPS``). ``march_grad_plain`` is its plain version.
+    ``edf_march_grad.launches`` counts kernel launches."""
+    if interp not in ("nearest", "bilinear"):
+        raise ValueError(f"edf_march_grad: interp must be 'nearest' or "
+                         f"'bilinear', got {interp!r}")
+    if ray_grad and interp == "nearest":
+        raise ValueError("edf_march_grad: the nearest march's range has no "
+                         "gradient in the rays")
+    if interp == "bilinear" and max_iters > MAX_GRAD_TRIPS:
+        raise ValueError(f"edf_march_grad: the bilinear gradient marches at "
+                         f"most {MAX_GRAD_TRIPS} trips, got max_iters="
+                         f"{max_iters}")
+    shape, head, tail = _march_launch_args(
+        "edf_march_grad", edf, ox, oy, (x0, y0, cos_t, sin_t), max_iters,
+        bounds_hw)
+    g = g.to(torch.float32).expand(shape).contiguous()
+    g_edf = torch.zeros_like(edf) if edf_grad else None
+    g_rays = tuple(torch.empty(shape, dtype=torch.float32,
+                               device=edf.device) for _ in range(4)) \
+        if ray_grad else (None,) * 4
+    if g.numel() and (edf_grad or ray_grad):
+        _kernels.launch("edf_march_grad", "edf_march_grad",
+                        VARIANTS[interp], *head, float(inv_res),
+                        float(max_range), float(eps), int(max_iters), *tail,
+                        g, g_edf, *g_rays)
+        edf_march_grad.launches += 1
+    elif ray_grad:
+        g_rays = tuple(v.zero_() for v in g_rays)
+    return g_edf, (g_rays if ray_grad else None)
+
+
+edf_march_grad.launches = 0
+_kernels.register(edf_march_grad)
+
+
+def march_grad_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
+                     eps, max_iters: int, bounds_hw, interp: str, g,
+                     edf_grad: bool, ray_grad: bool):
+    """The plain version of ``edf_march_grad``, on any device: autograd
+    through ``march_rays_plain``. Same arguments and returns."""
+    with torch.enable_grad():
+        e = edf.detach().requires_grad_(edf_grad)
+        rays = [v.detach().requires_grad_(ray_grad) for v in
+                torch.broadcast_tensors(x0, y0, cos_t, sin_t)]
+        out = march_rays_plain(e, inv_res, ox, oy, *rays, max_range, eps,
+                               max_iters, interp, bounds_hw)
+        wrt = ([e] if edf_grad else []) + (rays if ray_grad else [])
+        grads = (torch.autograd.grad(out, wrt, g.expand(out.shape),
+                                     allow_unused=True)
+                 if out.requires_grad else (None,) * len(wrt))
+        grads = [torch.zeros_like(v) if d is None else d
+                 for v, d in zip(wrt, grads)]
+    return (grads.pop(0) if edf_grad else None,
+            tuple(grads) if ray_grad else None)
+
+
+class _March(torch.autograd.Function):
+    """``edf_march`` with ``edf_march_grad`` as its backward, in (edf, x0,
+    y0, cos_t, sin_t)."""
+
+    @staticmethod
+    def forward(ctx, edf, x0, y0, cos_t, sin_t, inv_res, ox, oy, max_range,
+                eps, max_iters, interp, bounds_hw):
+        ctx.save_for_backward(edf, x0, y0, cos_t, sin_t, ox, oy)
+        ctx.consts = (inv_res, max_range, eps, max_iters, bounds_hw, interp)
+        return edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t,
+                         max_range, eps, max_iters, bounds_hw, interp)
+
+    @staticmethod
+    def backward(ctx, g):
+        edf, x0, y0, cos_t, sin_t, ox, oy = ctx.saved_tensors
+        inv_res, max_range, eps, max_iters, bounds_hw, interp = ctx.consts
+        g_edf, g_rays = edf_march_grad(
+            edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
+            max_iters, bounds_hw, interp, g, ctx.needs_input_grad[0],
+            any(ctx.needs_input_grad[1:5]))
+        return (g_edf, *(g_rays or (None,) * 4)) + (None,) * 8
 
 
 def march_rays_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
@@ -302,10 +378,10 @@ def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
     meters per cell, ``origin_xy`` world coords of grid corner (0, 0);
     ``max_iters`` the trip count (``max_range / resolution`` always
     suffices for reference parity); ``interp`` "nearest" (reference) or
-    "bilinear" (differentiable). Returns ranges, shape S, clamped to
-    ``max_range``. CUDA tensors launch ``edf_march``, CPU tensors run the
-    plain loop; the one exception is the autograd loop (module doc,
-    ``march_route``).
+    "bilinear" (differentiable in the rays). Returns ranges, shape S,
+    clamped to ``max_range``. CUDA tensors launch ``edf_march`` (and
+    ``edf_march_grad`` in the backward), CPU tensors run the plain loop
+    (module doc).
     """
     if interp not in ("nearest", "bilinear"):
         raise ValueError(f"interp must be 'nearest' or 'bilinear', got "
@@ -313,17 +389,16 @@ def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
     inv_res = 1.0 / resolution
     ox, oy = origin_xy_f32(origin_xy, edf.device)
     rays = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
-    route = march_route(edf, rays, interp)
-    if route == "kernel":
-        return edf_march(edf, inv_res, ox, oy, *rays, max_range, eps,
-                         max_iters, bounds_hw, interp)
-    if route == "autograd loop":
-        march_rays.autograd_loops += 1
-    return march_rays_plain(edf, inv_res, ox, oy, *rays, max_range, eps,
-                            max_iters, interp, bounds_hw)
-
-
-march_rays.autograd_loops = 0   # plain loops on the card (module doc)
+    if not _kernels.on_cuda("edf_march", edf):
+        return march_rays_plain(edf, inv_res, ox, oy, *rays, max_range, eps,
+                                max_iters, interp, bounds_hw)
+    if torch.is_grad_enabled() and (ox.requires_grad or oy.requires_grad):
+        raise ValueError("march_rays: the map origin takes no gradient on "
+                         "the card")
+    if interp == "nearest":     # its range has no gradient in the rays
+        rays = tuple(v.detach() for v in rays)
+    return _March.apply(edf, *rays, inv_res, ox, oy, max_range, eps,
+                        max_iters, interp, bounds_hw)
 
 
 def scan_poses(edf, resolution, origin_xy, poses, num_beams: int = 1080,

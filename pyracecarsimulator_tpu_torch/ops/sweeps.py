@@ -142,35 +142,11 @@ def _check(name, ref, specs):
                 f"{v.device} (contiguous={v.is_contiguous()})")
 
 
-def _launch(name, kernel, *args):
-    """Launch ``kernel`` on the current stream of the first tensor's
-    device: tensors pass as their data pointers, None as a null pointer,
-    numbers as they are."""
-    device = next(a.device for a in args if torch.is_tensor(a))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.kernel(kernel)(
-            *(a.data_ptr() if torch.is_tensor(a) else a for a in args),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
-
-
-def _on_cuda(name, ref) -> bool:
-    """False for CPU tensors (take the plain version), True for CUDA
-    tensors (launch the kernel); any other device raises."""
-    if ref.device.type == "cpu":
-        return False
-    if ref.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {ref.device}")
-    return True
-
-
 def _list_route(name: str, replaces: str):
     """A wrapper of the list kernel with its own launch counter."""
 
     def sweep(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
-        if not _on_cuda(name, table):
+        if not _kernels.on_cuda(name, table):
             return list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t,
                                     inv_c, inv_s)
         g_n, bb = cos_t.shape
@@ -194,8 +170,8 @@ def _list_route(name: str, replaces: str):
               for v in (cos_t, sin_t, inv_c, inv_s))))
         bv = torch.empty((g_n, bb), dtype=torch.float32, device=table.device)
         bh = torch.empty_like(bv)
-        _launch(name, "sector_sweep", table, meta, ids, x0, y0, cos_t, sin_t,
-                inv_c, inv_s, bv, bh, g_n, bb, k)
+        _kernels.launch(name, "sector_sweep", table, meta, ids, x0, y0,
+                        cos_t, sin_t, inv_c, inv_s, bv, bh, g_n, bb, k)
         sweep.launches += 1
         return bv, bh
 
@@ -219,7 +195,7 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
     """The dense sweep: ``dense_sweep_plain`` on CPU tensors,
     ``csrc/dense_sweep.cu`` on CUDA tensors. Rays are flat (N,). Returns
     (bv, bh), each (N,); ``dense_sweep.launches`` counts kernel launches."""
-    if not _on_cuda("dense_sweep", params):
+    if not _kernels.on_cuda("dense_sweep", params):
         return dense_sweep_plain(params, sweep_meta, x, y, cos_t, sin_t,
                                  inv_c, inv_s)
     if params.ndim != 2 or params.shape[0] != 4:
@@ -233,8 +209,8 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
           for v in (x, y, cos_t, sin_t, inv_c, inv_s))))
     bv = torch.empty((n,), dtype=torch.float32, device=params.device)
     bh = torch.empty_like(bv)
-    _launch("dense_sweep", "dense_sweep", params, sweep_meta, x, y, cos_t,
-            sin_t, inv_c, inv_s, bv, bh, n, k)
+    _kernels.launch("dense_sweep", "dense_sweep", params, sweep_meta, x, y,
+                    cos_t, sin_t, inv_c, inv_s, bv, bh, n, k)
     dense_sweep.launches += 1
     return bv, bh
 
@@ -242,27 +218,14 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
 dense_sweep.launches = 0
 
 LIST_ROUTES = (sector_sweep, sorted_tiles_sweep, grp_sweep, tile_sweep)
-WRAPPERS = LIST_ROUTES + (dense_sweep,)
-# wrappers of the port's other kernels by name, registered by their
-# modules at import (``ops/raymarch_xla.edf_march``)
-_OTHER_WRAPPERS: dict = {}
-
-
-def register(wrapper):
-    """Count ``wrapper.launches`` in ``launch_counts`` and
-    ``add_launches`` beside the sweeps' wrappers."""
-    _OTHER_WRAPPERS[wrapper.__name__] = wrapper
-    return wrapper
-
-
-def _all_wrappers():
-    return WRAPPERS + tuple(_OTHER_WRAPPERS.values())
+for _w in LIST_ROUTES + (dense_sweep,):
+    _kernels.register(_w)
 
 
 def launch_counts() -> dict:
-    """``{wrapper name: kernel launches so far}`` of every wrapper: the
-    sweeps' and the registered ones."""
-    return {w.__name__: w.launches for w in _all_wrappers()}
+    """``{wrapper name: kernel launches so far}`` of every wrapper of
+    ``_kernels.wrappers()``: the sweeps' and the march's."""
+    return {w.__name__: w.launches for w in _kernels.wrappers()}
 
 
 def add_launches(delta: dict):
@@ -270,6 +233,6 @@ def add_launches(delta: dict):
     graph launches the kernels it captured without passing through the
     wrappers: ``utils/graph.py`` adds the launches of one replay here, and
     takes back what the capture pass counted while no kernel ran."""
-    by_name = {w.__name__: w for w in _all_wrappers()}
+    by_name = {w.__name__: w for w in _kernels.wrappers()}
     for name, n in delta.items():
         by_name[name].launches += n

@@ -15,30 +15,25 @@ a JAX-only kind of sharded step.
 The JAX train step is one compiled program. Here the whole step
 (``zero_grad`` with the gradients kept allocated, the T-step forward,
 ``backward`` and the optimizer's update) is captured in one CUDA graph
-(``utils/graph.py``) over a static copy of ``state0`` where the state
-lies on a CUDA device and the step can be captured with its backward, and
-is a Python loop under autograd everywhere else. A step can be captured
-(``step.capturable``) on every backend of ``simulator.make_step_fn``; its
-backward cannot where ``step.grad_host_read`` names a host read: the
-bilinear march's gradient runs the plain autograd loop of
-``ops/raymarch_xla.march_rays``, which reads ``alive.any()`` on the host
-("edf_bilinear"; the ``edf_march`` kernel has no backward). There
-``graph=None`` trains eagerly and ``graph=True`` raises and names that
-loop. The "edf" step's nearest march and the "edf_implicit" step's
-implicit-function march run their kernel under autograd too, and their
-train steps are captured. Losses and parameters after N graphed
-steps equal the eager ones bit for bit. The T steps are unrolled into the
-graph (one backward spans them all), so the policy's and the loss's
-Python branches on ``t`` are resolved exactly. What Python computes from
-the optimizer's hyper-parameters is frozen at capture: a learning rate
-changed afterwards needs a new train function. An optimizer that counts
-its steps on the host (``torch.optim.Adam`` and its kin by default)
-would replay its first update for ever: built with ``capturable=True``
-it is captured; without, ``graph=None`` takes the eager step and
+(``utils/graph.py``) over a static copy of ``state0`` where the state lies
+on a CUDA device and the step can be captured with its backward, and is a
+Python loop under autograd everywhere else. A step can be captured
+(``step.capturable``) on every backend of ``simulator.make_step_fn``, and
+so can its backward: the EDF marches run their kernels under autograd too
+(``ops/raymarch_xla.edf_march`` forward, ``edf_march_grad`` backward; the
+implicit march's VJP is elementwise). Losses and parameters after N
+graphed steps equal the eager ones bit for bit. The T steps are unrolled
+into the graph (one backward spans them all), so the policy's and the
+loss's Python branches on ``t`` are resolved exactly. What Python computes
+from the optimizer's hyper-parameters is frozen at capture: a learning
+rate changed afterwards needs a new train function. An optimizer that
+counts its steps on the host (``torch.optim.Adam`` and its kin by default)
+would replay its first update for ever: built with ``capturable=True`` it
+is captured; without, ``graph=None`` takes the eager step and
 ``graph=True`` raises. SGD captures as it is, but for momentum with a
-dampening: its first update sets the buffer to the whole gradient and
-the later ones add the damped gradient, two rules where a graph replays
-one (``_why_not_graphed``).
+dampening: its first update sets the buffer to the whole gradient and the
+later ones add the damped gradient, two rules where a graph replays one
+(``_why_not_graphed``).
 """
 
 from __future__ import annotations
@@ -114,10 +109,9 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
         default ``optax.sgd(1e-2)``).
       graph: ``None`` replays the whole train step from one CUDA graph
         where ``state0`` lies on a CUDA device, ``step_fn.capturable`` is
-        true, ``step_fn.grad_host_read`` is None and the optimizer's
-        update can be captured, and runs it eagerly otherwise; ``True``
-        raises where it cannot capture; ``False`` is the eager step
-        (module doc).
+        true and the optimizer's update can be captured, and runs it
+        eagerly otherwise; ``True`` raises where it cannot capture;
+        ``False`` is the eager step (module doc).
 
     Returns ``(train, init_opt_state)``: ``init_opt_state(params)`` makes
     the parameters leaves that require grad and builds the optimizer over
@@ -167,20 +161,14 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
     def train(params, opt_state, state0: CarState, generator=None):
         use = graph
         why_not = _why_not_graphed(opt_state) if use is not False else None
-        grad_read = getattr(inner, "grad_host_read", None)
         if use is None:
             use = (state0.device.type == "cuda" and why_not is None
-                   and grad_read is None
                    and getattr(inner, "capturable", False))
         if not use:
             loss, final = whole_step(step_fn, params, opt_state, state0,
                                      generator, False)
             return params, opt_state, loss, final
         require_capturable(inner)
-        if grad_read is not None:
-            raise RuntimeError(
-                "graph=True: this train step cannot be captured in a CUDA "
-                f"graph: {grad_read}. Pass graph=False")
         if why_not is not None:
             raise RuntimeError(why_not)
         cell.update(params=params, opt=opt_state)

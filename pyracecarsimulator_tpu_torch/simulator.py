@@ -27,10 +27,9 @@ nothing from the host after their first call on a device (the EDF
 marches run in the kernel ``csrc/edf_march.cu`` on the card, each ray
 looping until it stops); a step that cannot be captured (the sharded
 steps of ``parallel/mesh.py``) names its host read in ``step.host_read``.
-A train step differentiates through the step: ``step.grad_host_read``
-names what then reads the host, the bilinear march's autograd loop on
-"edf_bilinear" (and on "edf" with ``ScanParams.interp="bilinear"``), and
-is None elsewhere (``parallel/train.py``). Swapping a map through
+A train step differentiates through the step, and its backward reads
+nothing from the host either: the marches' gradient runs in the kernel
+too (``ops/raymarch_xla.edf_march_grad``). Swapping a map through
 ``step.map_cell`` replaces the tensors the next eager call reads; a graph
 holds the addresses of the table it was captured with, so the graphed
 step watches the identity of ``map_cell["map"]`` and captures again after
@@ -72,12 +71,6 @@ from .utils.graph import (CudaGraphBackend, GraphedFunction,
 _SEGMENT_BACKENDS = ("segments", "segments_simplified", "segments_pallas",
                      "sectors", "auto")
 _EDF_BACKENDS = ("edf", "edf_bilinear", "edf_implicit")
-# why a train step through a bilinear march cannot be captured
-_BILINEAR_GRAD_READ = (
-    "ops/raymarch_xla.py: march_rays differentiates the bilinear march "
-    "through its plain autograd loop (the edf_march kernel has no "
-    "backward), which reads alive.any() on the host every 32 trips "
-    "(_ALIVE_CHECK) to leave its loop early")
 
 
 class StepOutput(NamedTuple):
@@ -309,8 +302,7 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
     map the scan reads (the segment table, or the track for the EDF
     backends). ``step.capturable`` says whether the step can be captured
     in a CUDA graph (module doc); where it cannot, ``step.host_read`` says
-    why; ``step.grad_host_read`` says why a train step through it cannot,
-    or is None.
+    why.
 
     ``graph=True`` returns the step replayed as one CUDA graph: the same
     values, forward only (no autograd graph), ``step.map_cell`` kept and
@@ -344,9 +336,6 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
     step.map_cell = map_cell        # swap maps here
     step.capturable = True
     step.host_read = None
-    bilinear = backend == "edf_bilinear" or (backend == "edf"
-                                             and sc.interp == "bilinear")
-    step.grad_host_read = _BILINEAR_GRAD_READ if bilinear else None
     return _graphed_step(step, bundle.track.edf.device) if graph else step
 
 
@@ -364,7 +353,6 @@ def _graphed_step(step, device):
     graphed_step.map_cell = map_cell
     graphed_step.capturable = True
     graphed_step.host_read = None
-    graphed_step.grad_host_read = step.grad_host_read
     graphed_step.eager = step
     graphed_step.graphed = graphed      # .captures, .replays, .release()
     return graphed_step

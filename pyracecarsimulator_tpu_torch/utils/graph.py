@@ -36,8 +36,8 @@ the warm-up calls change besides their outputs is put back after the
 capture: generator states by this class, anything else (parameters, an
 optimizer's state) by the caller's ``snapshot``.
 
-The launch counters of the kernels' wrappers (``ops/sweeps.py``'s and the
-ones registered there, ``ops/raymarch_xla.edf_march``) count in Python,
+The launch counters of the kernels' wrappers (every wrapper registered in
+``ops/_kernels.py``: the sweeps' and the march's) count in Python,
 where a replay passes no wrapper. The class takes the difference of
 ``sweeps.launch_counts()`` across the capture pass, takes it back (no
 kernel ran while capturing) and adds it at every replay, so the counters

@@ -17,11 +17,9 @@ card). Here, on the CPU:
   (``torch.tensor``, ``torch.as_tensor`` and ``torch.from_numpy`` are
   counted under a monkeypatch);
 - ``graph=None`` on the CPU is the eager loop; ``graph=True`` on the CPU
-  raises and names the card; every backend's step can be captured, the
-  EDF ones included (their marches run in ``csrc/edf_march.cu`` on the
-  card), and the one host read left is the bilinear march's autograd
-  loop under a train step (``step.grad_host_read``), where ``graph=True``
-  raises and names it;
+  raises and names the card; every backend's step and train step can be
+  captured, the EDF ones included (their marches and the marches'
+  gradient run in ``csrc/edf_march.cu`` on the card);
 - the bookkeeping of ``utils.graph.GraphedFunction`` (copy-in, cloned
   outputs, a new capture after a swapped map, a new shape or another
   generator, restored generator states, the launch counters' replay) and
@@ -33,7 +31,7 @@ card). Here, on the CPU:
   equals the JAX package's within 1e-5 m in the poses (on "edf" its kept
   scans within ROADMAP.md's tolerated fault 6: >= 99.5% of the beams
   within 1e-4 m, all within 3 cells); the graphed train step equals the
-  eager one bit for bit, on "edf" and "edf_implicit" too; a graphed "edf"
+  eager one bit for bit, on the three EDF backends too; a graphed "edf"
   facade reads each edited map.
 """
 
@@ -414,46 +412,43 @@ def _edf_train_loss(out, t):
         (out.state.steer_angle - 0.1) ** 2)
 
 
-@pytest.mark.parametrize("backend, module", [
-    ("edf", "raymarch_xla"), ("edf_bilinear", "raymarch_xla"),
-    ("edf_implicit", "raymarch_diff")])
+@pytest.mark.parametrize("backend, module, plain", [
+    ("edf", "raymarch_xla", "march_rays_plain"),
+    ("edf_bilinear", "raymarch_xla", "march_rays_plain"),
+    ("edf_implicit", "raymarch_diff", "_march_nearest_plain")])
 def test_graph_true_on_an_edf_step_names_the_host_read(bundles, small_track,
                                                        backend, module,
-                                                       monkeypatch):
-    """The EDF step reads nothing from the host: it is capturable, its
-    march goes through ``module``'s route (the kernel on the card), and
-    ``graph=True`` on the CPU raises for the card, not for a host read.
-    The host read that is left is the bilinear march's autograd loop
-    under a train step: ``step.grad_host_read`` names it on
-    "edf_bilinear" only, and ``graph=True`` on that train step raises and
-    names it; the other train steps get as far as the capture."""
+                                                       plain, monkeypatch):
+    """No host read is left to name: the EDF step is capturable, its march
+    goes through ``module``'s march (``plain`` on the CPU, the kernel on
+    the card), and ``graph=True`` on the CPU raises for the card, for the
+    step and for the train step alike (the marches' gradient runs in the
+    kernel too, "edf_bilinear"'s included)."""
     bundle = bundles[backend]
     mod = importlib.import_module(
         f"pyracecarsimulator_tpu_torch.ops.{module}")
-    routed, route = [], mod.march_route
-    monkeypatch.setattr(mod, "march_route",
-                        lambda *a: routed.append(a[2]) or route(*a))
+    marched, march = [], getattr(mod, plain)
+    monkeypatch.setattr(mod, plain,
+                        lambda *a: marched.append(a[-2]) or march(*a))
     step = psim.make_step_fn(bundle, with_noise=False)
     assert step.capturable and step.host_read is None
+    assert not hasattr(step, "grad_host_read")
     state = P.state_from_numpy(_initial(small_track), device="cpu")
     act = (torch.full((N_AGENTS,), 2.0), torch.zeros(N_AGENTS))
     assert step(state, act).ranges.shape == (N_AGENTS, BEAMS)
-    assert routed == ["bilinear" if backend == "edf_bilinear"
-                      else "nearest"]
+    assert len(marched) == 1
+    if module == "raymarch_xla":
+        assert marched == ["bilinear" if backend == "edf_bilinear"
+                           else "nearest"]
     with pytest.raises(RuntimeError, match="(?s)card.*graph=False") as e:
         psim.make_step_fn(bundle, with_noise=False, graph=True)
     assert "alive.any()" not in str(e.value)
     train, init = make_bptt_train_fn(step, _train_policy, _edf_train_loss, 2,
                                      BEAMS, graph=True)
     params = {"w": torch.zeros(BEAMS), "b": torch.zeros(())}
-    if backend == "edf_bilinear":
-        assert module in step.grad_host_read
-        pattern = f"(?s){module}.*autograd loop.*alive.any\\(\\).*graph=False"
-    else:
-        assert step.grad_host_read is None
-        pattern = "(?s)card.*graph=False"
-    with pytest.raises(RuntimeError, match=pattern):
+    with pytest.raises(RuntimeError, match="(?s)card.*graph=False") as e:
         train(params, init(params), state)
+    assert "autograd loop" not in str(e.value)
     assert train.graphed.captures == 0
 
 
@@ -461,11 +456,11 @@ def test_which_steps_can_be_captured(bundles):
     for backend in EXACT + ("segments_simplified",) + EDF:
         step = psim.make_step_fn(bundles[backend])
         assert step.capturable and step.host_read is None
-        assert (step.grad_host_read is None) == (backend != "edf_bilinear")
-    # "edf" with bilinear sampling differentiates through the same loop
+    # "edf" with bilinear sampling too
     bilinear = bundles["edf"]._replace(
         scan=P.ScanParams(num_beams=BEAMS, interp="bilinear"))
-    assert "autograd loop" in psim.make_step_fn(bilinear).grad_host_read
+    step = psim.make_step_fn(bilinear)
+    assert step.capturable and step.host_read is None
     import socket
     import torch.distributed as dist
     from pyracecarsimulator_tpu_torch.parallel import (make_sharded_step,
@@ -492,8 +487,7 @@ def test_graphed_edf_step_equals_eager(bundles, small_track, backend,
     eager = psim.make_step_fn(bundles[backend], with_noise=True)
     graphed = psim.make_step_fn(bundles[backend], with_noise=True,
                                 graph=True)
-    assert graphed.eager.capturable
-    assert graphed.grad_host_read == eager.grad_host_read
+    assert graphed.eager.capturable and graphed.host_read is None
     act = (torch.full((N_AGENTS,), 2.0), torch.zeros(N_AGENTS))
     ge, gg = torch.Generator().manual_seed(3), torch.Generator()
     # the stand-in's capture pass draws; a real capture does not
@@ -1024,11 +1018,11 @@ def test_graphed_train_step_equals_eager(small_track, optimizer):
     assert got[True][0][0] != got[True][0][-1]      # it trains
 
 
-@pytest.mark.parametrize("backend", ["edf", "edf_implicit"])
+@pytest.mark.parametrize("backend", EDF)
 def test_graphed_edf_train_step_equals_eager(small_track, backend):
-    """The "edf" and "edf_implicit" train steps captured with the
-    stand-in: losses, parameters, gradients and the final state after 3
-    steps equal the eager trainer's bit for bit."""
+    """The "edf", "edf_implicit" and "edf_bilinear" train steps captured
+    with the stand-in: losses, parameters, gradients and the final state
+    after 3 steps equal the eager trainer's bit for bit."""
     bundle = psim.build_sim(
         _port_track(small_track), scan=P.ScanParams(num_beams=BEAMS),
         sim=P.SimParams(steer_mode="smooth"), backend=backend, device="cpu")

@@ -464,10 +464,51 @@ def test_edf_march_matches_plain(cuda, variant, case):
         assert bool((ranges < 10.0).any()) and bool((ranges >= 10.0).any())
 
 
+@pytest.mark.parametrize("case", ["random", "levine"])
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_edf_march_grad_matches_plain(cuda, interp, case):
+    """The march's gradient against autograd through the plain loop on the
+    same tensors, with 200 trips and with 3: the rays' gradients (bilinear)
+    bit for bit, the EDF's within 1e-4 x max(1, the largest |plain|) (the
+    kernel adds with atomics, autograd's scatter in another order); one
+    launch a gradient; ``march_rays`` under autograd takes it."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    edf, inv, ox, oy, rays, hw = _march_case(cuda, case)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.rand(rays[0].shape, generator=gen, device=cuda) + 0.5
+    ray_grad = interp == "bilinear"
+    for max_iters in (200, 3):
+        args = (edf, inv, ox, oy, *rays, 10.0, 1e-4, max_iters, hw, interp,
+                g, True, ray_grad)
+        before = rx.edf_march_grad.launches
+        got = rx.edf_march_grad(*args)
+        assert rx.edf_march_grad.launches == before + 1
+        ref = rx.march_grad_plain(*args)
+        scale = max(1.0, float(ref[0].abs().max()))
+        assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * scale
+        assert float(ref[0].abs().sum()) > 0
+        assert (got[1] is None) == (not ray_grad)
+        for a, b in zip(got[1] or (), ref[1] or ()):
+            assert torch.equal(a, b)
+    leaves = [edf.clone().requires_grad_(True)] + [
+        v.clone().requires_grad_(ray_grad) for v in rays]
+    org = torch.stack([ox, oy])
+    before = rx.edf_march_grad.launches
+    r = rx.march_rays(leaves[0], 1.0 / inv, org, *leaves[1:],
+                      max_iters=200, interp=interp, bounds_hw=hw)
+    r.backward(g)
+    assert rx.edf_march_grad.launches == before + 1
+    ref = rx.march_grad_plain(edf, 1.0 / (1.0 / inv), ox, oy, *rays, 10.0,
+                              1e-4, 200, hw, interp, g, True, ray_grad)
+    assert torch.allclose(leaves[0].grad, ref[0], rtol=0,
+                          atol=1e-4 * max(1.0, float(ref[0].abs().max())))
+    for leaf, b in zip(leaves[1:], ref[1] or ()):
+        assert torch.equal(leaf.grad, b)
+
+
 def test_edf_march_counts_its_trips_on_the_device(cuda):
     """Every launch adds its longest ray's trips and 1 call to the
-    device's counter, the scratch left at 0; a replayed graph of the
-    "edf" step counts too."""
+    device's counter; a replayed graph of the "edf" step counts too."""
     import pyracecarsimulator_tpu_torch as P
     from pyracecarsimulator_tpu_torch.maps import sample_free_poses
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
@@ -479,8 +520,7 @@ def test_edf_march_counts_its_trips_on_the_device(cuda):
     rx.edf_march(edf, inv, ox, oy, *rays, 10.0, 1e-4, 200, hw, "nearest",
                  ray_trips=trips)
     grown = (counter - before).tolist()
-    assert grown == [int(trips.max()), 0, 0, 1]
-    assert counter[1:3].tolist() == [0, 0]
+    assert grown == [int(trips.max()), 1]
     bundle = P.build_sim("levine", backend="edf",
                          scan=P.ScanParams(num_beams=256), device=cuda)
     p = torch.as_tensor(sample_free_poses(bundle.track, 32,
@@ -497,14 +537,40 @@ def test_edf_march_counts_its_trips_on_the_device(cuda):
     assert rx.MARCH_COUNTS["trips"] - before["trips"] > 3
 
 
-@pytest.mark.parametrize("backend", ["edf", "edf_implicit"])
+def test_edf_march_counts_concurrent_launches(cuda):
+    """Marches of unequal grids on two streams at once: each launch keeps
+    its own scratch, so the counter grows by the sum of their longest
+    rays' trips and by 2 calls, and the next launch counts right too."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    edf, inv, ox, oy, rays, hw = _march_case(cuda, "levine")
+    small = [v[:3] for v in rays]
+    tr = [torch.zeros(v[0].shape, dtype=torch.int32, device=cuda)
+          for v in (rays, small)]
+    counter = rx.MARCH_COUNTS.counter(edf.device)
+    torch.cuda.synchronize()
+    before = counter.clone()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for _ in range(20):
+        for st, rs, t in zip(streams, (rays, small), tr):
+            with torch.cuda.stream(st):
+                rx.edf_march(edf, inv, ox, oy, *rs, 10.0, 1e-4, 200, hw,
+                             "nearest", ray_trips=t)
+    torch.cuda.synchronize()
+    most = int(tr[0].max()) + int(tr[1].max())
+    assert (counter - before).tolist() == [20 * most, 40]
+    before = counter.clone()
+    rx.edf_march(edf, inv, ox, oy, *small, 10.0, 1e-4, 200, hw, "nearest")
+    assert (counter - before).tolist() == [int(tr[1].max()), 1]
+
+
+@pytest.mark.parametrize("backend", ["edf", "edf_implicit", "edf_bilinear"])
 def test_graphed_edf_train_step_equals_eager(cuda, backend):
-    """The "edf" and "edf_implicit" train steps (T = 3, Adam with
-    ``capturable=True``) in one CUDA graph against the eager ones after 3
-    steps, bit for bit; "edf_bilinear" refuses ``graph=True`` and names
-    the autograd loop."""
+    """The EDF train steps (T = 3, Adam with ``capturable=True``) in one
+    CUDA graph against the eager ones after 3 steps, bit for bit; the
+    bilinear march's backward runs ``edf_march_grad`` in both."""
     import pyracecarsimulator_tpu_torch as P
     from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     from pyracecarsimulator_tpu_torch.parallel import make_bptt_train_fn
     beams, n = 128, 32
 
@@ -524,6 +590,7 @@ def test_graphed_edf_train_step_equals_eager(cuda, backend):
                            + torch.mean((out.state.steer_angle - 0.1) ** 2))
     adam = lambda ps: torch.optim.Adam(ps, lr=3e-3, capturable=True)
     got = {}
+    grads = rx.edf_march_grad.launches
     for graph in (False, True):
         train, init = make_bptt_train_fn(P.make_step_fn(bundle,
                                                         with_noise=False),
@@ -541,11 +608,4 @@ def test_graphed_edf_train_step_equals_eager(cuda, backend):
         assert train.graphed.captures == (1 if graph else 0)
     assert all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
     assert float(got[True][1].abs().sum()) > 0          # it trains
-    train, init = make_bptt_train_fn(
-        P.make_step_fn(bundle_of("edf_bilinear"), with_noise=False), policy,
-        loss, 3, beams, optimizer=adam, graph=True)
-    params = {"w": torch.zeros(beams, device=cuda),
-              "b": torch.zeros((), device=cuda)}
-    with pytest.raises(RuntimeError,
-                       match="(?s)raymarch_xla.*autograd loop.*graph=False"):
-        train(params, init(params), state)
+    assert (rx.edf_march_grad.launches > grads) == (backend == "edf_bilinear")

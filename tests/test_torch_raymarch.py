@@ -297,30 +297,82 @@ def test_edf_step_marches_once_and_as_far_as_its_scan(small_track, backend):
 # -- the kernel's wrapper: its route, its arguments, its counters ------------
 # (the kernel itself runs on the card: tests/test_torch_kernels.py)
 
-@pytest.mark.parametrize("interp, edf_grad, ray_grad, grad_mode, route", [
-    ("nearest", False, False, True, "kernel"),
-    ("nearest", False, True, True, "kernel"),
-    ("nearest", True, False, True, "autograd loop"),
-    ("nearest", True, True, False, "kernel"),
-    ("bilinear", False, False, True, "kernel"),
-    ("bilinear", False, True, True, "autograd loop"),
-    ("bilinear", True, False, True, "autograd loop"),
-    ("bilinear", True, True, False, "kernel"),
+def _stand_ins(monkeypatch, calls):
+    """The device check says "the card"; ``edf_march`` and
+    ``edf_march_grad`` are replaced by their plain versions (autograd
+    through the plain loop for the gradient), each call recorded in
+    ``calls``: (variant, x0's strides) and ("grad", edf_grad, ray_grad)."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+
+    def kernel(edf, inv_res, ox, oy, x, y, c, s, max_range, eps, max_iters,
+               bounds_hw, variant, ray_trips=None):
+        calls.append((variant, x.stride(), y.stride()))
+        with torch.no_grad():
+            if variant == "bracket":
+                return rd._march_nearest_plain(edf, inv_res, ox, oy, x, y, c,
+                                               s, max_range, eps, max_iters,
+                                               bounds_hw)
+            return rx.march_rays_plain(edf, inv_res, ox, oy, x, y, c, s,
+                                       max_range, eps, max_iters, variant,
+                                       bounds_hw)
+
+    def grad(*args):
+        calls.append(("grad",) + args[-2:])
+        return rx.march_grad_plain(*args)
+
+    monkeypatch.setattr(_kernels, "on_cuda", lambda name, ref: True)
+    monkeypatch.setattr(rx, "edf_march", kernel)
+    monkeypatch.setattr(rd, "edf_march", kernel)
+    monkeypatch.setattr(rx, "edf_march_grad", grad)
+
+
+@pytest.mark.parametrize("interp, edf_grad, ray_grad, grad_mode, grads", [
+    ("nearest", False, False, True, None),
+    ("nearest", False, True, True, None),
+    ("nearest", True, False, True, (True, False)),
+    ("nearest", True, True, False, None),
+    ("bilinear", False, False, True, None),
+    ("bilinear", False, True, True, (False, True)),
+    ("bilinear", True, False, True, (True, False)),
+    ("bilinear", True, True, False, None),
 ])
-def test_march_route(monkeypatch, interp, edf_grad, ray_grad, grad_mode,
-                     route):
-    """CPU tensors take the plain loop; CUDA tensors the kernel, but for
-    the autograd loop where grad mode is on and autograd needs the march's
-    gradient: an edf that requires grad, or bilinear rays that do."""
-    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx, sweeps
-    edf = torch.ones(4, 4, requires_grad=edf_grad)
-    rays = [torch.zeros(3, requires_grad=ray_grad) for _ in range(4)]
-    with torch.set_grad_enabled(grad_mode):
-        assert rx.march_route(edf, rays, interp) == "plain"
-        monkeypatch.setattr(sweeps, "_on_cuda", lambda name, ref: True)
-        assert rx.march_route(edf, rays, interp) == route
-        assert rx.autograd_needs_loop(edf, rays, interp) == (
-            route == "autograd loop")
+def test_march_route(small_track, monkeypatch, interp, edf_grad, ray_grad,
+                     grad_mode, grads):
+    """CPU tensors run the plain loop under autograd; CUDA tensors launch
+    ``edf_march``, and where autograd needs the march's gradient its
+    backward launches ``edf_march_grad`` once, for what needs one: the
+    EDF, and the rays of a bilinear march (a nearest march's range has no
+    gradient in the rays). With the plain versions standing in for the
+    kernels, values and gradients equal the CPU's bit for bit."""
+    edf0 = T(np.asarray(small_track.edf))
+    poses = T(_free_poses(small_track, 3, 4))
+    kw = dict(num_beams=24, max_iters=200, interp=interp,
+              bounds_hw=(small_track.height, small_track.width))
+    g = torch.linspace(0.5, 1.5, 3 * 24).reshape(3, 24)
+
+    def run():
+        edf = edf0.clone().requires_grad_(edf_grad)
+        q = poses.clone().requires_grad_(ray_grad)
+        with torch.set_grad_enabled(grad_mode):
+            r = pscan(edf, small_track.resolution, T(_org(small_track)), q,
+                      **kw)
+        if r.requires_grad:
+            r.backward(g)
+        return r.detach(), r.requires_grad, edf.grad, q.grad
+
+    ref = run()
+    calls = []
+    _stand_ins(monkeypatch, calls)
+    got = run()
+    assert [c[0] for c in calls] == [interp] + (["grad"] if grads else [])
+    if grads:
+        assert calls[1][1:] == grads
+    assert torch.equal(got[0], ref[0]) and got[1] == ref[1] == bool(grads)
+    for a, b in zip(got[2:], ref[2:]):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
 
 
 def test_march_entry_points_take_the_route(small_track, monkeypatch):
@@ -328,23 +380,10 @@ def test_march_entry_points_take_the_route(small_track, monkeypatch):
     interpolations, through ``scan_poses``) and the implicit march's
     ``_march_nearest`` hand ``edf_march`` the scan's expanded origin views
     (stride 0 along the beams, never a copy) and its variant, and return
-    what it returns; under autograd the bilinear march runs the loop and
-    counts it on ``march_rays.autograd_loops``."""
-    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
-    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx, sweeps
+    what it returns; the bilinear march's backward goes to
+    ``edf_march_grad``, with the rays' gradient asked for."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     calls = []
-
-    def kernel(edf, inv_res, ox, oy, x, y, c, s, max_range, eps, max_iters,
-               bounds_hw, variant, ray_trips=None):
-        calls.append((variant, x.stride(), y.stride()))
-        if variant == "bracket":
-            return rd._march_nearest_plain(edf, inv_res, ox, oy, x, y, c, s,
-                                           max_range, eps, max_iters,
-                                           bounds_hw)
-        return rx.march_rays_plain(edf, inv_res, ox, oy, x, y, c, s,
-                                   max_range, eps, max_iters, variant,
-                                   bounds_hw)
-
     edf = T(np.asarray(small_track.edf))
     org = T(_org(small_track))
     poses = T(_free_poses(small_track, 5, 3))
@@ -353,9 +392,11 @@ def test_march_entry_points_take_the_route(small_track, monkeypatch):
     ref = {i: pscan(edf, small_track.resolution, org, poses, interp=i, **kw)
            for i in ("nearest", "bilinear")}
     ref_imp = pdiff_scan(edf, small_track.resolution, org, poses, **kw)
-    monkeypatch.setattr(sweeps, "_on_cuda", lambda name, ref: True)
-    monkeypatch.setattr(rx, "edf_march", kernel)
-    monkeypatch.setattr(rd, "edf_march", kernel)
+    q = poses.clone().requires_grad_(True)
+    pscan(edf, small_track.resolution, org, q, interp="bilinear",
+          **kw).sum().backward()
+    ref_grad = q.grad
+    _stand_ins(monkeypatch, calls)
     for interp in ("nearest", "bilinear"):
         got = pscan(edf, small_track.resolution, org, poses, interp=interp,
                     **kw)
@@ -364,19 +405,20 @@ def test_march_entry_points_take_the_route(small_track, monkeypatch):
     assert torch.equal(got, ref_imp)
     assert [v for v, _, _ in calls] == ["nearest", "bilinear", "bracket"]
     assert all(sx == (3, 0) and sy == (3, 0) for _, sx, sy in calls)
-    loops = rx.march_rays.autograd_loops
     q = poses.clone().requires_grad_(True)
     pscan(edf, small_track.resolution, org, q, interp="bilinear",
           **kw).sum().backward()
-    assert len(calls) == 3 and rx.march_rays.autograd_loops == loops + 1
-    assert q.grad.abs().sum() > 0
+    assert calls[3:] == [("bilinear", (3, 0), (3, 0)),
+                         ("grad", False, True)]
+    assert torch.equal(q.grad, ref_grad) and q.grad.abs().sum() > 0
 
 
 def test_march_wrapper_views_and_checks(monkeypatch):
     """``_as_rows``: a (rows, cols) view, no copy of a 2-D or expanded
     tensor; ``edf_march`` refuses CPU tensors, and (the device check
     patched) what the kernel does not take, before any launch."""
-    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx, sweeps
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     x = torch.arange(6.0).reshape(3, 2)[:, :1].expand(3, 5)
     assert rx._as_rows(x) is x and x.stride() == (2, 0)
     assert rx._as_rows(torch.zeros(7)).shape == (1, 7)
@@ -390,9 +432,15 @@ def test_march_wrapper_views_and_checks(monkeypatch):
                                 sin_t=rays[3], max_range=10.0, eps=1e-4,
                                 max_iters=8, bounds_hw=None,
                                 variant="nearest"), **kw}
+    grad_args = lambda **kw: {
+        **{k: v for k, v in args().items() if k != "variant"},
+        **dict(interp="bilinear", g=torch.ones(3, 4), edf_grad=True,
+               ray_grad=True), **kw}
     with pytest.raises(ValueError, match="CUDA kernel"):
         rx.edf_march(**args())
-    monkeypatch.setattr(sweeps, "_on_cuda", lambda name, ref: True)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        rx.edf_march_grad(**grad_args())
+    monkeypatch.setattr(_kernels, "on_cuda", lambda name, ref: True)
     for bad, match in ((dict(variant="cubic"), "variant"),
                        (dict(edf=edf.double()), "float32"),
                        (dict(edf=edf.t()), "contiguous"),
@@ -402,18 +450,25 @@ def test_march_wrapper_views_and_checks(monkeypatch):
                        (dict(ray_trips=torch.zeros(3, 4)), "int32")):
         with pytest.raises(ValueError, match=match):
             rx.edf_march(**args(**bad))
+    for bad, match in ((dict(interp="cubic"), "interp"),
+                       (dict(interp="nearest"), "no gradient in the rays"),
+                       (dict(max_iters=rx.MAX_GRAD_TRIPS + 1), "at most"),
+                       (dict(edf=edf.t()), "contiguous"),
+                       (dict(ox=o), "0-dim")):
+        with pytest.raises(ValueError, match=match):
+            rx.edf_march_grad(**grad_args(**bad))
 
 
 def test_march_counts_add_the_device_counters():
     """``MARCH_COUNTS`` is the plain loops' host counts plus every
-    device's kernel counter ([trips, scratch, scratch, calls]), read at
-    each lookup; a CPU tensor stands in for a device's counter here."""
+    device's kernel counter ([trips, calls]), read at each lookup; a CPU
+    tensor stands in for a device's counter here."""
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     counts = rx._MarchCounts()
     counts.host.update(calls=2, trips=64)
     c = counts.counter(torch.device("cpu"))
-    assert c.dtype == torch.int64 and c.tolist() == [0, 0, 0, 0]
-    c[0], c[3] = 150, 3
+    assert c.dtype == torch.int64 and c.tolist() == [0, 0]
+    c[0], c[1] = 150, 3
     assert dict(counts) == {"calls": 5, "trips": 214}
     assert counts.counter(torch.device("cpu")) is c
     assert set(rx.MARCH_COUNTS) == {"calls", "trips"}

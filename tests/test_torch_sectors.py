@@ -289,20 +289,21 @@ def test_block_width_matches_jax(blobby_bigk):
 
 def test_build_command_flags():
     """Hopper target, no FMA contraction, no fast math, for every kernel's
-    source (the sweeps' and the EDF march's), each with its C entry
-    point."""
+    source (the sweeps' and the EDF march's, which holds the march and its
+    gradient), each entry point a C function of its source."""
     assert set(_kernels._SIGNATURES) == {"sector_sweep", "dense_sweep",
-                                         "edf_march"}
-    for name in _kernels._SIGNATURES:
-        cmd = _kernels.build_command(name, Path("out.so"))
+                                         "edf_march", "edf_march_grad"}
+    for name, (source, symbol, _) in _kernels._SIGNATURES.items():
+        cmd = _kernels.build_command(source, Path("out.so"))
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert "-fmad=false" in cmd
         assert not any("fast" in c for c in cmd)
-        assert cmd[-1].endswith(f"csrc/{name}.cu")
+        assert cmd[-1].endswith(f"csrc/{source}.cu")
         assert Path(cmd[-1]).exists()
-        assert _kernels.library_path(name).parent == _kernels.BUILD_DIR
-        symbol = _kernels._SIGNATURES[name][0]
+        assert _kernels.library_path(source).parent == _kernels.BUILD_DIR
         assert f'extern "C" int {symbol}(' in Path(cmd[-1]).read_text()
+    assert {s for s, _, _ in _kernels._SIGNATURES.values()} == {
+        "sector_sweep", "dense_sweep", "edf_march"}
 
 
 def test_port_imports_no_jax():
