@@ -38,13 +38,17 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 10. per map, the EDF march kernel ``edf_march`` against its plain
     PyTorch loops on the card on the full 4096 x 1080 fan, in its three
     variants (nearest, bilinear, bracket: 0 mismatches on the ranges, and
-    on ``last`` and ``hit``), with per-ray trips, time, plain time and
+    on ``last`` and ``hit``) and both refill policies, with per-ray trips
+    (sum, percentiles, and the warp- and block-level trips one ray a
+    thread would take), time in both policies in turns, plain time and
     bound; its gradient ``edf_march_grad`` (nearest: the EDF's; bilinear:
     the EDF's and the rays') against autograd through the plain loop on
-    the same fan (the plain run in blocks of 512 agents): the rays'
-    gradients with 0 mismatches, the EDF's within ``GRAD_TOL`` x max(1,
-    the largest |plain|) (atomics sum in another order); with time, plain
-    time and bound; the
+    the same fan (the plain run in blocks of 512 agents), from the
+    march's record in both policies and without it: the rays' gradients
+    with 0 mismatches, the EDF's within ``GRAD_TOL`` x max(1, the largest
+    |plain|) (atomics sum in another order); with time, plain time and
+    bound; the kernels' persistent grids and, from nvcc's resource
+    report, their registers and stack frames (none allowed); the
     "edf" march on the card against the CPU march on 64 poses
     given the same fan (bit-identical), the scan against the NumPy oracle
     ``oracle/raycast.py`` (its native body) on 64 poses, pose by pose
@@ -468,29 +472,33 @@ def innermost_loops(sass):
 
 
 def march_sass(sass):
-    """What a trip of each variant's march loop issues: per function of
-    the march kernel (one per variant, the template argument in its name),
-    the innermost loop that gathers (LDG), its instructions over its trips
-    (its gathers over the variant's gathers a trip). A reading beside the
-    bound, which counts the function's operations."""
+    """What each march function's loop issues (one function per variant
+    and refill policy, the template arguments in its name): the innermost
+    loop that gathers (LDG). The persistent loop makes one trip a pass, so
+    its instructions are a trip's plus the refill and write-out paths that
+    a pass takes only when a ray stops: an upper bound of a trip's. A
+    reading beside the bound, which counts the function's operations."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     out = {}
-    names = {f"ILi{i}E": v for i, v in enumerate(MARCH_VARIANTS)}
+    names = {f"ILi{i}ELi{p}EE": (v, refill)
+             for i, v in enumerate(MARCH_VARIANTS)
+             for refill, p in rx.POLICIES.items()}
     for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
         head = fn.splitlines()[0]
-        variant = next((v for k, v in names.items() if k in head), None)
+        key = next((k for n, k in names.items() if n in head), None)
         loops = [b for b in innermost_loops("Function : " + fn)
                  if "LDG" in b]
-        if "edf_march_kernel" not in head or variant is None or not loops:
+        if "edf_march_kernel" not in head or key is None or not loops:
             continue
         body = max(loops, key=len)
-        trips = body.count("LDG") / MARCH_VARIANTS[variant]
-        out[variant] = {"instructions": len(body), "trips": trips,
-                        "per_trip": len(body) / trips,
-                        "mix": {o: body.count(o) for o in sorted(set(body))}}
-        log(f"edf_march {variant}: SASS loop of {trips:g} trip(s): "
-            f"{len(body)} instructions = {len(body) / trips:.2f} per trip "
-            f"(the function needs {MARCH_OPS_PER_TRIP[variant]}) "
-            f"{out[variant]['mix']}")
+        variant, refill = key
+        out.setdefault(variant, {})[refill] = {
+            "instructions": len(body),
+            "mix": {o: body.count(o) for o in sorted(set(body))}}
+        log(f"edf_march {variant}, refill {refill}: SASS loop of "
+            f"{len(body)} instructions a pass (a trip, the refill and the "
+            f"write-out; the function needs {MARCH_OPS_PER_TRIP[variant]} a "
+            f"trip) {out[variant][refill]['mix']}")
     return out
 
 
@@ -698,6 +706,50 @@ def same_fan_check(label, fn, dev_args, exact=True, tol=0.0):
     return err
 
 
+def march_resources():
+    """Each march and gradient kernel's registers, stack frame, spills and
+    shared memory from nvcc's ``--resource-usage`` report of this build.
+    No kernel may spill, and only the bilinear gradient has a stack frame:
+    its ``GRAD_SLOTS`` positions a thread (8 bytes each)."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    text = _kernels.build_info.get("edf_march", {}).get("log", "")
+    out = {}
+    for chunk in re.split(r"Function (?:properties for )?", text)[1:]:
+        name = chunk.split()[0].rstrip(":")
+        m = re.search(r"edf_march(_grad)?_kernelILi(\d)E(?:Li(\d+)E)?E",
+                      name)
+        if not m:
+            continue
+
+        def field(*pats):
+            for pat in pats:
+                hit = re.search(pat, chunk)
+                if hit:
+                    return int(hit.group(1))
+            return None
+        policy = {v: k for k, v in rx.POLICIES.items()}.get(
+            int(m.group(3) or 0), m.group(3))
+        label = " ".join(str(w) for w in (
+            f"edf_march{m.group(1) or ''}",
+            list(MARCH_VARIANTS)[int(m.group(2))], policy or "") if w)
+        res = {"registers": field(r"REG:(\d+)", r"Used (\d+) registers"),
+               "stack": field(r"STACK:(\d+)", r"(\d+) bytes stack frame"),
+               "spill_stores": field(r"(\d+) bytes spill stores"),
+               "shared": field(r"SHARED:(\d+)", r"(\d+) bytes smem")}
+        out[label] = {**out.get(label, {}),
+                      **{k: v for k, v in res.items() if v is not None}}
+    for label, res in sorted(out.items()):
+        log(f"{label}: {res}")
+    check(out, "no march kernel in nvcc's resource report")
+    frames = {k: 8 * rx.GRAD_SLOTS if k == "edf_march_grad bilinear" else 0
+              for k in out}
+    check(all(r.get("spill_stores", 0) == 0 and r.get("stack", 0) == frames[k]
+              for k, r in out.items()),
+          f"a march kernel spills or has another stack frame: {out}")
+    return out
+
+
 def march_bound(edf, xb, trips, variant, rates, grad=None):
     """The least time the card could take for one march of these rays
     (``grad`` None) or for its gradient (``grad`` = (EDF's, rays')): the
@@ -706,14 +758,20 @@ def march_bound(edf, xb, trips, variant, rates, grad=None):
     over the instruction rate) and the bytes (the EDF, each agent's
     origin, each ray's direction, each output once; the gradient also
     reads the ranges' cotangent, and writes the EDF's gradient and four
-    per ray), over the HBM rate. Beside it, the warp-level trips (per warp
-    of 32 rays, 32 x its longest ray's) and, for the march, what its SASS
-    loop issues for these trips."""
+    per ray), over the HBM rate. Beside it, readings of the trips: their
+    per-ray percentiles, and the trips of one-ray-a-thread launches,
+    warp-level (32 x each warp's longest ray) and block-level (256 x each
+    256-ray block's longest), and the SASS loop's instructions."""
     import torch
     ray_trips = int(trips.sum())
     flat = trips.reshape(-1)
-    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 32)])
-    warp_trips = 32 * int(flat.reshape(-1, 32).max(dim=1).values.sum())
+
+    def padded_trips(width):
+        f = torch.cat([flat, flat.new_zeros(-flat.numel() % width)])
+        return width * int(f.reshape(-1, width).max(dim=1).values.sum())
+    srt = flat.sort().values
+    pct = {f"p{q}": int(srt[min(srt.numel() - 1, int(q / 100 * srt.numel()))])
+           for q in (50, 90, 99)}
     rays = xb.numel()
     agents = rays // xb.shape[-1]
     nbytes = 4 * edf.numel() + 8 * agents + 8 * rays
@@ -726,26 +784,30 @@ def march_bound(edf, xb, trips, variant, rates, grad=None):
                    + 16 * rays * grad[1])
     ops_ms = ray_trips * per_trip / rates["slots_per_s"] * 1e3
     bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
-    out = {"ray_trips": ray_trips, "warp_trips": warp_trips,
-           "max_trips": int(trips.max()), "ops_per_trip": per_trip,
+    out = {"ray_trips": ray_trips, "warp_trips": padded_trips(32),
+           "block_trips": padded_trips(256), "trip_percentiles": {
+               **pct, "max": int(srt[-1])},
+           "max_trips": int(srt[-1]), "ops_per_trip": per_trip,
            "bytes": nbytes, "bound_ops_ms": ops_ms,
            "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-    sass = rates.get("march_sass_per_trip", {}).get(variant)
+    sass = rates.get("march_sass", {}).get(variant)
     if grad is None and sass:
-        out["sass_per_trip"] = sass
-        out["compiled_slots_ms"] = (ray_trips * sass / rates["slots_per_s"]
-                                    * 1e3)
+        out["sass_loop_instructions"] = {k: v["instructions"]
+                                         for k, v in sass.items()}
     return out
 
 
 def march_kernel_checks(name, track, poses, rates, errs, times):
     """10: ``edf_march`` against its plain loops on the card, the full
-    4096 x 1080 fan of ``poses``, all three variants: 0 mismatches; each
-    variant's time, plain time and bound. Then ``edf_march_grad`` against
-    autograd through the plain loop on the same fan, nearest and
-    bilinear: the rays' gradients bit for bit, the EDF's within
-    ``GRAD_TOL``; time, plain time and bound."""
+    4096 x 1080 fan of ``poses``, all three variants and both refill
+    policies: 0 mismatches; each variant's time in both policies, in turns
+    (the port's ``REFILL`` first), plain time and bound. Then
+    ``edf_march_grad`` against autograd through the plain loop on the same
+    fan, nearest and bilinear, from the march's record (the backward's
+    path) and without it: the rays' gradients bit for bit, the EDF's
+    within ``GRAD_TOL``; time (from the record, twice, and without it),
+    plain time and bound."""
     import torch
     from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
@@ -758,6 +820,8 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
             (track.height, track.width))
     ray_sets = [rays_from_poses(q, BEAMS, FOV)[2:] for q in pose_sets(poses)]
     head = (track.edf, 1.0 / track.resolution, ox, oy)
+    n = len(ray_sets)
+    refills = [rx.REFILL] + [p for p in rx.POLICIES if p != rx.REFILL]
 
     def plain(variant, rays):
         if variant == "bracket":
@@ -765,41 +829,59 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
         return rx.march_rays_plain(*head, *rays, *tail[:3], variant,
                                    tail[3])
 
-    def kernel(variant, rays, ray_trips=None):
+    def kernel(variant, rays, ray_trips=None, walk=None, refill=None):
         return rx.edf_march(*head, *rays, *tail, variant,
-                            ray_trips=ray_trips)
+                            ray_trips=ray_trips, walk=walk, refill=refill)
 
+    def in_turns(fn, reps):
+        """ms of ``fn(i, refill)`` for each policy, twice, in turns."""
+        got = {p: [] for p in refills}
+        for _ in range(2):
+            for p in refills:
+                got[p].append(timed_ms(lambda i: fn(i, p), reps))
+        return got
+
+    grids = {}
     for variant in MARCH_VARIANTS:
         rays = ray_sets[0]
         trips = torch.zeros(rays[0].shape, dtype=torch.int32, device="cuda")
-        got, ref = kernel(variant, rays, trips), plain(variant, rays)
-        torch.cuda.synchronize()
-        got, ref = ((got,), (ref,)) if torch.is_tensor(got) else (got, ref)
-        mism = [int((a != b).sum()) for a, b in zip(got, ref)]
-        err = max(float((a.double() - b.double()).abs().max())
-                  for a, b in zip(got, ref) if a.dtype == torch.float32)
-        log(f"[{name}] edf_march {variant} vs plain on "
-            f"{tuple(got[0].shape)} rays: mismatches "
-            f"{dict(zip(('total', 'last', 'hit'), mism))}, max abs err = "
-            f"{err}")
-        check(not any(mism), f"{name}: edf_march {variant} disagrees with "
-              "its plain version")
-        errs["edf_march"].append(err)
-        n = len(ray_sets)
-        k_ms = timed_ms(lambda i: kernel(variant, ray_sets[i % n]), 50)
+        ref = plain(variant, rays)
+        ref = (ref,) if torch.is_tensor(ref) else ref
+        for refill in refills:
+            got = kernel(variant, rays, trips, refill=refill)
+            torch.cuda.synchronize()
+            got = (got,) if torch.is_tensor(got) else got
+            mism = [int((a != b).sum()) for a, b in zip(got, ref)]
+            err = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got, ref) if a.dtype == torch.float32)
+            log(f"[{name}] edf_march {variant} ({refill}) vs plain on "
+                f"{tuple(got[0].shape)} rays: mismatches "
+                f"{dict(zip(('total', 'last', 'hit'), mism))}, max abs err "
+                f"= {err}")
+            check(not any(mism), f"{name}: edf_march {variant} ({refill}) "
+                  "disagrees with its plain version")
+            errs["edf_march"].append(err)
+            grids[f"edf_march {variant} {refill}"] = rx.persistent_grid(
+                "cuda", "edf_march", variant, refill)
+        by_refill = in_turns(lambda i, p: kernel(variant, ray_sets[i % n],
+                                                 refill=p), 50)
         p_ms = timed_ms(lambda i: plain(variant, ray_sets[i % n]), 2,
                         warmup=1)
-        k2_ms = timed_ms(lambda i: kernel(variant, ray_sets[i % n]), 50)
+        k_ms, k2_ms = by_refill[rx.REFILL]
         res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
+               "ms_by_refill": by_refill,
                **march_bound(track.edf, rays[0], trips, variant, rates)}
         res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
         times["edf_march"][f"{name} {variant}"] = res
-        log(f"[{name}] edf_march {variant}: {k_ms:.4f} / {k2_ms:.4f} ms vs "
-            f"plain {p_ms:.2f} ms; bound {res['bound_ms']:.4f} ms "
-            f"({res['bound_by']}), share {res['share_of_bound']:.3f}; trips "
-            f"per ray {res['ray_trips'] / rays[0].numel():.2f}, longest "
-            f"{res['max_trips']}, warp-level / per-ray "
-            f"{res['warp_trips'] / res['ray_trips']:.3f}")
+        log(f"[{name}] edf_march {variant}: {k_ms:.4f} / {k2_ms:.4f} ms "
+            f"({rx.REFILL}; by policy {by_refill}) vs plain {p_ms:.2f} ms; "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), share "
+            f"{res['share_of_bound']:.3f}; trips per ray "
+            f"{res['ray_trips'] / rays[0].numel():.2f}, percentiles "
+            f"{res['trip_percentiles']}; one ray a thread: warp-level / "
+            f"per-ray {res['warp_trips'] / res['ray_trips']:.3f}, "
+            f"block-level / per-ray "
+            f"{res['block_trips'] / res['ray_trips']:.3f}")
 
     # the gradient: the EDF's (nearest), the EDF's and the rays' (bilinear)
     def grad_plain(variant, rays, g):
@@ -821,10 +903,13 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
         rays = ray_sets[0]
         ray_grad = variant == "bilinear"
         trips = torch.zeros(rays[0].shape, dtype=torch.int32, device="cuda")
+        walks = [torch.empty(r[0].shape, dtype=torch.int32, device="cuda")
+                 for r in ray_sets]
+        for rs, w in zip(ray_sets, walks):
+            kernel(variant, rs, walk=w)
         kernel(variant, rays, trips)
         g = torch.rand(rays[0].shape, generator=gen, device="cuda") + 0.5
         args = lambda rs: (*head, *rs, *tail, variant, g, True, ray_grad)
-        got = rx.edf_march_grad(*args(rays))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -833,36 +918,50 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
         torch.cuda.synchronize()
         p_ms = start.elapsed_time(end)
         scale = max(1.0, float(ref[0].abs().max()))
-        err_edf = float((got[0] - ref[0]).abs().max())
-        ok = err_edf <= GRAD_TOL * scale and float(ref[0].abs().sum()) > 0
-        err_rays = max([float((a - b).abs().max())
-                        for a, b in zip(got[1] or (), ref[1] or ())],
-                       default=0.0)
-        mism = sum(int((a != b).sum())
-                   for a, b in zip(got[1] or (), ref[1] or ()))
-        ok = ok and mism == 0
-        log(f"[{name}] edf_march_grad {variant} vs autograd through the "
-            f"plain loop on {tuple(rays[0].shape)} rays: EDF gradient max "
-            f"abs err {err_edf} (largest |plain| {scale}, tolerance "
-            f"{GRAD_TOL} x max(1, that)); rays' gradients mismatches "
-            f"{mism}, max abs err {err_rays}")
-        check(ok, f"{name}: edf_march_grad {variant} disagrees with "
-              "autograd through the plain loop")
-        errs["edf_march_grad"].append(max(err_edf, err_rays))
-        n = len(ray_sets)
-        k_ms = timed_ms(lambda i: rx.edf_march_grad(*args(ray_sets[i % n])),
-                        20)
-        k2_ms = timed_ms(lambda i: rx.edf_march_grad(*args(ray_sets[i % n])),
-                         20)
+        worst = 0.0
+        for label, kw in (("record", dict(walk=walks[0])),
+                          ("no record", {})):
+            got = rx.edf_march_grad(*args(rays), **kw)
+            err_edf = float((got[0] - ref[0]).abs().max())
+            ok = err_edf <= GRAD_TOL * scale and float(ref[0].abs().sum()) > 0
+            err_rays = max([float((a - b).abs().max())
+                            for a, b in zip(got[1] or (), ref[1] or ())],
+                           default=0.0)
+            mism = sum(int((a != b).sum())
+                       for a, b in zip(got[1] or (), ref[1] or ()))
+            log(f"[{name}] edf_march_grad {variant} ({label}) vs autograd "
+                f"through the plain loop on {tuple(rays[0].shape)} rays: EDF "
+                f"gradient max abs err {err_edf} (largest |plain| {scale}, "
+                f"tolerance {GRAD_TOL} x max(1, that)); rays' gradients "
+                f"mismatches {mism}, max abs err {err_rays}")
+            check(ok and mism == 0, f"{name}: edf_march_grad {variant} "
+                  f"({label}) disagrees with autograd through the plain "
+                  "loop")
+            worst = max(worst, err_edf, err_rays)
+        errs["edf_march_grad"].append(worst)
+        grids[f"edf_march_grad {variant}"] = rx.persistent_grid(
+            "cuda", "edf_march_grad", variant, "warp")
+        recorded = lambda i: rx.edf_march_grad(*args(ray_sets[i % n]),
+                                               walk=walks[i % n])
+        unrecorded = lambda i: rx.edf_march_grad(*args(ray_sets[i % n]))
+        k_ms = timed_ms(recorded, 20)
+        u_ms = timed_ms(unrecorded, 20)
+        k2_ms = timed_ms(recorded, 20)
         res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
+               "ms_no_record": u_ms,
                **march_bound(track.edf, rays[0], trips, variant, rates,
                              grad=(True, ray_grad))}
         res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
         times["edf_march_grad"][f"{name} {variant}"] = res
         log(f"[{name}] edf_march_grad {variant}: {k_ms:.4f} / {k2_ms:.4f} "
-            f"ms vs plain {p_ms:.2f} ms ({GRAD_PLAIN_AGENTS}-agent blocks); "
-            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), share "
+            f"ms from the record, {u_ms:.4f} ms without it, vs plain "
+            f"{p_ms:.2f} ms "
+            f"({GRAD_PLAIN_AGENTS}-agent blocks); bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}), share "
             f"{res['share_of_bound']:.3f}")
+    log(f"[{name}] persistent grids, blocks of 256 threads over "
+        f"{rates['sms']} SMs: {grids}")
+    rates["march_grid"] = grids
 
 
 def march_phases(card, name, track, poses, rates, errs, times):
@@ -2321,8 +2420,8 @@ def run():
     # the unrolled main loop is the cheapest per test
     rates["sass_per_test"] = {k: min(lp["per_test"] for lp in v)
                               for k, v in sass.items() if k != "edf_march"}
-    rates["march_sass_per_trip"] = {
-        v: r["per_trip"] for v, r in sass.get("edf_march", {}).items()}
+    rates["march_sass"] = sass.get("edf_march", {})
+    rates["march_resources"] = march_resources()
     log(f"bounds: {OPS_PER_TEST} instruction slots per test over "
         f"{rates['sms']} SMs x {LANES_PER_SM} lanes x "
         f"{rates['sm_clock_max_mhz']:.0f} MHz (clocks.max.sm) = {rates['slots_per_s']:.4e} slots/s; HBM "

@@ -8,12 +8,13 @@ ray leaves the real map (max_range) or the range budget is spent. The JAX
 march is a fixed-trip ``lax.scan`` in which a stopped ray steps by zero.
 
 ``march_rays`` runs the hand-written kernels of ``csrc/edf_march.cu`` on
-CUDA tensors: ``edf_march``, in which each thread loops one ray's trips in
-registers until the ray stops and writes its range once, one launch a
-march, no host read; and, where autograd needs the march's gradient, its
-backward ``edf_march_grad`` (the ``torch.autograd.Function`` ``_March``),
-which marches each ray again and walks its trips backwards (the source
-says how). On CPU tensors the plain loop ``march_rays_plain`` runs under
+CUDA tensors: ``edf_march``, in which persistent warps loop each ray's
+trips in registers until the ray stops, write its range once and take the
+next rays (``REFILL``), one launch a march, no host read; and, where
+autograd needs the march's gradient, its backward ``edf_march_grad`` (the
+``torch.autograd.Function`` ``_March``), which walks each ray from the
+forward's record of its steps (``walk``), keeping its positions in shared
+memory, and back (the source says how). On CPU tensors the plain loop ``march_rays_plain`` runs under
 ordinary autograd. The plain loop is the kernels' reference: the march
 performs the same float32 operations in the same order, so the two agree
 bit for bit, and ``march_grad_plain`` (autograd through the plain loop) is
@@ -57,8 +58,21 @@ from .common import _constant, rays_from_poses
 _ALIVE_CHECK = 32   # trips between host reads of "is any ray still alive"
 # the kernel's variants (a template argument of csrc/edf_march.cu)
 VARIANTS = {"nearest": 0, "bilinear": 1, "bracket": 2}
-# the bilinear gradient's longest march: its checkpoints x its segment
+# the march's refill policies (the source's doc): the idle lanes at which
+# a warp takes new rays: "lane", as soon as one lane's ray has stopped;
+# "warp", when all 32 have (the faster on the H100 in all three variants
+# but berlin's bilinear march, PERF.md; the gradient's only policy)
+POLICIES = {"lane": 1, "warp": 32}
+REFILL = "warp"
+# the positions of a ray the bilinear gradient keeps (the kernel's kSlots;
+# 64 was faster than 32 on both bundled maps, PERF.md); a longer ray is
+# marched again from GRAD_SLOTS / 2 checkpoints
+GRAD_SLOTS = 64
+# the bilinear gradient's longest march (past (GRAD_SLOTS / 2) ** 2 steps
+# the re-marches grow with the length squared)
 MAX_GRAD_TRIPS = 64 * 32
+# the kernels index cells and rays in 32 bits
+INDEX_LIMIT = 2 ** 31 - 1
 
 
 class _MarchCounts(Mapping):
@@ -201,22 +215,67 @@ def _march_launch_args(name, edf, ox, oy, rays, max_iters, bounds_hw):
     views = [_as_rows(v) for v in rays]
     rows, cols = views[0].shape
     strides = [s for v in views for s in v.stride()]
+    extents = {"the map": hp * wp, "its bounds": max(h, w),
+               "the rays": rows * cols}
+    extents.update((f"ray tensor {k}'s last offset",
+                    (rows - 1) * v.stride(0) + (cols - 1) * v.stride(1))
+                   for k, v in enumerate(views))
+    for what, size in extents.items():
+        if size > INDEX_LIMIT:
+            raise ValueError(f"{name}: {what} reaches {size}, past the "
+                             f"kernel's 32-bit index limit ({INDEX_LIMIT})")
     return (rays[0].shape, (edf, hp, wp, h, w, ox, oy),
             (*views, *strides, rows, cols))
 
 
+def _policy(name, refill):
+    """The refill policy's code: ``refill`` or, for None, ``REFILL``."""
+    refill = REFILL if refill is None else refill
+    if refill not in POLICIES:
+        raise ValueError(f"{name}: refill must be one of "
+                         f"{', '.join(POLICIES)}, got {refill!r}")
+    return POLICIES[refill]
+
+
+def _record(name, v, shape, device, what):
+    """Check an int32 per-ray tensor (``ray_trips``, ``walk``)."""
+    if v is not None and (v.dtype != torch.int32 or v.shape != shape
+                          or v.device != device or not v.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a contiguous int32 "
+                         f"tensor of shape {tuple(shape)} on {device}")
+
+
+def persistent_grid(device, kernel: str, variant: str, refill=None) -> int:
+    """The blocks a launch of ``kernel`` ("edf_march" or
+    "edf_march_grad") in ``variant`` (and the march's ``refill``) starts
+    on ``device`` when it has enough rays: one wave, the SMs times the
+    blocks an SM holds."""
+    code = (VARIANTS[variant], _policy(kernel, refill))
+    with torch.cuda.device(device):
+        blocks = _kernels.kernel("edf_march_wave")(
+            int(kernel == "edf_march_grad"), *code)
+    if blocks <= 0:
+        raise RuntimeError(f"{kernel}: no persistent grid for {variant}")
+    return blocks
+
+
 def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
-              max_iters: int, bounds_hw, variant: str, ray_trips=None):
+              max_iters: int, bounds_hw, variant: str, ray_trips=None,
+              walk=None, refill=None):
     """The march of ``csrc/edf_march.cu`` on CUDA tensors of one broadcast
     shape S (``march_rays_plain``'s and ``raymarch_diff._march_nearest``'s
     arguments; ``ox``/``oy`` 0-dim float32 device tensors). ``variant``:
     "nearest" and "bilinear" return the clamped ranges (S), "bracket"
     returns (total, last, hit). ``ray_trips``: an int32 tensor of shape S
-    to receive each ray's trip count, or None. ``edf_march.launches``
-    counts kernel launches. No gradient (``march_rays`` has one)."""
+    to receive each ray's trip count, or None; ``walk``: one to receive
+    what ``edf_march_grad`` needs of each ray (its steps where its range
+    has a gradient, else -1), or None. ``refill``: the policy ("lane",
+    "warp"; None: ``REFILL``). ``edf_march.launches`` counts kernel
+    launches. No gradient (``march_rays`` has one)."""
     if variant not in VARIANTS:
         raise ValueError(f"edf_march: variant must be one of "
                          f"{', '.join(VARIANTS)}, got {variant!r}")
+    policy = _policy("edf_march", refill)
     shape, head, tail = _march_launch_args(
         "edf_march", edf, ox, oy, (x0, y0, cos_t, sin_t), max_iters,
         bounds_hw)
@@ -225,19 +284,16 @@ def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
     last = torch.empty_like(total) if bracket else None
     hit = torch.empty(shape, dtype=torch.bool, device=edf.device) \
         if bracket else None
-    if ray_trips is not None and (ray_trips.dtype != torch.int32
-                                  or ray_trips.shape != shape
-                                  or ray_trips.device != edf.device
-                                  or not ray_trips.is_contiguous()):
-        raise ValueError(f"edf_march: ray_trips must be a contiguous int32 "
-                         f"tensor of shape {tuple(shape)} on {edf.device}")
+    _record("edf_march", ray_trips, shape, edf.device, "ray_trips")
+    _record("edf_march", walk, shape, edf.device, "walk")
     if total.numel():
-        # the launch's own scratch for its trip count (the source's doc)
-        scratch = torch.zeros(2, dtype=torch.int64, device=edf.device)
-        _kernels.launch("edf_march", "edf_march", VARIANTS[variant],
+        # the launch's own scratch: its longest trip count, the warps that
+        # are done, the rays' cursor (the source's doc)
+        scratch = torch.zeros(3, dtype=torch.int64, device=edf.device)
+        _kernels.launch("edf_march", "edf_march", VARIANTS[variant], policy,
                         *head, float(inv_res), float(max_range), float(eps),
                         int(max_iters), *tail, total, last, hit, ray_trips,
-                        MARCH_COUNTS.counter(edf.device), scratch)
+                        walk, MARCH_COUNTS.counter(edf.device), scratch)
         edf_march.launches += 1
     return (total, last, hit) if bracket else total
 
@@ -248,14 +304,16 @@ _kernels.register(edf_march)
 
 def edf_march_grad(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
                    eps, max_iters: int, bounds_hw, interp: str, g,
-                   edf_grad: bool, ray_grad: bool):
+                   edf_grad: bool, ray_grad: bool, walk=None):
     """The gradient of ``edf_march``'s clamped ranges (variants "nearest"
     and "bilinear") by the kernel of ``csrc/edf_march.cu``, on CUDA
     tensors: ``g`` (shape S) is the ranges' cotangent. Returns (the EDF's
     gradient or None, (g_x0, g_y0, g_cos, g_sin) or None), each ray
     gradient of shape S; ``edf_grad`` and ``ray_grad`` say which to
     compute (the rays only for "bilinear", and with ``max_iters <=
-    MAX_GRAD_TRIPS``). ``march_grad_plain`` is its plain version.
+    MAX_GRAD_TRIPS``). ``walk``: ``edf_march``'s record of the same march
+    (the rays are walked once from it), or None (the kernel marches them
+    first). ``march_grad_plain`` is its plain version.
     ``edf_march_grad.launches`` counts kernel launches."""
     if interp not in ("nearest", "bilinear"):
         raise ValueError(f"edf_march_grad: interp must be 'nearest' or "
@@ -270,16 +328,19 @@ def edf_march_grad(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
     shape, head, tail = _march_launch_args(
         "edf_march_grad", edf, ox, oy, (x0, y0, cos_t, sin_t), max_iters,
         bounds_hw)
+    _record("edf_march_grad", walk, shape, edf.device, "walk")
     g = g.to(torch.float32).expand(shape).contiguous()
     g_edf = torch.zeros_like(edf) if edf_grad else None
     g_rays = tuple(torch.empty(shape, dtype=torch.float32,
                                device=edf.device) for _ in range(4)) \
         if ray_grad else (None,) * 4
     if g.numel() and (edf_grad or ray_grad):
+        cursor = torch.zeros(1, dtype=torch.int64, device=edf.device)
         _kernels.launch("edf_march_grad", "edf_march_grad",
-                        VARIANTS[interp], *head, float(inv_res),
-                        float(max_range), float(eps), int(max_iters), *tail,
-                        g, g_edf, *g_rays)
+                        VARIANTS[interp], POLICIES["warp"], *head,
+                        float(inv_res), float(max_range), float(eps),
+                        int(max_iters), *tail, g, g_edf, *g_rays, walk,
+                        cursor)
         edf_march_grad.launches += 1
     elif ray_grad:
         g_rays = tuple(v.zero_() for v in g_rays)
@@ -313,25 +374,31 @@ def march_grad_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
 
 class _March(torch.autograd.Function):
     """``edf_march`` with ``edf_march_grad`` as its backward, in (edf, x0,
-    y0, cos_t, sin_t)."""
+    y0, cos_t, sin_t). With ``record`` the forward keeps the march's
+    ``walk`` record of each ray for the backward."""
 
     @staticmethod
     def forward(ctx, edf, x0, y0, cos_t, sin_t, inv_res, ox, oy, max_range,
-                eps, max_iters, interp, bounds_hw):
-        ctx.save_for_backward(edf, x0, y0, cos_t, sin_t, ox, oy)
+                eps, max_iters, interp, bounds_hw, record):
+        walk = torch.empty(torch.broadcast_shapes(x0.shape, y0.shape,
+                                                  cos_t.shape, sin_t.shape),
+                           dtype=torch.int32, device=edf.device) \
+            if record else None
+        ctx.save_for_backward(edf, x0, y0, cos_t, sin_t, ox, oy, walk)
         ctx.consts = (inv_res, max_range, eps, max_iters, bounds_hw, interp)
         return edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t,
-                         max_range, eps, max_iters, bounds_hw, interp)
+                         max_range, eps, max_iters, bounds_hw, interp,
+                         walk=walk)
 
     @staticmethod
     def backward(ctx, g):
-        edf, x0, y0, cos_t, sin_t, ox, oy = ctx.saved_tensors
+        edf, x0, y0, cos_t, sin_t, ox, oy, walk = ctx.saved_tensors
         inv_res, max_range, eps, max_iters, bounds_hw, interp = ctx.consts
         g_edf, g_rays = edf_march_grad(
             edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
             max_iters, bounds_hw, interp, g, ctx.needs_input_grad[0],
-            any(ctx.needs_input_grad[1:5]))
-        return (g_edf, *(g_rays or (None,) * 4)) + (None,) * 8
+            any(ctx.needs_input_grad[1:5]), walk=walk)
+        return (g_edf, *(g_rays or (None,) * 4)) + (None,) * 9
 
 
 def march_rays_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
@@ -397,8 +464,10 @@ def march_rays(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
                          "the card")
     if interp == "nearest":     # its range has no gradient in the rays
         rays = tuple(v.detach() for v in rays)
+    record = torch.is_grad_enabled() and any(
+        v.requires_grad for v in (edf, *rays))
     return _March.apply(edf, *rays, inv_res, ox, oy, max_range, eps,
-                        max_iters, interp, bounds_hw)
+                        max_iters, interp, bounds_hw, record)
 
 
 def scan_poses(edf, resolution, origin_xy, poses, num_beams: int = 1080,

@@ -398,16 +398,53 @@ def test_graphed_rollout_policy_that_depends_on_t(cuda):
 
 # -- the EDF march ------------------------------------------------------------
 
-def _march_case(cuda, case):
+def _edge_case(rng, nan):
+    """(edf (64, 2200) at 5 mm, origin, bounds, rays (4 x (n,))): a field
+    of 5 mm (one cell a step) with a wall from column 2100, and 300,001
+    rays (not a multiple of 32, and more than one persistent wave takes,
+    so that warps refill from the cursor): first one ray from every
+    column along the middle row, nearly along +x, so that the steps
+    before the wall or the 10 m range run through every count from 1 to
+    about 2000 (a ray of exactly ``GRAD_SLOTS`` and ``GRAD_SLOTS + 1``
+    steps among them, and rays of more than (GRAD_SLOTS / 2) ** 2 steps,
+    whose segments are marched again in parts); then origins at
+    |gx| > 2 ** 31 cells, and
+    with ``nan`` NaN ones (the plain bilinear march gathers at a NaN
+    position's taps: it has no value there); then random rays anywhere in
+    and around the map."""
+    edf = np.full((64, 2200), 0.005, np.float32)
+    edf[:, 2100:] = 0.0
+    n, k = 300_001, 2100
+    x = rng.uniform(-0.1, 11.1, n).astype(np.float32)
+    y = rng.uniform(-0.05, 0.37, n).astype(np.float32)
+    th = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    x[:k] = (np.arange(k) + 0.5) * 0.005
+    y[:k] = 0.1625
+    th[:k] = rng.uniform(-0.002, 0.002, k)
+    x[k:k + 6] = [3e7, -3e7, np.nan if nan else 4e9, 0.5,
+                  np.nan if nan else -4e9, np.inf]
+    y[k:k + 6] = [0.15, 0.15, 0.15, np.nan if nan else 3e7,
+                  np.nan if nan else -3e7, 0.15]
+    th[k:k + 6] = 0.0
+    return edf, (0.0, 0.0), (64, 2200), (x, y, np.cos(th), np.sin(th))
+
+
+def _march_case(cuda, case, nan=True):
     """(edf, inv_res, ox, oy, rays (4 x (A, B)), bounds) on the card:
     "random", the corridor map with origins anywhere in and around it
     (some start outside the map, some in a wall) and random directions;
     "levine", the bundled map's fan of 1080 beams from 48 free poses, 8
-    poses outside the map and 8 in walls."""
+    poses outside the map and 8 in walls; "edges", ``_edge_case`` (NaN
+    origins with ``nan``)."""
     from pyracecarsimulator_tpu_torch.maps import (load_builtin,
                                                    sample_free_poses)
     from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
     rng = np.random.RandomState(5)
+    if case == "edges":
+        edf, org, hw, rays = _edge_case(rng, nan)
+        org = torch.tensor(org, device=cuda)
+        return (torch.tensor(edf, device=cuda), 200.0, org[0], org[1],
+                [torch.tensor(v, device=cuda) for v in rays], hw)
     if case == "random":
         track, _ = _corridor(16, 2.0)
         n = 3000
@@ -432,22 +469,26 @@ def _march_case(cuda, case):
             rays, (track.height, track.width))
 
 
-@pytest.mark.parametrize("case", ["random", "levine"])
+@pytest.mark.parametrize("refill", ["lane", "warp"])
+@pytest.mark.parametrize("case", ["random", "levine", "edges"])
 @pytest.mark.parametrize("variant", ["nearest", "bilinear", "bracket"])
-def test_edf_march_matches_plain(cuda, variant, case):
-    """Each variant against its plain loop on the same tensors, bit for
-    bit: ranges, and for the bracket ``last`` and ``hit``; with 200 trips
-    and with 3, which cuts rays off; each ray's trips within the count;
-    one launch a march."""
+def test_edf_march_matches_plain(cuda, variant, case, refill):
+    """Each variant, in both refill policies, against its plain loop on
+    the same tensors, bit for bit: ranges, and for the bracket ``last``
+    and ``hit``; with 200 trips (2048, ``MAX_GRAD_TRIPS``, on "edges") and
+    with 3, which cuts rays off; each ray's trips within the count; one
+    launch a march."""
     from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
-    edf, inv, ox, oy, rays, hw = _march_case(cuda, case)
-    for max_iters in (200, 3):
+    edf, inv, ox, oy, rays, hw = _march_case(cuda, case,
+                                             nan=variant != "bilinear")
+    for max_iters in ((rx.MAX_GRAD_TRIPS, 3) if case == "edges"
+                      else (200, 3)):
         tail = (10.0, 1e-4, max_iters)
         trips = torch.zeros(rays[0].shape, dtype=torch.int32, device=cuda)
         before = rx.edf_march.launches
         got = rx.edf_march(edf, inv, ox, oy, *rays, *tail, hw, variant,
-                           ray_trips=trips)
+                           ray_trips=trips, refill=refill)
         torch.cuda.synchronize()
         assert rx.edf_march.launches == before + 1
         if variant == "bracket":
@@ -462,34 +503,51 @@ def test_edf_march_matches_plain(cuda, variant, case):
             ranges = got
         assert 1 <= int(trips.min()) and int(trips.max()) <= max_iters
         assert bool((ranges < 10.0).any()) and bool((ranges >= 10.0).any())
+        if case == "edges" and max_iters > 3:
+            # rays of exactly GRAD_SLOTS and GRAD_SLOTS + 1 steps (a hit
+            # takes one trip more than its steps), and far longer ones
+            hits = set(trips[:2100].tolist())
+            assert {rx.GRAD_SLOTS + 1, rx.GRAD_SLOTS + 2} <= hits
+            assert max(hits) > (rx.GRAD_SLOTS // 2) ** 2 + 1
 
 
-@pytest.mark.parametrize("case", ["random", "levine"])
+@pytest.mark.parametrize("case", ["random", "levine", "edges"])
 @pytest.mark.parametrize("interp", ["nearest", "bilinear"])
 def test_edf_march_grad_matches_plain(cuda, interp, case):
     """The march's gradient against autograd through the plain loop on the
-    same tensors, with 200 trips and with 3: the rays' gradients (bilinear)
-    bit for bit, the EDF's within 1e-4 x max(1, the largest |plain|) (the
-    kernel adds with atomics, autograd's scatter in another order); one
-    launch a gradient; ``march_rays`` under autograd takes it."""
+    same tensors, with 200 trips and with 3 (on "edges" also 2048,
+    ``MAX_GRAD_TRIPS``, on its first 4096 rays: autograd keeps every
+    trip's tensors), without the march's record and from it: the rays'
+    gradients (bilinear) bit for bit, the EDF's within 1e-4 x max(1, the
+    largest |plain|) (the kernel adds with atomics, autograd's scatter in
+    another order); one launch a gradient; ``march_rays`` under autograd
+    takes it."""
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
-    edf, inv, ox, oy, rays, hw = _march_case(cuda, case)
+    edf, inv, ox, oy, rays, hw = _march_case(cuda, case,
+                                             nan=interp != "bilinear")
     gen = torch.Generator(device=cuda).manual_seed(3)
     g = torch.rand(rays[0].shape, generator=gen, device=cuda) + 0.5
     ray_grad = interp == "bilinear"
-    for max_iters in (200, 3):
-        args = (edf, inv, ox, oy, *rays, 10.0, 1e-4, max_iters, hw, interp,
-                g, True, ray_grad)
-        before = rx.edf_march_grad.launches
-        got = rx.edf_march_grad(*args)
-        assert rx.edf_march_grad.launches == before + 1
+    runs = [(200, None), (3, None)]
+    if case == "edges":
+        runs.insert(0, (rx.MAX_GRAD_TRIPS, 4096))
+    for max_iters, first in runs:
+        rs = [v[:first] for v in rays]
+        args = (edf, inv, ox, oy, *rs, 10.0, 1e-4, max_iters, hw, interp,
+                g[:first], True, ray_grad)
+        walk = torch.empty(rs[0].shape, dtype=torch.int32, device=cuda)
+        rx.edf_march(*args[:12], interp, walk=walk)
         ref = rx.march_grad_plain(*args)
         scale = max(1.0, float(ref[0].abs().max()))
-        assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * scale
         assert float(ref[0].abs().sum()) > 0
-        assert (got[1] is None) == (not ray_grad)
-        for a, b in zip(got[1] or (), ref[1] or ()):
-            assert torch.equal(a, b)
+        for kw in ({}, dict(walk=walk)):
+            before = rx.edf_march_grad.launches
+            got = rx.edf_march_grad(*args, **kw)
+            assert rx.edf_march_grad.launches == before + 1
+            assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * scale
+            assert (got[1] is None) == (not ray_grad)
+            for a, b in zip(got[1] or (), ref[1] or ()):
+                assert torch.equal(a, b)
     leaves = [edf.clone().requires_grad_(True)] + [
         v.clone().requires_grad_(ray_grad) for v in rays]
     org = torch.stack([ox, oy])

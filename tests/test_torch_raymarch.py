@@ -307,7 +307,7 @@ def _stand_ins(monkeypatch, calls):
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
 
     def kernel(edf, inv_res, ox, oy, x, y, c, s, max_range, eps, max_iters,
-               bounds_hw, variant, ray_trips=None):
+               bounds_hw, variant, ray_trips=None, walk=None):
         calls.append((variant, x.stride(), y.stride()))
         with torch.no_grad():
             if variant == "bracket":
@@ -318,7 +318,7 @@ def _stand_ins(monkeypatch, calls):
                                        max_range, eps, max_iters, variant,
                                        bounds_hw)
 
-    def grad(*args):
+    def grad(*args, walk=None):
         calls.append(("grad",) + args[-2:])
         return rx.march_grad_plain(*args)
 
@@ -472,3 +472,161 @@ def test_march_counts_add_the_device_counters():
     assert dict(counts) == {"calls": 5, "trips": 214}
     assert counts.counter(torch.device("cpu")) is c
     assert set(rx.MARCH_COUNTS) == {"calls", "trips"}
+
+
+def _edge_rays():
+    """(edf (64, 2200) at 5 mm, origin, bounds, rays (4 x (n,)), their
+    resolution): a field of 5 mm (one cell a step) with a wall from column
+    2100, one ray from every column along the middle row, nearly along
+    +x, whose steps before the wall or the 10 m range run through every
+    count from 1 to about 2000, and rays from |gx| > 2 ** 31 cells (the
+    card's tests add NaN origins and 300,001 rays:
+    tests/test_torch_kernels.py::_edge_case)."""
+    rng = np.random.RandomState(5)
+    edf = np.full((64, 2200), 0.005, np.float32)
+    edf[:, 2100:] = 0.0
+    k = 2100
+    x = np.concatenate([(np.arange(k) + 0.5) * 0.005, [3e7, -3e7, 0.5]])
+    y = np.concatenate([np.full(k, 0.1625), [0.15, 0.15, 3e7]])
+    th = np.concatenate([rng.uniform(-0.002, 0.002, k), [0.0, 0.0, 0.0]])
+    rays = [v.astype(np.float32) for v in (x, y, np.cos(th), np.sin(th))]
+    return edf, np.zeros(2, np.float32), (64, 2200), rays, 0.005
+
+
+def test_plain_march_matches_jax_on_edge_rays():
+    """The edge rays of the card's tests, 2048 trips (``MAX_GRAD_TRIPS``):
+    the port's plain march against the JAX march to the tolerance of
+    ``test_nearest_march_matches_jax_on_shared_rays``; the far origins
+    read max_range in both."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    edf, org, hw, rays, res = _edge_rays()
+    kw = dict(max_range=10.0, max_iters=rx.MAX_GRAD_TRIPS, bounds_hw=hw)
+    ref = np.asarray(jmarch(jnp.asarray(edf), res, jnp.asarray(org),
+                            *map(jnp.asarray, rays), **kw))
+    got = pmarch(T(edf), res, T(org), *map(T, rays), **kw).numpy()
+    d = np.abs(got - ref)
+    assert np.mean(d <= 1e-4) >= 0.995, np.mean(d <= 1e-4)
+    assert d.max() < 3 * res
+    assert (got[-3:] == 10.0).all() and (ref[-3:] == 10.0).all()
+    assert got[:-3].min() < 1.0 and (got[:-3] == 10.0).any()
+
+
+def _recording_launch(monkeypatch, calls):
+    """``_kernels.launch`` replaced by a recorder of (entry, args) that
+    writes the march's outputs (zero ranges, a record counting up) and
+    leaves the gradient's zeroed ones."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+
+    def launch(name, entry, *args):
+        calls.append((entry, args))
+        if entry == "edf_march":
+            args[-7].zero_()
+            if args[-3] is not None:
+                args[-3].copy_(torch.arange(args[-3].numel(),
+                                            dtype=torch.int32)
+                               .reshape(args[-3].shape))
+        elif args[-5] is not None:
+            for v in args[-6:-2]:
+                v.zero_()
+
+    monkeypatch.setattr(_kernels, "on_cuda", lambda name, ref: True)
+    monkeypatch.setattr(_kernels, "launch", launch)
+
+
+def test_march_wrapper_launch_arguments(monkeypatch):
+    """What the wrappers hand the kernels (the launch recorded): the
+    variant and the refill policy (the march's ``REFILL`` by default, the
+    gradient's always "warp"), a zeroed 3-word scratch a march (its
+    longest trips, its warps done, the rays' cursor) and a zeroed cursor a
+    gradient, and the record ``walk``; the kernel keeps ``GRAD_SLOTS``
+    positions a ray; a wrong policy or record raises."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    calls = []
+    _recording_launch(monkeypatch, calls)
+    edf = torch.ones(8, 8)
+    o = torch.zeros(2)
+    rays = [torch.zeros(3, 4) for _ in range(4)]
+    head = (edf, 20.0, o[0], o[1], *rays, 10.0, 1e-4, 8, None)
+    walk = torch.zeros(3, 4, dtype=torch.int32)
+    rx.edf_march(*head, "bilinear", walk=walk)
+    rx.edf_march(*head, "bracket", refill="warp")
+    (entry, a), (_, b) = calls
+    assert entry == "edf_march" and a[:2] == (1, rx.POLICIES[rx.REFILL])
+    assert b[:2] == (2, rx.POLICIES["warp"])
+    for args in (a, b):
+        scratch = args[-1]
+        assert scratch.dtype == torch.int64 and scratch.tolist() == [0] * 3
+    assert a[-3] is walk and b[-3] is None
+    assert rx.MARCH_COUNTS.counter(edf.device) is a[-2]
+    g = torch.ones(3, 4)
+    rx.edf_march_grad(*head, "bilinear", g, True, True, walk=walk)
+    src = (_kernels.CSRC_DIR / "edf_march.cu").read_text()
+    assert f"constexpr int kSlots = {rx.GRAD_SLOTS};" in src
+    entry, c = calls[2]
+    assert entry == "edf_march_grad" and c[:2] == (1, rx.POLICIES["warp"])
+    assert c[-2] is walk
+    assert c[-1].dtype == torch.int64 and c[-1].tolist() == [0]
+    with pytest.raises(ValueError, match="refill"):
+        rx.edf_march(*head, "nearest", refill="block")
+    for bad in (walk.to(torch.int64), walk[:2], walk.t()):
+        with pytest.raises(ValueError, match="walk"):
+            rx.edf_march(*head, "nearest", walk=bad)
+        with pytest.raises(ValueError, match="walk"):
+            rx.edf_march_grad(*head, "nearest", g, True, False, walk=bad)
+
+
+def test_march_wrapper_32_bit_limit(monkeypatch):
+    """A map, bounds, a ray count or a ray tensor's last offset past
+    2 ** 31 - 1 raises, naming the 32-bit limit, before any launch (meta
+    tensors: no memory)."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    monkeypatch.setattr(_kernels, "on_cuda", lambda name, ref: True)
+    meta = dict(device="meta", dtype=torch.float32)
+    o = torch.zeros(2, **meta)
+    small = torch.empty(16, 16, **meta)
+    rays = [torch.empty(3, 4, **meta) for _ in range(4)]
+    wide = torch.empty(1, **meta).expand(2 ** 16, 2 ** 16)
+    far = torch.empty(1, **meta).as_strided((3, 4), (2 ** 30, 1))
+
+    def run(edf=small, rays=rays, bounds=None):
+        args = (edf, 20.0, o[0], o[1], *rays, 10.0, 1e-4, 8, bounds)
+        with pytest.raises(ValueError, match="32-bit index limit"):
+            rx.edf_march(*args, "nearest")
+        with pytest.raises(ValueError, match="32-bit index limit"):
+            rx.edf_march_grad(*args, "bilinear", rays[0], True, True)
+
+    run(edf=torch.empty(2 ** 16, 2 ** 15, **meta))
+    run(bounds=(2 ** 31, 16))
+    run(rays=[wide] * 4)
+    run(rays=[far] + rays[1:])
+    assert rx.INDEX_LIMIT == 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_march_forward_saves_the_record_for_the_backward(monkeypatch,
+                                                         interp):
+    """Under autograd ``march_rays``'s forward has the march write its
+    record (``walk``: int32, one per ray) and saves it; the backward hands
+    the gradient kernel that very tensor. Without autograd no record."""
+    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    calls = []
+    _recording_launch(monkeypatch, calls)
+    edf = torch.ones(8, 8, requires_grad=True)
+    rays = [torch.zeros(3, 4, requires_grad=interp == "bilinear")
+            for _ in range(4)]
+    r = rx.march_rays(edf, 0.05, (0.0, 0.0), *rays, max_iters=8,
+                      interp=interp)
+    (entry, fwd), = calls
+    walk = fwd[-3]
+    assert entry == "edf_march" and walk.dtype == torch.int32
+    assert walk.shape == (3, 4) and walk.tolist() == \
+        torch.arange(12).reshape(3, 4).tolist()
+    r.sum().backward()
+    entry, bwd = calls[1]
+    assert entry == "edf_march_grad" and bwd[-2] is walk
+    with torch.no_grad():
+        rx.march_rays(edf, 0.05, (0.0, 0.0), *rays, max_iters=8,
+                      interp=interp)
+    assert calls[2][1][-3] is None
