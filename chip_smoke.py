@@ -38,10 +38,9 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 10. per map, the EDF march kernel ``edf_march`` against its plain
     PyTorch loops on the card on the full 4096 x 1080 fan, in its three
     variants (nearest, bilinear, bracket: 0 mismatches on the ranges, and
-    on ``last`` and ``hit``) and both refill policies, with per-ray trips
+    on ``last`` and ``hit``), with per-ray trips
     (sum, percentiles, and the warp- and block-level trips one ray a
-    thread would take), time in both policies in turns, plain time and
-    bound; its gradient ``edf_march_grad`` (nearest: the EDF's; bilinear:
+    thread would take), time, plain time and bound; its gradient ``edf_march_grad`` (nearest: the EDF's; bilinear:
     the EDF's and the rays') against autograd through the plain loop on
     the same fan (the plain run in blocks of 512 agents), from the
     march's record in both policies and without it: the rays' gradients
@@ -472,33 +471,25 @@ def innermost_loops(sass):
 
 
 def march_sass(sass):
-    """What each march function's loop issues (one function per variant
-    and refill policy, the template arguments in its name): the innermost
-    loop that gathers (LDG). The persistent loop makes one trip a pass, so
-    its instructions are a trip's plus the refill and write-out paths that
-    a pass takes only when a ray stops: an upper bound of a trip's. A
-    reading beside the bound, which counts the function's operations."""
-    from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
+    """What a trip of each variant's march loop issues: per function of
+    the march kernel (one per variant, the template argument in its name),
+    the innermost loop that gathers (LDG), one trip a pass. A reading
+    beside the bound, which counts the function's operations."""
     out = {}
-    names = {f"ILi{i}ELi{p}EE": (v, refill)
-             for i, v in enumerate(MARCH_VARIANTS)
-             for refill, p in rx.POLICIES.items()}
+    names = {f"ILi{i}E": v for i, v in enumerate(MARCH_VARIANTS)}
     for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
         head = fn.splitlines()[0]
-        key = next((k for n, k in names.items() if n in head), None)
+        variant = next((v for k, v in names.items() if k in head), None)
         loops = [b for b in innermost_loops("Function : " + fn)
                  if "LDG" in b]
-        if "edf_march_kernel" not in head or key is None or not loops:
+        if "edf_march_kernel" not in head or variant is None or not loops:
             continue
         body = max(loops, key=len)
-        variant, refill = key
-        out.setdefault(variant, {})[refill] = {
-            "instructions": len(body),
-            "mix": {o: body.count(o) for o in sorted(set(body))}}
-        log(f"edf_march {variant}, refill {refill}: SASS loop of "
-            f"{len(body)} instructions a pass (a trip, the refill and the "
-            f"write-out; the function needs {MARCH_OPS_PER_TRIP[variant]} a "
-            f"trip) {out[variant][refill]['mix']}")
+        out[variant] = {"instructions": len(body),
+                        "mix": {o: body.count(o) for o in sorted(set(body))}}
+        log(f"edf_march {variant}: SASS loop of {len(body)} instructions a "
+            f"trip (the function needs {MARCH_OPS_PER_TRIP[variant]}) "
+            f"{out[variant]['mix']}")
     return out
 
 
@@ -717,8 +708,7 @@ def march_resources():
     out = {}
     for chunk in re.split(r"Function (?:properties for )?", text)[1:]:
         name = chunk.split()[0].rstrip(":")
-        m = re.search(r"edf_march(_grad)?_kernelILi(\d)E(?:Li(\d+)E)?E",
-                      name)
+        m = re.search(r"edf_march(_grad)?_kernelILi(\d)EE", name)
         if not m:
             continue
 
@@ -728,11 +718,8 @@ def march_resources():
                 if hit:
                     return int(hit.group(1))
             return None
-        policy = {v: k for k, v in rx.POLICIES.items()}.get(
-            int(m.group(3) or 0), m.group(3))
-        label = " ".join(str(w) for w in (
-            f"edf_march{m.group(1) or ''}",
-            list(MARCH_VARIANTS)[int(m.group(2))], policy or "") if w)
+        label = (f"edf_march{m.group(1) or ''} "
+                 f"{list(MARCH_VARIANTS)[int(m.group(2))]}")
         res = {"registers": field(r"REG:(\d+)", r"Used (\d+) registers"),
                "stack": field(r"STACK:(\d+)", r"(\d+) bytes stack frame"),
                "spill_stores": field(r"(\d+) bytes spill stores"),
@@ -793,16 +780,16 @@ def march_bound(edf, xb, trips, variant, rates, grad=None):
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
     sass = rates.get("march_sass", {}).get(variant)
     if grad is None and sass:
-        out["sass_loop_instructions"] = {k: v["instructions"]
-                                         for k, v in sass.items()}
+        out["sass_per_trip"] = sass["instructions"]
+        out["compiled_slots_ms"] = (ray_trips * sass["instructions"]
+                                    / rates["slots_per_s"] * 1e3)
     return out
 
 
 def march_kernel_checks(name, track, poses, rates, errs, times):
     """10: ``edf_march`` against its plain loops on the card, the full
-    4096 x 1080 fan of ``poses``, all three variants and both refill
-    policies: 0 mismatches; each variant's time in both policies, in turns
-    (the port's ``REFILL`` first), plain time and bound. Then
+    4096 x 1080 fan of ``poses``, all three variants: 0 mismatches; each
+    variant's time, plain time and bound. Then
     ``edf_march_grad`` against autograd through the plain loop on the same
     fan, nearest and bilinear, from the march's record (the backward's
     path) and without it: the rays' gradients bit for bit, the EDF's
@@ -821,7 +808,6 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
     ray_sets = [rays_from_poses(q, BEAMS, FOV)[2:] for q in pose_sets(poses)]
     head = (track.edf, 1.0 / track.resolution, ox, oy)
     n = len(ray_sets)
-    refills = [rx.REFILL] + [p for p in rx.POLICIES if p != rx.REFILL]
 
     def plain(variant, rays):
         if variant == "bracket":
@@ -829,17 +815,9 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
         return rx.march_rays_plain(*head, *rays, *tail[:3], variant,
                                    tail[3])
 
-    def kernel(variant, rays, ray_trips=None, walk=None, refill=None):
+    def kernel(variant, rays, ray_trips=None, walk=None):
         return rx.edf_march(*head, *rays, *tail, variant,
-                            ray_trips=ray_trips, walk=walk, refill=refill)
-
-    def in_turns(fn, reps):
-        """ms of ``fn(i, refill)`` for each policy, twice, in turns."""
-        got = {p: [] for p in refills}
-        for _ in range(2):
-            for p in refills:
-                got[p].append(timed_ms(lambda i: fn(i, p), reps))
-        return got
+                            ray_trips=ray_trips, walk=walk)
 
     grids = {}
     for variant in MARCH_VARIANTS:
@@ -847,37 +825,33 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
         trips = torch.zeros(rays[0].shape, dtype=torch.int32, device="cuda")
         ref = plain(variant, rays)
         ref = (ref,) if torch.is_tensor(ref) else ref
-        for refill in refills:
-            got = kernel(variant, rays, trips, refill=refill)
-            torch.cuda.synchronize()
-            got = (got,) if torch.is_tensor(got) else got
-            mism = [int((a != b).sum()) for a, b in zip(got, ref)]
-            err = max(float((a.double() - b.double()).abs().max())
-                      for a, b in zip(got, ref) if a.dtype == torch.float32)
-            log(f"[{name}] edf_march {variant} ({refill}) vs plain on "
-                f"{tuple(got[0].shape)} rays: mismatches "
-                f"{dict(zip(('total', 'last', 'hit'), mism))}, max abs err "
-                f"= {err}")
-            check(not any(mism), f"{name}: edf_march {variant} ({refill}) "
-                  "disagrees with its plain version")
-            errs["edf_march"].append(err)
-            grids[f"edf_march {variant} {refill}"] = rx.persistent_grid(
-                "cuda", "edf_march", variant, refill)
-        by_refill = in_turns(lambda i, p: kernel(variant, ray_sets[i % n],
-                                                 refill=p), 50)
+        got = kernel(variant, rays, trips)
+        torch.cuda.synchronize()
+        got = (got,) if torch.is_tensor(got) else got
+        mism = [int((a != b).sum()) for a, b in zip(got, ref)]
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, ref) if a.dtype == torch.float32)
+        log(f"[{name}] edf_march {variant} vs plain on "
+            f"{tuple(got[0].shape)} rays: mismatches "
+            f"{dict(zip(('total', 'last', 'hit'), mism))}, max abs err = "
+            f"{err}")
+        check(not any(mism), f"{name}: edf_march {variant} disagrees with "
+              "its plain version")
+        errs["edf_march"].append(err)
+        grids[f"edf_march {variant}"] = rx.persistent_grid(
+            "cuda", "edf_march", variant)
+        k_ms = timed_ms(lambda i: kernel(variant, ray_sets[i % n]), 50)
         p_ms = timed_ms(lambda i: plain(variant, ray_sets[i % n]), 2,
                         warmup=1)
-        k_ms, k2_ms = by_refill[rx.REFILL]
+        k2_ms = timed_ms(lambda i: kernel(variant, ray_sets[i % n]), 50)
         res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
-               "ms_by_refill": by_refill,
                **march_bound(track.edf, rays[0], trips, variant, rates)}
         res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
         times["edf_march"][f"{name} {variant}"] = res
-        log(f"[{name}] edf_march {variant}: {k_ms:.4f} / {k2_ms:.4f} ms "
-            f"({rx.REFILL}; by policy {by_refill}) vs plain {p_ms:.2f} ms; "
-            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), share "
-            f"{res['share_of_bound']:.3f}; trips per ray "
-            f"{res['ray_trips'] / rays[0].numel():.2f}, percentiles "
+        log(f"[{name}] edf_march {variant}: {k_ms:.4f} / {k2_ms:.4f} ms vs "
+            f"plain {p_ms:.2f} ms; bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}), share {res['share_of_bound']:.3f}; trips "
+            f"per ray {res['ray_trips'] / rays[0].numel():.2f}, percentiles "
             f"{res['trip_percentiles']}; one ray a thread: warp-level / "
             f"per-ray {res['warp_trips'] / res['ray_trips']:.3f}, "
             f"block-level / per-ray "
@@ -940,7 +914,7 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
             worst = max(worst, err_edf, err_rays)
         errs["edf_march_grad"].append(worst)
         grids[f"edf_march_grad {variant}"] = rx.persistent_grid(
-            "cuda", "edf_march_grad", variant, "warp")
+            "cuda", "edf_march_grad", variant)
         recorded = lambda i: rx.edf_march_grad(*args(ray_sets[i % n]),
                                                walk=walks[i % n])
         unrecorded = lambda i: rx.edf_march_grad(*args(ray_sets[i % n]))

@@ -74,17 +74,13 @@
 //
 // Work distribution: persistent warps. A launch has about one wave of
 // blocks (the SMs times the blocks an SM holds, from the occupancy API,
-// computed once per kernel, device and shared-memory size). A block takes
-// groups of kGroup chunks of 32 consecutive rays (512 neighbouring beams)
-// from a cursor in the launch's zeroed scratch, one atomicAdd a group,
-// and hands their chunks to its warps through shared memory, so that the
-// warps of an SM gather near each other (L1 hits). The march's policy P:
-// at kWarpRefill a warp takes 32 new rays when all its lanes have stopped,
-// and each lane trips until its own ray stops; below it, a warp refills
-// its stopped lanes once P are idle (ranked by a ballot, so neighbouring
-// lanes keep neighbouring beams), its lanes tripping together until one
-// stops. The gradient refills whole warps. No block barrier: a block no
-// longer waits for its longest ray.
+// computed once per kernel and device). A block takes groups of kGroup
+// chunks of 32 consecutive rays (512 neighbouring beams) from a cursor in
+// the launch's zeroed scratch, one atomicAdd a group, and hands their
+// chunks to its warps through shared memory, so that the warps of an SM
+// gather near each other (L1 hits). A warp takes a chunk, one ray a lane,
+// when all its lanes are done, and each lane runs its ray to its end. No
+// block barrier: a block no longer waits for its longest ray.
 //
 // Inputs: the ray tensors are read through their strides as (rows, cols)
 // views, so the scan's expanded origin views (one origin per agent, stride
@@ -113,21 +109,21 @@
 // instruction, the reference's arithmetic unchanged (no incremental gx:
 // it rounds differently); persistent warps (a block of one ray a thread
 // held its SM's slot as long as its longest ray); block-shared groups of
-// rays for L1 locality. Refilling single lanes measured slower than whole
-// warps (each refill costs a ray load and a pass of bookkeeping) but on
-// berlin's bilinear march, so the wrapper's default refills warps. The
+// rays for L1 locality. Refilling single lanes as their rays stop, the
+// lanes tripping together until one stops, measured slower than whole
+// warps in every variant on both maps (each refill costs a ray load and a
+// pass of bookkeeping; PERF.md), so the warps refill whole. The
 // gradient: it marched every ray twice and kept its trips in 768 bytes of
 // local memory a thread (checkpoints and a segment indexed at run time);
 // it now walks each ray forward once from the record, keeps 64 positions
 // a thread, and adds the taps of the lanes that share a cell once per cell
-// (__match_any_sync, then a tree sum over the group's lanes in rank order:
-// atomics were a third of its time on levine). The positions live in
-// local memory: in shared memory (32 a thread, threadIdx-strided) the
-// kernel measured slower, on berlin slower than the two marches it
-// replaces, because the 64 KB a block takes from the SM's 256 KB of L1 and
-// shared memory are the gathers' L1 (PERF.md). Refilling lanes in the
-// gradient, one pass of forward or reverse trips at a time, measured
-// slower than whole warps. Considered and left out: texture
+// (__match_any_sync, then a tree sum over the group's lanes in rank
+// order). The positions live in local memory: in shared memory (32 a
+// thread, threadIdx-strided) the kernel measured slower, on berlin slower
+// than the two marches it replaces, because the 64 KB a block takes from
+// the SM's 256 KB of L1 and shared memory are the gathers' L1. Refilling
+// lanes in the gradient, one pass of forward or reverse trips at a time,
+// measured slower than whole warps. Considered and left out: texture
 // sampling (8-bit interpolation weights: not the function), a blocked EDF
 // layout, fusing _refine into the bracket, TMA or shared-memory tiles of
 // the EDF (the gathers depend on the data, and neither map's EDF fits in
@@ -150,9 +146,6 @@ constexpr int kGroup = 16;  // chunks a block takes from the cursor at once
 constexpr int kNearest = 0;
 constexpr int kBilinear = 1;
 constexpr int kBracket = 2;
-// the march's refill: below kWarpRefill, a warp refills its stopped lanes
-// once that many are idle; at kWarpRefill, when all 32 are
-constexpr int kWarpRefill = 32;
 // the march's blocks an SM holds at least (so at most 40 registers a
 // thread: without it ptxas holds the march to 32 and spills)
 constexpr int kMarchBlocks = 6;
@@ -343,18 +336,16 @@ __device__ __forceinline__ bool queue_open(const Queue& q) {
   return q.next < q.end || q.more;
 }
 
-// Hands the warp's idle lanes (`idle`, the same in every lane) the next
-// rays in lane order: the rest of the pool first, then a new chunk if the
-// pool is short. Returns this lane's new ray, or -1. Called by the whole
-// warp.
-__device__ __forceinline__ int queue_take(Queue& q, unsigned idle,
-                                          unsigned lane, unsigned n,
+// Hands the warp's lanes the next 32 rays in lane order: the rest of the
+// pool first, then a new chunk if the pool is short. Returns this lane's
+// ray, or -1. Called by the whole warp.
+__device__ __forceinline__ int queue_take(Queue& q, unsigned lane,
+                                          unsigned n,
                                           unsigned long long* group,
                                           unsigned long long* cursor) {
-  const unsigned need = __popc(idle);
   const unsigned have = q.end - q.next;
   unsigned next2 = n, end2 = n;
-  if (have < need && q.more) {
+  if (have < kChunk && q.more) {
     unsigned long long chunk = 0;
     if (lane == 0) chunk = take_chunk(group, cursor);
     chunk = __shfl_sync(kAll, chunk, 0);
@@ -364,18 +355,15 @@ __device__ __forceinline__ int queue_take(Queue& q, unsigned idle,
     q.more = start + kChunk < n;
   }
   int ray = -1;
-  if ((idle >> lane) & 1u) {
-    const unsigned rank = __popc(idle & ((1u << lane) - 1u));
-    if (rank < have) {
-      ray = static_cast<int>(q.next + rank);
-    } else if (next2 + (rank - have) < end2) {
-      ray = static_cast<int>(next2 + (rank - have));
-    }
+  if (lane < have) {
+    ray = static_cast<int>(q.next + lane);
+  } else if (next2 + (lane - have) < end2) {
+    ray = static_cast<int>(next2 + (lane - have));
   }
-  if (have >= need) {
-    q.next += need;
+  if (have >= kChunk) {
+    q.next += kChunk;
   } else if (next2 < end2) {
-    q.next = min(next2 + (need - have), end2);
+    q.next = min(next2 + (kChunk - have), end2);
     q.end = end2;
   } else {
     q.next = q.end;
@@ -436,11 +424,9 @@ __device__ __forceinline__ bool trip(const Args& a, float ox, float oy,
   return false;
 }
 
-// P < kWarpRefill: a warp refills its stopped lanes once P are idle, and
-// its lanes trip together until one of them stops; P == kWarpRefill: the
-// warp takes 32 rays when all lanes have stopped, and each lane trips
-// until its own ray stops.
-template <int V, int P>
+// A warp takes 32 rays at a time; each lane trips until its ray stops,
+// and the warp takes the next 32 when all are done.
+template <int V>
 __global__ void __launch_bounds__(kThreads, kMarchBlocks) edf_march_kernel(
     Args a, float* __restrict__ total_out, float* __restrict__ last_out,
     bool* __restrict__ hit_out, int* __restrict__ trips_out,
@@ -453,36 +439,14 @@ __global__ void __launch_bounds__(kThreads, kMarchBlocks) edf_march_kernel(
   __shared__ unsigned long long group;
   block_start(&group);
   Queue q = queue_start(n);
-  int i = -1;  // this lane's ray, -1 idle
   int longest = 0;
-  March r{};
-  for (;;) {
-    const unsigned idle = __ballot_sync(kAll, i < 0);
-    if (idle == kAll && !queue_open(q)) break;
-    if (__popc(idle) >= P && queue_open(q)) {
-      const int j = queue_take(q, idle, lane, n, &group, scratch + 2);
-      if (j >= 0) {
-        const Ray ray = load_ray(a, j);
-        i = j;
-        r = March{ray.x, ray.y, ray.c, ray.s, 0.0f, 0.0f, 0.0f, 0, false};
-      }
+  while (queue_open(q)) {
+    const int i = queue_take(q, lane, n, &group, scratch + 2);
+    if (i < 0) continue;
+    const Ray ray = load_ray(a, i);
+    March r{ray.x, ray.y, ray.c, ray.s, 0.0f, 0.0f, 0.0f, 0, false};
+    while (!trip<V>(a, ox, oy, r)) {
     }
-    bool stop = false;
-    if constexpr (P == kWarpRefill) {
-      if (i >= 0) {
-        while (!trip<V>(a, ox, oy, r)) {
-        }
-        stop = true;
-      }
-    } else {
-      const unsigned busy = __ballot_sync(kAll, i >= 0);
-      if (i >= 0) {
-        do {
-          stop = trip<V>(a, ox, oy, r);
-        } while (!__any_sync(busy, stop));
-      }
-    }
-    if (!stop) continue;
     const bool left = r.tested && r.d < 0.0f;
     if (left) r.total = a.max_range;
     if (V == kBracket) {
@@ -497,7 +461,6 @@ __global__ void __launch_bounds__(kThreads, kMarchBlocks) edf_march_kernel(
       walk_out[i] = (!left && r.total <= a.max_range) ? r.it - r.tested : -1;
     }
     longest = max(longest, r.it);
-    i = -1;
   }
   count_trips(longest, counter, scratch);
 }
@@ -600,11 +563,13 @@ __device__ __forceinline__ void reverse_at(const Args& a, float ox,
   }
 }
 
-// One step of a known walk from (x, y): the march's own arithmetic.
-template <int V>
-__device__ __forceinline__ void step(const Args& a, float ox, float oy,
-                                     float c, float s, float& x, float& y) {
-  const float d = sample<V>(a.m, (x - ox) * a.inv_res, (y - oy) * a.inv_res);
+// One bilinear step of a known walk from (x, y): the march's own
+// arithmetic.
+__device__ __forceinline__ void step_bilinear(const Args& a, float ox,
+                                              float oy, float c, float s,
+                                              float& x, float& y) {
+  const float d =
+      sample_bilinear(a.m, (x - ox) * a.inv_res, (y - oy) * a.inv_res);
   x = x + d * c;
   y = y + d * s;
 }
@@ -622,7 +587,7 @@ __device__ void long_ray(const Args& a, float ox, float oy, float x0,
   float x = x0, y = y0;
   for (int t = 0; t < steps; ++t) {
     if (t % seg == 0) pos[(t / seg)] = make_float2(x, y);
-    step<kBilinear>(a, ox, oy, c, s, x, y);
+    step_bilinear(a, ox, oy, c, s, x, y);
   }
   for (int k = (steps - 1) / seg; k >= 0; --k) {
     const int lo = k * seg;
@@ -631,11 +596,11 @@ __device__ void long_ray(const Args& a, float ox, float oy, float x0,
       const float2 ck = pos[k];
       x = ck.x;
       y = ck.y;
-      for (int t = lo; t < p0; ++t) step<kBilinear>(a, ox, oy, c, s, x, y);
+      for (int t = lo; t < p0; ++t) step_bilinear(a, ox, oy, c, s, x, y);
       const int cnt = min(part, hi - p0);
       for (int t = 0; t < cnt; ++t) {
         pos[(nck + t)] = make_float2(x, y);
-        step<kBilinear>(a, ox, oy, c, s, x, y);
+        step_bilinear(a, ox, oy, c, s, x, y);
       }
       for (int t = cnt - 1; t >= 0; --t) {
         reverse_at(a, ox, oy, gt, c, s, pos[(nck + t)], j,
@@ -692,7 +657,7 @@ __device__ __forceinline__ void grad_ray(
       if (!kept) {
         for (int k = 0; k < steps; ++k) {
           pos[k] = make_float2(x, y);
-          step<kBilinear>(a, ox, oy, ray.c, ray.s, x, y);
+          step_bilinear(a, ox, oy, ray.c, ray.s, x, y);
         }
       }
       for (int k = steps - 1; k >= 0; --k) {
@@ -712,8 +677,9 @@ __device__ __forceinline__ void grad_ray(
   }
 }
 
-// A warp takes 32 rays at a time; each lane walks its ray, forward and
-// (bilinear) back, and the warp takes the next 32 when all are done.
+// As the march: a warp takes 32 rays at a time; each lane walks its ray,
+// forward and (bilinear) back, and the warp takes the next 32 when all are
+// done.
 template <int V>
 __global__ void __launch_bounds__(kThreads, V == kBilinear ? 3 : 6)
     edf_march_grad_kernel(Args a, const float* __restrict__ g_out,
@@ -731,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, V == kBilinear ? 3 : 6)
   block_start(&group);
   Queue q = queue_start(n);
   while (queue_open(q)) {
-    const int i = queue_take(q, kAll, lane, n, &group, cursor);
+    const int i = queue_take(q, lane, n, &group, cursor);
     if (i >= 0) {
       grad_ray<V>(a, ox, oy, i, g_out, g_edf, g_x0, g_y0, g_c, g_s, walk,
                   pos);
@@ -783,13 +749,13 @@ int grid_of(int wave_blocks, int n) {
   return wave_blocks < needed ? wave_blocks : needed;
 }
 
-template <int V, int P>
+template <int V>
 int launch(const Args& a, float* total, float* last, bool* hit, int* trips,
            int* walk, unsigned long long* counter,
            unsigned long long* scratch, cudaStream_t stream) {
-  const int w = wave(edf_march_kernel<V, P>);
+  const int w = wave(edf_march_kernel<V>);
   if (w <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  edf_march_kernel<V, P><<<grid_of(w, a.n), kThreads, 0, stream>>>(
+  edf_march_kernel<V><<<grid_of(w, a.n), kThreads, 0, stream>>>(
       a, total, last, hit, trips, walk, counter, scratch);
   return static_cast<int>(cudaGetLastError());
 }
@@ -844,46 +810,18 @@ bool make_args(const void* edf, long long hp, long long wp, long long h,
   return true;
 }
 
-// The march's refill of `policy`: kWarpRefill, or a lane count below it.
-template <int V>
-int launch_policy(int policy, const Args& a, float* t, float* l, bool* hb,
-                  int* tr, int* wk, unsigned long long* cnt,
-                  unsigned long long* scr, cudaStream_t s) {
-  switch (policy) {
-    case 1:
-      return launch<V, 1>(a, t, l, hb, tr, wk, cnt, scr, s);
-    case kWarpRefill:
-      return launch<V, kWarpRefill>(a, t, l, hb, tr, wk, cnt, scr, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <int V, int P>
-int wave_of_march() {
-  return wave(edf_march_kernel<V, P>);
-}
-
-template <int V>
-int march_wave(int policy) {
-  return policy == 1             ? wave_of_march<V, 1>()
-         : policy == kWarpRefill ? wave_of_march<V, kWarpRefill>()
-                                 : 0;
-}
-
 }  // namespace
 
 // Launches the march of rows x cols rays on `stream` and returns
 // cudaGetLastError() (0 = launched). variant: 0 nearest, 1 bilinear,
-// 2 bracket; policy: the idle lanes at which a warp refills, 1 or 32 (the
-// whole warp). Device pointers: edf (hp, wp) f32 contiguous; ox,
+// 2 bracket. Device pointers: edf (hp, wp) f32 contiguous; ox,
 // oy f32 scalars; x0, y0, cos, sin f32 read at [row * s_row + col *
 // s_col]; total (rows * cols,) f32; last f32 and hit bool for the bracket
 // (else null); trips i32 or null; walk i32 or null (the gradient's
 // record); counter 2 x u64 (trips, calls); scratch 3 x u64, zeroed, this
 // launch's own. Sizes and offsets below 2^31.
 extern "C" int edf_march_launch(
-    int variant, int policy, const void* edf, long long hp, long long wp,
+    int variant, const void* edf, long long hp, long long wp,
     long long h, long long w, const void* ox, const void* oy, float inv_res,
     float max_range, float eps, int max_iters, const void* x0,
     const void* y0, const void* cos_t, const void* sin_t, long long sx0,
@@ -908,14 +846,11 @@ extern "C" int edf_march_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case kNearest:
-      return launch_policy<kNearest>(policy, a, t, l, hb, tr, wk, cnt, scr,
-                                     s);
+      return launch<kNearest>(a, t, l, hb, tr, wk, cnt, scr, s);
     case kBilinear:
-      return launch_policy<kBilinear>(policy, a, t, l, hb, tr, wk, cnt, scr,
-                                      s);
+      return launch<kBilinear>(a, t, l, hb, tr, wk, cnt, scr, s);
     case kBracket:
-      return launch_policy<kBracket>(policy, a, t, l, hb, tr, wk, cnt, scr,
-                                     s);
+      return launch<kBracket>(a, t, l, hb, tr, wk, cnt, scr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -923,15 +858,15 @@ extern "C" int edf_march_launch(
 
 // Launches the gradient of the march of rows x cols rays (variant 0
 // nearest, 1 bilinear) on `stream` and returns cudaGetLastError(). The
-// arguments up to `cols` are edf_march_launch's (policy: 32, the only
-// refill of the gradient); g (rows * cols,) f32 contiguous, the ranges'
-// cotangent; g_edf (hp, wp) f32, zeroed, that the EDF's gradient is added
-// into, or null; g_x0, g_y0, g_cos, g_sin (rows * cols,) f32 that receive
-// the rays' gradients, all four or null (bilinear only); walk i32
-// (rows * cols,), the march's record of the same rays, or null (the rays
-// are marched first); cursor 1 x u64, zeroed, this launch's own.
+// arguments up to `cols` are edf_march_launch's; g (rows * cols,) f32
+// contiguous, the ranges' cotangent; g_edf (hp, wp) f32, zeroed, that the
+// EDF's gradient is added into, or null; g_x0, g_y0, g_cos, g_sin
+// (rows * cols,) f32 that receive the rays' gradients, all four or null
+// (bilinear only); walk i32 (rows * cols,), the march's record of the same
+// rays, or null (the rays are marched first); cursor 1 x u64, zeroed, this
+// launch's own.
 extern "C" int edf_march_grad_launch(
-    int variant, int policy, const void* edf, long long hp, long long wp,
+    int variant, const void* edf, long long hp, long long wp,
     long long h, long long w, const void* ox, const void* oy, float inv_res,
     float max_range, float eps, int max_iters, const void* x0,
     const void* y0, const void* cos_t, const void* sin_t, long long sx0,
@@ -944,8 +879,7 @@ extern "C" int edf_march_grad_launch(
   const long long st[8] = {sx0, sx1, sy0, sy1, sc0, sc1, ss0, ss1};
   Args a;
   if (!make_args(edf, hp, wp, h, w, ox, oy, inv_res, max_range, eps,
-                 max_iters, x0, y0, cos_t, sin_t, st, rows, cols, a) ||
-      policy != kWarpRefill) {
+                 max_iters, x0, y0, cos_t, sin_t, st, rows, cols, a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* fg = static_cast<const float*>(g);
@@ -968,14 +902,14 @@ extern "C" int edf_march_grad_launch(
 }
 
 // The persistent grid of a launch over many rays: the blocks of one wave
-// (SMs x blocks per SM) of the march (kernel 0, in `policy`) or its
-// gradient (1) in `variant` on the current device; 0 on an error or for a
-// kernel that does not exist.
-extern "C" int edf_march_wave(int kernel, int variant, int policy) {
+// (SMs x blocks per SM) of the march (kernel 0) or its gradient (1) in
+// `variant` on the current device; 0 on an error or for a kernel that does
+// not exist.
+extern "C" int edf_march_wave(int kernel, int variant) {
   if (kernel == 0) {
-    return variant == kNearest    ? march_wave<kNearest>(policy)
-           : variant == kBilinear ? march_wave<kBilinear>(policy)
-           : variant == kBracket  ? march_wave<kBracket>(policy)
+    return variant == kNearest    ? wave(edf_march_kernel<kNearest>)
+           : variant == kBilinear ? wave(edf_march_kernel<kBilinear>)
+           : variant == kBracket  ? wave(edf_march_kernel<kBracket>)
                                   : 0;
   }
   return variant == kNearest    ? wave(edf_march_grad_kernel<kNearest>)

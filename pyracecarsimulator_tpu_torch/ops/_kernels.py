@@ -45,8 +45,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-_MARCH_HEAD = ([_I, _I, _P, _L, _L, _L, _L, _P, _P, _F, _F, _F, _I]
-               + [_P] * 4 + [_L] * 10)
+_MARCH_HEAD = ([_I, _P, _L, _L, _L, _L, _P, _P, _F, _F, _F, _I] + [_P] * 4
+               + [_L] * 10)
 # entry points: name -> (source csrc/<source>.cu, C symbol, argtypes);
 # restype is int: a cudaError_t
 _SIGNATURES = {
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "edf_march_grad": ("edf_march", "edf_march_grad_launch",
                        _MARCH_HEAD + [_P] * 9),
     # not a launch: the march's persistent grid (blocks of one wave)
-    "edf_march_wave": ("edf_march", "edf_march_wave", [_I] * 3),
+    "edf_march_wave": ("edf_march", "edf_march_wave", [_I] * 2),
 }
 
 _loaded = {}       # entry point -> ctypes function (process-wide cache)

@@ -10,14 +10,14 @@ march is a fixed-trip ``lax.scan`` in which a stopped ray steps by zero.
 ``march_rays`` runs the hand-written kernels of ``csrc/edf_march.cu`` on
 CUDA tensors: ``edf_march``, in which persistent warps loop each ray's
 trips in registers until the ray stops, write its range once and take the
-next rays (``REFILL``), one launch a march, no host read; and, where
-autograd needs the march's gradient, its backward ``edf_march_grad`` (the
+next rays, one launch a march, no host read; and, where autograd needs the
+march's gradient, its backward ``edf_march_grad`` (the
 ``torch.autograd.Function`` ``_March``), which walks each ray from the
-forward's record of its steps (``walk``), keeping its positions in shared
-memory, and back (the source says how). On CPU tensors the plain loop ``march_rays_plain`` runs under
-ordinary autograd. The plain loop is the kernels' reference: the march
-performs the same float32 operations in the same order, so the two agree
-bit for bit, and ``march_grad_plain`` (autograd through the plain loop) is
+forward's record of its steps (``walk``), keeping its positions, and back
+(the source says how). On CPU tensors the plain loop ``march_rays_plain``
+runs under ordinary autograd. The plain loop is the kernels' reference:
+the march performs the same float32 operations in the same order, so the
+two agree bit for bit, and ``march_grad_plain`` (autograd through the plain loop) is
 the gradient kernel's, which agrees to float32 rounding (it sums in
 another order and adds the EDF's taps with atomics). The plain loop runs
 the trips in lockstep, about 25 elementwise operations a trip, and every
@@ -58,12 +58,6 @@ from .common import _constant, rays_from_poses
 _ALIVE_CHECK = 32   # trips between host reads of "is any ray still alive"
 # the kernel's variants (a template argument of csrc/edf_march.cu)
 VARIANTS = {"nearest": 0, "bilinear": 1, "bracket": 2}
-# the march's refill policies (the source's doc): the idle lanes at which
-# a warp takes new rays: "lane", as soon as one lane's ray has stopped;
-# "warp", when all 32 have (the faster on the H100 in all three variants
-# but berlin's bilinear march, PERF.md; the gradient's only policy)
-POLICIES = {"lane": 1, "warp": 32}
-REFILL = "warp"
 # the positions of a ray the bilinear gradient keeps (the kernel's kSlots;
 # 64 was faster than 32 on both bundled maps, PERF.md); a longer ray is
 # marched again from GRAD_SLOTS / 2 checkpoints
@@ -228,15 +222,6 @@ def _march_launch_args(name, edf, ox, oy, rays, max_iters, bounds_hw):
             (*views, *strides, rows, cols))
 
 
-def _policy(name, refill):
-    """The refill policy's code: ``refill`` or, for None, ``REFILL``."""
-    refill = REFILL if refill is None else refill
-    if refill not in POLICIES:
-        raise ValueError(f"{name}: refill must be one of "
-                         f"{', '.join(POLICIES)}, got {refill!r}")
-    return POLICIES[refill]
-
-
 def _record(name, v, shape, device, what):
     """Check an int32 per-ray tensor (``ray_trips``, ``walk``)."""
     if v is not None and (v.dtype != torch.int32 or v.shape != shape
@@ -245,15 +230,13 @@ def _record(name, v, shape, device, what):
                          f"tensor of shape {tuple(shape)} on {device}")
 
 
-def persistent_grid(device, kernel: str, variant: str, refill=None) -> int:
+def persistent_grid(device, kernel: str, variant: str) -> int:
     """The blocks a launch of ``kernel`` ("edf_march" or
-    "edf_march_grad") in ``variant`` (and the march's ``refill``) starts
-    on ``device`` when it has enough rays: one wave, the SMs times the
-    blocks an SM holds."""
-    code = (VARIANTS[variant], _policy(kernel, refill))
+    "edf_march_grad") in ``variant`` starts on ``device`` when it has
+    enough rays: one wave, the SMs times the blocks an SM holds."""
     with torch.cuda.device(device):
         blocks = _kernels.kernel("edf_march_wave")(
-            int(kernel == "edf_march_grad"), *code)
+            int(kernel == "edf_march_grad"), VARIANTS[variant])
     if blocks <= 0:
         raise RuntimeError(f"{kernel}: no persistent grid for {variant}")
     return blocks
@@ -261,7 +244,7 @@ def persistent_grid(device, kernel: str, variant: str, refill=None) -> int:
 
 def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
               max_iters: int, bounds_hw, variant: str, ray_trips=None,
-              walk=None, refill=None):
+              walk=None):
     """The march of ``csrc/edf_march.cu`` on CUDA tensors of one broadcast
     shape S (``march_rays_plain``'s and ``raymarch_diff._march_nearest``'s
     arguments; ``ox``/``oy`` 0-dim float32 device tensors). ``variant``:
@@ -269,13 +252,11 @@ def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
     returns (total, last, hit). ``ray_trips``: an int32 tensor of shape S
     to receive each ray's trip count, or None; ``walk``: one to receive
     what ``edf_march_grad`` needs of each ray (its steps where its range
-    has a gradient, else -1), or None. ``refill``: the policy ("lane",
-    "warp"; None: ``REFILL``). ``edf_march.launches`` counts kernel
-    launches. No gradient (``march_rays`` has one)."""
+    has a gradient, else -1), or None. ``edf_march.launches`` counts
+    kernel launches. No gradient (``march_rays`` has one)."""
     if variant not in VARIANTS:
         raise ValueError(f"edf_march: variant must be one of "
                          f"{', '.join(VARIANTS)}, got {variant!r}")
-    policy = _policy("edf_march", refill)
     shape, head, tail = _march_launch_args(
         "edf_march", edf, ox, oy, (x0, y0, cos_t, sin_t), max_iters,
         bounds_hw)
@@ -290,8 +271,8 @@ def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
         # the launch's own scratch: its longest trip count, the warps that
         # are done, the rays' cursor (the source's doc)
         scratch = torch.zeros(3, dtype=torch.int64, device=edf.device)
-        _kernels.launch("edf_march", "edf_march", VARIANTS[variant], policy,
-                        *head, float(inv_res), float(max_range), float(eps),
+        _kernels.launch("edf_march", "edf_march", VARIANTS[variant], *head,
+                        float(inv_res), float(max_range), float(eps),
                         int(max_iters), *tail, total, last, hit, ray_trips,
                         walk, MARCH_COUNTS.counter(edf.device), scratch)
         edf_march.launches += 1
@@ -337,10 +318,9 @@ def edf_march_grad(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
     if g.numel() and (edf_grad or ray_grad):
         cursor = torch.zeros(1, dtype=torch.int64, device=edf.device)
         _kernels.launch("edf_march_grad", "edf_march_grad",
-                        VARIANTS[interp], POLICIES["warp"], *head,
-                        float(inv_res), float(max_range), float(eps),
-                        int(max_iters), *tail, g, g_edf, *g_rays, walk,
-                        cursor)
+                        VARIANTS[interp], *head, float(inv_res),
+                        float(max_range), float(eps), int(max_iters), *tail,
+                        g, g_edf, *g_rays, walk, cursor)
         edf_march_grad.launches += 1
     elif ray_grad:
         g_rays = tuple(v.zero_() for v in g_rays)

@@ -469,15 +469,13 @@ def _march_case(cuda, case, nan=True):
             rays, (track.height, track.width))
 
 
-@pytest.mark.parametrize("refill", ["lane", "warp"])
 @pytest.mark.parametrize("case", ["random", "levine", "edges"])
 @pytest.mark.parametrize("variant", ["nearest", "bilinear", "bracket"])
-def test_edf_march_matches_plain(cuda, variant, case, refill):
-    """Each variant, in both refill policies, against its plain loop on
-    the same tensors, bit for bit: ranges, and for the bracket ``last``
-    and ``hit``; with 200 trips (2048, ``MAX_GRAD_TRIPS``, on "edges") and
-    with 3, which cuts rays off; each ray's trips within the count; one
-    launch a march."""
+def test_edf_march_matches_plain(cuda, variant, case):
+    """Each variant against its plain loop on the same tensors, bit for
+    bit: ranges, and for the bracket ``last`` and ``hit``; with 200 trips
+    (2048, ``MAX_GRAD_TRIPS``, on "edges") and with 3, which cuts rays
+    off; each ray's trips within the count; one launch a march."""
     from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     edf, inv, ox, oy, rays, hw = _march_case(cuda, case,
@@ -488,7 +486,7 @@ def test_edf_march_matches_plain(cuda, variant, case, refill):
         trips = torch.zeros(rays[0].shape, dtype=torch.int32, device=cuda)
         before = rx.edf_march.launches
         got = rx.edf_march(edf, inv, ox, oy, *rays, *tail, hw, variant,
-                           ray_trips=trips, refill=refill)
+                           ray_trips=trips)
         torch.cuda.synchronize()
         assert rx.edf_march.launches == before + 1
         if variant == "bracket":

@@ -535,11 +535,10 @@ def _recording_launch(monkeypatch, calls):
 
 def test_march_wrapper_launch_arguments(monkeypatch):
     """What the wrappers hand the kernels (the launch recorded): the
-    variant and the refill policy (the march's ``REFILL`` by default, the
-    gradient's always "warp"), a zeroed 3-word scratch a march (its
-    longest trips, its warps done, the rays' cursor) and a zeroed cursor a
-    gradient, and the record ``walk``; the kernel keeps ``GRAD_SLOTS``
-    positions a ray; a wrong policy or record raises."""
+    variant, a zeroed 3-word scratch a march (its longest trips, its warps
+    done, the rays' cursor) and a zeroed cursor a gradient, and the record
+    ``walk``; the kernel keeps ``GRAD_SLOTS`` positions a ray; a wrong
+    record raises."""
     from pyracecarsimulator_tpu_torch.ops import _kernels
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     calls = []
@@ -550,10 +549,9 @@ def test_march_wrapper_launch_arguments(monkeypatch):
     head = (edf, 20.0, o[0], o[1], *rays, 10.0, 1e-4, 8, None)
     walk = torch.zeros(3, 4, dtype=torch.int32)
     rx.edf_march(*head, "bilinear", walk=walk)
-    rx.edf_march(*head, "bracket", refill="warp")
+    rx.edf_march(*head, "bracket")
     (entry, a), (_, b) = calls
-    assert entry == "edf_march" and a[:2] == (1, rx.POLICIES[rx.REFILL])
-    assert b[:2] == (2, rx.POLICIES["warp"])
+    assert entry == "edf_march" and a[0] == 1 and b[0] == 2
     for args in (a, b):
         scratch = args[-1]
         assert scratch.dtype == torch.int64 and scratch.tolist() == [0] * 3
@@ -564,11 +562,9 @@ def test_march_wrapper_launch_arguments(monkeypatch):
     src = (_kernels.CSRC_DIR / "edf_march.cu").read_text()
     assert f"constexpr int kSlots = {rx.GRAD_SLOTS};" in src
     entry, c = calls[2]
-    assert entry == "edf_march_grad" and c[:2] == (1, rx.POLICIES["warp"])
+    assert entry == "edf_march_grad" and c[0] == 1
     assert c[-2] is walk
     assert c[-1].dtype == torch.int64 and c[-1].tolist() == [0]
-    with pytest.raises(ValueError, match="refill"):
-        rx.edf_march(*head, "nearest", refill="block")
     for bad in (walk.to(torch.int64), walk[:2], walk.t()):
         with pytest.raises(ValueError, match="walk"):
             rx.edf_march(*head, "nearest", walk=bad)
