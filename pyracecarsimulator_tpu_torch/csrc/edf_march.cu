@@ -104,7 +104,7 @@
 // bilinear march), the latency of each trip's dependent gather, and the
 // gathers' sectors (~30 B fetched for each 4 B used), which L1 serves only
 // where the warps of an SM march neighbouring beams. The design: a trip
-// loop that issues ~36 instructions (nearest; 59 with int64 indices and
+// loop that issues ~41 instructions (nearest; 59 with int64 indices and
 // one ray a thread): 32-bit cell indices and floor-and-convert in one
 // instruction, the reference's arithmetic unchanged (no incremental gx:
 // it rounds differently); persistent warps (a block of one ray a thread
