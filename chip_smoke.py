@@ -43,11 +43,12 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     thread would take), time, plain time and bound; its gradient ``edf_march_grad`` (nearest: the EDF's; bilinear:
     the EDF's and the rays') against autograd through the plain loop on
     the same fan (the plain run in blocks of 512 agents), from the
-    march's record in both policies and without it: the rays' gradients
-    with 0 mismatches, the EDF's within ``GRAD_TOL`` x max(1, the largest
-    |plain|) (atomics sum in another order); with time, plain time and
-    bound; the kernels' persistent grids and, from nvcc's resource
-    report, their registers and stack frames (none allowed); the
+    march's record: the rays' gradients with 0 mismatches, the EDF's
+    within ``GRAD_TOL`` x max(1, the largest |plain|) (atomics sum in
+    another order); with time, plain time and bound; the kernels'
+    persistent grids and, from nvcc's resource report, their registers,
+    spills (none allowed) and stack frames (one allowed: the bilinear
+    gradient's ``GRAD_SLOTS`` positions a thread, 512 bytes); the
     "edf" march on the card against the CPU march on 64 poses
     given the same fan (bit-identical), the scan against the NumPy oracle
     ``oracle/raycast.py`` (its native body) on 64 poses, pose by pose
@@ -699,7 +700,8 @@ def same_fan_check(label, fn, dev_args, exact=True, tol=0.0):
 
 def march_resources():
     """Each march and gradient kernel's registers, stack frame, spills and
-    shared memory from nvcc's ``--resource-usage`` report of this build.
+    static shared memory from nvcc's ``--resource-usage`` report of this
+    build.
     No kernel may spill, and only the bilinear gradient has a stack frame:
     its ``GRAD_SLOTS`` positions a thread (8 bytes each)."""
     from pyracecarsimulator_tpu_torch.ops import _kernels
@@ -791,10 +793,9 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
     4096 x 1080 fan of ``poses``, all three variants: 0 mismatches; each
     variant's time, plain time and bound. Then
     ``edf_march_grad`` against autograd through the plain loop on the same
-    fan, nearest and bilinear, from the march's record (the backward's
-    path) and without it: the rays' gradients bit for bit, the EDF's
-    within ``GRAD_TOL``; time (from the record, twice, and without it),
-    plain time and bound."""
+    fan, nearest and bilinear, from the march's record (as the backward
+    takes it): the rays' gradients bit for bit, the EDF's within
+    ``GRAD_TOL``; time (twice), plain time and bound."""
     import torch
     from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
@@ -892,44 +893,35 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
         torch.cuda.synchronize()
         p_ms = start.elapsed_time(end)
         scale = max(1.0, float(ref[0].abs().max()))
-        worst = 0.0
-        for label, kw in (("record", dict(walk=walks[0])),
-                          ("no record", {})):
-            got = rx.edf_march_grad(*args(rays), **kw)
-            err_edf = float((got[0] - ref[0]).abs().max())
-            ok = err_edf <= GRAD_TOL * scale and float(ref[0].abs().sum()) > 0
-            err_rays = max([float((a - b).abs().max())
-                            for a, b in zip(got[1] or (), ref[1] or ())],
-                           default=0.0)
-            mism = sum(int((a != b).sum())
-                       for a, b in zip(got[1] or (), ref[1] or ()))
-            log(f"[{name}] edf_march_grad {variant} ({label}) vs autograd "
-                f"through the plain loop on {tuple(rays[0].shape)} rays: EDF "
-                f"gradient max abs err {err_edf} (largest |plain| {scale}, "
-                f"tolerance {GRAD_TOL} x max(1, that)); rays' gradients "
-                f"mismatches {mism}, max abs err {err_rays}")
-            check(ok and mism == 0, f"{name}: edf_march_grad {variant} "
-                  f"({label}) disagrees with autograd through the plain "
-                  "loop")
-            worst = max(worst, err_edf, err_rays)
-        errs["edf_march_grad"].append(worst)
+        got = rx.edf_march_grad(*args(rays), walk=walks[0])
+        err_edf = float((got[0] - ref[0]).abs().max())
+        ok = err_edf <= GRAD_TOL * scale and float(ref[0].abs().sum()) > 0
+        err_rays = max([float((a - b).abs().max())
+                        for a, b in zip(got[1] or (), ref[1] or ())],
+                       default=0.0)
+        mism = sum(int((a != b).sum())
+                   for a, b in zip(got[1] or (), ref[1] or ()))
+        log(f"[{name}] edf_march_grad {variant} vs autograd through the "
+            f"plain loop on {tuple(rays[0].shape)} rays: EDF gradient max "
+            f"abs err {err_edf} (largest |plain| {scale}, tolerance "
+            f"{GRAD_TOL} x max(1, that)); rays' gradients mismatches "
+            f"{mism}, max abs err {err_rays}")
+        check(ok and mism == 0, f"{name}: edf_march_grad {variant} "
+              "disagrees with autograd through the plain loop")
+        errs["edf_march_grad"].append(max(err_edf, err_rays))
         grids[f"edf_march_grad {variant}"] = rx.persistent_grid(
             "cuda", "edf_march_grad", variant)
         recorded = lambda i: rx.edf_march_grad(*args(ray_sets[i % n]),
                                                walk=walks[i % n])
-        unrecorded = lambda i: rx.edf_march_grad(*args(ray_sets[i % n]))
         k_ms = timed_ms(recorded, 20)
-        u_ms = timed_ms(unrecorded, 20)
         k2_ms = timed_ms(recorded, 20)
         res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
-               "ms_no_record": u_ms,
                **march_bound(track.edf, rays[0], trips, variant, rates,
                              grad=(True, ray_grad))}
         res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
         times["edf_march_grad"][f"{name} {variant}"] = res
         log(f"[{name}] edf_march_grad {variant}: {k_ms:.4f} / {k2_ms:.4f} "
-            f"ms from the record, {u_ms:.4f} ms without it, vs plain "
-            f"{p_ms:.2f} ms "
+            f"ms from the record, vs plain {p_ms:.2f} ms "
             f"({GRAD_PLAIN_AGENTS}-agent blocks); bound "
             f"{res['bound_ms']:.4f} ms ({res['bound_by']}), share "
             f"{res['share_of_bound']:.3f}")

@@ -48,17 +48,15 @@
 //                (ax, ay) += gd * grad d            (inside the clamps)
 //                the EDF's 4 taps += gd * their bilinear weights
 //              ending in the origin's adjoints (g_x0, g_y0) = (ax, ay).
-// Given the forward's `walk` record, a ray's steps and whether it has a
-// gradient are known before its first trip: the nearest gradient walks
-// each ray once, adding as it goes; the bilinear one walks it forward once,
-// keeping each trip's position in the thread's kSlots (a local array:
-// 512 bytes a thread, cached in L1), then reads them back in reverse.
-// Without the record a ray is marched first (the bilinear march keeps its
-// positions as it goes, so a ray of at most kSlots steps is still marched
-// once). A ray longer than kSlots keeps kSlots / 2 checkpoints there and
-// marches each segment again from its checkpoint, kSlots / 2 positions at
-// a time (any length: a segment longer than that is marched again for
-// each part).
+// The gradient takes the forward's `walk` record (edf_march's, of the same
+// rays), so a ray's steps and whether it has a gradient are known before
+// its first trip: the nearest gradient walks each ray once, adding as it
+// goes; the bilinear one walks it forward once, keeping each trip's
+// position in the thread's kSlots (a local array: 512 bytes a thread,
+// cached in L1), then reads them back in reverse. A ray longer than kSlots
+// keeps kSlots / 2 checkpoints there and marches each segment again from
+// its checkpoint, kSlots / 2 positions at a time (any length: a segment
+// longer than that is marched again for each part).
 //
 // Exact arithmetic: built with -fmad=false and no fast math, every float32
 // operation of the march in the order of the plain PyTorch loops
@@ -104,26 +102,28 @@
 // bilinear march), the latency of each trip's dependent gather, and the
 // gathers' sectors (~30 B fetched for each 4 B used), which L1 serves only
 // where the warps of an SM march neighbouring beams. The design: a trip
-// loop that issues ~41 instructions (nearest; 59 with int64 indices and
+// loop that issues ~36 instructions (nearest; 59 with int64 indices and
 // one ray a thread): 32-bit cell indices and floor-and-convert in one
 // instruction, the reference's arithmetic unchanged (no incremental gx:
 // it rounds differently); persistent warps (a block of one ray a thread
 // held its SM's slot as long as its longest ray); block-shared groups of
-// rays for L1 locality. Refilling single lanes as their rays stop, the
-// lanes tripping together until one stops, measured slower than whole
-// warps in every variant on both maps (each refill costs a ray load and a
-// pass of bookkeeping; PERF.md), so the warps refill whole. The
-// gradient: it marched every ray twice and kept its trips in 768 bytes of
-// local memory a thread (checkpoints and a segment indexed at run time);
-// it now walks each ray forward once from the record, keeps 64 positions
-// a thread, and adds the taps of the lanes that share a cell once per cell
-// (__match_any_sync, then a tree sum over the group's lanes in rank
-// order). The positions live in local memory: in shared memory (32 a
-// thread, threadIdx-strided) the kernel measured slower, on berlin slower
-// than the two marches it replaces, because the 64 KB a block takes from
-// the SM's 256 KB of L1 and shared memory are the gathers' L1. Refilling
-// lanes in the gradient, one pass of forward or reverse trips at a time,
-// measured slower than whole warps. Considered and left out: texture
+// rays for L1 locality (warps that each take their next 32 rays from the
+// launch's one cursor march unrelated beams side by side: the nearest and
+// bracket marches measured up to 1.6x slower). Refilling single lanes as
+// their rays stop, the lanes tripping together until one stops, measured
+// slower than whole warps in every variant on both maps (each refill costs
+// a ray load and a pass of bookkeeping), so the warps refill whole, in the
+// gradient too. The gradient: it marched every ray twice and kept its
+// trips in 768 bytes of local memory a thread (checkpoints and a segment
+// indexed at run time); it now walks each ray forward once from the
+// record, keeps 64 positions a thread, and adds the taps of the lanes that
+// share a cell once per cell (__match_any_sync, then a tree sum over the
+// group's lanes in rank order). The positions live in local memory: in
+// shared memory (32 a thread, threadIdx-strided) the bilinear gradient
+// measured 5% slower on levine and 19% on berlin, because the 64 KB a
+// block takes from the SM's 256 KB of L1 and shared memory are the
+// gathers' L1. scripts/march_variants_torch.py times both left-out
+// designs beside this source. Considered and left out: texture
 // sampling (8-bit interpolation weights: not the function), a blocked EDF
 // layout, fusing _refine into the bracket, TMA or shared-memory tiles of
 // the EDF (the gathers depend on the data, and neither map's EDF fits in
@@ -278,13 +278,6 @@ __device__ __forceinline__ float sample(const Map& m, float gx, float gy) {
 
 // -- persistent warps ------------------------------------------------------
 
-// A warp's pool of rays [next, end) and whether more may come; the same
-// in every lane of the warp.
-struct Queue {
-  unsigned next, end;
-  bool more;
-};
-
 __device__ __forceinline__ unsigned warps_in_grid() {
   return gridDim.x * kWarps;
 }
@@ -320,55 +313,20 @@ __device__ __forceinline__ unsigned long long take_chunk(
   }
 }
 
-// The warp's first chunk: its block's group's, by its place in the block.
-__device__ __forceinline__ Queue queue_start(unsigned n) {
-  const unsigned long long start =
-      (static_cast<unsigned long long>(blockIdx.x) * kGroup +
-       threadIdx.x / 32) * kChunk;
-  Queue q;
-  q.next = static_cast<unsigned>(start < n ? start : n);
-  q.end = static_cast<unsigned>(start + kChunk < n ? start + kChunk : n);
-  q.more = start + kChunk < n;
-  return q;
+// The warp's first chunk: its block's first group's, by its place in the
+// block.
+__device__ __forceinline__ unsigned long long first_chunk() {
+  return static_cast<unsigned long long>(blockIdx.x) * kGroup +
+         threadIdx.x / 32;
 }
 
-__device__ __forceinline__ bool queue_open(const Queue& q) {
-  return q.next < q.end || q.more;
-}
-
-// Hands the warp's lanes the next 32 rays in lane order: the rest of the
-// pool first, then a new chunk if the pool is short. Returns this lane's
-// ray, or -1. Called by the whole warp.
-__device__ __forceinline__ int queue_take(Queue& q, unsigned lane,
-                                          unsigned n,
-                                          unsigned long long* group,
-                                          unsigned long long* cursor) {
-  const unsigned have = q.end - q.next;
-  unsigned next2 = n, end2 = n;
-  if (have < kChunk && q.more) {
-    unsigned long long chunk = 0;
-    if (lane == 0) chunk = take_chunk(group, cursor);
-    chunk = __shfl_sync(kAll, chunk, 0);
-    const unsigned long long start = chunk * kChunk;
-    next2 = static_cast<unsigned>(start < n ? start : n);
-    end2 = static_cast<unsigned>(start + kChunk < n ? start + kChunk : n);
-    q.more = start + kChunk < n;
-  }
-  int ray = -1;
-  if (lane < have) {
-    ray = static_cast<int>(q.next + lane);
-  } else if (next2 + (lane - have) < end2) {
-    ray = static_cast<int>(next2 + (lane - have));
-  }
-  if (have >= kChunk) {
-    q.next += kChunk;
-  } else if (next2 < end2) {
-    q.next = min(next2 + (kChunk - have), end2);
-    q.end = end2;
-  } else {
-    q.next = q.end;
-  }
-  return ray;
+// The warp's next chunk: lane 0 takes it, every lane gets it. Called by
+// the whole warp.
+__device__ __forceinline__ unsigned long long next_chunk(
+    unsigned long long* group, unsigned long long* cursor) {
+  unsigned long long chunk = 0;
+  if ((threadIdx.x & 31) == 0) chunk = take_chunk(group, cursor);
+  return __shfl_sync(kAll, chunk, 0);
 }
 
 // Adds the launch's largest trip count and one call to counter[0..1]: each
@@ -438,29 +396,32 @@ __global__ void __launch_bounds__(kThreads, kMarchBlocks) edf_march_kernel(
   const float oy = __ldg(a.oy);
   __shared__ unsigned long long group;
   block_start(&group);
-  Queue q = queue_start(n);
   int longest = 0;
-  while (queue_open(q)) {
-    const int i = queue_take(q, lane, n, &group, scratch + 2);
-    if (i < 0) continue;
-    const Ray ray = load_ray(a, i);
-    March r{ray.x, ray.y, ray.c, ray.s, 0.0f, 0.0f, 0.0f, 0, false};
-    while (!trip<V>(a, ox, oy, r)) {
+  for (unsigned long long chunk = first_chunk(); chunk * kChunk < n;
+       chunk = next_chunk(&group, scratch + 2)) {
+    const unsigned long long ray_index = chunk * kChunk + lane;
+    if (ray_index < n) {
+      const int i = static_cast<int>(ray_index);
+      const Ray ray = load_ray(a, i);
+      March r{ray.x, ray.y, ray.c, ray.s, 0.0f, 0.0f, 0.0f, 0, false};
+      while (!trip<V>(a, ox, oy, r)) {
+      }
+      const bool left = r.tested && r.d < 0.0f;
+      if (left) r.total = a.max_range;
+      if (V == kBracket) {
+        total_out[i] = r.total;
+        last_out[i] = r.last;
+        hit_out[i] = r.tested && !left && r.d <= a.eps;
+      } else {
+        total_out[i] = r.total > a.max_range ? a.max_range : r.total;
+      }
+      if (trips_out != nullptr) trips_out[i] = r.it;
+      if (walk_out != nullptr) {
+        walk_out[i] =
+            (!left && r.total <= a.max_range) ? r.it - r.tested : -1;
+      }
+      longest = max(longest, r.it);
     }
-    const bool left = r.tested && r.d < 0.0f;
-    if (left) r.total = a.max_range;
-    if (V == kBracket) {
-      total_out[i] = r.total;
-      last_out[i] = r.last;
-      hit_out[i] = r.tested && !left && r.d <= a.eps;
-    } else {
-      total_out[i] = r.total > a.max_range ? a.max_range : r.total;
-    }
-    if (trips_out != nullptr) trips_out[i] = r.it;
-    if (walk_out != nullptr) {
-      walk_out[i] = (!left && r.total <= a.max_range) ? r.it - r.tested : -1;
-    }
-    longest = max(longest, r.it);
   }
   count_trips(longest, counter, scratch);
 }
@@ -586,7 +547,7 @@ __device__ void long_ray(const Args& a, float ox, float oy, float x0,
   const int seg = (steps + nck - 1) / nck;
   float x = x0, y = y0;
   for (int t = 0; t < steps; ++t) {
-    if (t % seg == 0) pos[(t / seg)] = make_float2(x, y);
+    if (t % seg == 0) pos[t / seg] = make_float2(x, y);
     step_bilinear(a, ox, oy, c, s, x, y);
   }
   for (int k = (steps - 1) / seg; k >= 0; --k) {
@@ -599,19 +560,18 @@ __device__ void long_ray(const Args& a, float ox, float oy, float x0,
       for (int t = lo; t < p0; ++t) step_bilinear(a, ox, oy, c, s, x, y);
       const int cnt = min(part, hi - p0);
       for (int t = 0; t < cnt; ++t) {
-        pos[(nck + t)] = make_float2(x, y);
+        pos[nck + t] = make_float2(x, y);
         step_bilinear(a, ox, oy, c, s, x, y);
       }
       for (int t = cnt - 1; t >= 0; --t) {
-        reverse_at(a, ox, oy, gt, c, s, pos[(nck + t)], j,
-                   g_edf);
+        reverse_at(a, ox, oy, gt, c, s, pos[nck + t], j, g_edf);
       }
     }
   }
 }
 
-// The gradient of ray i: its steps and gt from the record or from its
-// march (keeping the first kSlots bilinear positions), then the walk.
+// The gradient of ray i: its steps and gt from the forward's record, then
+// the walk.
 template <int V>
 __device__ __forceinline__ void grad_ray(
     const Args& a, float ox, float oy, int i, const float* __restrict__ g_out,
@@ -620,24 +580,7 @@ __device__ __forceinline__ void grad_ray(
     float* __restrict__ g_s, const int* __restrict__ walk,
     float2 (&pos)[kSlots]) {
   const Ray ray = load_ray(a, i);
-  int steps = 0;
-  bool kept = false;  // the positions are in their slots
-  if (walk != nullptr) {
-    steps = walk[i];
-  } else {
-    March r{ray.x, ray.y, ray.c, ray.s, 0.0f, 0.0f, 0.0f, 0, false};
-    for (;;) {
-      if (V == kBilinear && r.it < kSlots) {
-        pos[r.it] = make_float2(r.x, r.y);
-      }
-      if (trip<V>(a, ox, oy, r)) break;
-    }
-    // the range's cotangent reaches the total unless the ray left the map
-    // (its range is the constant max_range) or the clamp cut it
-    const bool left = r.tested && r.d < 0.0f;
-    steps = (!left && r.total <= a.max_range) ? r.it - r.tested : -1;
-    kept = true;
-  }
+  const int steps = walk[i];
   const float gt = steps > 0 ? g_out[i] : 0.0f;
   Adjoint j{0.0f, 0.0f, 0.0f, 0.0f};
   if (gt != 0.0f && (g_edf != nullptr || V == kBilinear)) {
@@ -654,15 +597,12 @@ __device__ __forceinline__ void grad_ray(
         y = y + d * ray.s;
       }
     } else if (steps <= kSlots) {
-      if (!kept) {
-        for (int k = 0; k < steps; ++k) {
-          pos[k] = make_float2(x, y);
-          step_bilinear(a, ox, oy, ray.c, ray.s, x, y);
-        }
+      for (int k = 0; k < steps; ++k) {
+        pos[k] = make_float2(x, y);
+        step_bilinear(a, ox, oy, ray.c, ray.s, x, y);
       }
       for (int k = steps - 1; k >= 0; --k) {
-        reverse_at(a, ox, oy, gt, ray.c, ray.s, pos[k], j,
-                   g_edf);
+        reverse_at(a, ox, oy, gt, ray.c, ray.s, pos[k], j, g_edf);
       }
     } else {
       long_ray(a, ox, oy, ray.x, ray.y, ray.c, ray.s, gt, steps, pos, g_edf,
@@ -695,12 +635,12 @@ __global__ void __launch_bounds__(kThreads, V == kBilinear ? 3 : 6)
   const float oy = __ldg(a.oy);
   __shared__ unsigned long long group;
   block_start(&group);
-  Queue q = queue_start(n);
-  while (queue_open(q)) {
-    const int i = queue_take(q, lane, n, &group, cursor);
-    if (i >= 0) {
-      grad_ray<V>(a, ox, oy, i, g_out, g_edf, g_x0, g_y0, g_c, g_s, walk,
-                  pos);
+  for (unsigned long long chunk = first_chunk(); chunk * kChunk < n;
+       chunk = next_chunk(&group, cursor)) {
+    const unsigned long long ray_index = chunk * kChunk + lane;
+    if (ray_index < n) {
+      grad_ray<V>(a, ox, oy, static_cast<int>(ray_index), g_out, g_edf,
+                  g_x0, g_y0, g_c, g_s, walk, pos);
     }
   }
 }
@@ -863,8 +803,8 @@ extern "C" int edf_march_launch(
 // EDF's gradient is added into, or null; g_x0, g_y0, g_cos, g_sin
 // (rows * cols,) f32 that receive the rays' gradients, all four or null
 // (bilinear only); walk i32 (rows * cols,), the march's record of the same
-// rays, or null (the rays are marched first); cursor 1 x u64, zeroed, this
-// launch's own.
+// rays (edf_march_launch's `walk`); cursor 1 x u64, zeroed, this launch's
+// own.
 extern "C" int edf_march_grad_launch(
     int variant, const void* edf, long long hp, long long wp,
     long long h, long long w, const void* ox, const void* oy, float inv_res,
@@ -878,7 +818,8 @@ extern "C" int edf_march_grad_launch(
   if (rows * cols <= 0) return 0;
   const long long st[8] = {sx0, sx1, sy0, sy1, sc0, sc1, ss0, ss1};
   Args a;
-  if (!make_args(edf, hp, wp, h, w, ox, oy, inv_res, max_range, eps,
+  if (walk == nullptr ||
+      !make_args(edf, hp, wp, h, w, ox, oy, inv_res, max_range, eps,
                  max_iters, x0, y0, cos_t, sin_t, st, rows, cols, a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

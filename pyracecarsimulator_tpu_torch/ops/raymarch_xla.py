@@ -285,16 +285,16 @@ _kernels.register(edf_march)
 
 def edf_march_grad(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
                    eps, max_iters: int, bounds_hw, interp: str, g,
-                   edf_grad: bool, ray_grad: bool, walk=None):
+                   edf_grad: bool, ray_grad: bool, walk):
     """The gradient of ``edf_march``'s clamped ranges (variants "nearest"
     and "bilinear") by the kernel of ``csrc/edf_march.cu``, on CUDA
     tensors: ``g`` (shape S) is the ranges' cotangent. Returns (the EDF's
     gradient or None, (g_x0, g_y0, g_cos, g_sin) or None), each ray
     gradient of shape S; ``edf_grad`` and ``ray_grad`` say which to
     compute (the rays only for "bilinear", and with ``max_iters <=
-    MAX_GRAD_TRIPS``). ``walk``: ``edf_march``'s record of the same march
-    (the rays are walked once from it), or None (the kernel marches them
-    first). ``march_grad_plain`` is its plain version.
+    MAX_GRAD_TRIPS``). ``walk``: ``edf_march``'s record of the same march,
+    from which the kernel walks each ray once. ``march_grad_plain`` is its
+    plain version (same arguments but ``walk``).
     ``edf_march_grad.launches`` counts kernel launches."""
     if interp not in ("nearest", "bilinear"):
         raise ValueError(f"edf_march_grad: interp must be 'nearest' or "
@@ -309,6 +309,9 @@ def edf_march_grad(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
     shape, head, tail = _march_launch_args(
         "edf_march_grad", edf, ox, oy, (x0, y0, cos_t, sin_t), max_iters,
         bounds_hw)
+    if walk is None:
+        raise ValueError("edf_march_grad: walk, edf_march's record of the "
+                         "same march, is required")
     _record("edf_march_grad", walk, shape, edf.device, "walk")
     g = g.to(torch.float32).expand(shape).contiguous()
     g_edf = torch.zeros_like(edf) if edf_grad else None
@@ -354,8 +357,9 @@ def march_grad_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
 
 class _March(torch.autograd.Function):
     """``edf_march`` with ``edf_march_grad`` as its backward, in (edf, x0,
-    y0, cos_t, sin_t). With ``record`` the forward keeps the march's
-    ``walk`` record of each ray for the backward."""
+    y0, cos_t, sin_t). With ``record`` (set whenever a backward can run)
+    the forward keeps the march's ``walk`` record of each ray for the
+    backward."""
 
     @staticmethod
     def forward(ctx, edf, x0, y0, cos_t, sin_t, inv_res, ox, oy, max_range,

@@ -3,28 +3,37 @@ of the port on the card: for comparing two commits on the same card.
 
     python3 scripts/march_ab_torch.py [--tree DIR] [--maps levine,berlin]
                                       [--agents 4096] [--json OUT]
+                                      [--no-bench] [--kernels-only]
 
 ``--tree`` is the root of the checkout whose package is timed (default:
 the one holding this script), so one call can time a parent commit
 unpacked beside the change, in turns: parent, change, change, parent.
 Per map, at ``--agents`` x 1080 beams, 270 degrees, 10 m, 200 trips, on
 poses sampled from seed 0 (five sets that differ by 1e-4 rad, one per
-call): ``edf_march`` in its three variants; ``edf_march_grad`` without a
-record (the EDF's gradient, and for "bilinear" the rays'); ``march_rays``
-bilinear forward and backward in the rays (the train step's backward);
-the "edf" and "edf_bilinear" steps replayed as CUDA graphs (noise on, 50
-chained steps) and their BPTT train steps (T = 5, Adam, one graph); then,
-once, ``bench_torch.py``'s ``levine_dmap_fwdbwd`` and
-``levine_dmap_implicit_fwdbwd`` from the same checkout. Milliseconds from
-CUDA events after warm-up. Prints one JSON line (also written to
-``--json``), with the card's name and power limit. Exits non-zero
-without a card.
+call): ``edf_march`` in its three variants; ``edf_march_grad`` (the EDF's
+gradient, and for "bilinear" the rays'), given the march's ``walk``
+record where the checkout's gradient takes one, as ``march_rays``'s
+backward does (the record made before the timing: the forward's work);
+``march_rays`` bilinear forward and backward in the rays (the train
+step's backward); the "edf" and "edf_bilinear" steps replayed as CUDA
+graphs (noise on, 50 chained steps) and their BPTT train steps (T = 5,
+Adam, one graph); then, once, ``bench_torch.py``'s ``levine_dmap_fwdbwd``
+and ``levine_dmap_implicit_fwdbwd`` from the same checkout.
+``--no-bench`` leaves out the bench keys, ``--kernels-only`` the steps,
+train steps and bench keys. Milliseconds from CUDA events after warm-up;
+beside each kernel, the sums of its outputs on the first set (float64:
+the ranges, and the EDF's and the rays' gradients), which two checkouts
+of one function share (the EDF's gradient to float32 rounding: atomics);
+and nvcc's resource report of the march's source where this process
+built it. Prints one JSON line (also written to ``--json``), with the card's name
+and power limit. Exits non-zero without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -75,11 +84,26 @@ def kernels(P, track, poses, agents):
     for v in ("nearest", "bilinear", "bracket"):
         out[f"edf_march {v}"] = timed(
             lambda i: rx.edf_march(*head, *sets[i % 5], *tail, v), 50)
+        got = rx.edf_march(*head, *sets[0], *tail, v)
+        out[f"edf_march {v} sum"] = float(
+            (got[0] if v == "bracket" else got).double().sum())
     g = torch.ones(sets[0][0].shape, device="cuda")
+    recorded = "walk" in inspect.signature(rx.edf_march_grad).parameters
     for v in ("nearest", "bilinear"):
+        walks = [{}] * 5
+        if recorded:
+            walks = [dict(walk=torch.empty(r[0].shape, dtype=torch.int32,
+                                           device="cuda")) for r in sets]
+            for r, w in zip(sets, walks):
+                rx.edf_march(*head, *r, *tail, v, **w)
         out[f"edf_march_grad {v}"] = timed(
             lambda i: rx.edf_march_grad(*head, *sets[i % 5], *tail, v, g,
-                                        True, v == "bilinear"), 20)
+                                        True, v == "bilinear",
+                                        **walks[i % 5]), 20)
+        g_edf, g_rays = rx.edf_march_grad(*head, *sets[0], *tail, v, g,
+                                          True, v == "bilinear", **walks[0])
+        out[f"edf_march_grad {v} sums"] = [
+            float(t.double().sum()) for t in (g_edf, *(g_rays or ()))]
 
     def fwd_bwd(i):
         rays = [r.detach().requires_grad_(True) for r in sets[i % 5]]
@@ -155,6 +179,7 @@ def main(argv=None) -> int:
     ap.add_argument("--agents", type=int, default=4096)
     ap.add_argument("--json", default=None)
     ap.add_argument("--no-bench", action="store_true")
+    ap.add_argument("--kernels-only", action="store_true")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -173,10 +198,13 @@ def main(argv=None) -> int:
         track = load_builtin(name, device="cuda")
         poses = torch.as_tensor(sample_free_poses(
             track, args.agents, np.random.RandomState(0)), device="cuda")
-        result["maps"][name] = {**kernels(P, track, poses, args.agents),
-                                **paths(P, track, poses, args.agents)}
+        result["maps"][name] = kernels(P, track, poses, args.agents)
+        if not args.kernels_only:
+            result["maps"][name].update(paths(P, track, poses, args.agents))
         print(f"{name}: {result['maps'][name]}", file=sys.stderr, flush=True)
-    if not args.no_bench:
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    result["nvcc_log"] = _kernels.build_info.get("edf_march", {}).get("log")
+    if not (args.no_bench or args.kernels_only):
         result["bench_torch"] = bench(tree)
     line = json.dumps(result, default=str)
     if args.json:

@@ -515,8 +515,8 @@ def test_edf_march_grad_matches_plain(cuda, interp, case):
     """The march's gradient against autograd through the plain loop on the
     same tensors, with 200 trips and with 3 (on "edges" also 2048,
     ``MAX_GRAD_TRIPS``, on its first 4096 rays: autograd keeps every
-    trip's tensors), without the march's record and from it: the rays'
-    gradients (bilinear) bit for bit, the EDF's within 1e-4 x max(1, the
+    trip's tensors), from the march's record: the rays' gradients
+    (bilinear) bit for bit, the EDF's within 1e-4 x max(1, the
     largest |plain|) (the kernel adds with atomics, autograd's scatter in
     another order); one launch a gradient; ``march_rays`` under autograd
     takes it."""
@@ -538,14 +538,13 @@ def test_edf_march_grad_matches_plain(cuda, interp, case):
         ref = rx.march_grad_plain(*args)
         scale = max(1.0, float(ref[0].abs().max()))
         assert float(ref[0].abs().sum()) > 0
-        for kw in ({}, dict(walk=walk)):
-            before = rx.edf_march_grad.launches
-            got = rx.edf_march_grad(*args, **kw)
-            assert rx.edf_march_grad.launches == before + 1
-            assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * scale
-            assert (got[1] is None) == (not ray_grad)
-            for a, b in zip(got[1] or (), ref[1] or ()):
-                assert torch.equal(a, b)
+        before = rx.edf_march_grad.launches
+        got = rx.edf_march_grad(*args, walk)
+        assert rx.edf_march_grad.launches == before + 1
+        assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * scale
+        assert (got[1] is None) == (not ray_grad)
+        for a, b in zip(got[1] or (), ref[1] or ()):
+            assert torch.equal(a, b)
     leaves = [edf.clone().requires_grad_(True)] + [
         v.clone().requires_grad_(ray_grad) for v in rays]
     org = torch.stack([ox, oy])

@@ -416,7 +416,8 @@ def test_march_entry_points_take_the_route(small_track, monkeypatch):
 def test_march_wrapper_views_and_checks(monkeypatch):
     """``_as_rows``: a (rows, cols) view, no copy of a 2-D or expanded
     tensor; ``edf_march`` refuses CPU tensors, and (the device check
-    patched) what the kernel does not take, before any launch."""
+    patched) what the kernel does not take, before any launch: a
+    gradient without the march's record among it."""
     from pyracecarsimulator_tpu_torch.ops import _kernels
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     x = torch.arange(6.0).reshape(3, 2)[:, :1].expand(3, 5)
@@ -435,7 +436,8 @@ def test_march_wrapper_views_and_checks(monkeypatch):
     grad_args = lambda **kw: {
         **{k: v for k, v in args().items() if k != "variant"},
         **dict(interp="bilinear", g=torch.ones(3, 4), edf_grad=True,
-               ray_grad=True), **kw}
+               ray_grad=True, walk=torch.zeros(3, 4, dtype=torch.int32)),
+        **kw}
     with pytest.raises(ValueError, match="CUDA kernel"):
         rx.edf_march(**args())
     with pytest.raises(ValueError, match="CUDA kernel"):
@@ -454,7 +456,8 @@ def test_march_wrapper_views_and_checks(monkeypatch):
                        (dict(interp="nearest"), "no gradient in the rays"),
                        (dict(max_iters=rx.MAX_GRAD_TRIPS + 1), "at most"),
                        (dict(edf=edf.t()), "contiguous"),
-                       (dict(ox=o), "0-dim")):
+                       (dict(ox=o), "0-dim"),
+                       (dict(walk=None), "walk, edf_march's record")):
         with pytest.raises(ValueError, match=match):
             rx.edf_march_grad(**grad_args(**bad))
 
@@ -588,10 +591,11 @@ def test_march_wrapper_32_bit_limit(monkeypatch):
 
     def run(edf=small, rays=rays, bounds=None):
         args = (edf, 20.0, o[0], o[1], *rays, 10.0, 1e-4, 8, bounds)
+        walk = torch.empty(rays[0].shape, device="meta", dtype=torch.int32)
         with pytest.raises(ValueError, match="32-bit index limit"):
             rx.edf_march(*args, "nearest")
         with pytest.raises(ValueError, match="32-bit index limit"):
-            rx.edf_march_grad(*args, "bilinear", rays[0], True, True)
+            rx.edf_march_grad(*args, "bilinear", rays[0], True, True, walk)
 
     run(edf=torch.empty(2 ** 16, 2 ** 15, **meta))
     run(bounds=(2 ** 31, 16))
@@ -626,3 +630,27 @@ def test_march_forward_saves_the_record_for_the_backward(monkeypatch,
         rx.march_rays(edf, 0.05, (0.0, 0.0), *rays, max_iters=8,
                       interp=interp)
     assert calls[2][1][-3] is None
+
+
+def test_march_variants_apply_to_the_source(tmp_path):
+    """``scripts/march_variants_torch.py``'s variants are the shipped
+    ``csrc/edf_march.cu`` with lines replaced: each replacement still
+    finds its text the stated number of times, and the copy holds the
+    variant's source and the rest of the package."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "march_variants_torch", root / "scripts" / "march_variants_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    shipped = (root / tool.SOURCE).read_text()
+    assert set(tool.VARIANTS) == {"global cursor", "shared slots"}
+    for name, edits in tool.VARIANTS.items():
+        tree = Path(tool.variant_tree(str(tmp_path), name))
+        text = (tree / tool.SOURCE).read_text()
+        assert text != shipped
+        for old, new, count in edits:
+            assert shipped.count(old) == count and new in text
+        assert (tree / tool.PKG / "ops" / "raymarch_xla.py").exists()
+        assert not (tree / tool.PKG / "_build").exists()
