@@ -6,9 +6,10 @@ Drives the port's paths at full width (4096 agents, 1080 beams, 270 deg,
 max_range 10) on both bundled maps, levine and berlin, and checks them:
 
 1. the card's name and power limit, the PyTorch and CUDA versions;
-2. builds the three sources, ``csrc/sector_sweep.cu`` (the list-routed
-   sweep), ``csrc/dense_sweep.cu`` and ``csrc/edf_march.cu`` (the EDF
-   march and its gradient), with one nvcc per source, started together;
+2. builds the four sources, ``csrc/sector_sweep.cu`` (the list-routed
+   sweep), ``csrc/dense_sweep.cu``, ``csrc/edf_march.cu`` (the EDF march
+   and its gradient) and ``csrc/general_sweep.cu`` (the general-segment
+   sweep), with one nvcc per source, started together;
 3. per map, the sector backend: the list kernel against its plain PyTorch
    version on the card on the full 4096 x 1080 fan (mismatches must be 0),
    the CUDA scan against the CPU scan on 64 poses given the same fan
@@ -36,11 +37,13 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
    steps, one train step; peak device memory;
 9. the reference-style facade ``RacecarSimulator`` with batch shape ();
 10. per map, the EDF march kernel ``edf_march`` against its plain
-    PyTorch loops on the card on the full 4096 x 1080 fan, in its three
-    variants (nearest, bilinear, bracket: 0 mismatches on the ranges, and
-    on ``last`` and ``hit``), with per-ray trips
+    PyTorch versions on the card on the full 4096 x 1080 fan, in its three
+    variants (nearest, bilinear: the plain loop; implicit: the plain loop
+    and ``_refine``, ``raymarch_diff._fwd_plain``; 0 mismatches on the
+    ranges, and on the implicit variant's hit flags), with per-ray trips
     (sum, percentiles, and the warp- and block-level trips one ray a
-    thread would take), time, plain time and bound; its gradient ``edf_march_grad`` (nearest: the EDF's; bilinear:
+    thread would take), the implicit variant's refined hits, time, plain
+    time and bound; its gradient ``edf_march_grad`` (nearest: the EDF's; bilinear:
     the EDF's and the rays') against autograd through the plain loop on
     the same fan (the plain run in blocks of 512 agents), from the
     march's record: the rays' gradients with 0 mismatches, the EDF's
@@ -58,20 +61,26 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     kernel), and the step's time;
 11. per map, "edf_implicit" and "edf_bilinear" forward and backward at
     full width (EDF and pose gradients finite and non-zero; one
-    ``edf_march`` launch a forward, and one ``edf_march_grad`` launch a
-    bilinear backward, nothing else);
+    ``edf_march`` launch a forward, the implicit variant for
+    "edf_implicit", and one ``edf_march_grad`` launch a bilinear backward,
+    nothing else);
 12. ``make_scan_fn(map_grad=True)`` on berlin's sector backend: forward
     equal to ``scan_poses_sectors`` bit for bit, EDF cotangent finite and
     non-zero, ``sector_sweep`` launched exactly once per scan; the dedup
     cotangent against the scatter one;
 13. per map, ``soft_edt`` of the occupancy on the card against the CPU
     (hard min: bit-identical; softmin: 1e-4), and its time;
-14. per map, "segments_simplified": the CUDA scan against the CPU scan
-    given the same fan (bit-identical), the scan, step and rollout,
-    counted (no kernel), and times;
+14. per map, "segments_simplified" (levine: every ray against the (6,
+    128) table; berlin: each agent against its tile's list): the kernel
+    ``general_sweep`` against its plain version on the card on the full
+    4096 x 1080 fan, min-only and winner (0 mismatches on the ranges, wx
+    and wy), with time, plain time and bound; the CUDA scan against the CPU
+    scan given the same fan (bit-identical); one launch a scan; the step
+    and rollout, counted (``general_sweep`` 25 times), and times;
 15. per map, the obstacle cycle through ``RacecarSimulator(device="cuda")``
     on "segments", "sectors", "edf" (with ``graph=True``: the step
-    captured again after each edit) and "segments_simplified": a box 1 m
+    captured again after each edit) and "segments_simplified" (the general
+    sweep): a box 1 m
     ahead of the scanner shortens the beam straight ahead; the sector
     incremental edit gives exactly the full rebuild's ranges; the launch
     counters show the dense or tile kernel, the sector kernel or the
@@ -123,7 +132,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     stage launched its kernel; its rates are logged with the card's name
     and power limit;
 24. the compiled step (``utils/graph.py``), per map on "segments",
-    "sectors", "edf", "edf_implicit" and "edf_bilinear": the step replayed
+    "sectors", "edf", "edf_implicit", "edf_bilinear" and
+    "segments_simplified": the step replayed
     as a CUDA graph against the eager step
     over 4 replays with changing inputs, noise on from one seed (ranges,
     collision and every state field bit for bit); the graphed rollout
@@ -136,7 +146,9 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     Adam under ``graph=None`` trains eagerly; the graphed BPTT train step
     (T = 5, Adam with ``capturable=True``) against the eager one, losses
     and parameters after 3 steps (on "edf_bilinear" its backward launches
-    ``edf_march_grad``); the facade with ``graph=True`` across
+    ``edf_march_grad``; the graphed "edf_implicit" step launches about as
+    many device kernels as the "edf" step: ``_refine``'s passes are
+    gone); the facade with ``graph=True`` across
     ``add_obstacle`` and ``clear_obstacles`` against the eager facade (a
     stale table fails here); 10 scans after the first make no
     ``cudaStreamSynchronize`` and no host-to-device copy (profiler);
@@ -151,18 +163,20 @@ operations over the card's FP32 instruction rate at ``clocks.max.sm``,
 and its bytes (each input and output once) over the HBM rate. The
 operations are counted from the function's arithmetic, not from the
 compiled code: a sweep's are ``OPS_PER_TEST`` per ray-segment test, over
-the real slots of the lists this run visits; the march's are
-``MARCH_OPS_PER_TRIP`` per trip of each ray (the kernel reports each
-ray's trips in this run), its gradient's ``MARCH_GRAD_OPS_PER_TRIP``; the
-march's bytes are the rays once, the outputs once and the EDF once (and
-its gradient once). Beside the bound stands, where the toolkit has
+the real slots of the lists this run visits (the general sweep's
+``OPS_PER_PAIR`` per pair); the march's are ``MARCH_OPS_PER_TRIP`` per
+trip of each ray (the kernel reports each ray's trips in this run), plus
+``REFINE_OPS_PER_HIT`` per refined hit for the implicit variant, its
+gradient's ``MARCH_GRAD_OPS_PER_TRIP``; the march's bytes are the rays
+once, the outputs once and the EDF once (and its gradient once). Beside the bound stands, where the toolkit has
 ``cuobjdump``, what the compiled loop issues per test or per trip (its
 SASS), as a reading.
 
-Prints a JSON line describing the seven kernels (the five TPU kernels'
-counterparts, the EDF march, which replaces two XLA loops, and its
-gradient, which replaces the scan's transpose under ``jax.grad``; their
-launches path by path, each path counted from 0), then as
+Prints a JSON line describing the eight kernels (the five TPU kernels'
+counterparts; the EDF march, which replaces three XLA loops, its
+gradient, which replaces the scan's transpose under ``jax.grad``, and the
+general sweep, which replaces the general-segment scans; their launches
+path by path, each path counted from 0), then as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Exits non-zero, without that line, on any failure or
 without a CUDA card.
@@ -203,16 +217,22 @@ KERNELS = {
                     "segments backend, untiled maps (levine)"),
     "tile_sweep": (SRC + "sector_sweep.cu", TPU + "186",
                    "segments backend, tiled maps (berlin)"),
-    # two XLA loops, no pallas_call: the JAX package has no Pallas march
+    # XLA loops, no pallas_call: the JAX package has no Pallas march
     "edf_march": (SRC + "edf_march.cu",
                   "pyracecarsimulator_tpu/ops/raymarch_xla.py:139, "
-                  "pyracecarsimulator_tpu/ops/raymarch_diff.py:116",
+                  "pyracecarsimulator_tpu/ops/raymarch_diff.py:116, "
+                  "pyracecarsimulator_tpu/ops/raymarch_diff.py:150",
                   "the EDF backends: edf, edf_bilinear, edf_implicit"),
     "edf_march_grad": (SRC + "edf_march.cu",
                        "pyracecarsimulator_tpu/ops/raymarch_xla.py:139 "
                        "(the scan's transpose under jax.grad)",
                        "the EDF marches' gradient: edf_bilinear, and a "
                        "march whose EDF requires grad"),
+    "general_sweep": (SRC + "general_sweep.cu",
+                      "pyracecarsimulator_tpu/ops/raycast_general.py:34, "
+                      "pyracecarsimulator_tpu/ops/raycast_general.py:73, "
+                      "pyracecarsimulator_tpu/ops/raycast_general.py:145",
+                      "segments_simplified backend"),
 }
 
 
@@ -224,19 +244,36 @@ OPS_PER_TEST = 10
 LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12
 # the march's variants, and the gathers a trip of each issues
-MARCH_VARIANTS = {"nearest": 1, "bilinear": 4, "bracket": 1}
+MARCH_VARIANTS = {"nearest": 1, "bilinear": 4, "implicit": 1}
 # operations per trip that the march's function needs, counted from its
 # arithmetic (-fmad=false: each multiply and add its own operation):
 #   nearest: the grid coordinates 4 (subtract, multiply, twice), 2 floors,
 #     2 float-to-int, the bounds 4, the flat index 1, the gather 1, the
 #     stop tests 3, the step 5 (x += d c, y += d s, total += d), the trip
-#     counter 2 = 24; the bracket's the same (its last step is a copy);
+#     counter 2 = 24; the implicit variant's march the same (its last
+#     step is a copy);
 #   bilinear: the grid coordinates 4, the bounds 4, the half-cell shifts
 #     2, their clamps 4, 2 floors, their clamps 2, the fractions 2,
 #     float-to-int 2, the base index 1 and the 3 other taps' 3, 4 gathers,
 #     1 - fx and 1 - fy 2, the value 9 (6 multiplies, 3 adds), the stop
 #     tests 3, the step 5, the trip counter 2 = 51
-MARCH_OPS_PER_TRIP = {"nearest": 24, "bilinear": 51, "bracket": 24}
+MARCH_OPS_PER_TRIP = {"nearest": 24, "bilinear": 51, "implicit": 24}
+# the implicit variant's operations per refined hit (raymarch_diff._fwd_plain
+# after the march): the bracket 3 (a subtract, its clamp, an add); 12
+# bisections of 47: the midpoint 2, the position 8, the patch's value 33
+# (the half-cell shifts 2, their clamps 4, 2 floors, their clamps 2, the
+# fractions 2, float-to-int 2, the 4 taps' indices 4, 4 gathers, 1 - fx and
+# 1 - fy 2, the value 9), F 1, its test 1, the two selects 2; the Newton
+# step 64: the position 8, the value 33, the slope 10, F 1, dE/dr 4, its
+# floor 2, the division 1, the step 1, its two clamps 2, the range's clamp
+# 1 and the hit test 1: 3 + 12 x 47 + 64 = 631
+REFINE_OPS_PER_BISECTION = 47
+REFINE_OPS_PER_HIT = 3 + 12 * REFINE_OPS_PER_BISECTION + 64
+# the general sweep's operations per (ray, slot) pair (ops/raycast_general.py
+# _pairs): the normal 1, denom 3, d_safe 2, the numerator 5, the division 1
+# (counted as one, as the march's bounds count it), hx and hy 6, s 3, the
+# four validity tests 4, the select 1, the running minimum 1 = 27
+OPS_PER_PAIR = 27
 # its gradient's, with the forward's intermediates kept (the kernel marches
 # again instead: that is its own cost, not the function's):
 #   nearest: the forward trip 24 and one add into the EDF's gradient = 25;
@@ -435,6 +472,9 @@ def sass_report():
         if name == "edf_march":
             report[name] = march_sass(sass)
             continue
+        if name == "general_sweep":
+            report[name] = general_sass(sass)
+            continue
         loops = []
         for body in innermost_loops(sass):
             if "FSEL" in body:
@@ -474,8 +514,11 @@ def innermost_loops(sass):
 def march_sass(sass):
     """What a trip of each variant's march loop issues: per function of
     the march kernel (one per variant, the template argument in its name),
-    the innermost loop that gathers (LDG), one trip a pass. A reading
-    beside the bound, which counts the function's operations."""
+    the longest innermost loop that gathers (LDG), one trip a pass; for
+    the implicit variant the longest that gathers fewer than 4 times (its
+    trip), and its bisection, the loop of 4 gathers, one bisection a pass
+    (as "implicit bisection"). A reading beside the bound, which counts
+    the function's operations."""
     out = {}
     names = {f"ILi{i}E": v for i, v in enumerate(MARCH_VARIANTS)}
     for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
@@ -485,12 +528,96 @@ def march_sass(sass):
                  if "LDG" in b]
         if "edf_march_kernel" not in head or variant is None or not loops:
             continue
+        parts = {variant: loops}
+        if variant == "implicit":
+            parts = {variant: [b for b in loops if b.count("LDG") < 4],
+                     "implicit bisection": [b for b in loops
+                                            if b.count("LDG") >= 4]}
+        for label, found in parts.items():
+            if not found:
+                continue
+            body = max(found, key=len)
+            out[label] = {"instructions": len(body),
+                          "mix": {o: body.count(o) for o in sorted(set(body))}}
+            need = (f"{MARCH_OPS_PER_TRIP[label]} a trip" if label in
+                    MARCH_OPS_PER_TRIP
+                    else f"{REFINE_OPS_PER_BISECTION} a bisection")
+            log(f"edf_march {label}: SASS loop of {len(body)} instructions "
+                f"a pass (the function needs {need}) {out[label]['mix']}")
+    return out
+
+
+def general_sass(sass):
+    """What a pass of the general sweep's slot loop runs, per mode (the
+    template argument in the function's name): the longest innermost loop
+    that reads the staged slots (LDS), and the pairs a pass sweeps (5 LDS
+    each: a slot's five rows). A reading beside the bound, which counts
+    the function's operations."""
+    out = {}
+    for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        head = fn.splitlines()[0]
+        mode = ("winner" if "ILb1E" in head else "min" if "ILb0E" in head
+                else None)
+        loops = [b for b in innermost_loops("Function : " + fn)
+                 if "LDS" in b]
+        if "general_sweep_kernel" not in head or mode is None or not loops:
+            continue
         body = max(loops, key=len)
-        out[variant] = {"instructions": len(body),
-                        "mix": {o: body.count(o) for o in sorted(set(body))}}
-        log(f"edf_march {variant}: SASS loop of {len(body)} instructions a "
-            f"trip (the function needs {MARCH_OPS_PER_TRIP[variant]}) "
-            f"{out[variant]['mix']}")
+        out[mode] = {"instructions": len(body),
+                     "pairs": body.count("LDS") // 5,
+                     "mix": {o: body.count(o) for o in sorted(set(body))}}
+        log(f"general_sweep {mode}: SASS loop of {len(body)} instructions "
+            f"a pass of {out[mode]['pairs']} pairs (the function needs "
+            f"{OPS_PER_PAIR} a pair) {out[mode]['mix']}")
+    return out
+
+
+def general_case(gmap, p):
+    """The general sweep's arguments for the scan of poses ``p`` (A, 3) on
+    the simplified map ``gmap``, as ``raycast_general`` hands them over:
+    the tiles and the agents' tile ids, or the (6, K) table as one list
+    and no ids; the fan's rays, the origins as expanded views."""
+    from pyracecarsimulator_tpu_torch.ops.common import (rays_from_poses,
+                                                         tile_ids)
+    _, q, xb, yb, ct, st = rays_from_poses(p, BEAMS, FOV)
+    if gmap.tiles is not None:
+        return (gmap.tiles, tile_ids(gmap.tiles_shape, gmap.tile_size,
+                                     gmap.tile_origin, q[:, 0], q[:, 1]),
+                xb, yb, ct, st)
+    return (gmap.params[None], None, xb, yb, ct, st)
+
+
+def general_bound(args, winner, rates):
+    """The least time the card could take for one general sweep on
+    ``args``: the larger of ``OPS_PER_PAIR`` for each ray and each real
+    slot (length >= 0) of its list, over the instruction rate, and the
+    bytes (each visited list's real slots, 5 rows of float32, each row's
+    list id and origin, each ray's direction, each output once: 4 bytes a
+    ray for the minimum, 12 with the winner) over the HBM rate."""
+    import torch
+    table, ids, _, _, ct, _ = args
+    real = (table[:, 4, :] >= 0).sum(dim=1)
+    rows, cols = ct.shape
+    lists = (ids.long() if ids is not None else
+             torch.zeros(rows, dtype=torch.long, device=ct.device))
+    pairs = int(real[lists].sum()) * cols
+    nbytes = (20 * int(real[torch.unique(lists)].sum())
+              + (4 if ids is not None else 0) * rows + 8 * rows
+              + 8 * rows * cols + (12 if winner else 4) * rows * cols)
+    ops_ms = pairs * OPS_PER_PAIR / rates["slots_per_s"] * 1e3
+    bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
+    out = {"pairs": pairs, "slots": table.shape[2],
+           "mean_real_slots": pairs / (rows * cols), "bytes": nbytes,
+           "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    sass = rates.get("general_sass", {}).get("winner" if winner else "min")
+    if sass and sass["pairs"]:
+        # the compiled loop sweeps every slot, the padding's too
+        per_pair = sass["instructions"] / sass["pairs"]
+        out["sass_per_pair"] = per_pair
+        out["compiled_slots_ms"] = (rows * cols * table.shape[2] * per_pair
+                                    / rates["slots_per_s"] * 1e3)
     return out
 
 
@@ -739,15 +866,17 @@ def march_resources():
     return out
 
 
-def march_bound(edf, xb, trips, variant, rates, grad=None):
+def march_bound(edf, xb, trips, variant, rates, grad=None, refined=0):
     """The least time the card could take for one march of these rays
     (``grad`` None) or for its gradient (``grad`` = (EDF's, rays')): the
     larger of the operations (the trips this run's rays took, each
     ``MARCH_OPS_PER_TRIP`` or ``MARCH_GRAD_OPS_PER_TRIP`` of the variant,
-    over the instruction rate) and the bytes (the EDF, each agent's
-    origin, each ray's direction, each output once; the gradient also
-    reads the ranges' cotangent, and writes the EDF's gradient and four
-    per ray), over the HBM rate. Beside it, readings of the trips: their
+    and for the implicit variant ``REFINE_OPS_PER_HIT`` for each of the
+    ``refined`` hits, over the instruction rate) and the bytes (the EDF,
+    each agent's origin, each ray's direction, each output once: the
+    implicit variant's range and hit flag; the gradient also reads the
+    ranges' cotangent, and writes the EDF's gradient and four per ray),
+    over the HBM rate. Beside it, readings of the trips: their
     per-ray percentiles, and the trips of one-ray-a-thread launches,
     warp-level (32 x each warp's longest ray) and block-level (256 x each
     256-ray block's longest), and the SASS loop's instructions."""
@@ -766,32 +895,39 @@ def march_bound(edf, xb, trips, variant, rates, grad=None):
     nbytes = 4 * edf.numel() + 8 * agents + 8 * rays
     if grad is None:
         per_trip = MARCH_OPS_PER_TRIP[variant]
-        nbytes += (9 if variant == "bracket" else 4) * rays
+        nbytes += (5 if variant == "implicit" else 4) * rays
     else:
         per_trip = MARCH_GRAD_OPS_PER_TRIP[variant]
         nbytes += (4 * rays + 4 * edf.numel() * grad[0]
                    + 16 * rays * grad[1])
-    ops_ms = ray_trips * per_trip / rates["slots_per_s"] * 1e3
+    ops = ray_trips * per_trip + refined * REFINE_OPS_PER_HIT
+    ops_ms = ops / rates["slots_per_s"] * 1e3
     bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
     out = {"ray_trips": ray_trips, "warp_trips": padded_trips(32),
            "block_trips": padded_trips(256), "trip_percentiles": {
                **pct, "max": int(srt[-1])},
            "max_trips": int(srt[-1]), "ops_per_trip": per_trip,
+           "refined_hits": refined, "ops": ops,
            "bytes": nbytes, "bound_ops_ms": ops_ms,
            "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
     sass = rates.get("march_sass", {}).get(variant)
     if grad is None and sass:
         out["sass_per_trip"] = sass["instructions"]
-        out["compiled_slots_ms"] = (ray_trips * sass["instructions"]
-                                    / rates["slots_per_s"] * 1e3)
+        slots = ray_trips * sass["instructions"]
+        bisect = rates.get("march_sass", {}).get("implicit bisection")
+        if variant == "implicit" and bisect:
+            out["sass_per_bisection"] = bisect["instructions"]
+            slots += refined * 12 * bisect["instructions"]
+        out["compiled_slots_ms"] = slots / rates["slots_per_s"] * 1e3
     return out
 
 
 def march_kernel_checks(name, track, poses, rates, errs, times):
-    """10: ``edf_march`` against its plain loops on the card, the full
+    """10: ``edf_march`` against its plain versions on the card, the full
     4096 x 1080 fan of ``poses``, all three variants: 0 mismatches; each
-    variant's time, plain time and bound. Then
+    variant's time, plain time and bound (the implicit variant's counting
+    the hits it refines). Then
     ``edf_march_grad`` against autograd through the plain loop on the same
     fan, nearest and bilinear, from the march's record (as the backward
     takes it): the rays' gradients bit for bit, the EDF's within
@@ -809,16 +945,21 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
     ray_sets = [rays_from_poses(q, BEAMS, FOV)[2:] for q in pose_sets(poses)]
     head = (track.edf, 1.0 / track.resolution, ox, oy)
     n = len(ray_sets)
+    # the implicit variant's host scalars, as raymarch_diff._fwd_impl makes
+    # them
+    refine = (rd._surface_level(sc.ray_tracing_epsilon, track.resolution),
+              0.4 * track.resolution, rd._DENOM_FLOOR)
 
     def plain(variant, rays):
-        if variant == "bracket":
-            return rd._march_nearest_plain(*head, *rays, *tail)
+        if variant == "implicit":
+            return rd._fwd_plain(*head, *rays, *tail, refine)
         return rx.march_rays_plain(*head, *rays, *tail[:3], variant,
                                    tail[3])
 
     def kernel(variant, rays, ray_trips=None, walk=None):
+        kw = dict(refine=refine) if variant == "implicit" else {}
         return rx.edf_march(*head, *rays, *tail, variant,
-                            ray_trips=ray_trips, walk=walk)
+                            ray_trips=ray_trips, walk=walk, **kw)
 
     grids = {}
     for variant in MARCH_VARIANTS:
@@ -832,10 +973,14 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
         mism = [int((a != b).sum()) for a, b in zip(got, ref)]
         err = max(float((a.double() - b.double()).abs().max())
                   for a, b in zip(got, ref) if a.dtype == torch.float32)
+        # the hits the implicit variant refines: the march's
+        refined = (int(rd._march_nearest_plain(*head, *rays, *tail)[2].sum())
+                   if variant == "implicit" else 0)
         log(f"[{name}] edf_march {variant} vs plain on "
             f"{tuple(got[0].shape)} rays: mismatches "
-            f"{dict(zip(('total', 'last', 'hit'), mism))}, max abs err = "
-            f"{err}")
+            f"{dict(zip(('range', 'hit'), mism))}, max abs err = {err}"
+            + (f"; {refined} hits refined, {int(got[1].sum())} below "
+               f"max_range" if refined else ""))
         check(not any(mism), f"{name}: edf_march {variant} disagrees with "
               "its plain version")
         errs["edf_march"].append(err)
@@ -846,7 +991,8 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
                         warmup=1)
         k2_ms = timed_ms(lambda i: kernel(variant, ray_sets[i % n]), 50)
         res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
-               **march_bound(track.edf, rays[0], trips, variant, rates)}
+               **march_bound(track.edf, rays[0], trips, variant, rates,
+                             refined=refined)}
         res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
         times["edf_march"][f"{name} {variant}"] = res
         log(f"[{name}] edf_march {variant}: {k_ms:.4f} / {k2_ms:.4f} ms vs "
@@ -994,8 +1140,9 @@ def march_phases(card, name, track, poses, rates, errs, times):
         return rx.scan_poses(edf, track.resolution, org, q, num_beams=BEAMS,
                              fov=FOV, interp="bilinear", **kw)
 
-    # the implicit march's bracket runs in the kernel under autograd, its
-    # VJP is elementwise; the bilinear march's backward is edf_march_grad
+    # the implicit march's forward is one launch of the kernel's implicit
+    # variant, its VJP elementwise; the bilinear march's backward is
+    # edf_march_grad
     for label, fn, q, kernels in (
             ("edf_implicit", implicit, p, {"edf_march": 1}),
             ("edf_bilinear", bilinear, p, {"edf_march": 1,
@@ -1116,8 +1263,11 @@ def soft_edt_phase(card, name, track):
     return out
 
 
-def simplified_phase(card, name, track, poses):
-    """14: the "segments_simplified" backend on one map."""
+def simplified_phase(card, name, track, poses, rates, errs, times):
+    """14: the "segments_simplified" backend on one map: the general
+    sweep against its plain version on the full fan, both modes, timed
+    beside its bound; the scan on the card against the CPU's; one launch
+    a scan; the step and the rollout, counted."""
     import torch
     from pyracecarsimulator_tpu_torch import build_sim, make_scan_fn
     from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
@@ -1142,21 +1292,65 @@ def simplified_phase(card, name, track, poses):
             r = rg.raycast_general(m.params, xb, yb, ct, st, MAX_RANGE)
         return apply_extent_mask(r, q[:, 0], q[:, 1], m.extent, MAX_RANGE)
 
+    # the kernel against its plain version on the full fan, both modes
+    sets = pose_sets(poses)
+    args = [general_case(gmap, q) for q in sets]
+    n = len(args)
+    layout = "tiled" if gmap.tiles is not None else "flat"
+    for winner in (False, True):
+        mode = "winner" if winner else "min"
+        got = rg.general_sweep(*args[0], winner)
+        ref = rg.general_sweep_plain(*args[0], winner)
+        torch.cuda.synchronize()
+        pairs = [(k, a, b) for k, a, b in zip(("best", "wx", "wy"), got, ref)
+                 if a is not None]
+        mism = {k: int((a != b).sum()) for k, a, b in pairs}
+        err = max(float((a.double() - b.double()).abs().max())
+                  for _, a, b in pairs)
+        log(f"[{name}] general_sweep {mode} ({layout}, table "
+            f"{tuple(args[0][0].shape)}) vs plain on "
+            f"{tuple(got[0].shape)} rays: mismatches {mism}, max abs err = "
+            f"{err}; hits within {MAX_RANGE} m "
+            f"{float((got[0] < MAX_RANGE).float().mean()):.4f}")
+        check(not any(mism.values()), f"{name}: general_sweep {mode} "
+              "disagrees with its plain version")
+        errs["general_sweep"].append(err)
+        k_ms = timed_ms(lambda i: rg.general_sweep(*args[i % n], winner), 20)
+        p_ms = timed_ms(
+            lambda i: rg.general_sweep_plain(*args[i % n], winner), 2,
+            warmup=1)
+        k2_ms = timed_ms(lambda i: rg.general_sweep(*args[i % n], winner), 20)
+        res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
+               **general_bound(args[0], winner, rates)}
+        res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
+        times["general_sweep"][f"{name} {mode}"] = res
+        log(f"[{name}] general_sweep {mode}: {k_ms:.4f} / {k2_ms:.4f} ms vs "
+            f"plain {p_ms:.2f} ms; bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}), share {res['share_of_bound']:.3f}; "
+            f"{res['mean_real_slots']:.1f} real of {res['slots']} slots a "
+            f"ray")
+
     p = torch.as_tensor(poses, device="cuda")
     _, q, xb, yb, ct, st = rays_from_poses(p[:64], BEAMS, FOV)
     same_fan_check(f"{name} segments_simplified scan, 64 poses",
                    lambda m, *a: scan_rays(m, *a),
                    (gmap, q, xb, yb, ct, st))
     scan = make_scan_fn(bundle)
-    sets = pose_sets(poses)
-    out["scan_ms"] = timed_ms(lambda i: scan(sets[i % 5]), 5, warmup=1)
-    out["step_ms"] = step_ms(bundle, poses, reps=10)
+    reset_counts()
+    scan(p)
+    torch.cuda.synchronize()
+    out["scan_launches"] = {k: v for k, v in counts().items() if v}
+    check(out["scan_launches"] == {"general_sweep": 1},
+          f"{name}: a segments_simplified scan launched "
+          f"{out['scan_launches']}")
+    out["scan_ms"] = timed_ms(lambda i: scan(sets[i % 5]), 20)
+    out["step_ms"] = step_ms(bundle, poses)
     out["launches"] = drive({name: bundle}, "segments_simplified",
                             {name: poses})[name]
-    check(out["launches"] == {},
+    check(out["launches"] == {"general_sweep": STEPS + 1 + WARMUP_STEPS},
           f"{name}: segments_simplified launched {out['launches']}")
     log(f"[{name}] {card}: segments_simplified scan {out['scan_ms']:.4f} "
-        f"ms, step {out['step_ms']:.4f} ms")
+        f"ms ({out['scan_launches']}), step {out['step_ms']:.4f} ms")
     return out
 
 
@@ -1176,7 +1370,7 @@ def obstacle_phase(card, name, track, poses):
     expect = {"segments": {"levine": "dense_sweep",
                            "berlin": "tile_sweep"}[name],
               "sectors": "sector_sweep", "edf": "edf_march",
-              "segments_simplified": None}
+              "segments_simplified": "general_sweep"}
     out = {}
     for backend, kname in expect.items():
         graphed = backend == "edf"
@@ -1203,7 +1397,7 @@ def obstacle_phase(card, name, track, poses):
               f"({r0} -> {r1})")
         # the scan, and the step: one launch eagerly; graphed, the capture
         # on the edited map (2 warm-up steps) and its replay
-        check(used == ({kname: 4 if graphed else 2} if kname else {}),
+        check(used == {kname: 4 if graphed else 2},
               f"{name} {backend}: the edited map launched {used}")
         if backend == "sectors":
             inc = sim.bundle.segmap
@@ -1993,8 +2187,8 @@ def bench_phase(card):
 def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
     """24: the step, the rollout and the BPTT train step replayed as CUDA
     graphs, each held against its eager version bit for bit, counted and
-    timed, on the exact backends and the three EDF backends. Returns
-    ({cell: results}, {cell: launch counts})."""
+    timed, on the exact backends, the three EDF backends and the
+    simplified one. Returns ({cell: results}, {cell: launch counts})."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2009,7 +2203,9 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
     kernel_of = {("levine", "segments"): "dense_sweep",
                  ("berlin", "segments"): "tile_sweep",
                  ("levine", "sectors"): "sector_sweep",
-                 ("berlin", "sectors"): "sector_sweep"}
+                 ("berlin", "sectors"): "sector_sweep",
+                 ("levine", "segments_simplified"): "general_sweep",
+                 ("berlin", "segments_simplified"): "general_sweep"}
 
     def same_state(a, b):
         return all(bool(torch.equal(getattr(a, f), getattr(b, f)))
@@ -2042,7 +2238,8 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
         cells = [("segments", seg_bundles[name]),
                  ("sectors", sec_bundles[name])]
         cells += [(b, build_sim(tracks[name], backend=b, device="cuda"))
-                  for b in ("edf", "edf_implicit", "edf_bilinear")]
+                  for b in ("edf", "edf_implicit", "edf_bilinear",
+                            "segments_simplified")]
         for backend, bundle in cells:
             cell = f"{name} {backend}"
             exact = backend in ("segments", "sectors")
@@ -2269,6 +2466,14 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                 if e.key == "cudaGraphLaunch") / n_prof
             check(busy > 0, f"{cell}: the trace of the graphed step holds "
                   f"no device time")
+            if backend == "edf_implicit":
+                # the refinement runs inside the march's one launch: the
+                # step launches about what the "edf" step does
+                edf_step = out[f"{name} edf"]["graphed_step_device_launches"]
+                check(res["graphed_step_device_launches"] <= edf_step + 20,
+                      f"{cell}: the graphed step launches "
+                      f"{res['graphed_step_device_launches']} device kernels "
+                      f"against the edf step's {edf_step}")
             res["graphed_step_device_busy_ms"] = busy
             res["graphed_step_idle_share"] = 1 - busy / res["step_graphed_ms"]
 
@@ -2373,8 +2578,9 @@ def run():
 
     # 2. build, one nvcc per source, together
     t0 = time.perf_counter()
-    _kernels.build("sector_sweep", "dense_sweep", "edf_march")
-    log(f"built the three sources in {time.perf_counter() - t0:.2f} s wall; "
+    _kernels.build("sector_sweep", "dense_sweep", "edf_march",
+                   "general_sweep")
+    log(f"built the four sources in {time.perf_counter() - t0:.2f} s wall; "
         f"nvcc: {' '.join(_kernels.NVCC_FLAGS)}")
     for name, info in _kernels.build_info.items():
         log(f"{name}: {info['seconds']:.2f} s\n{info['log']}")
@@ -2385,8 +2591,10 @@ def run():
     native_out = native_phase(card)
     # the unrolled main loop is the cheapest per test
     rates["sass_per_test"] = {k: min(lp["per_test"] for lp in v)
-                              for k, v in sass.items() if k != "edf_march"}
+                              for k, v in sass.items()
+                              if k not in ("edf_march", "general_sweep")}
     rates["march_sass"] = sass.get("edf_march", {})
+    rates["general_sass"] = sass.get("general_sweep", {})
     rates["march_resources"] = march_resources()
     log(f"bounds: {OPS_PER_TEST} instruction slots per test over "
         f"{rates['sms']} SMs x {LANES_PER_SM} lanes x "
@@ -2599,7 +2807,7 @@ def run():
         slice_out["soft_edt"][name] = soft_edt_phase(card, name,
                                                      tracks[name])
         slice_out["segments_simplified"][name] = simplified_phase(
-            card, name, tracks[name], poses_by_map[name])
+            card, name, tracks[name], poses_by_map[name], rates, errs, times)
         slice_out["obstacles"][name] = obstacle_phase(
             card, name, tracks[name], poses_by_map[name])
     log(f"after phases 10-15: peak device memory "
@@ -2652,6 +2860,10 @@ def run():
            res[f"{label}_fwd_bwd_launches"]
            for m, res in slice_out["edf"].items()
            for label in ("edf_implicit", "edf_bilinear")},
+        **{f"segments_simplified {k}, {m}": res[key]
+           for m, res in slice_out["segments_simplified"].items()
+           for k, key in (("scan", "scan_launches"),
+                          ("step + rollout", "launches"))},
         **{f"obstacle cycle, {m} {backend}": res["launches"]
            for m, per_map in slice_out["obstacles"].items()
            for backend, res in per_map.items()},
@@ -2672,7 +2884,8 @@ def run():
     shape_of = {"dense_sweep": "levine", "tile_sweep": "berlin",
                 "sector_sweep": "berlin", "sorted_tiles_sweep": "berlin",
                 "grp_sweep": "berlin", "edf_march": "levine nearest",
-                "edf_march_grad": "levine bilinear"}
+                "edf_march_grad": "levine bilinear",
+                "general_sweep": "berlin min"}
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "path": path, "launches": sum(launches_by_path[name].values()),
@@ -2682,7 +2895,7 @@ def run():
         "plain_ms": times[name][shape_of[name]]["plain_ms"],
         "bound_ms": times[name][shape_of[name]]["bound_ms"],
         "bound_by": times[name][shape_of[name]]["bound_by"],
-        # no PyTorch call computes the first-hit sweep, the march or its
+        # no PyTorch call computes the first-hit sweeps, the march or its
         # gradient
         "library_ms": None,
         "shape_of_ms": f"{shape_of[name]} {AGENTS}x{BEAMS}",

@@ -1,14 +1,16 @@
 // EDF ray march and its gradient: every ray sphere-traces the euclidean
 // distance field in a loop of its own, in registers, until it stops.
 //
-// Replaces two XLA loops of the JAX package, neither of them a Pallas
+// Replaces three XLA loops of the JAX package, none of them a Pallas
 // kernel:
 //   pyracecarsimulator_tpu/ops/raymarch_xla.py::march_rays, the fixed-trip
 //     lax.scan at :139 (backends "edf" and "edf_bilinear"), and its
 //     transpose under jax.grad (the gradient of "edf_bilinear", and of a
 //     march whose EDF is differentiated), and
-//   pyracecarsimulator_tpu/ops/raymarch_diff.py::_march_nearest, the
-//     lax.while_loop at :116 (the bracket of "edf_implicit").
+//   pyracecarsimulator_tpu/ops/raymarch_diff.py::_fwd_impl, the
+//     lax.while_loop of _march_nearest at :116 (the bracket of
+//     "edf_implicit") and the lax.fori_loop of _refine at :150 (its
+//     bisection), fused: the lane that marched a ray refines its hit.
 // The JAX package has no Pallas march because a TPU has no vector gather
 // (raymarch_xla.py's module doc): every trip gathers the EDF at a
 // data-dependent cell. Hopper gathers natively, and each bundled map's EDF
@@ -28,9 +30,18 @@
 // template argument):
 //   kNearest  : the clamped total ("edf"),
 //   kBilinear : the clamped total of the bilinear march ("edf_bilinear"),
-//   kBracket  : the unclamped total, the last step and the hit flag
-//               (_march_nearest: [total - last, total] brackets the
-//               boundary crossing that "edf_implicit" refines).
+//   kImplicit : the range and hit flag of "edf_implicit"
+//               (ops/raymarch_diff.py _fwd_impl): the nearest march gives
+//               the bracket [max(total - last, 0), total + top] of a hit;
+//               12 bisections of F(r) = E(p(r)) - tau, E the bilinear patch
+//               (_bilinear_patch: no bounds test, the taps of the clamped
+//               base), then one Newton step from the bracket's outside end
+//               with a slope floor, clamped into the bracket; a miss keeps
+//               its clamped total; the range is clamped to max_range and
+//               the hit flag is the march's hit with a range below it.
+//               tau, top (0.4 * resolution) and the slope floor come from
+//               the host, each rounded once to float32, as the plain
+//               version hands them to the card.
 // With `walk_out` set, the march also writes what its gradient needs of
 // each ray: the steps it took when its range has a gradient in its total,
 // else -1 (it left the map, or the clamp cut its total).
@@ -61,7 +72,11 @@
 // Exact arithmetic: built with -fmad=false and no fast math, every float32
 // operation of the march in the order of the plain PyTorch loops
 // (ops/raymarch_xla.py march_rays_plain, ops/raymarch_diff.py
-// _march_nearest_plain): the march equals them bit for bit. Cell indices
+// _march_nearest_plain and, for kImplicit, _fwd_plain: its bisection and
+// Newton step in _refine's order, `f / safe` an IEEE division, every
+// torch.clamp, torch.minimum and torch.maximum with torch's NaN rule, the
+// patch's value and slope in _bilinear_patch's order): the march equals
+// them bit for bit. Cell indices
 // are 32-bit (the wrapper refuses a map or a ray layout past 2^31 - 1
 // elements), with the plain loops' in-bounds decisions for every float,
 // NaN and |g| past 2^31 included (nearest_cell says why). The gradient
@@ -109,7 +124,7 @@
 // held its SM's slot as long as its longest ray); block-shared groups of
 // rays for L1 locality (warps that each take their next 32 rays from the
 // launch's one cursor march unrelated beams side by side: the nearest and
-// bracket marches measured up to 1.6x slower). Refilling single lanes as
+// implicit marches measured up to 1.6x slower). Refilling single lanes as
 // their rays stop, the lanes tripping together until one stops, measured
 // slower than whole warps in every variant on both maps (each refill costs
 // a ray load and a pass of bookkeeping), so the warps refill whole, in the
@@ -123,12 +138,17 @@
 // measured 5% slower on levine and 19% on berlin, because the 64 KB a
 // block takes from the SM's 256 KB of L1 and shared memory are the
 // gathers' L1. scripts/march_variants_torch.py times both left-out
-// designs beside this source. Considered and left out: texture
-// sampling (8-bit interpolation weights: not the function), a blocked EDF
-// layout, fusing _refine into the bracket, TMA or shared-memory tiles of
-// the EDF (the gathers depend on the data, and neither map's EDF fits in
-// shared memory; both stay in L2). PERF.md holds the times measured on an
-// H100, each with the card's power limit.
+// designs beside this source. The implicit variant refines a hit in the
+// lane that marched it: 13 patch evaluations (4 dependent gathers and ~45
+// operations each) in registers, where the plain version ran ~1,090
+// elementwise passes over the (rays,) tensors; a miss writes its range at
+// once. Its bisection loop is not unrolled (#pragma unroll 1), so that the
+// kernel keeps the march's register budget. Considered and left out:
+// texture sampling (8-bit interpolation weights: not the function), a
+// blocked EDF layout, TMA or shared-memory tiles of the EDF (the gathers
+// depend on the data, and neither map's EDF fits in shared memory; both
+// stay in L2). PERF.md holds the times measured on an H100, each with the
+// card's power limit.
 
 #include <cuda_runtime.h>
 
@@ -145,7 +165,9 @@ constexpr int kChunk = 32;  // rays a warp takes at once
 constexpr int kGroup = 16;  // chunks a block takes from the cursor at once
 constexpr int kNearest = 0;
 constexpr int kBilinear = 1;
-constexpr int kBracket = 2;
+constexpr int kImplicit = 2;
+// the implicit variant's bisections (ops/raymarch_diff.py _refine's iters)
+constexpr int kBisections = 12;
 // the march's blocks an SM holds at least (so at most 40 registers a
 // thread: without it ptxas holds the march to 32 and spills)
 constexpr int kMarchBlocks = 6;
@@ -174,6 +196,9 @@ struct Args {
   const float* ox;
   const float* oy;
   float inv_res, max_range, eps;
+  // kImplicit: the level set tau, the bracket's top past the march stop
+  // (0.4 * resolution) and the slope floor (_DENOM_FLOOR); 0 otherwise
+  float tau, top, slope_floor;
   int max_iters;
   int n, cols;  // rays, and the columns of their (rows, cols) views
   // i / cols = (i * col_magic) >> col_shift for 0 <= i < 2^31
@@ -274,6 +299,78 @@ template <int V>
 __device__ __forceinline__ float sample(const Map& m, float gx, float gy) {
   return V == kBilinear ? sample_bilinear(m, gx, gy)
                         : sample_nearest(m, gx, gy);
+}
+
+// torch.maximum and torch.minimum: a NaN operand gives NaN (fmaxf and fminf
+// would return the other operand)
+__device__ __forceinline__ float maximum_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+
+__device__ __forceinline__ float minimum_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+
+// ops/raymarch_diff.py _bilinear_patch at (gx, gy): the value and, with
+// kSlope, the grid-space slope (dgx, dgy), in its order of operations. No
+// bounds test: the taps of the clamped base, as bilinear() takes them. A
+// NaN coordinate converts to cell 0 (__float2int_rz), so the taps stay in
+// the map and the value is NaN.
+template <bool kSlope>
+__device__ __forceinline__ float patch(const Map& m, float gx, float gy,
+                                       float& dgx, float& dgy) {
+  const float xs = clamp_nan(gx - 0.5f, 0.0f, static_cast<float>(m.wp - 1));
+  const float ys = clamp_nan(gy - 0.5f, 0.0f, static_cast<float>(m.hp - 1));
+  float x0 = floorf(xs);
+  float y0 = floorf(ys);
+  const float xmax = static_cast<float>(m.wp - 2);
+  const float ymax = static_cast<float>(m.hp - 2);
+  x0 = x0 > xmax ? xmax : x0;
+  y0 = y0 > ymax ? ymax : y0;
+  const float fx = xs - x0;
+  const float fy = ys - y0;
+  const int base = __float2int_rz(y0) * m.wp + __float2int_rz(x0);
+  const float f00 = __ldg(m.edf + base);
+  const float f01 = __ldg(m.edf + base + 1);
+  const float f10 = __ldg(m.edf + base + m.wp);
+  const float f11 = __ldg(m.edf + base + m.wp + 1);
+  const float gx1 = 1.0f - fx;
+  const float gy1 = 1.0f - fy;
+  if (kSlope) {
+    dgx = (f01 - f00) * gy1 + (f11 - f10) * fy;
+    dgy = (f10 - f00) * gx1 + (f11 - f01) * fx;
+  }
+  return (f00 * gx1 + f01 * fx) * gy1 + (f10 * gx1 + f11 * fx) * fy;
+}
+
+// ops/raymarch_diff.py _refine for a hit of ray `ray` whose march stopped
+// at `total` after a last step `last`: kBisections halvings of the bracket,
+// then the Newton step from its outside end, clamped into it.
+__device__ __forceinline__ float refine(const Args& a, float ox, float oy,
+                                        const Ray& ray, float total,
+                                        float last) {
+  float lo = total - last;
+  lo = lo < 0.0f ? 0.0f : lo;  // torch.clamp(min=0): NaN passes
+  float hi = total + a.top;
+  float dgx, dgy;
+#pragma unroll 1
+  for (int k = 0; k < kBisections; ++k) {
+    const float r = 0.5f * (lo + hi);
+    const float gx = ((ray.x + r * ray.c) - ox) * a.inv_res;
+    const float gy = ((ray.y + r * ray.s) - oy) * a.inv_res;
+    // still outside (F > 0): the crossing is beyond r
+    if (patch<false>(a.m, gx, gy, dgx, dgy) - a.tau > 0.0f) {
+      lo = r;
+    } else {
+      hi = r;
+    }
+  }
+  const float gx = ((ray.x + lo * ray.c) - ox) * a.inv_res;
+  const float gy = ((ray.y + lo * ray.s) - oy) * a.inv_res;
+  const float f = patch<true>(a.m, gx, gy, dgx, dgy) - a.tau;
+  const float df = (dgx * ray.c + dgy * ray.s) * a.inv_res;
+  const float safe = df > -a.slope_floor ? -a.slope_floor : df;
+  return minimum_nan(maximum_nan(lo - f / safe, lo), hi);
 }
 
 // -- persistent warps ------------------------------------------------------
@@ -386,9 +483,9 @@ __device__ __forceinline__ bool trip(const Args& a, float ox, float oy,
 // and the warp takes the next 32 when all are done.
 template <int V>
 __global__ void __launch_bounds__(kThreads, kMarchBlocks) edf_march_kernel(
-    Args a, float* __restrict__ total_out, float* __restrict__ last_out,
-    bool* __restrict__ hit_out, int* __restrict__ trips_out,
-    int* __restrict__ walk_out, unsigned long long* __restrict__ counter,
+    Args a, float* __restrict__ total_out, bool* __restrict__ hit_out,
+    int* __restrict__ trips_out, int* __restrict__ walk_out,
+    unsigned long long* __restrict__ counter,
     unsigned long long* __restrict__ scratch) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned n = static_cast<unsigned>(a.n);
@@ -408,10 +505,16 @@ __global__ void __launch_bounds__(kThreads, kMarchBlocks) edf_march_kernel(
       }
       const bool left = r.tested && r.d < 0.0f;
       if (left) r.total = a.max_range;
-      if (V == kBracket) {
-        total_out[i] = r.total;
-        last_out[i] = r.last;
-        hit_out[i] = r.tested && !left && r.d <= a.eps;
+      if (V == kImplicit) {
+        const bool hit = r.tested && !left && r.d <= a.eps;
+        // torch.clamp(max=): NaN passes
+        float range = r.total > a.max_range ? a.max_range : r.total;
+        if (hit) {
+          range = refine(a, ox, oy, ray, r.total, r.last);
+          range = range > a.max_range ? a.max_range : range;
+        }
+        total_out[i] = range;
+        hit_out[i] = hit && range < a.max_range;
       } else {
         total_out[i] = r.total > a.max_range ? a.max_range : r.total;
       }
@@ -690,13 +793,13 @@ int grid_of(int wave_blocks, int n) {
 }
 
 template <int V>
-int launch(const Args& a, float* total, float* last, bool* hit, int* trips,
-           int* walk, unsigned long long* counter,
-           unsigned long long* scratch, cudaStream_t stream) {
+int launch(const Args& a, float* total, bool* hit, int* trips, int* walk,
+           unsigned long long* counter, unsigned long long* scratch,
+           cudaStream_t stream) {
   const int w = wave(edf_march_kernel<V>);
   if (w <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   edf_march_kernel<V><<<grid_of(w, a.n), kThreads, 0, stream>>>(
-      a, total, last, hit, trips, walk, counter, scratch);
+      a, total, hit, trips, walk, counter, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -736,6 +839,7 @@ bool make_args(const void* edf, long long hp, long long wp, long long h,
   a.inv_res = inv_res;
   a.max_range = max_range;
   a.eps = eps;
+  a.tau = a.top = a.slope_floor = 0.0f;
   a.max_iters = max_iters;
   a.n = static_cast<int>(rows * cols);
   a.cols = static_cast<int>(cols);
@@ -754,12 +858,14 @@ bool make_args(const void* edf, long long hp, long long wp, long long h,
 
 // Launches the march of rows x cols rays on `stream` and returns
 // cudaGetLastError() (0 = launched). variant: 0 nearest, 1 bilinear,
-// 2 bracket. Device pointers: edf (hp, wp) f32 contiguous; ox,
-// oy f32 scalars; x0, y0, cos, sin f32 read at [row * s_row + col *
-// s_col]; total (rows * cols,) f32; last f32 and hit bool for the bracket
-// (else null); trips i32 or null; walk i32 or null (the gradient's
-// record); counter 2 x u64 (trips, calls); scratch 3 x u64, zeroed, this
-// launch's own. Sizes and offsets below 2^31.
+// 2 implicit. Device pointers: edf (hp, wp) f32 contiguous, at least 2 x 2
+// for the bilinear and implicit variants; ox, oy f32 scalars; x0, y0, cos,
+// sin f32 read at [row * s_row + col * s_col]; tau, top and slope_floor the
+// implicit variant's scalars (ignored by the others); total (rows * cols,)
+// f32 (the implicit variant's ranges); hit bool (rows * cols,) for the
+// implicit variant, else null; trips i32 or null; walk i32 or null (the
+// gradient's record); counter 2 x u64 (trips, calls); scratch 3 x u64,
+// zeroed, this launch's own. Sizes and offsets below 2^31.
 extern "C" int edf_march_launch(
     int variant, const void* edf, long long hp, long long wp,
     long long h, long long w, const void* ox, const void* oy, float inv_res,
@@ -767,17 +873,22 @@ extern "C" int edf_march_launch(
     const void* y0, const void* cos_t, const void* sin_t, long long sx0,
     long long sx1, long long sy0, long long sy1, long long sc0,
     long long sc1, long long ss0, long long ss1, long long rows,
-    long long cols, void* total, void* last, void* hit, void* trips,
-    void* walk, void* counter, void* scratch, void* stream) {
+    long long cols, float tau, float top, float slope_floor, void* total,
+    void* hit, void* trips, void* walk, void* counter, void* scratch,
+    void* stream) {
   if (rows * cols <= 0) return 0;
   const long long st[8] = {sx0, sx1, sy0, sy1, sc0, sc1, ss0, ss1};
   Args a;
   if (!make_args(edf, hp, wp, h, w, ox, oy, inv_res, max_range, eps,
-                 max_iters, x0, y0, cos_t, sin_t, st, rows, cols, a)) {
+                 max_iters, x0, y0, cos_t, sin_t, st, rows, cols, a) ||
+      (variant != kNearest && (hp < 2 || wp < 2)) ||
+      (variant == kImplicit && hit == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  a.tau = tau;
+  a.top = top;
+  a.slope_floor = slope_floor;
   float* t = static_cast<float*>(total);
-  float* l = static_cast<float*>(last);
   bool* hb = static_cast<bool*>(hit);
   int* tr = static_cast<int*>(trips);
   int* wk = static_cast<int*>(walk);
@@ -786,11 +897,11 @@ extern "C" int edf_march_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case kNearest:
-      return launch<kNearest>(a, t, l, hb, tr, wk, cnt, scr, s);
+      return launch<kNearest>(a, t, hb, tr, wk, cnt, scr, s);
     case kBilinear:
-      return launch<kBilinear>(a, t, l, hb, tr, wk, cnt, scr, s);
-    case kBracket:
-      return launch<kBracket>(a, t, l, hb, tr, wk, cnt, scr, s);
+      return launch<kBilinear>(a, t, hb, tr, wk, cnt, scr, s);
+    case kImplicit:
+      return launch<kImplicit>(a, t, hb, tr, wk, cnt, scr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -820,7 +931,8 @@ extern "C" int edf_march_grad_launch(
   Args a;
   if (walk == nullptr ||
       !make_args(edf, hp, wp, h, w, ox, oy, inv_res, max_range, eps,
-                 max_iters, x0, y0, cos_t, sin_t, st, rows, cols, a)) {
+                 max_iters, x0, y0, cos_t, sin_t, st, rows, cols, a) ||
+      (variant == kBilinear && (hp < 2 || wp < 2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* fg = static_cast<const float*>(g);
@@ -850,7 +962,7 @@ extern "C" int edf_march_wave(int kernel, int variant) {
   if (kernel == 0) {
     return variant == kNearest    ? wave(edf_march_kernel<kNearest>)
            : variant == kBilinear ? wave(edf_march_kernel<kBilinear>)
-           : variant == kBracket  ? wave(edf_march_kernel<kBracket>)
+           : variant == kImplicit ? wave(edf_march_kernel<kImplicit>)
                                   : 0;
   }
   return variant == kNearest    ? wave(edf_march_grad_kernel<kNearest>)

@@ -54,9 +54,13 @@ _SIGNATURES = {
                      [_P] * 11 + [_I, _I, _I, _P]),
     "dense_sweep": ("dense_sweep", "dense_sweep_launch",
                     [_P] * 10 + [_I, _I, _P]),
-    "edf_march": ("edf_march", "edf_march_launch", _MARCH_HEAD + [_P] * 8),
+    "edf_march": ("edf_march", "edf_march_launch",
+                  _MARCH_HEAD + [_F] * 3 + [_P] * 7),
     "edf_march_grad": ("edf_march", "edf_march_grad_launch",
                        _MARCH_HEAD + [_P] * 9),
+    "general_sweep": ("general_sweep", "general_sweep_launch",
+                      [_I, _P, _L, _L, _L] + [_P] * 5 + [_L] * 10
+                      + [_P] * 4),
     # not a launch: the march's persistent grid (blocks of one wave)
     "edf_march_wave": ("edf_march", "edf_march_wave", [_I] * 2),
 }
@@ -170,6 +174,7 @@ def register(wrapper):
 
 
 def wrappers() -> tuple:
-    """Every registered wrapper: the sweeps' (``ops/sweeps.py``) and the
-    march's (``ops/raymarch_xla.py``), once their modules are imported."""
+    """Every registered wrapper: the sweeps' (``ops/sweeps.py``), the
+    march's (``ops/raymarch_xla.py``) and the general sweep's
+    (``ops/raycast_general.py``), once their modules are imported."""
     return tuple(_WRAPPERS.values())

@@ -16,13 +16,16 @@ winning segment: dr/do = -w, dr/du = -t w. ``raycast_general`` and
 tracks the winner; outside autograd (no ray requires grad) they take the
 cheap min-only sweep, as the JAX package's primal path does.
 
-Plain PyTorch (XLA code in the JAX package, no Pallas kernel): the
-(rays x slots) intermediates are swept in slot chunks under the byte
-budget of ``ops/sweeps.py``. Within a chunk an exact tie between two
-segments takes the larger of their w, across chunks the earlier chunk
-wins, as in JAX, whose chunks may be cut elsewhere: the gradient can
-differ at exact ties (a ray through a polyline vertex), a set of measure
-zero.
+The sweep (``general_sweep``) launches the hand-written kernel
+``csrc/general_sweep.cu`` on CUDA tensors, one launch a scan, in both
+modes and both layouts (every ray against the (6, K) table, or each agent
+against its map tile's list of a (T, 6, K_tile) table); on CPU tensors its
+plain version ``general_sweep_plain`` runs, the kernel's reference bit for
+bit. Both take the JAX scan's slot chunks, ``_fit_chunk(K, 512)`` slots:
+within a chunk an exact tie between segments takes the larger of their
+w, component by component, and across chunks the earlier chunk wins, as
+in JAX. The plain version sweeps the rays in blocks whose (rays x slots)
+intermediates stay within the byte budget of ``ops/sweeps.py``.
 """
 
 from __future__ import annotations
@@ -30,10 +33,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _kernels
 from .common import apply_extent_mask, rays_from_poses, tile_ids
+from .raymarch_xla import INDEX_LIMIT, _as_rows
 from .sweeps import _PLAIN_BYTES_BUDGET
 
 _BIG = 3.0e38
+# the JAX sweeps' slot chunk (``raycast_general``'s default ``chunk``)
+_SLOT_CHUNK = 512
+
+
+def _fit_chunk(k: int) -> int:
+    """The slots of one chunk of a ``k``-slot sweep, as the JAX package
+    cuts them (``raycast_segments._fit_chunk(k, 512)``): ``k`` itself when
+    ``k <= 512``, else the largest multiple of 128 up to 512 that divides
+    ``k``. (The maps pad ``k`` to a multiple of 128; JAX sweeps no slot
+    for ``k < 128``, and fails on an unaligned ``k > 512``, which this
+    copy refuses.)"""
+    if k <= _SLOT_CHUNK:
+        return k
+    for c in range(_SLOT_CHUNK, 0, -128):
+        if k % c == 0:
+            return c
+    raise ValueError(f"general sweep: {k} slots is neither at most "
+                     f"{_SLOT_CHUNK} nor a multiple of 128")
 
 
 def _pairs(rows, x, y, cos_t, sin_t):
@@ -52,18 +75,16 @@ def _pairs(rows, x, y, cos_t, sin_t):
     return torch.where(valid, t, _BIG), nx, ny, d_safe
 
 
-def _sweep(rows_of, k, x, y, cos_t, sin_t, winner: bool):
-    """Sweep rays (shape S) over ``k`` slots in chunks; ``rows_of(c0, c1)``
-    gives the chunk's 5 parameter rows shaped to broadcast against
-    S + (1,). Returns the unclamped min t and, when ``winner``, the
-    winning (wx, wy)."""
-    best = torch.full(x.shape, _BIG, dtype=torch.float32, device=x.device)
+def _sweep_block(lists, k, chunk, rays, winner):
+    """One block of rays (each (R, C, 1)) over the ``lists`` (R or 1, 6,
+    K), chunk by chunk: (best, wx, wy), each (R, C)."""
+    best = torch.full(rays[0].shape[:-1], _BIG, dtype=torch.float32,
+                      device=rays[0].device)
     wx = torch.zeros_like(best)
     wy = torch.zeros_like(best)
-    rays = [v[..., None] for v in (x, y, cos_t, sin_t)]
-    chunk = max(1, _PLAIN_BYTES_BUDGET // max(1, x.numel() * 4))
     for c0 in range(0, k, chunk):
-        t, nx, ny, d_safe = _pairs(rows_of(c0, min(c0 + chunk, k)), *rays)
+        t, nx, ny, d_safe = _pairs(lists[:, :5, None, c0:c0 + chunk]
+                                   .unbind(1), *rays)
         tmin = t.amin(dim=-1)
         if not winner:
             best = torch.minimum(best, tmin)
@@ -78,14 +99,111 @@ def _sweep(rows_of, k, x, y, cos_t, sin_t, winner: bool):
     return best, wx, wy
 
 
+def general_sweep_plain(table, ids, x, y, cos_t, sin_t, winner: bool):
+    """The plain PyTorch general sweep, on any device: the reference of
+    ``csrc/general_sweep.cu``. Same arguments and returns as
+    ``general_sweep``. The rays go in blocks of rows and columns whose
+    (rays x chunk) intermediates stay within ``_PLAIN_BYTES_BUDGET``; a
+    ray's values do not depend on its block."""
+    x, y, cos_t, sin_t = torch.broadcast_tensors(x, y, cos_t, sin_t)
+    shape = x.shape
+    views = [_as_rows(v) for v in (x, y, cos_t, sin_t)]
+    rows, cols = views[0].shape
+    k = table.shape[2]
+    chunk = _fit_chunk(k)
+    lists = table[:1] if ids is None else table.index_select(0, ids.long())
+    best = torch.full((rows, cols), _BIG, dtype=torch.float32,
+                      device=table.device)
+    wx = torch.zeros_like(best)
+    wy = torch.zeros_like(best)
+    rays_b = max(1, _PLAIN_BYTES_BUDGET // (4 * chunk))
+    cols_b = max(1, min(cols, rays_b))
+    rows_b = max(1, rays_b // cols_b)
+    for r0 in range(0, rows, rows_b):
+        r1 = r0 + rows_b
+        blk = lists if ids is None else lists[r0:r1]
+        for c0 in range(0, cols, cols_b):
+            c1 = c0 + cols_b
+            out = _sweep_block(blk, k, chunk,
+                               [v[r0:r1, c0:c1, None] for v in views],
+                               winner)
+            for dst, src in zip((best, wx, wy), out):
+                dst[r0:r1, c0:c1] = src
+    best = best.reshape(shape)
+    if not winner:
+        return best, None, None
+    return best, wx.reshape(shape), wy.reshape(shape)
+
+
+def general_sweep(table, ids, x, y, cos_t, sin_t, winner: bool):
+    """The general-segment sweep: ``general_sweep_plain`` on CPU tensors,
+    ``csrc/general_sweep.cu`` on CUDA tensors.
+
+    ``table`` (L, 6, K) float32 slots [p0x, p0y, ex, ey, L, pad]; rays
+    ``x``, ``y``, ``cos_t``, ``sin_t`` broadcast to one shape S, whose
+    rows are its leading axes and whose columns its last; ``ids`` (rows,)
+    int32, the list each row sweeps (in [0, L)), or None: every row sweeps
+    list 0. Returns (best, wx, wy), each of shape S: the unclamped first
+    hit t (3e38 where nothing is hit) and, with ``winner``, the winning
+    segment's (nx, ny) / (u . n) with the JAX scan's ties (module doc);
+    without it (best, None, None). ``general_sweep.launches`` counts
+    kernel launches."""
+    if not _kernels.on_cuda("general_sweep", table):
+        return general_sweep_plain(table, ids, x, y, cos_t, sin_t, winner)
+    if (table.dim() != 3 or table.shape[1] != 6 or table.shape[0] < 1
+            or table.shape[2] < 1 or table.dtype != torch.float32
+            or not table.is_contiguous()):
+        raise ValueError(f"general_sweep: table must be a contiguous "
+                         f"float32 (L, 6, K) tensor, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    rays = torch.broadcast_tensors(x, y, cos_t, sin_t)
+    for v in rays:
+        if v.device != table.device or v.dtype != torch.float32:
+            raise ValueError(f"general_sweep: expected float32 rays on "
+                             f"{table.device}, got {v.dtype} on {v.device}")
+    shape = rays[0].shape
+    views = [_as_rows(v) for v in rays]
+    rows, cols = views[0].shape
+    if ids is not None and (ids.dtype != torch.int32 or ids.dim() != 1
+                            or ids.shape[0] != rows
+                            or ids.device != table.device
+                            or not ids.is_contiguous()):
+        raise ValueError(f"general_sweep: ids must be a contiguous int32 "
+                         f"({rows},) tensor on {table.device}")
+    l_n, _, k = table.shape
+    chunk = _fit_chunk(k)
+    extents = {"the table": table.numel(), "the rays": rows * cols}
+    extents.update((f"ray tensor {i}'s last offset",
+                    (rows - 1) * v.stride(0) + (cols - 1) * v.stride(1))
+                   for i, v in enumerate(views))
+    for what, size in extents.items():
+        if size > INDEX_LIMIT:
+            raise ValueError(f"general_sweep: {what} reaches {size}, past "
+                             f"the kernel's 32-bit index limit "
+                             f"({INDEX_LIMIT})")
+    out = [torch.empty(shape, dtype=torch.float32, device=table.device)
+           for _ in range(3 if winner else 1)]
+    if rows * cols:
+        _kernels.launch("general_sweep", "general_sweep", int(winner), table,
+                        l_n, k, chunk, ids, *views,
+                        *(s for v in views for s in v.stride()), rows, cols,
+                        *out, *(None,) * (3 - len(out)))
+        general_sweep.launches += 1
+    return (out[0], None, None) if not winner else tuple(out)
+
+
+general_sweep.launches = 0
+_kernels.register(general_sweep)
+
+
 class _GeneralRaycast(torch.autograd.Function):
     """Clamped range of rays (x, y, cos_t, sin_t) over general segments
-    under the closed-form VJP; ``rows_of``/``k`` describe the slots (no
-    gradient reaches them)."""
+    under the closed-form VJP; ``table``/``ids`` describe the lists
+    (``general_sweep``; no gradient reaches them)."""
 
     @staticmethod
-    def forward(ctx, rows_of, k, max_range, x, y, cos_t, sin_t):
-        best, wx, wy = _sweep(rows_of, k, x, y, cos_t, sin_t, True)
+    def forward(ctx, table, ids, max_range, x, y, cos_t, sin_t):
+        best, wx, wy = general_sweep(table, ids, x, y, cos_t, sin_t, True)
         hit = best < max_range
         r = torch.clamp(best, max=max_range)
         ctx.save_for_backward(r, torch.where(hit, wx, 0.0),
@@ -99,21 +217,21 @@ class _GeneralRaycast(torch.autograd.Function):
                 -g * r * wy)
 
 
-def _raycast(rows_of, k, x, y, cos_t, sin_t, max_range):
-    rays = (x, y, cos_t, sin_t)
+def _raycast(table, ids, x, y, cos_t, sin_t, max_range):
+    rays = torch.broadcast_tensors(x, y, cos_t, sin_t)
     if torch.is_grad_enabled() and any(v.requires_grad for v in rays):
-        return _GeneralRaycast.apply(rows_of, k, max_range, *rays)
-    return torch.clamp(_sweep(rows_of, k, *rays, False)[0], max=max_range)
+        return _GeneralRaycast.apply(table, ids, max_range, *rays)
+    return torch.clamp(general_sweep(table, ids, *rays, False)[0],
+                       max=max_range)
 
 
 def raycast_general(seg_params, x, y, cos_t, sin_t, max_range=10.0):
     """Differentiable raycast of rays (any common shape) against the
     ``seg_params`` (6, K) [p0x, p0y, ex, ey, L, pad]. Returns ranges
     clamped to ``max_range``. (The JAX signature's ``chunk`` is not taken:
-    the slot chunk follows from the byte budget, module doc.)"""
-    x, y, cos_t, sin_t = torch.broadcast_tensors(x, y, cos_t, sin_t)
-    return _raycast(lambda c0, c1: seg_params[:5, c0:c1],
-                    seg_params.shape[1], x, y, cos_t, sin_t, max_range)
+    the slots go in its default chunks, module doc.)"""
+    return _raycast(seg_params.reshape(1, *seg_params.shape), None, x, y,
+                    cos_t, sin_t, max_range)
 
 
 def raycast_general_tiled(tiles, tiles_shape, tile_size, tile_origin,
@@ -121,10 +239,8 @@ def raycast_general_tiled(tiles, tiles_shape, tile_size, tile_origin,
     """Tile-culled differentiable raycast: agents at ``x0``/``y0`` (A,)
     sweep their map tile's list of ``tiles`` (T, 6, K_tile); rays (A, B).
     ``tiles``, ``x0`` and ``y0`` get no gradient."""
-    agent = tiles.index_select(
-        0, tile_ids(tiles_shape, tile_size, tile_origin, x0, y0).long())
-    return _raycast(lambda c0, c1: agent[:, :5, None, c0:c1].unbind(1),
-                    tiles.shape[2], x, y, cos_t, sin_t, max_range)
+    return _raycast(tiles, tile_ids(tiles_shape, tile_size, tile_origin,
+                                    x0, y0), x, y, cos_t, sin_t, max_range)
 
 
 def raycast_general_numpy(segs: np.ndarray, x, y, cos_t, sin_t,

@@ -20,22 +20,25 @@ and the map cotangent of ``make_scan_fn(map_grad=True)``).
 exact forward (straight-through values); ``dedup=True`` sums it by a
 stable argsort of the rays by cell and sums over the sorted segments.
 
-The nearest march (``_march_nearest``, the JAX ``while_loop``) runs on
-CUDA tensors in the hand-written kernel ``csrc/edf_march.cu``, variant
-"bracket" (``raymarch_xla.edf_march``): one launch, each ray looping until
-it stops, no host read. Its bracket carries no gradient: the implicit VJP
-differentiates the refined hit, and ``_MarchImplicit.forward`` runs
-without autograd. On CPU tensors its plain version
-``_march_nearest_plain`` runs, the kernel's reference bit for bit: the
-trips in a Python loop that reads ``alive.any()`` every
-``raymarch_xla._ALIVE_CHECK`` trips. The extra trips change nothing: a dead
-ray has ``step = 0``, and its ``total``, ``last``, ``hit``, ``x`` and
-``y`` keep their values. The bisection, the Newton polish and the VJP are
-plain PyTorch (XLA code in the JAX package); they read nothing from the
-host, so the whole forward and backward can be captured in a CUDA graph.
-The map cotangent is summed with ``index_add_``, which on CUDA adds with
-atomics: the order of the sum, and so its last bits, differ from JAX's
-and from run to run.
+The forward (``_fwd_impl``: the nearest march, the JAX ``while_loop``,
+then ``_refine``'s bisection, the JAX ``fori_loop``, and the Newton
+polish) runs on CUDA tensors in one launch of the hand-written kernel
+``csrc/edf_march.cu``, variant "implicit" (``raymarch_xla.edf_march``):
+each ray marches until it stops, and the same lane refines a hit in
+registers and writes the range and the hit flag once; no host read. The
+forward carries no gradient: the implicit VJP differentiates the refined
+hit, and ``_MarchImplicit.forward`` runs without autograd. On CPU tensors
+its plain version ``_fwd_plain`` runs (``_march_nearest_plain``, then
+``_refine``), the kernel's reference bit for bit: the march's trips in a
+Python loop that reads ``alive.any()`` every ``raymarch_xla._ALIVE_CHECK``
+trips (the extra trips change nothing: a dead ray has ``step = 0``, and
+its ``total``, ``last``, ``hit``, ``x`` and ``y`` keep their values), then
+the refinement over every ray, kept where the march hit. The VJP is plain
+PyTorch (XLA code in the JAX package) and reads nothing from the host, so
+the whole forward and backward can be captured in a CUDA graph. The map
+cotangent is summed with ``index_add_``, which on CUDA adds with atomics:
+the order of the sum, and so its last bits, differ from JAX's and from run
+to run.
 """
 
 from __future__ import annotations
@@ -71,25 +74,13 @@ def _bilinear_patch(edf, gx, gy, bounds_hw):
     return val, dgx, dgy, weights, idx, inb
 
 
-def _march_nearest(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
-                   eps, max_iters, bounds_hw):
-    """Reference-rule sphere trace with nearest sampling. Returns
-    (total, last_step, hit): ``total`` ends one sample inside the first
-    occupied cell; ``[total - last_step, total]`` brackets the boundary
-    crossing. CUDA tensors launch ``edf_march`` ("bracket"), CPU tensors
-    run ``_march_nearest_plain`` (module doc)."""
-    rays = torch.broadcast_tensors(x0, y0, cos_t, sin_t)
-    if _kernels.on_cuda("edf_march", edf):
-        return edf_march(edf, inv_res, ox, oy, *rays, max_range, eps,
-                         max_iters, bounds_hw, "bracket")
-    return _march_nearest_plain(edf, inv_res, ox, oy, *rays, max_range,
-                                eps, max_iters, bounds_hw)
-
-
 def _march_nearest_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t,
                          max_range, eps, max_iters, bounds_hw):
-    """The plain PyTorch nearest march on any device: the reference of
-    ``edf_march``'s "bracket" variant (module doc)."""
+    """Reference-rule sphere trace with nearest sampling, in plain PyTorch
+    on any device (the march of ``_fwd_plain``). Returns (total,
+    last_step, hit): ``total`` ends one sample inside the first occupied
+    cell; ``[total - last_step, total]`` brackets the boundary
+    crossing."""
     x, y = x0, y0
     total = torch.zeros(x0.shape, dtype=torch.float32, device=x0.device)
     last = torch.zeros_like(total)
@@ -119,12 +110,13 @@ def _march_nearest_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t,
 
 
 def _refine(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, eps, bounds_hw,
-            lo, hi, iters=12):
+            lo, hi, slope_floor, iters=12):
     """Bisection + one Newton polish for the first bilinear eps-crossing
     in [lo, hi]. The bracket can be the whole ray (a head-on march reaches
     the wall in one step), hence 12 halvings (10 m -> 2.4 mm). The polish
     is anchored at the outside end ``lo``, whose patch straddles free and
-    occupied cells, so its slope is informative."""
+    occupied cells, so its slope is informative; a slope above
+    ``-slope_floor`` is taken as ``-slope_floor``."""
 
     def eval_f(r):
         gx = (x0 + r * cos_t - ox) * inv_res
@@ -139,7 +131,7 @@ def _refine(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, eps, bounds_hw,
     f, df = eval_f(lo)
     # E decreases along the ray into the surface: the degenerate-slope
     # fallback is negative
-    safe = torch.where(df > -_DENOM_FLOOR, -_DENOM_FLOOR, df)
+    safe = torch.where(df > -slope_floor, -slope_floor, df)
     return torch.minimum(torch.maximum(lo - f / safe, lo), hi)
 
 
@@ -209,16 +201,34 @@ def _sorted_taps(edf, scale, weights, idx, ok):
 
 def _fwd_impl(edf, resolution, ox, oy, x0, y0, cos_t, sin_t, max_range,
               eps, max_iters, bounds_hw):
-    inv_res = 1.0 / resolution
-    total, last, hit = _march_nearest(edf, inv_res, ox, oy, x0, y0, cos_t,
-                                      sin_t, max_range, eps, max_iters,
-                                      bounds_hw)
+    """The implicit march's forward: (ranges, hit flags). CUDA tensors
+    launch ``edf_march`` ("implicit"), CPU tensors run ``_fwd_plain``
+    (module doc)."""
+    args = (edf, 1.0 / resolution, ox, oy,
+            *torch.broadcast_tensors(x0, y0, cos_t, sin_t), max_range, eps,
+            max_iters, bounds_hw)
+    # the level set; the bracket's top 0.4 cells past the march stop (a
+    # landing just inside the occupied cell's entry corner can still have
+    # E_bilinear > tau); the Newton step's slope floor
+    refine = (_surface_level(eps, resolution), 0.4 * resolution,
+              _DENOM_FLOOR)
+    if _kernels.on_cuda("edf_march", edf):
+        return edf_march(*args, "implicit", refine=refine)
+    return _fwd_plain(*args, refine)
+
+
+def _fwd_plain(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
+               max_iters, bounds_hw, refine):
+    """The plain PyTorch forward on any device, ``edf_march``'s arguments
+    for its "implicit" variant: its reference (module doc)."""
+    tau, top, slope_floor = refine
+    total, last, hit = _march_nearest_plain(edf, inv_res, ox, oy, x0, y0,
+                                            cos_t, sin_t, max_range, eps,
+                                            max_iters, bounds_hw)
     lo = torch.clamp(total - last, min=0.0)
-    # bracket top 0.4 cells past the march stop: a landing just inside the
-    # occupied cell's entry corner can still have E_bilinear > tau
-    hi = total + 0.4 * resolution
-    r_hit = _refine(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t,
-                    _surface_level(eps, resolution), bounds_hw, lo, hi)
+    hi = total + top
+    r_hit = _refine(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, tau,
+                    bounds_hw, lo, hi, slope_floor)
     r = torch.where(hit, r_hit, torch.clamp(total, max=max_range))
     r = torch.clamp(r, max=max_range)
     return r, hit & (r < max_range)

@@ -57,7 +57,7 @@ from .common import _constant, rays_from_poses
 
 _ALIVE_CHECK = 32   # trips between host reads of "is any ray still alive"
 # the kernel's variants (a template argument of csrc/edf_march.cu)
-VARIANTS = {"nearest": 0, "bilinear": 1, "bracket": 2}
+VARIANTS = {"nearest": 0, "bilinear": 1, "implicit": 2}
 # the positions of a ray the bilinear gradient keeps (the kernel's kSlots;
 # 64 was faster than 32 on both bundled maps, PERF.md); a longer ray is
 # marched again from GRAD_SLOTS / 2 checkpoints
@@ -244,27 +244,35 @@ def persistent_grid(device, kernel: str, variant: str) -> int:
 
 def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
               max_iters: int, bounds_hw, variant: str, ray_trips=None,
-              walk=None):
+              walk=None, refine=None):
     """The march of ``csrc/edf_march.cu`` on CUDA tensors of one broadcast
-    shape S (``march_rays_plain``'s and ``raymarch_diff._march_nearest``'s
-    arguments; ``ox``/``oy`` 0-dim float32 device tensors). ``variant``:
-    "nearest" and "bilinear" return the clamped ranges (S), "bracket"
-    returns (total, last, hit). ``ray_trips``: an int32 tensor of shape S
-    to receive each ray's trip count, or None; ``walk``: one to receive
-    what ``edf_march_grad`` needs of each ray (its steps where its range
-    has a gradient, else -1), or None. ``edf_march.launches`` counts
-    kernel launches. No gradient (``march_rays`` has one)."""
+    shape S (``march_rays_plain``'s arguments; ``ox``/``oy`` 0-dim float32
+    device tensors). ``variant``: "nearest" and "bilinear" return the
+    clamped ranges (S); "implicit" returns the ranges and the hit flags
+    (S) of ``raymarch_diff._fwd_impl`` (its plain version
+    ``raymarch_diff._fwd_plain``) and takes ``refine`` = (tau, top,
+    slope_floor), the level set, the bracket's top past the march stop and
+    the slope floor, which the kernel receives rounded once to float32, as
+    the plain version's operations take them. ``ray_trips``: an int32
+    tensor of shape S to receive each ray's trip count, or None; ``walk``:
+    one to receive what ``edf_march_grad`` needs of each ray (its steps
+    where its range has a gradient, else -1), or None.
+    ``edf_march.launches`` counts kernel launches. No gradient
+    (``march_rays`` and ``raymarch_diff.march_rays_implicit`` have
+    one)."""
     if variant not in VARIANTS:
         raise ValueError(f"edf_march: variant must be one of "
                          f"{', '.join(VARIANTS)}, got {variant!r}")
+    implicit = variant == "implicit"
+    if implicit != (refine is not None):
+        raise ValueError("edf_march: the implicit variant, and only it, "
+                         "takes refine = (tau, top, slope_floor)")
     shape, head, tail = _march_launch_args(
         "edf_march", edf, ox, oy, (x0, y0, cos_t, sin_t), max_iters,
         bounds_hw)
     total = torch.empty(shape, dtype=torch.float32, device=edf.device)
-    bracket = variant == "bracket"
-    last = torch.empty_like(total) if bracket else None
     hit = torch.empty(shape, dtype=torch.bool, device=edf.device) \
-        if bracket else None
+        if implicit else None
     _record("edf_march", ray_trips, shape, edf.device, "ray_trips")
     _record("edf_march", walk, shape, edf.device, "walk")
     if total.numel():
@@ -273,10 +281,12 @@ def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
         scratch = torch.zeros(3, dtype=torch.int64, device=edf.device)
         _kernels.launch("edf_march", "edf_march", VARIANTS[variant], *head,
                         float(inv_res), float(max_range), float(eps),
-                        int(max_iters), *tail, total, last, hit, ray_trips,
-                        walk, MARCH_COUNTS.counter(edf.device), scratch)
+                        int(max_iters), *tail,
+                        *(float(v) for v in refine or (0.0, 0.0, 0.0)),
+                        total, hit, ray_trips, walk,
+                        MARCH_COUNTS.counter(edf.device), scratch)
         edf_march.launches += 1
-    return (total, last, hit) if bracket else total
+    return (total, hit) if implicit else total
 
 
 edf_march.launches = 0

@@ -10,7 +10,8 @@ the one holding this script), so one call can time a parent commit
 unpacked beside the change, in turns: parent, change, change, parent.
 Per map, at ``--agents`` x 1080 beams, 270 degrees, 10 m, 200 trips, on
 poses sampled from seed 0 (five sets that differ by 1e-4 rad, one per
-call): ``edf_march`` in its three variants; ``edf_march_grad`` (the EDF's
+call): ``edf_march`` in each variant the checkout has (the implicit one
+with "edf_implicit"'s host scalars); ``edf_march_grad`` (the EDF's
 gradient, and for "bilinear" the rays'), given the march's ``walk``
 record where the checkout's gradient takes one, as ``march_rays``'s
 backward does (the record made before the timing: the forward's work);
@@ -81,12 +82,17 @@ def kernels(P, track, poses, agents):
     head = (track.edf, 1.0 / track.resolution, ox, oy)
     tail = (MAX_RANGE, 1e-4, ITERS, (track.height, track.width))
     out = {}
-    for v in ("nearest", "bilinear", "bracket"):
+    for v in rx.VARIANTS:
+        kw = {}
+        if v == "implicit":
+            from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+            kw = dict(refine=(rd._surface_level(1e-4, track.resolution),
+                              0.4 * track.resolution, rd._DENOM_FLOOR))
         out[f"edf_march {v}"] = timed(
-            lambda i: rx.edf_march(*head, *sets[i % 5], *tail, v), 50)
-        got = rx.edf_march(*head, *sets[0], *tail, v)
+            lambda i: rx.edf_march(*head, *sets[i % 5], *tail, v, **kw), 50)
+        got = rx.edf_march(*head, *sets[0], *tail, v, **kw)
         out[f"edf_march {v} sum"] = float(
-            (got[0] if v == "bracket" else got).double().sum())
+            (got if torch.is_tensor(got) else got[0]).double().sum())
     g = torch.ones(sets[0][0].shape, device="cuda")
     recorded = "walk" in inspect.signature(rx.edf_march_grad).parameters
     for v in ("nearest", "bilinear"):

@@ -8,9 +8,10 @@ the same tests). On a machine with a card:
 
 Tolerance: none. The kernels are compiled without FMA contraction or fast
 math and must equal their plain versions (``list_sweep_plain``,
-``dense_sweep_plain``, and for ``csrc/edf_march.cu`` the plain loops
-``raymarch_xla.march_rays_plain`` and ``raymarch_diff._march_nearest_plain``)
-bit for bit on the same inputs.
+``dense_sweep_plain``, ``raycast_general.general_sweep_plain``, and for
+``csrc/edf_march.cu`` the plain loop ``raymarch_xla.march_rays_plain`` and
+the implicit forward ``raymarch_diff._fwd_plain``) bit for bit on the same
+inputs.
 """
 
 import numpy as np
@@ -261,7 +262,8 @@ def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas, route):
 # -- the step and the rollout replayed as CUDA graphs ------------------------
 
 @pytest.mark.parametrize("backend", ["segments", "sectors", "edf",
-                                     "edf_implicit", "edf_bilinear"])
+                                     "edf_implicit", "edf_bilinear",
+                                     "segments_simplified"])
 def test_graphed_step_and_rollout_equal_eager(cuda, backend):
     """``make_step_fn(graph=True)`` and the default rollout on the card
     against the eager step and loop, noise on from one seed: bit for bit;
@@ -470,29 +472,36 @@ def _march_case(cuda, case, nan=True):
 
 
 @pytest.mark.parametrize("case", ["random", "levine", "edges"])
-@pytest.mark.parametrize("variant", ["nearest", "bilinear", "bracket"])
+@pytest.mark.parametrize("variant", ["nearest", "bilinear", "implicit"])
 def test_edf_march_matches_plain(cuda, variant, case):
-    """Each variant against its plain loop on the same tensors, bit for
-    bit: ranges, and for the bracket ``last`` and ``hit``; with 200 trips
-    (2048, ``MAX_GRAD_TRIPS``, on "edges") and with 3, which cuts rays
-    off; each ray's trips within the count; one launch a march."""
+    """Each variant against its plain version on the same tensors, bit for
+    bit: ranges, and for the implicit variant the hit flags (against the
+    march and ``_refine``, with the host scalars of a 5 cm map, and with
+    "edges"'s 5 mm); with 200 trips (2048, ``MAX_GRAD_TRIPS``, on
+    "edges") and with 3, which cuts rays off; each ray's trips within the
+    count; one launch a march. (NaN origins only for "nearest": the plain
+    bilinear versions gather at a NaN position's taps, which has no
+    value.)"""
     from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     edf, inv, ox, oy, rays, hw = _march_case(cuda, case,
-                                             nan=variant != "bilinear")
+                                             nan=variant == "nearest")
+    res = 0.005 if case == "edges" else 0.05
+    refine = (rd._surface_level(1e-4, res), 0.4 * res, rd._DENOM_FLOOR)
     for max_iters in ((rx.MAX_GRAD_TRIPS, 3) if case == "edges"
                       else (200, 3)):
         tail = (10.0, 1e-4, max_iters)
         trips = torch.zeros(rays[0].shape, dtype=torch.int32, device=cuda)
         before = rx.edf_march.launches
+        kw = dict(refine=refine) if variant == "implicit" else {}
         got = rx.edf_march(edf, inv, ox, oy, *rays, *tail, hw, variant,
-                           ray_trips=trips)
+                           ray_trips=trips, **kw)
         torch.cuda.synchronize()
         assert rx.edf_march.launches == before + 1
-        if variant == "bracket":
-            ref = rd._march_nearest_plain(edf, inv, ox, oy, *rays, *tail, hw)
+        if variant == "implicit":
+            ref = rd._fwd_plain(edf, inv, ox, oy, *rays, *tail, hw, refine)
             assert all(torch.equal(a, b) for a, b in zip(got, ref))
-            assert got[2].dtype == torch.bool
+            assert got[1].dtype == torch.bool and bool(got[1].any())
             ranges = got[0]
         else:
             ref = rx.march_rays_plain(edf, inv, ox, oy, *rays, *tail,
@@ -664,3 +673,122 @@ def test_graphed_edf_train_step_equals_eager(cuda, backend):
     assert all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
     assert float(got[True][1].abs().sum()) > 0          # it trains
     assert (rx.edf_march_grad.launches > grads) == (backend == "edf_bilinear")
+
+
+# -- the general-segment sweep ------------------------------------------------
+
+def _general_case(cuda):
+    """(table (3, 6, 640), ids (64,), rays (4 x (64, 1080))) on the card:
+    list 0 levine's simplified segments, with a copy of them from slot 512
+    (every hit ties across chunks of 128); list 1 two segments met by a
+    ray at t = 1 in slots 127 and 128 with different normals (a tie at a
+    chunk boundary); list 2 only padding. Rows sweep random lists; the
+    fan of 1080 beams from free poses (origins as expanded views, stride 0
+    along the beams), row 0 from the origin: its beam 0 along +x, beam 1
+    with a NaN direction, beam 2 parallel to segment 0 (a zero denom)."""
+    from pyracecarsimulator_tpu_torch.maps import (contours as pc,
+                                                   load_builtin,
+                                                   sample_free_poses)
+    from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
+    track = load_builtin("levine", device="cpu")
+    occ = track.occupancy.numpy()
+    segs = pc.extract_general_segments(occ, track.resolution,
+                                       (track.origin_x, track.origin_y), 1.0)
+    pad = lambda k: np.ascontiguousarray(
+        pc.pad_general_segments(np.zeros((0, 6)), k).T, np.float32)
+    table = np.stack([pad(640)] * 3)
+    table[0, :, :len(segs)] = segs.T
+    table[0, :, 512:512 + len(segs)] = segs.T
+    h = np.float32(np.sqrt(0.5))
+    table[1, :5, 127] = [1.0, -1.0, 0.0, 1.0, 1.0]
+    table[1, :5, 128] = [1.0, 0.0, h, -h, 1.0]
+    rng = np.random.RandomState(4)
+    ids = rng.randint(3, size=64).astype(np.int32)
+    ids[0] = 1
+    poses = sample_free_poses(track, 64, rng)
+    poses[0] = 0.0
+    _, _, x, y, c, s = rays_from_poses(torch.tensor(poses), 1080, FOV)
+    c, s = c.clone(), s.clone()
+    c[0, 0], s[0, 0] = 1.0, 0.0
+    c[0, 1] = s[0, 1] = float("nan")
+    c[0, 2], s[0, 2] = float(segs[0, 2]), float(segs[0, 3])
+    return (torch.tensor(table, device=cuda),
+            torch.tensor(ids, device=cuda),
+            [v.to(cuda) for v in (x[:, :1], y[:, :1], c, s)])
+
+
+@pytest.mark.parametrize("winner", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_general_sweep_matches_plain(cuda, tiled, winner):
+    """``general_sweep`` against ``general_sweep_plain`` on the same
+    tensors, bit for bit (best, and with ``winner`` wx and wy): each row
+    its own list, or every row list 0 (then also a flat 1-D layout); one
+    launch a sweep; the chunk-boundary tie keeps the first chunk's w."""
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as pg
+    table, ids, (x, y, c, s) = _general_case(cuda)
+    x, y = x.expand(c.shape), y.expand(c.shape)
+    cases = ([(table, ids, (x, y, c, s))] if tiled else
+             [(table[:1], None, (x, y, c, s)),
+              (table[:1], None, tuple(v.reshape(-1) for v in (x, y, c, s)))])
+    for tbl, ix, rays in cases:
+        before = pg.general_sweep.launches
+        got = pg.general_sweep(tbl, ix, *rays, winner)
+        torch.cuda.synchronize()
+        assert pg.general_sweep.launches == before + 1
+        ref = pg.general_sweep_plain(tbl, ix, *rays, winner)
+        assert (got[1] is None) == (ref[1] is None) == (not winner)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, ref))
+        best = got[0].reshape(c.shape)
+        lists = ids if tiled else torch.zeros_like(ids)
+        big = float(np.float32(3e38))
+        assert float(best[0, 1]) == big                 # a NaN direction
+        assert float((best[lists == 0] < 10.0).float().mean()) > 0.3
+        assert bool((best[lists == 2] == big).all())    # only padding
+    if tiled and winner:
+        assert float(got[0][0, 0]) == 1.0
+        assert (float(got[1][0, 0]), float(got[2][0, 0])) == (1.0, 0.0)
+
+
+def test_general_sweep_graphed_equals_eager(cuda):
+    """The "segments_simplified" scan of levine, min-only and winner (under
+    autograd, with its backward), captured in a CUDA graph and replayed on
+    new poses, against the eager scan: bit for bit, one ``general_sweep``
+    launch a scan."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as pg
+    bundle = P.build_sim("levine", backend="segments_simplified",
+                         device=cuda)
+    poses = [torch.as_tensor(sample_free_poses(bundle.track, 128,
+                                               np.random.RandomState(k)),
+                             device=cuda) for k in range(3)]
+    kw = dict(num_beams=1080, max_range=10.0)
+    static = poses[0].clone()
+    w = torch.linspace(0.5, 1.5, 1080, device=cuda)
+
+    def scan_and_grad():
+        q = static.detach().requires_grad_(True)
+        r = pg.scan_poses_general(bundle.segmap, q, **kw)
+        (r * w).sum().backward()
+        with torch.no_grad():
+            r0 = pg.scan_poses_general(bundle.segmap, static, **kw)
+        return r.detach(), q.grad, r0
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            scan_and_grad()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = scan_and_grad()
+    for p in poses:
+        static.copy_(p)
+        before = pg.general_sweep.launches
+        graph.replay()
+        ref = scan_and_grad()
+        torch.cuda.synchronize()
+        assert pg.general_sweep.launches == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        assert float(ref[1].abs().sum()) > 0

@@ -307,13 +307,13 @@ def _stand_ins(monkeypatch, calls):
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
 
     def kernel(edf, inv_res, ox, oy, x, y, c, s, max_range, eps, max_iters,
-               bounds_hw, variant, ray_trips=None, walk=None):
+               bounds_hw, variant, ray_trips=None, walk=None, refine=None):
         calls.append((variant, x.stride(), y.stride()))
         with torch.no_grad():
-            if variant == "bracket":
-                return rd._march_nearest_plain(edf, inv_res, ox, oy, x, y, c,
-                                               s, max_range, eps, max_iters,
-                                               bounds_hw)
+            if variant == "implicit":
+                return rd._fwd_plain(edf, inv_res, ox, oy, x, y, c, s,
+                                     max_range, eps, max_iters, bounds_hw,
+                                     refine)
             return rx.march_rays_plain(edf, inv_res, ox, oy, x, y, c, s,
                                        max_range, eps, max_iters, variant,
                                        bounds_hw)
@@ -378,7 +378,7 @@ def test_march_route(small_track, monkeypatch, interp, edf_grad, ray_grad,
 def test_march_entry_points_take_the_route(small_track, monkeypatch):
     """With the device check saying "the card": ``march_rays`` (both
     interpolations, through ``scan_poses``) and the implicit march's
-    ``_march_nearest`` hand ``edf_march`` the scan's expanded origin views
+    ``_fwd_impl`` hand ``edf_march`` the scan's expanded origin views
     (stride 0 along the beams, never a copy) and its variant, and return
     what it returns; the bilinear march's backward goes to
     ``edf_march_grad``, with the rays' gradient asked for."""
@@ -403,7 +403,7 @@ def test_march_entry_points_take_the_route(small_track, monkeypatch):
         assert torch.equal(got, ref[interp])
     got = pdiff_scan(edf, small_track.resolution, org, poses, **kw)
     assert torch.equal(got, ref_imp)
-    assert [v for v, _, _ in calls] == ["nearest", "bilinear", "bracket"]
+    assert [v for v, _, _ in calls] == ["nearest", "bilinear", "implicit"]
     assert all(sx == (3, 0) and sy == (3, 0) for _, sx, sy in calls)
     q = poses.clone().requires_grad_(True)
     pscan(edf, small_track.resolution, org, q, interp="bilinear",
@@ -449,7 +449,9 @@ def test_march_wrapper_views_and_checks(monkeypatch):
                        (dict(max_iters=-1), "max_iters"),
                        (dict(x0=rays[0].double()), "float32"),
                        (dict(ox=o), "0-dim"),
-                       (dict(ray_trips=torch.zeros(3, 4)), "int32")):
+                       (dict(ray_trips=torch.zeros(3, 4)), "int32"),
+                       (dict(variant="implicit"), "refine"),
+                       (dict(refine=(0.025, 0.02, 0.01)), "refine")):
         with pytest.raises(ValueError, match=match):
             rx.edf_march(**args(**bad))
     for bad, match in ((dict(interp="cubic"), "interp"),
@@ -523,7 +525,7 @@ def _recording_launch(monkeypatch, calls):
     def launch(name, entry, *args):
         calls.append((entry, args))
         if entry == "edf_march":
-            args[-7].zero_()
+            args[-6].zero_()
             if args[-3] is not None:
                 args[-3].copy_(torch.arange(args[-3].numel(),
                                             dtype=torch.int32)
@@ -538,10 +540,11 @@ def _recording_launch(monkeypatch, calls):
 
 def test_march_wrapper_launch_arguments(monkeypatch):
     """What the wrappers hand the kernels (the launch recorded): the
-    variant, a zeroed 3-word scratch a march (its longest trips, its warps
-    done, the rays' cursor) and a zeroed cursor a gradient, and the record
-    ``walk``; the kernel keeps ``GRAD_SLOTS`` positions a ray; a wrong
-    record raises."""
+    variant, the implicit variant's three scalars (0 for the others), its
+    hit flags, a zeroed 3-word scratch a march (its longest trips, its
+    warps done, the rays' cursor) and a zeroed cursor a gradient, and the
+    record ``walk``; the kernel keeps ``GRAD_SLOTS`` positions a ray; a
+    wrong record raises."""
     from pyracecarsimulator_tpu_torch.ops import _kernels
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     calls = []
@@ -552,9 +555,12 @@ def test_march_wrapper_launch_arguments(monkeypatch):
     head = (edf, 20.0, o[0], o[1], *rays, 10.0, 1e-4, 8, None)
     walk = torch.zeros(3, 4, dtype=torch.int32)
     rx.edf_march(*head, "bilinear", walk=walk)
-    rx.edf_march(*head, "bracket")
+    r, hit = rx.edf_march(*head, "implicit", refine=(0.025, 0.02, 0.01))
     (entry, a), (_, b) = calls
     assert entry == "edf_march" and a[0] == 1 and b[0] == 2
+    assert a[-9:-6] == (0.0, 0.0, 0.0) and b[-9:-6] == (0.025, 0.02, 0.01)
+    assert a[-5] is None and b[-6] is r and b[-5] is hit
+    assert hit.dtype == torch.bool and hit.shape == r.shape == (3, 4)
     for args in (a, b):
         scratch = args[-1]
         assert scratch.dtype == torch.int64 and scratch.tolist() == [0] * 3

@@ -4,12 +4,16 @@ package, mirroring tests/test_raymarch_diff.py.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances:
-- the bracket march ``_march_nearest`` (on the card the kernel
-  ``csrc/edf_march.cu``, variant "bracket"; here its plain loop) against
-  the JAX ``while_loop``: ``hit`` equal, ``total`` and ``last`` within
-  1e-5 m (ROADMAP.md's tolerated fault 6 allows up to a cell where XLA
-  contracts the position update; on this CPU they agree), also with a
-  trip count that cuts rays off;
+- the bracket march ``_march_nearest_plain`` against the JAX
+  ``while_loop``: ``hit`` equal, ``total`` and ``last`` within 1e-5 m
+  (ROADMAP.md's tolerated fault 6 allows up to a cell where XLA contracts
+  the position update; on this CPU they agree), also with a trip count
+  that cuts rays off;
+- the forward ``_fwd_impl`` (on the card one launch of the kernel
+  ``csrc/edf_march.cu``, variant "implicit"; here its plain version, the
+  march then ``_refine``) against JAX's ``_fwd_impl``: hit flags equal,
+  ranges within 1e-5 m (the bracket's tolerance; on this CPU they agree
+  bit for bit), with 256 trips and with 5;
 - ``march_rays_implicit`` values and its VJP in (edf, x0, y0, cos, sin)
   against ``jax.vjp``: 1e-5 absolute + 1e-5 relative on the values,
   1e-4 + 1e-4 on the cotangents (on this CPU both are equal bit for bit;
@@ -92,13 +96,31 @@ def test_march_nearest_bracket_matches_jax(field, max_iters):
                                *map(jnp.asarray, rays), MAXR, 1e-4,
                                max_iters, hw)
     ox, oy = T(org)
-    got = pdiff._march_nearest(T(edf), 1.0 / RES, ox, oy, *map(T, rays),
-                               MAXR, 1e-4, max_iters, hw)
+    got = pdiff._march_nearest_plain(T(edf), 1.0 / RES, ox, oy,
+                                     *map(T, rays), MAXR, 1e-4, max_iters,
+                                     hw)
     total, last, hit = (np.asarray(v) for v in ref)
     np.testing.assert_array_equal(got[2].numpy(), hit)
     np.testing.assert_allclose(got[0].numpy(), total, atol=1e-5)
     np.testing.assert_allclose(got[1].numpy(), last, atol=1e-5)
     assert hit.mean() > (0.5 if max_iters > 5 else 0.0)
+
+
+@pytest.mark.parametrize("max_iters", [256, 5])
+def test_fwd_impl_matches_jax(field, max_iters):
+    _, edf, org, hw = field
+    rays = _rays(field, 300, 6)
+    r_ref, hit_ref = jdiff._fwd_impl(jnp.asarray(edf), RES, jnp.asarray(org),
+                                     *map(jnp.asarray, rays), MAXR, 1e-4,
+                                     max_iters, hw)
+    ox, oy = T(org)
+    r, hit = pdiff._fwd_impl(T(edf), RES, ox, oy, *map(T, rays), MAXR, 1e-4,
+                             max_iters, hw)
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(hit_ref))
+    np.testing.assert_allclose(r.numpy(), np.asarray(r_ref), atol=1e-5,
+                               rtol=0)
+    assert hit.numpy().mean() > (0.5 if max_iters > 5 else 0.0)
+    assert (r.numpy() < MAXR).any() and (r.numpy() <= MAXR).all()
 
 
 def test_implicit_values_and_vjp_match_jax(field):
