@@ -74,9 +74,13 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     128) table; berlin: each agent against its tile's list): the kernel
     ``general_sweep`` against its plain version on the card on the full
     4096 x 1080 fan, min-only and winner (0 mismatches on the ranges, wx
-    and wy), with time, plain time and bound; the CUDA scan against the CPU
-    scan given the same fan (bit-identical); one launch a scan; the step
-    and rollout, counted (``general_sweep`` 25 times), and times;
+    and wy), with time, plain time and bound (and the bound at 27
+    operations a real pair beside it); on the first map also against it
+    on the adversarial set of ``tests/torch_general_cases.py`` (0
+    mismatches in both modes, flat and per list, unknown lists NaN); the
+    CUDA scan against the CPU scan given the same fan (bit-identical); one
+    launch a scan; the step and rollout, counted (``general_sweep`` 25
+    times), and times;
 15. per map, the obstacle cycle through ``RacecarSimulator(device="cuda")``
     on "segments", "sectors", "edf" (with ``graph=True``: the step
     captured again after each edit) and "segments_simplified" (the general
@@ -164,7 +168,10 @@ and its bytes (each input and output once) over the HBM rate. The
 operations are counted from the function's arithmetic, not from the
 compiled code: a sweep's are ``OPS_PER_TEST`` per ray-segment test, over
 the real slots of the lists this run visits (the general sweep's
-``OPS_PER_PAIR`` per pair); the march's are ``MARCH_OPS_PER_TRIP`` per
+``TEST_OPS_PER_PAIR`` per real pair, plus ``OPS_PER_PAIR`` per pair whose
+range lowers or ties the running minimum, counted from the plain version
+on this run's inputs; beside it the old bound of ``OPS_PER_PAIR`` per
+real pair); the march's are ``MARCH_OPS_PER_TRIP`` per
 trip of each ray (the kernel reports each ray's trips in this run), plus
 ``REFINE_OPS_PER_HIT`` per refined hit for the implicit variant, its
 gradient's ``MARCH_GRAD_OPS_PER_TRIP``; the march's bytes are the rays
@@ -272,8 +279,16 @@ REFINE_OPS_PER_HIT = 3 + 12 * REFINE_OPS_PER_BISECTION + 64
 # the general sweep's operations per (ray, slot) pair (ops/raycast_general.py
 # _pairs): the normal 1, denom 3, d_safe 2, the numerator 5, the division 1
 # (counted as one, as the march's bounds count it), hx and hy 6, s 3, the
-# four validity tests 4, the select 1, the running minimum 1 = 27
+# four validity tests 4, the select 1, the running minimum 1 = 27: what a
+# pair costs whose t lowers (winner: or ties) the running minimum
 OPS_PER_PAIR = 27
+# what every real pair costs to decide that it cannot win (the tests of
+# csrc/general_sweep.cu): the normal 1, denom 3, the numerator 5, the
+# quotient's sign 1, the threshold's and the sign test's products 2 and
+# their compares 2 = 14. The bound charges it for
+# every real pair, plus OPS_PER_PAIR for each pair that lowers or ties the
+# running minimum, counted from the plain version (general_pair_counts)
+TEST_OPS_PER_PAIR = 14
 # its gradient's, with the forward's intermediates kept (the kernel marches
 # again instead: that is its own cost, not the function's):
 #   nearest: the forward trip 24 and one add into the EDF's gradient = 25;
@@ -548,28 +563,94 @@ def march_sass(sass):
 
 
 def general_sass(sass):
-    """What a pass of the general sweep's slot loop runs, per mode (the
-    template argument in the function's name): the longest innermost loop
-    that reads the staged slots (LDS), and the pairs a pass sweeps (5 LDS
-    each: a slot's five rows). A reading beside the bound, which counts
-    the function's operations."""
+    """What a pass of the general sweep's slot loop issues, per mode (the
+    template argument in the function's name): the innermost loop that
+    reads the staged slots as 16-byte loads (LDS.128, one a slot), its
+    slots and pairs a pass (a slot feeds the source's ``kRays`` rays of a
+    thread), its instructions a pair, and those a pair issues where every
+    ray skips the slot (the loop without the code that its forward
+    branches jump over: the division's path). A reading beside the bound,
+    which counts the function's operations."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), SRC,
+                       "general_sweep.cu")
+    with open(src) as f:
+        rays = int(re.search(r"constexpr int kRays = (\d+);",
+                             f.read()).group(1))
     out = {}
     for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
         head = fn.splitlines()[0]
         mode = ("winner" if "ILb1E" in head else "min" if "ILb0E" in head
                 else None)
-        loops = [b for b in innermost_loops("Function : " + fn)
-                 if "LDS" in b]
-        if "general_sweep_kernel" not in head or mode is None or not loops:
+        if "general_sweep_kernel" not in head or mode is None:
             continue
-        body = max(loops, key=len)
-        out[mode] = {"instructions": len(body),
-                     "pairs": body.count("LDS") // 5,
-                     "mix": {o: body.count(o) for o in sorted(set(body))}}
+        ins = [(int(a, 16), op, tgt) for a, op, tgt in re.findall(
+            r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+            r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)"
+            r"(?:[^;]*?\s(0x[0-9a-f]+)\s*;)?", fn, flags=re.M)]
+        back = [(int(t, 16), a) for a, op, t in ins
+                if op.startswith("BRA") and t and int(t, 16) < a]
+        best = None
+        for lo, hi in back:
+            if any((x, y) != (lo, hi) and lo <= x and y <= hi
+                   for x, y in back):
+                continue                 # not innermost
+            body = [(a, op, t) for a, op, t in ins if lo <= a <= hi]
+            slots = sum(op.startswith("LDS") and op.endswith(".128")
+                        for _, op, _ in body)
+            if slots and (best is None or slots > best[0]):
+                best = (slots, body)
+        if best is None:
+            continue
+        slots, body = best
+        jumped = set()
+        for a, op, t in body:
+            if op.startswith("BRA") and t and int(t, 16) > a:
+                jumped.update(x for x, _, _ in body if a < x < int(t, 16))
+        skip_path = [op for a, op, _ in body if a not in jumped]
+        ops = [op.split(".")[0] for _, op, _ in body]
+        pairs = slots * rays
+        out[mode] = {"instructions": len(body), "slots": slots,
+                     "rays_a_thread": rays, "pairs": pairs,
+                     "per_pair": len(body) / pairs,
+                     "skip_path_instructions": len(skip_path),
+                     "skip_path_per_pair": len(skip_path) / pairs,
+                     "mix": {o: ops.count(o) for o in sorted(set(ops))}}
         log(f"general_sweep {mode}: SASS loop of {len(body)} instructions "
-            f"a pass of {out[mode]['pairs']} pairs (the function needs "
-            f"{OPS_PER_PAIR} a pair) {out[mode]['mix']}")
+            f"a pass of {slots} slots x {rays} rays = "
+            f"{out[mode]['per_pair']:.2f} a pair, "
+            f"{out[mode]['skip_path_per_pair']:.2f} a skipped pair (the "
+            f"function needs {TEST_OPS_PER_PAIR} to skip, {OPS_PER_PAIR} "
+            f"for a pair that wins) {out[mode]['mix']}")
     return out
+
+
+def general_pair_counts(args, winner, block_rows=256):
+    """The real pairs of one general sweep on ``args`` (each ray against
+    the slots of its list whose length is >= 0) and, counted from the
+    plain version's pair ranges (``raycast_general._pairs``) in the list's
+    order, the pairs whose range lowers the running minimum of the
+    earlier slots (winner: lowers or ties it): {"pairs", "full_pairs"}.
+    Rows go in blocks of ``block_rows``."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
+    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import _as_rows
+    table, ids = args[:2]
+    rays = [_as_rows(v) for v in torch.broadcast_tensors(*args[2:])]
+    rows, cols = rays[0].shape
+    real = (table[:, 4, :] >= 0).sum(dim=1)
+    lists = (ids.long() if ids is not None else
+             torch.zeros(rows, dtype=torch.long, device=table.device))
+    full = 0
+    big = torch.tensor(rg._BIG, dtype=torch.float32, device=table.device)
+    for r0 in range(0, rows, block_rows):
+        sel = table[lists[r0:r0 + block_rows]]
+        t = rg._pairs(sel[:, :5, None, :].unbind(1),
+                      *(v[r0:r0 + block_rows, :, None] for v in rays))[0]
+        before = torch.cat([big.expand(*t.shape[:2], 1),
+                            torch.cummin(t, dim=-1).values[..., :-1]], -1)
+        wins = (t <= before) if winner else (t < before)
+        full += int((wins & (t < big)).sum())
+    return {"pairs": int(real[lists].sum()) * cols, "full_pairs": full}
 
 
 def general_case(gmap, p):
@@ -589,35 +670,42 @@ def general_case(gmap, p):
 
 def general_bound(args, winner, rates):
     """The least time the card could take for one general sweep on
-    ``args``: the larger of ``OPS_PER_PAIR`` for each ray and each real
-    slot (length >= 0) of its list, over the instruction rate, and the
+    ``args``: the larger of the operations (``TEST_OPS_PER_PAIR`` for each
+    real pair, each ray against the real slots (length >= 0) of its list,
+    plus ``OPS_PER_PAIR`` for each pair that lowers or ties the running
+    minimum, ``general_pair_counts``) over the instruction rate, and the
     bytes (each visited list's real slots, 5 rows of float32, each row's
     list id and origin, each ray's direction, each output once: 4 bytes a
-    ray for the minimum, 12 with the winner) over the HBM rate."""
+    ray for the minimum, 12 with the winner) over the HBM rate. Beside it
+    ``bound_27_ms``: ``OPS_PER_PAIR`` for every real pair, the bound
+    before the kernel skipped divisions."""
     import torch
     table, ids, _, _, ct, _ = args
+    n = general_pair_counts(args, winner)
+    pairs, full = n["pairs"], n["full_pairs"]
     real = (table[:, 4, :] >= 0).sum(dim=1)
     rows, cols = ct.shape
     lists = (ids.long() if ids is not None else
              torch.zeros(rows, dtype=torch.long, device=ct.device))
-    pairs = int(real[lists].sum()) * cols
     nbytes = (20 * int(real[torch.unique(lists)].sum())
               + (4 if ids is not None else 0) * rows + 8 * rows
               + 8 * rows * cols + (12 if winner else 4) * rows * cols)
-    ops_ms = pairs * OPS_PER_PAIR / rates["slots_per_s"] * 1e3
+    ops_ms = ((pairs * TEST_OPS_PER_PAIR + full * OPS_PER_PAIR)
+              / rates["slots_per_s"] * 1e3)
+    ops27_ms = pairs * OPS_PER_PAIR / rates["slots_per_s"] * 1e3
     bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
-    out = {"pairs": pairs, "slots": table.shape[2],
+    out = {"pairs": pairs, "full_pairs": full,
+           "full_pairs_a_ray": full / (rows * cols),
+           "slots": table.shape[2],
            "mean_real_slots": pairs / (rows * cols), "bytes": nbytes,
            "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
            "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bound_27_ms": max(ops27_ms, bytes_ms)}
     sass = rates.get("general_sass", {}).get("winner" if winner else "min")
-    if sass and sass["pairs"]:
-        # the compiled loop sweeps every slot, the padding's too
-        per_pair = sass["instructions"] / sass["pairs"]
-        out["sass_per_pair"] = per_pair
-        out["compiled_slots_ms"] = (rows * cols * table.shape[2] * per_pair
-                                    / rates["slots_per_s"] * 1e3)
+    if sass:
+        out["sass_per_pair"] = sass["per_pair"]
+        out["sass_skip_path_per_pair"] = sass["skip_path_per_pair"]
     return out
 
 
@@ -1323,12 +1411,18 @@ def simplified_phase(card, name, track, poses, rates, errs, times):
         res = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
                **general_bound(args[0], winner, rates)}
         res["share_of_bound"] = res["bound_ms"] / min(k_ms, k2_ms)
+        res["share_of_bound_27"] = res["bound_27_ms"] / min(k_ms, k2_ms)
         times["general_sweep"][f"{name} {mode}"] = res
         log(f"[{name}] general_sweep {mode}: {k_ms:.4f} / {k2_ms:.4f} ms vs "
             f"plain {p_ms:.2f} ms; bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}), share {res['share_of_bound']:.3f}; "
+            f"at {OPS_PER_PAIR} a real pair {res['bound_27_ms']:.4f} ms, "
+            f"share {res['share_of_bound_27']:.3f}; "
             f"{res['mean_real_slots']:.1f} real of {res['slots']} slots a "
-            f"ray")
+            f"ray, {res['full_pairs_a_ray']:.2f} pairs a ray that lower or "
+            f"tie the running minimum")
+    if name == MAPS[0]:
+        out["adversarial"] = general_adversarial(name, errs)
 
     p = torch.as_tensor(poses, device="cuda")
     _, q, xb, yb, ct, st = rays_from_poses(p[:64], BEAMS, FOV)
@@ -1351,6 +1445,61 @@ def simplified_phase(card, name, track, poses, rates, errs, times):
           f"{name}: segments_simplified launched {out['launches']}")
     log(f"[{name}] {card}: segments_simplified scan {out['scan_ms']:.4f} "
         f"ms ({out['scan_launches']}), step {out['step_ms']:.4f} ms")
+    return out
+
+
+def general_adversarial(name, errs):
+    """Phase 14's adversarial set (``tests/torch_general_cases.py``: exact
+    ties inside a chunk and across the cut of a 1024-slot list, rays
+    through segment endpoints, zero and subnormal denominators, NaN rays,
+    a list of padding only, ranges near 3e38) through ``general_sweep``
+    against ``general_sweep_plain``, both modes: each row on its list,
+    every list alone as the flat table, and rows on lists that do not
+    exist (NaN there, the other rows as before). 0 mismatches, compared
+    as torch.equal compares (a zero equals a zero of either sign: torch's
+    amin leaves the sign at a tie of +0 and -0 open), a NaN equal to a
+    NaN."""
+    import importlib.util
+    import torch
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_general_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_general_cases",
+                                                  path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    table, ids, rays = cases.adversarial(0, device="cuda")
+    # as torch.equal compares, but a NaN equals a NaN
+    differ = lambda a, b: (a != b) & ~(a.isnan() & b.isnan())
+    runs = [("tiles", table, ids)] + [(f"list {i}", table[i:i + 1], None)
+                                      for i in range(table.shape[0])]
+    out = {}
+    for winner in (False, True):
+        mode = "winner" if winner else "min"
+        for label, tbl, ix in runs:
+            got = rg.general_sweep(tbl, ix, *rays, winner)
+            ref = rg.general_sweep_plain(tbl, ix, *rays, winner)
+            mism = sum(int(differ(a, b).sum())
+                       for a, b in zip(got, ref) if a is not None)
+            out[f"{mode} {label}"] = mism
+            errs["general_sweep"].append(max(
+                float((a.double() - b.double()).abs().nan_to_num(0.0).max())
+                for a, b in zip(got, ref) if a is not None))
+        bad = cases.unknown_ids(ids)
+        unknown = (bad < 0) | (bad >= table.shape[0])
+        got = rg.general_sweep(table, bad, *rays, winner)
+        ref = rg.general_sweep_plain(table, torch.where(unknown, 2, bad),
+                                     *rays, winner)
+        out[f"{mode} unknown lists"] = sum(
+            int(differ(a[~unknown], b[~unknown]).sum())
+            + int((~a[unknown].isnan()).sum())
+            for a, b in zip(got, ref) if a is not None)
+    torch.cuda.synchronize()
+    log(f"[{name}] general_sweep adversarial set ({tuple(table.shape)} "
+        f"table, {tuple(rays[0].shape)} rays) vs plain: mismatches {out}")
+    check(not any(out.values()),
+          "general_sweep disagrees with its plain version on the "
+          "adversarial set")
     return out
 
 

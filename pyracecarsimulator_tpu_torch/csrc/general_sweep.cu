@@ -14,12 +14,12 @@
 //     nx = -ey, ny = ex
 //     denom  = cos * nx + sin * ny
 //     d_safe = denom == 0 ? 1e-30 : denom
-//     t  = ((p0x - x) * nx + (p0y - y) * ny) / d_safe
+//     num    = (p0x - x) * nx + (p0y - y) * ny
+//     t  = num / d_safe
 //     hx = (x + t * cos) - p0x,  hy = (y + t * sin) - p0y
 //     s  = hx * ex + hy * ey
 //     t  = 3e38 unless t >= 0, 0 <= s <= len and denom != 0
-// (a padding slot has len = -1 and is never valid). Modes (a template
-// argument):
+// Modes (a template argument):
 //   min only: best, the smallest t (unclamped);
 //   winner:   best and (wx, wy) = (nx, ny) / d_safe of the winning slot,
 //             with the JAX scan's ties: the slots go in chunks of `chunk`
@@ -32,25 +32,67 @@
 //
 // Exact arithmetic: built with -fmad=false and no fast math, every float32
 // operation of ops/raycast_general.py _pairs in its order, the divisions
-// IEEE divisions, the largest of ties with torch.amax's NaN rule: the
-// kernel equals the plain version (general_sweep_plain) bit for bit.
+// IEEE divisions (correctly rounded, subnormals kept), the largest of ties
+// with torch.amax's NaN rule: the kernel equals the plain version
+// (general_sweep_plain) bit for bit.
 //
-// Design: one thread a ray, kThreads rays a block, one block per (row,
-// block of kThreads columns), so all of a block's rays share one list. The
-// block stages one chunk of its list (5 rows of at most kStage slots, 10
-// KB) in shared memory, loaded with coalesced reads, and every thread
-// sweeps it reading the same address (a broadcast). The winner's two
-// divisions run only where t reaches the chunk's minimum. The TPU sweep's
-// chunked (rays x slots) intermediates are gone: a ray's state is a few
-// registers.
+// What bounds it on the H100. At 4096 x 1080 rays the bytes (the rays'
+// directions and outputs, the agents' origins, the visited lists once) are
+// ~30-55 MB, ~0.01-0.02 ms at 3.35 TB/s. The operations are the larger
+// term: every real (ray, slot) pair needs its denominator and numerator
+// and a test, and the few pairs that lower the running minimum need the
+// whole pair (division, hit point, s, validity). So the design cuts the
+// instructions a real pair issues.
 //
-// Bound on the H100. At 4096 x 1080 rays the bytes (the rays' directions
-// and outputs, the agents' origins, the visited lists once) are ~30-55 MB,
-// ~0.01-0.02 ms at 3.35 TB/s; the operations (~27 a pair over the real
-// slots of the visited lists) are the larger term, and the bound. The
-// kernel also sweeps the padding slots of a list (levine 128 slots for 82
-// segments) and spends ~10 instructions on each IEEE division. PERF.md holds
-// the times measured on an H100, each with the card's power limit.
+// Design. kRays rays a thread, kThreads threads a block, one block per
+// (row, block of kThreads * kRays columns), so all of a block's rays share
+// one list. The block stages one chunk of its list in shared memory: the
+// slots as float4 (p0x, p0y, ex, ey), one broadcast 16-byte load a pair,
+// and the lengths apart, read only on the slow path. Each staged slot
+// feeds the thread's kRays rays, whose chains are independent; the slot
+// loop is unrolled twice. (4 rays a thread, and a slot loop unrolled 4
+// times, were timed and lost in winner mode: PERF.md.)
+//
+// 1. Only the real slots are swept. Before staging, the block finds the
+//    last slot of its list whose length is >= 0 (a max over its threads);
+//    every thread sweeps only up to it, and a chunk wholly past it is
+//    neither staged nor swept; a row with an unknown list sweeps nothing.
+//    Exact: a slot whose length is not >= 0 (padding has -1) is never
+//    valid, since 0 <= s <= len needs len >= 0. In min-only mode it cannot
+//    lower best. In winner mode the plain version's t there is 3e38: it
+//    ties at a chunk's minimum only when that minimum is 3e38, and a
+//    chunk whose minimum is 3e38 never replaces best (best <= 3e38); so it
+//    counts as a slot not tied, and `tied < chunk` still compares against
+//    the chunk's full size. A chunk with no valid slot keeps its minimum
+//    at +inf and never replaces best.
+// 2. A division only where the pair can still win. Each ray keeps a
+//    threshold thr (best in min-only mode, min(best, cmin) in winner
+//    mode, cmin the current chunk's running minimum) and hi = the float
+//    after |thr|. With b = |denom| and sq = num carrying the sign of
+//    num * denom (the quotient's sign), a pair is skipped when
+//      sq > RN(hi * b)            (the threshold test), or
+//      sq < RN(-2^-149 * b)       (the sign test).
+//    Exact: a float larger than a rounded product RN(x) is larger than x
+//    itself, and one smaller than it is smaller than x (the floats are a
+//    grid, and RN(x) lies within half a step of x), so sq > hi * b, or sq
+//    < -2^-149 * b, exactly. Where denom == 0 the pair is invalid anyway.
+//    Otherwise d_safe = denom, num / denom has the sign of sq and the
+//    magnitude |sq| / b, and IEEE division is correctly rounded and
+//    monotone: t >= hi > thr, so the pair can neither lower thr nor tie
+//    it; or t <= -2^-149 < 0, invalid (a quotient that rounds to -0,
+//    which t >= 0 admits, is never skipped). A skipped pair in winner
+//    mode is thus one that is not at the chunk's final minimum, or one
+//    whose chunk does not replace best, and counts as a slot not tied.
+//    The tests hold through subnormal products and denominators (the
+//    grid argument needs no relative margin), never skip on NaN (every
+//    comparison with NaN is false), and never skip where hi * b
+//    overflows to inf; thr is at most 3e38, so hi is finite.
+// 3. The winner's two divisions run only where a valid t reaches the
+//    chunk's running minimum.
+// Tensor cores do not apply (2-term products whose rounding order must be
+// the plain version's); TMA or cp.async do not pay (a list is at most a
+// few KB, staged once a block). PERF.md holds the times measured on an
+// H100, each with the card's power limit.
 
 #include <cuda_runtime.h>
 
@@ -58,7 +100,11 @@ namespace {
 
 constexpr float kBig = 3.0e38f;
 constexpr float kTiny = 1.0e-30f;
-constexpr int kThreads = 128;
+constexpr float kNegTiny = -1.40129846e-45f;  // -2^-149, the least subnormal
+constexpr int kSign = static_cast<int>(0x80000000u);
+constexpr int kRays = 2;                  // rays a thread
+constexpr int kThreads = 128 / kRays;     // a block spans 128 columns
+constexpr int kCols = kThreads * kRays;
 constexpr int kStage = 512;  // the largest chunk: _fit_chunk(K, 512)
 
 struct Rays {
@@ -74,92 +120,157 @@ __device__ __forceinline__ float maximum_nan(float a, float b) {
   return a != a ? a : (b != b ? b : (a > b ? a : b));
 }
 
+// the float after |v| (v >= 0 or -0 here): the skip test's threshold
+__device__ __forceinline__ float above(float v) {
+  return __int_as_float((__float_as_int(v) & 0x7fffffff) + 1);
+}
+
+// a ray's running state (wx, wy and the chunk's in winner mode only)
+struct Ray {
+  float x, y, c, s;
+  float best, hi;            // hi = above(thr)
+  float wx, wy;
+  float cmin, cwx, cwy;      // the current chunk's
+  int tied;
+};
+
 template <bool kWinner>
 __global__ void __launch_bounds__(kThreads) general_sweep_kernel(
     const float* __restrict__ table, int n_lists, int k, int chunk,
     const int* __restrict__ ids, Rays r, int cols, int col_blocks,
     float* __restrict__ best_out, float* __restrict__ wx_out,
     float* __restrict__ wy_out) {
-  __shared__ float seg[5][kStage];
+  extern __shared__ float4 seg[];        // chunk slots (p0x, p0y, ex, ey)
+  float* len = reinterpret_cast<float*>(seg + chunk);  // chunk lengths
+  __shared__ int n_real;                 // 1 + the list's last real slot
 
   const int row = blockIdx.x / col_blocks;
-  const int col = (blockIdx.x - row * col_blocks) * kThreads + threadIdx.x;
-  const bool live = col < cols;
+  const int col0 = (blockIdx.x - row * col_blocks) * kCols + threadIdx.x;
   const int list = ids == nullptr ? 0 : ids[row];
   const bool known = list >= 0 && list < n_lists;
-  // threads past the ragged edge stay for the block's barriers and sweep
-  // harmless zeros; they write nothing
-  const float x = live ? __ldg(r.x + (row * r.sx[0] + col * r.sx[1])) : 0.0f;
-  const float y = live ? __ldg(r.y + (row * r.sy[0] + col * r.sy[1])) : 0.0f;
-  const float c = live ? __ldg(r.c + (row * r.sc[0] + col * r.sc[1])) : 0.0f;
-  const float sn = live ? __ldg(r.s + (row * r.ss[0] + col * r.ss[1])) : 0.0f;
   const float* lst =
       table + static_cast<long long>(known ? list : 0) * 6 * k;
 
-  float best = kBig, wx = 0.0f, wy = 0.0f;
-  for (int base = 0; base < k; base += chunk) {
-    __syncthreads();  // the previous chunk is swept by every thread
-    for (int j = threadIdx.x; j < 5 * chunk; j += kThreads) {
-      const int q = j / chunk;
-      const int slot = j - q * chunk;
-      seg[q][slot] = lst[q * k + base + slot];
+  // 1. the list's real extent: a max over the block's threads
+  if (threadIdx.x == 0) n_real = 0;
+  __syncthreads();
+  int last = 0;
+  if (known) {
+    for (int j = threadIdx.x; j < k; j += kThreads) {
+      if (__ldg(lst + 4 * k + j) >= 0.0f) last = j + 1;
+    }
+  }
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((threadIdx.x & 31) == 0 && last > 0) atomicMax(&n_real, last);
+
+  // threads past the ragged edge sweep harmless zeros and write nothing
+  Ray ray[kRays];
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int col = col0 + j * kThreads;
+    const bool live = col < cols;
+    Ray& a = ray[j];
+    a.x = live ? __ldg(r.x + (row * r.sx[0] + col * r.sx[1])) : 0.0f;
+    a.y = live ? __ldg(r.y + (row * r.sy[0] + col * r.sy[1])) : 0.0f;
+    a.c = live ? __ldg(r.c + (row * r.sc[0] + col * r.sc[1])) : 0.0f;
+    a.s = live ? __ldg(r.s + (row * r.ss[0] + col * r.ss[1])) : 0.0f;
+    a.best = kBig;
+    a.hi = above(kBig);
+    a.wx = a.wy = 0.0f;
+  }
+  __syncthreads();
+  const int limit = n_real;
+
+  for (int base = 0; base < limit; base += chunk) {
+    const int m = min(chunk, limit - base);  // slots swept in this chunk
+    if (base > 0) __syncthreads();  // the previous chunk is swept
+    for (int q = threadIdx.x; q < m; q += kThreads) {
+      const float* p = lst + base + q;
+      seg[q] = make_float4(p[0], p[k], p[2 * k], p[3 * k]);
+      len[q] = p[4 * k];
     }
     __syncthreads();
-    // the chunk's minimum, its ties' largest (nx, ny) / d_safe, and how
-    // many slots tie there
-    float cmin = __int_as_float(0x7f800000);  // +inf: the first slot sets it
-    float cwx = 0.0f, cwy = 0.0f;
-    int tied = 0;
-    for (int q = 0; q < chunk; ++q) {
-      const float ex = seg[2][q];
-      const float ey = seg[3][q];
-      const float nx = -ey;
-      const float ny = ex;
-      const float denom = c * nx + sn * ny;
-      const float d_safe = denom == 0.0f ? kTiny : denom;
-      float t = ((seg[0][q] - x) * nx + (seg[1][q] - y) * ny) / d_safe;
-      const float hx = (x + t * c) - seg[0][q];
-      const float hy = (y + t * sn) - seg[1][q];
-      const float s = hx * ex + hy * ey;
-      if (!(t >= 0.0f && s >= 0.0f && s <= seg[4][q] && denom != 0.0f)) {
-        t = kBig;
+    if (kWinner) {
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) {
+        ray[j].cmin = __int_as_float(0x7f800000);  // +inf
+        ray[j].cwx = ray[j].cwy = 0.0f;
+        ray[j].tied = 0;
       }
-      if (!kWinner) {
-        best = t < best ? t : best;
-      } else if (t <= cmin) {
-        const float qx = nx / d_safe;
-        const float qy = ny / d_safe;
-        if (t < cmin) {
-          cmin = t;
-          cwx = qx;
-          cwy = qy;
-          tied = 1;
-        } else {
-          cwx = maximum_nan(cwx, qx);
-          cwy = maximum_nan(cwy, qy);
-          ++tied;
+    }
+#pragma unroll 2
+    for (int q = 0; q < m; ++q) {
+      const float4 g = seg[q];  // p0x, p0y, ex, ey
+      const float nx = -g.w;
+      const float ny = g.z;
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) {
+        Ray& a = ray[j];
+        const float denom = a.c * nx + a.s * ny;
+        const float num = (g.x - a.x) * nx + (g.y - a.y) * ny;
+        // 2: the quotient's sign is sq's, its magnitude |sq| / b
+        const float b = fabsf(denom);
+        const float sq = __int_as_float(__float_as_int(num) ^
+                                        (__float_as_int(denom) & kSign));
+        if (sq > a.hi * b || sq < kNegTiny * b) continue;  // cannot win
+        const float d_safe = denom == 0.0f ? kTiny : denom;
+        const float t = num / d_safe;
+        const float hx = (a.x + t * a.c) - g.x;
+        const float hy = (a.y + t * a.s) - g.y;
+        const float sp = hx * g.z + hy * g.w;
+        if (!(t >= 0.0f && sp >= 0.0f && sp <= len[q] && denom != 0.0f)) {
+          continue;
+        }
+        if (!kWinner) {
+          if (t < a.best) {
+            a.best = t;
+            a.hi = above(t);
+          }
+        } else if (t <= a.cmin) {
+          const float qx = nx / d_safe;
+          const float qy = ny / d_safe;
+          if (t < a.cmin) {
+            a.cmin = t;
+            a.cwx = qx;
+            a.cwy = qy;
+            a.tied = 1;
+            a.hi = above(fminf(a.best, t));
+          } else {
+            a.cwx = maximum_nan(a.cwx, qx);
+            a.cwy = maximum_nan(a.cwy, qy);
+            ++a.tied;
+          }
         }
       }
     }
     if (kWinner) {
-      if (tied < chunk) {
-        cwx = maximum_nan(cwx, -kBig);
-        cwy = maximum_nan(cwy, -kBig);
-      }
-      if (cmin < best) {
-        best = cmin;
-        wx = cwx;
-        wy = cwy;
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) {
+        Ray& a = ray[j];
+        if (a.tied < chunk) {
+          a.cwx = maximum_nan(a.cwx, -kBig);
+          a.cwy = maximum_nan(a.cwy, -kBig);
+        }
+        if (a.cmin < a.best) {
+          a.best = a.cmin;
+          a.wx = a.cwx;
+          a.wy = a.cwy;
+        }
+        a.hi = above(a.best);
       }
     }
   }
-  if (!live) return;
-  const long long i = static_cast<long long>(row) * cols + col;
   const float nan = __int_as_float(0x7fc00000);
-  best_out[i] = known ? best : nan;
-  if (kWinner) {
-    wx_out[i] = known ? wx : nan;
-    wy_out[i] = known ? wy : nan;
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int col = col0 + j * kThreads;
+    if (col >= cols) continue;
+    const long long i = static_cast<long long>(row) * cols + col;
+    best_out[i] = known ? ray[j].best : nan;
+    if (kWinner) {
+      wx_out[i] = known ? ray[j].wx : nan;
+      wy_out[i] = known ? ray[j].wy : nan;
+    }
   }
 }
 
@@ -183,7 +294,7 @@ extern "C" int general_sweep_launch(
     void* best, void* wx, void* wy, void* stream) {
   if (rows * cols <= 0) return 0;
   const long long st[8] = {sx0, sx1, sy0, sy1, sc0, sc1, ss0, ss1};
-  const long long col_blocks = (cols + kThreads - 1) / kThreads;
+  const long long col_blocks = (cols + kCols - 1) / kCols;
   if (n_lists <= 0 || k <= 0 || chunk <= 0 || chunk > kStage ||
       k % chunk != 0 || !fits(n_lists * 6 * k) || !fits(rows * cols) ||
       !fits(rows * col_blocks) || (winner && (wx == nullptr || wy == nullptr))) {
@@ -204,18 +315,19 @@ extern "C" int general_sweep_launch(
     *dst[t + 1] = static_cast<int>(st[t + 1]);
   }
   const dim3 grid(static_cast<unsigned>(rows * col_blocks));
+  const size_t smem = static_cast<size_t>(chunk) * (sizeof(float4) + 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* tb = static_cast<const float*>(table);
   const int* id = static_cast<const int*>(ids);
   float* b = static_cast<float*>(best);
   if (winner) {
-    general_sweep_kernel<true><<<grid, kThreads, 0, s>>>(
+    general_sweep_kernel<true><<<grid, kThreads, smem, s>>>(
         tb, static_cast<int>(n_lists), static_cast<int>(k),
         static_cast<int>(chunk), id, r, static_cast<int>(cols),
         static_cast<int>(col_blocks), b, static_cast<float*>(wx),
         static_cast<float*>(wy));
   } else {
-    general_sweep_kernel<false><<<grid, kThreads, 0, s>>>(
+    general_sweep_kernel<false><<<grid, kThreads, smem, s>>>(
         tb, static_cast<int>(n_lists), static_cast<int>(k),
         static_cast<int>(chunk), id, r, static_cast<int>(cols),
         static_cast<int>(col_blocks), b, nullptr, nullptr);

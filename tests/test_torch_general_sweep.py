@@ -270,3 +270,210 @@ def test_wrapper_rejects_bad_inputs(monkeypatch):
     assert len(calls) == 1 and calls[0]["ids"] is ids
     assert best.shape == (3, 4) and best.dtype == torch.float32
     assert wx is None and wy is None
+
+
+# -- the kernel's loop, emulated ------------------------------------------------
+#
+# ``csrc/general_sweep.cu`` sweeps only a list's real slots and divides only
+# where a pair can still win. ``_emulate`` runs its loop in float32 torch,
+# vectorised over the rays, in the kernel's order of operations, so that
+# the skips can be held against the plain version here, bit for bit as
+# torch.equal compares (``_equal``: a NaN equals a NaN), and counted.
+
+def _above(v):
+    """The float after |v|: the kernel's skip threshold."""
+    return ((v.contiguous().view(torch.int32) & 0x7fffffff) + 1).view(
+        torch.float32)
+
+
+def _equal(a, b):
+    """torch.equal, where a NaN equals a NaN. (As torch.equal, a zero
+    equals a zero of either sign: which of +0 and -0 torch's ``amin``
+    returns at a tie is left open, and differs with the reduction's
+    order.)"""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _emulate(table, ids, x, y, c, s, winner):
+    """The kernel's loop on (rows, cols) rays: (best, wx, wy) and the
+    pairs it leaves: ``padding`` (past the list's last real slot),
+    ``skipped`` (the division test), ``divided`` (the rest) and ``wins``
+    (valid pairs whose t lowers, winner: or ties, the running minimum)."""
+    x, y, c, s = torch.broadcast_tensors(x, y, c, s)
+    rows, cols = x.shape
+    n_lists, _, k = table.shape
+    chunk = pg._fit_chunk(k)
+    rid = (torch.zeros(rows, dtype=torch.long) if ids is None
+           else ids.long())
+    known = (rid >= 0) & (rid < n_lists)
+    lst = table[rid.clamp(0, n_lists - 1)]
+    real = lst[:, 4, :] >= 0
+    idx = torch.arange(1, k + 1).expand(rows, k)
+    limit = torch.where(real, idx, 0).amax(dim=1)
+    limit = torch.where(known, limit, 0)[:, None]
+    big = torch.tensor(3.0e38)
+    neg_tiny = torch.tensor(-2.0 ** -149)
+    best = torch.full((rows, cols), 3.0e38)
+    hi = _above(best)
+    wx = torch.zeros_like(best)
+    wy = torch.zeros_like(best)
+    n = dict(padding=0, skipped=0, divided=0, wins=0)
+    for base in range(0, k, chunk):
+        cmin = torch.full_like(best, float("inf"))
+        cwx = torch.zeros_like(best)
+        cwy = torch.zeros_like(best)
+        tied = torch.zeros(rows, cols, dtype=torch.int64)
+        for q in range(base, base + chunk):
+            active = (q < limit).expand(rows, cols)
+            p0x, p0y, ex, ey, ln = (lst[:, i, q, None] for i in range(5))
+            nx, ny = -ey, ex
+            denom = c * nx + s * ny
+            num = (p0x - x) * nx + (p0y - y) * ny
+            b = denom.abs()
+            sq = (num.view(torch.int32)
+                  ^ (denom.view(torch.int32) & -2 ** 31)).view(torch.float32)
+            skip = (sq > hi * b) | (sq < neg_tiny * b)
+            go = active & ~skip
+            d_safe = torch.where(denom == 0.0, 1e-30, denom)
+            t = num / d_safe
+            hx = x + t * c - p0x
+            hy = y + t * s - p0y
+            sp = hx * ex + hy * ey
+            valid = go & (t >= 0) & (sp >= 0) & (sp <= ln) & (denom != 0)
+            thr = best if not winner else torch.minimum(best, cmin)
+            n["padding"] += int((~active).sum())
+            n["skipped"] += int((active & skip).sum())
+            n["divided"] += int(go.sum())
+            n["wins"] += int((valid & (t < big)
+                              & ((t <= thr) if winner else (t < thr))).sum())
+            if not winner:
+                low = valid & (t < best)
+                best = torch.where(low, t, best)
+                hi = torch.where(low, _above(t), hi)
+                continue
+            le = valid & (t <= cmin)
+            lt = le & (t < cmin)
+            eq = le & ~lt
+            qx, qy = nx / d_safe, ny / d_safe
+            cwx = torch.where(lt, qx, torch.where(eq, torch.maximum(cwx, qx),
+                                                  cwx))
+            cwy = torch.where(lt, qy, torch.where(eq, torch.maximum(cwy, qy),
+                                                  cwy))
+            tied = torch.where(lt, 1, torch.where(eq, tied + 1, tied))
+            hi = torch.where(lt, _above(torch.minimum(best, t)), hi)
+            cmin = torch.where(lt, t, cmin)
+        if winner:
+            fill = tied < chunk
+            cwx = torch.where(fill, torch.maximum(cwx, -big), cwx)
+            cwy = torch.where(fill, torch.maximum(cwy, -big), cwy)
+            upd = cmin < best
+            best = torch.where(upd, cmin, best)
+            wx = torch.where(upd, cwx, wx)
+            wy = torch.where(upd, cwy, wy)
+            hi = _above(best)
+    nan = torch.tensor(float("nan"))
+    out = [torch.where(known[:, None], v, nan) for v in (best, wx, wy)]
+    return (out[0], *(out[1:] if winner else (None, None))), n
+
+
+def _same(got, ref):
+    return all(a is None and b is None or _equal(a, b)
+               for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("winner", [False, True])
+def test_emulated_kernel_matches_plain_adversarial(winner):
+    """The kernel's loop (its real-slot limit, its division skip, the
+    winner's ties) against ``general_sweep_plain`` on the adversarial set
+    (``tests/torch_general_cases.py``: 1024 slots in chunks of 512, exact
+    ties inside a chunk and across the cut, rays through endpoints, zero
+    and subnormal denominators, NaN rays, a padding-only list, ranges near
+    3e38), bit for bit (``_equal``): each row on its list, each list as
+    the flat table, and rows on lists that do not exist (NaN there, the
+    other rows as the plain version gives them)."""
+    from torch_general_cases import adversarial, unknown_ids
+    table, ids, rays = adversarial(0)
+    runs = [(table, ids)] + [(table[i:i + 1], None) for i in range(4)]
+    skipped = 0
+    for tbl, ix in runs:
+        got, n = _emulate(tbl, ix, *rays, winner)
+        ref = pg.general_sweep_plain(tbl, ix, *rays, winner)
+        assert _same(got, ref)
+        skipped += n["skipped"]
+        assert n["padding"] > 0 and n["divided"] >= n["wins"] > 0 or (
+            tbl.shape[0] == 1 and tbl[0, 4].max() < 0)
+    assert skipped > 0
+    bad = unknown_ids(ids)
+    unknown = (bad < 0) | (bad >= table.shape[0])
+    got, _ = _emulate(table, bad, *rays, winner)
+    ref = pg.general_sweep_plain(table, torch.where(unknown, 2, bad),
+                                 *rays, winner)
+    for a, b in zip(got, ref):
+        if a is not None:
+            assert bool(a[unknown].isnan().all())
+            assert _equal(a[~unknown], b[~unknown])
+    # the cases the set is made for are there
+    best = ref[0]
+    assert float(best[0, 0]) == 1.0                      # the tie at t = 1
+    assert bool((best[1, :16] < 1e-38).any())            # subnormal ranges
+    assert bool((best == 0.0).any())
+    assert float(best[4, 0]) == float(np.float32(1.5e38))
+    assert bool((best[6] == 3.0e38).all())               # a NaN origin
+    assert str(float(best[1, 20])) == "-0.0"             # a quotient -0
+
+
+def _map_rays(name, agents):
+    """(table, ids, rays (agents, 1080)) of the "segments_simplified"
+    scan of bundled map ``name``, as ``raycast_general`` hands them to the
+    sweep (levine's flat table, berlin's 4 m tiles)."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
+    g = P.build_sim(name, backend="segments_simplified",
+                    device="cpu").segmap
+    poses = torch.as_tensor(sample_free_poses(
+        load_track(name), agents, np.random.RandomState(3)))
+    _, q, xb, yb, ct, st = rays_from_poses(poses, 1080, 4.712388980384690)
+    if g.tiles is not None:
+        return (g.tiles, pg.tile_ids(g.tiles_shape, g.tile_size,
+                                     g.tile_origin, q[:, 0], q[:, 1]),
+                (xb, yb, ct, st))
+    return g.params[None], None, (xb, yb, ct, st)
+
+
+def load_track(name):
+    from pyracecarsimulator_tpu_torch.maps import load_builtin
+    return load_builtin(name, device="cpu")
+
+
+@pytest.mark.parametrize("winner", [False, True])
+@pytest.mark.parametrize("name", ["levine", "berlin"])
+def test_emulated_kernel_matches_plain_on_maps(name, winner):
+    """The kernel's loop against ``general_sweep_plain`` on the scans of
+    both bundled maps, 6 agents x 1080 beams, bit for bit; the pairs that
+    each skip removes, printed (``pytest -s``): the padding past a list's
+    last real slot and the divisions the threshold test proves useless.
+    ``chip_smoke.general_pair_counts`` (the bound's count, from the plain
+    version) gives the emulation's real pairs and winning pairs."""
+    import importlib.util
+    import pathlib
+    table, ids, rays = _map_rays(name, 6)
+    got, n = _emulate(table, ids, *rays, winner)
+    ref = pg.general_sweep_plain(table, ids, *rays, winner)
+    assert _same(got, ref)
+    assert float((ref[0] < MAXR).float().mean()) > 0.5
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    counts = smoke.general_pair_counts((table, ids, *rays), winner,
+                                       block_rows=4)
+    real = n["skipped"] + n["divided"]
+    assert counts == {"pairs": real, "full_pairs": n["wins"]}
+    slots = n["padding"] + real
+    print(f"\n{name} {'winner' if winner else 'min'}: {slots} slot pairs, "
+          f"padding {n['padding']} ({n['padding'] / slots:.3f}), division "
+          f"skipped {n['skipped']} ({n['skipped'] / real:.3f} of the real), "
+          f"divided {n['divided']} ({n['divided'] / real:.3f}), winning "
+          f"{n['wins']} ({n['wins'] / real:.4f})")
+    assert n["padding"] > 0 and n["skipped"] > n["divided"] > n["wins"] > 0

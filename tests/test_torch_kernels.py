@@ -749,6 +749,42 @@ def test_general_sweep_matches_plain(cuda, tiled, winner):
         assert (float(got[1][0, 0]), float(got[2][0, 0])) == (1.0, 0.0)
 
 
+@pytest.mark.parametrize("winner", [False, True])
+def test_general_sweep_adversarial(cuda, winner):
+    """``general_sweep`` against ``general_sweep_plain`` on the adversarial
+    set of ``tests/torch_general_cases.py`` (1024 slots in chunks of 512,
+    exact ties inside a chunk and across the cut, rays through segment
+    endpoints, zero and subnormal denominators, NaN rays, a padding-only
+    list, ranges near 3e38): each row on its list, each list alone as the
+    flat table, and rows on lists that do not exist (NaN there, the other
+    rows as the plain version gives them); as torch.equal compares (a
+    zero equals a zero of either sign: torch's amin leaves the sign at a
+    tie of +0 and -0 open), a NaN equal to a NaN; one launch a sweep."""
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as pg
+    from torch_general_cases import adversarial, unknown_ids
+    table, ids, rays = adversarial(0, device=cuda)
+    same = lambda a, b: bool(((a == b) | (a.isnan() & b.isnan())).all())
+    runs = [(table, ids)] + [(table[i:i + 1], None)
+                             for i in range(table.shape[0])]
+    for tbl, ix in runs:
+        before = pg.general_sweep.launches
+        got = pg.general_sweep(tbl, ix, *rays, winner)
+        torch.cuda.synchronize()
+        assert pg.general_sweep.launches == before + 1
+        ref = pg.general_sweep_plain(tbl, ix, *rays, winner)
+        assert (got[1] is None) == (ref[1] is None) == (not winner)
+        assert all(a is None or same(a, b) for a, b in zip(got, ref))
+    bad = unknown_ids(ids)
+    unknown = (bad < 0) | (bad >= table.shape[0])
+    got = pg.general_sweep(table, bad, *rays, winner)
+    ref = pg.general_sweep_plain(table, torch.where(unknown, 2, bad), *rays,
+                                 winner)
+    for a, b in zip(got, ref):
+        if a is not None:
+            assert bool(a[unknown].isnan().all())
+            assert same(a[~unknown], b[~unknown])
+
+
 def test_general_sweep_graphed_equals_eager(cuda):
     """The "segments_simplified" scan of levine, min-only and winner (under
     autograd, with its backward), captured in a CUDA graph and replayed on
