@@ -168,9 +168,10 @@ and its bytes (each input and output once) over the HBM rate. The
 operations are counted from the function's arithmetic, not from the
 compiled code: a sweep's are ``OPS_PER_TEST`` per ray-segment test, over
 the real slots of the lists this run visits (the general sweep's
-``TEST_OPS_PER_PAIR`` per real pair, plus ``OPS_PER_PAIR`` per pair whose
-range lowers or ties the running minimum, counted from the plain version
-on this run's inputs; beside it the old bound of ``OPS_PER_PAIR`` per
+``TEST_OPS_PER_PAIR`` per real pair, plus the ``OPS_PER_PAIR -
+TEST_SHARED_OPS`` that the test did not count per pair whose range lowers
+or ties the running minimum, counted from the plain version on this run's
+inputs; beside it the old bound of ``OPS_PER_PAIR`` per
 real pair); the march's are ``MARCH_OPS_PER_TRIP`` per
 trip of each ray (the kernel reports each ray's trips in this run), plus
 ``REFINE_OPS_PER_HIT`` per refined hit for the implicit variant, its
@@ -283,12 +284,15 @@ REFINE_OPS_PER_HIT = 3 + 12 * REFINE_OPS_PER_BISECTION + 64
 # pair costs whose t lowers (winner: or ties) the running minimum
 OPS_PER_PAIR = 27
 # what every real pair costs to decide that it cannot win (the tests of
-# csrc/general_sweep.cu): the normal 1, denom 3, the numerator 5, the
-# quotient's sign 1, the threshold's and the sign test's products 2 and
-# their compares 2 = 14. The bound charges it for
-# every real pair, plus OPS_PER_PAIR for each pair that lowers or ties the
-# running minimum, counted from the plain version (general_pair_counts)
+# csrc/general_sweep.cu): the normal 1, denom 3, the numerator 5 (the
+# TEST_SHARED_OPS that OPS_PER_PAIR counts too), the quotient's sign 1, the
+# threshold's and the sign test's products 2 and their compares 2 = 14.
+# The bound charges it for every real pair, plus what the test did not
+# count (OPS_PER_PAIR - TEST_SHARED_OPS = 18) for each pair that lowers or
+# ties the running minimum, counted from the plain version
+# (tests/torch_general_cases.py general_pair_counts): 32 for such a pair
 TEST_OPS_PER_PAIR = 14
+TEST_SHARED_OPS = 9
 # its gradient's, with the forward's intermediates kept (the kernel marches
 # again instead: that is its own cost, not the function's):
 #   nearest: the forward trip 24 and one add into the EDF's gradient = 25;
@@ -507,22 +511,29 @@ def sass_report():
     return report
 
 
-def innermost_loops(sass):
-    """The opcodes of each innermost loop of a SASS listing (a backward
-    branch with no other backward branch inside it), function by
-    function: addresses restart at every function."""
+def innermost_loops(sass, full=False):
+    """Each innermost loop of a SASS listing (a backward branch with no
+    other backward branch inside it), function by function: addresses
+    restart at every function. A loop is its opcodes without their
+    suffixes ("LDS" for "LDS.128"), or with ``full`` its (address, opcode
+    with its suffixes, branch target or None) triples."""
     loops = []
     for fn in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
-        ins = [(int(a, 16), op, tgt) for a, op, tgt in re.findall(
-            r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
-            r"(?:[^;]*?\s(0x[0-9a-f]+)\s*;)?", fn, flags=re.M)]
-        back = [(int(tgt, 16), addr) for addr, op, tgt in ins
-                if op == "BRA" and tgt and int(tgt, 16) < addr]
+        ins = [(int(a, 16), op, int(tgt, 16) if tgt else None)
+               for a, op, tgt in
+               re.findall(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)"
+                          r"(?:[^;]*?\s(0x[0-9a-f]+)\s*;)?", fn, flags=re.M)]
+        back = [(tgt, addr) for addr, op, tgt in ins
+                if op.split(".")[0] == "BRA" and tgt is not None
+                and tgt < addr]
         for lo, hi in back:
             if any((a, b) != (lo, hi) and lo <= a and b <= hi
                    for a, b in back):
                 continue                 # not innermost
-            loops.append([o for a, o, _ in ins if lo <= a <= hi])
+            body = [i for i in ins if lo <= i[0] <= hi]
+            loops.append(body if full else
+                         [op.split(".")[0] for _, op, _ in body])
     return loops
 
 
@@ -583,18 +594,8 @@ def general_sass(sass):
                 else None)
         if "general_sweep_kernel" not in head or mode is None:
             continue
-        ins = [(int(a, 16), op, tgt) for a, op, tgt in re.findall(
-            r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-            r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)"
-            r"(?:[^;]*?\s(0x[0-9a-f]+)\s*;)?", fn, flags=re.M)]
-        back = [(int(t, 16), a) for a, op, t in ins
-                if op.startswith("BRA") and t and int(t, 16) < a]
         best = None
-        for lo, hi in back:
-            if any((x, y) != (lo, hi) and lo <= x and y <= hi
-                   for x, y in back):
-                continue                 # not innermost
-            body = [(a, op, t) for a, op, t in ins if lo <= a <= hi]
+        for body in innermost_loops("Function : " + fn, full=True):
             slots = sum(op.startswith("LDS") and op.endswith(".128")
                         for _, op, _ in body)
             if slots and (best is None or slots > best[0]):
@@ -604,8 +605,8 @@ def general_sass(sass):
         slots, body = best
         jumped = set()
         for a, op, t in body:
-            if op.startswith("BRA") and t and int(t, 16) > a:
-                jumped.update(x for x, _, _ in body if a < x < int(t, 16))
+            if op.split(".")[0] == "BRA" and t is not None and t > a:
+                jumped.update(x for x, _, _ in body if a < x < t)
         skip_path = [op for a, op, _ in body if a not in jumped]
         ops = [op.split(".")[0] for _, op, _ in body]
         pairs = slots * rays
@@ -619,38 +620,10 @@ def general_sass(sass):
             f"a pass of {slots} slots x {rays} rays = "
             f"{out[mode]['per_pair']:.2f} a pair, "
             f"{out[mode]['skip_path_per_pair']:.2f} a skipped pair (the "
-            f"function needs {TEST_OPS_PER_PAIR} to skip, {OPS_PER_PAIR} "
-            f"for a pair that wins) {out[mode]['mix']}")
+            f"function needs {TEST_OPS_PER_PAIR} to skip, "
+            f"{TEST_OPS_PER_PAIR + OPS_PER_PAIR - TEST_SHARED_OPS} for a "
+            f"pair that wins) {out[mode]['mix']}")
     return out
-
-
-def general_pair_counts(args, winner, block_rows=256):
-    """The real pairs of one general sweep on ``args`` (each ray against
-    the slots of its list whose length is >= 0) and, counted from the
-    plain version's pair ranges (``raycast_general._pairs``) in the list's
-    order, the pairs whose range lowers the running minimum of the
-    earlier slots (winner: lowers or ties it): {"pairs", "full_pairs"}.
-    Rows go in blocks of ``block_rows``."""
-    import torch
-    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
-    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import _as_rows
-    table, ids = args[:2]
-    rays = [_as_rows(v) for v in torch.broadcast_tensors(*args[2:])]
-    rows, cols = rays[0].shape
-    real = (table[:, 4, :] >= 0).sum(dim=1)
-    lists = (ids.long() if ids is not None else
-             torch.zeros(rows, dtype=torch.long, device=table.device))
-    full = 0
-    big = torch.tensor(rg._BIG, dtype=torch.float32, device=table.device)
-    for r0 in range(0, rows, block_rows):
-        sel = table[lists[r0:r0 + block_rows]]
-        t = rg._pairs(sel[:, :5, None, :].unbind(1),
-                      *(v[r0:r0 + block_rows, :, None] for v in rays))[0]
-        before = torch.cat([big.expand(*t.shape[:2], 1),
-                            torch.cummin(t, dim=-1).values[..., :-1]], -1)
-        wins = (t <= before) if winner else (t < before)
-        full += int((wins & (t < big)).sum())
-    return {"pairs": int(real[lists].sum()) * cols, "full_pairs": full}
 
 
 def general_case(gmap, p):
@@ -668,12 +641,27 @@ def general_case(gmap, p):
     return (gmap.params[None], None, xb, yb, ct, st)
 
 
+def general_cases():
+    """``tests/torch_general_cases.py``: the general sweep's adversarial
+    set and its pair counter (no JAX)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_general_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_general_cases",
+                                                  path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    return cases
+
+
 def general_bound(args, winner, rates):
     """The least time the card could take for one general sweep on
     ``args``: the larger of the operations (``TEST_OPS_PER_PAIR`` for each
     real pair, each ray against the real slots (length >= 0) of its list,
-    plus ``OPS_PER_PAIR`` for each pair that lowers or ties the running
-    minimum, ``general_pair_counts``) over the instruction rate, and the
+    plus the ``OPS_PER_PAIR - TEST_SHARED_OPS`` that the test did not count
+    for each pair that lowers or ties the running minimum,
+    ``general_pair_counts`` of ``tests/torch_general_cases.py``) over the
+    instruction rate, and the
     bytes (each visited list's real slots, 5 rows of float32, each row's
     list id and origin, each ray's direction, each output once: 4 bytes a
     ray for the minimum, 12 with the winner) over the HBM rate. Beside it
@@ -681,7 +669,7 @@ def general_bound(args, winner, rates):
     before the kernel skipped divisions."""
     import torch
     table, ids, _, _, ct, _ = args
-    n = general_pair_counts(args, winner)
+    n = general_cases().general_pair_counts(args, winner)
     pairs, full = n["pairs"], n["full_pairs"]
     real = (table[:, 4, :] >= 0).sum(dim=1)
     rows, cols = ct.shape
@@ -690,7 +678,8 @@ def general_bound(args, winner, rates):
     nbytes = (20 * int(real[torch.unique(lists)].sum())
               + (4 if ids is not None else 0) * rows + 8 * rows
               + 8 * rows * cols + (12 if winner else 4) * rows * cols)
-    ops_ms = ((pairs * TEST_OPS_PER_PAIR + full * OPS_PER_PAIR)
+    ops_ms = ((pairs * TEST_OPS_PER_PAIR
+               + full * (OPS_PER_PAIR - TEST_SHARED_OPS))
               / rates["slots_per_s"] * 1e3)
     ops27_ms = pairs * OPS_PER_PAIR / rates["slots_per_s"] * 1e3
     bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
@@ -1459,15 +1448,9 @@ def general_adversarial(name, errs):
     as torch.equal compares (a zero equals a zero of either sign: torch's
     amin leaves the sign at a tie of +0 and -0 open), a NaN equal to a
     NaN."""
-    import importlib.util
     import torch
     from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_general_cases.py")
-    spec = importlib.util.spec_from_file_location("torch_general_cases",
-                                                  path)
-    cases = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases)
+    cases = general_cases()
     table, ids, rays = cases.adversarial(0, device="cuda")
     # as torch.equal compares, but a NaN equals a NaN
     differ = lambda a, b: (a != b) & ~(a.isnan() & b.isnan())

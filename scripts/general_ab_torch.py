@@ -2,19 +2,14 @@
 that run it, of one checkout of the port on the card: for comparing two
 commits on the same card.
 
-    python3 scripts/general_ab_torch.py [--tree DIR] [--rays N]
-                                        [--unroll N] [--maps levine,berlin]
+    python3 scripts/general_ab_torch.py [--tree DIR] [--maps levine,berlin]
                                         [--agents 4096] [--json OUT]
                                         [--kernels-only]
 
 ``--tree`` is the root of the checkout whose package is timed (default:
 the one holding this script), so one call can time a parent commit
 unpacked beside the change, in turns: parent, change, change, parent.
-``--rays N`` times that checkout's package with ``kRays = N`` rays a
-thread in the sweep's source (a patched copy in a temporary directory;
-the source must have the constant); ``--unroll N`` likewise with the
-slot loop unrolled N times (``#pragma unroll N``, in place of the
-source's). Per map, at ``--agents`` x 1080 beams, 270 degrees, 10 m, on
+Per map, at ``--agents`` x 1080 beams, 270 degrees, 10 m, on
 poses sampled from seed 0 (five sets that differ by 1e-4 rad, one per
 call), as the "segments_simplified" scan
 hands them over (levine: the (6, K) table as one list; berlin: each
@@ -35,17 +30,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
-import shutil
 import subprocess
 import sys
-import tempfile
 
 BEAMS = 1080
 FOV = 4.712388980384690
 MAX_RANGE = 10.0
 TRAIN_T = 5
-PKG = "pyracecarsimulator_tpu_torch"
 
 
 def timed(fn, reps, warmup=3):
@@ -68,33 +59,6 @@ def card():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     return out.splitlines()[0] if out else "unknown"
-
-
-def patched(tree, rays, unroll, tmp):
-    """A copy of ``tree``'s package in ``tmp`` with ``kRays = rays`` and
-    the slot loop unrolled ``unroll`` times (each where not 0)."""
-    dst = os.path.join(tmp, PKG)
-    shutil.copytree(os.path.join(tree, PKG), dst,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = os.path.join(dst, "csrc", "general_sweep.cu")
-    with open(src) as f:
-        text = f.read()
-    edits = []
-    if rays:
-        edits.append((r"constexpr int kRays = \d+;",
-                      f"constexpr int kRays = {rays};"))
-    if unroll:
-        loop = "for (int q = 0; q < m; ++q) {"
-        edits.append((r"(?:\n\s*#pragma unroll \d+)?\n(\s*)" + re.escape(loop),
-                      f"\n\\1#pragma unroll {unroll}\n\\1{loop}"))
-    new = text
-    for pat, rep in edits:
-        new, n = re.subn(pat, rep, new)
-        if n != 1:
-            raise SystemExit(f"general_ab_torch.py: {pat} not in {src}")
-    with open(src, "w") as f:
-        f.write(new)
-    return tmp
 
 
 def kernels(track, bundle, poses):
@@ -172,46 +136,39 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--rays", type=int, default=0)
-    ap.add_argument("--unroll", type=int, default=0)
     ap.add_argument("--maps", default="levine,berlin")
     ap.add_argument("--agents", type=int, default=4096)
     ap.add_argument("--json", default=None)
     ap.add_argument("--kernels-only", action="store_true")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = (patched(tree, args.rays, args.unroll, tmp)
-                if args.rays or args.unroll else tree)
-        sys.path.insert(0, root)
-        import numpy as np
-        import torch
-        if not torch.cuda.is_available():
-            print("general_ab_torch.py: no CUDA device", file=sys.stderr)
-            return 2
-        import pyracecarsimulator_tpu_torch as P
-        from pyracecarsimulator_tpu_torch.maps import (load_builtin,
-                                                       sample_free_poses)
-        assert P.__file__.startswith(root), P.__file__
-        result = {"tree": tree, "rays_a_thread": args.rays or "as shipped",
-                  "unroll": args.unroll or "as shipped",
-                  "card": card(), "device": torch.cuda.get_device_name(0),
-                  "maps": {}}
-        for name in args.maps.split(","):
-            track = load_builtin(name, device="cuda")
-            bundle = P.build_sim(track, backend="segments_simplified",
-                                 sim=P.SimParams(steer_mode="smooth"),
-                                 device="cuda")
-            poses = torch.as_tensor(sample_free_poses(
-                track, args.agents, np.random.RandomState(0)), device="cuda")
-            res = kernels(track, bundle, poses)
-            if not args.kernels_only:
-                res.update(paths(P, bundle, poses, args.agents))
-            result["maps"][name] = res
-            print(f"{name}: {res}", file=sys.stderr, flush=True)
-        from pyracecarsimulator_tpu_torch.ops import _kernels
-        result["nvcc_log"] = _kernels.build_info.get(
-            "general_sweep", {}).get("log")
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("general_ab_torch.py: no CUDA device", file=sys.stderr)
+        return 2
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import (load_builtin,
+                                                   sample_free_poses)
+    assert P.__file__.startswith(tree), P.__file__
+    result = {"tree": tree, "card": card(),
+              "device": torch.cuda.get_device_name(0), "maps": {}}
+    for name in args.maps.split(","):
+        track = load_builtin(name, device="cuda")
+        bundle = P.build_sim(track, backend="segments_simplified",
+                             sim=P.SimParams(steer_mode="smooth"),
+                             device="cuda")
+        poses = torch.as_tensor(sample_free_poses(
+            track, args.agents, np.random.RandomState(0)), device="cuda")
+        res = kernels(track, bundle, poses)
+        if not args.kernels_only:
+            res.update(paths(P, bundle, poses, args.agents))
+        result["maps"][name] = res
+        print(f"{name}: {res}", file=sys.stderr, flush=True)
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    result["nvcc_log"] = _kernels.build_info.get(
+        "general_sweep", {}).get("log")
     line = json.dumps(result, default=str)
     if args.json:
         with open(args.json, "w") as f:

@@ -453,21 +453,16 @@ def test_emulated_kernel_matches_plain_on_maps(name, winner):
     both bundled maps, 6 agents x 1080 beams, bit for bit; the pairs that
     each skip removes, printed (``pytest -s``): the padding past a list's
     last real slot and the divisions the threshold test proves useless.
-    ``chip_smoke.general_pair_counts`` (the bound's count, from the plain
-    version) gives the emulation's real pairs and winning pairs."""
-    import importlib.util
-    import pathlib
+    ``general_pair_counts`` (``tests/torch_general_cases.py``: the
+    bound's count in ``chip_smoke.py``, from the plain version) gives the
+    emulation's real pairs and winning pairs."""
+    from torch_general_cases import general_pair_counts
     table, ids, rays = _map_rays(name, 6)
     got, n = _emulate(table, ids, *rays, winner)
     ref = pg.general_sweep_plain(table, ids, *rays, winner)
     assert _same(got, ref)
     assert float((ref[0] < MAXR).float().mean()) > 0.5
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    counts = smoke.general_pair_counts((table, ids, *rays), winner,
-                                       block_rows=4)
+    counts = general_pair_counts((table, ids, *rays), winner, block_rows=4)
     real = n["skipped"] + n["divided"]
     assert counts == {"pairs": real, "full_pairs": n["wins"]}
     slots = n["padding"] + real

@@ -1,7 +1,7 @@
 """Adversarial inputs of the general-segment sweep (``ops/raycast_general``
 ``general_sweep``), shared by its CPU tests, its card tests and
-``chip_smoke.py`` phase 14. NumPy and torch only (no JAX): the card's
-machine imports it too.
+``chip_smoke.py`` phase 14. NumPy, torch and the port only (no JAX): the
+card's machine imports it too.
 
 ``adversarial(seed)`` returns ``(table, ids, rays)``: a (4, 6, 1024)
 float32 table (``_fit_chunk(1024) == 512``: two chunks a list), the
@@ -35,6 +35,11 @@ random angles.
 
 ``unknown_ids(ids)``: the same rows with rows 2 and 9 on lists 4 and -1
 (no such list: the sweep gives NaN there).
+
+``general_pair_counts(args, winner)``: the real pairs of a sweep and those
+that lower or tie the running minimum, from the plain version: what
+``chip_smoke.py``'s bound of the sweep counts, and what the CPU tests
+hold the kernel's emulated loop to.
 """
 
 import numpy as np
@@ -143,3 +148,31 @@ def unknown_ids(ids):
     out = ids.clone()
     out[2], out[9] = 4, -1
     return out
+
+
+def general_pair_counts(args, winner, block_rows=256):
+    """The real pairs of one general sweep on ``args`` (each ray against
+    the slots of its list whose length is >= 0) and, counted from the
+    plain version's pair ranges (``raycast_general._pairs``) in the list's
+    order, the pairs whose range lowers the running minimum of the
+    earlier slots (winner: lowers or ties it): {"pairs", "full_pairs"}.
+    Rows go in blocks of ``block_rows``."""
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
+    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import _as_rows
+    table, ids = args[:2]
+    rays = [_as_rows(v) for v in torch.broadcast_tensors(*args[2:])]
+    rows, cols = rays[0].shape
+    real = (table[:, 4, :] >= 0).sum(dim=1)
+    lists = (ids.long() if ids is not None else
+             torch.zeros(rows, dtype=torch.long, device=table.device))
+    full = 0
+    big = torch.tensor(rg._BIG, dtype=torch.float32, device=table.device)
+    for r0 in range(0, rows, block_rows):
+        sel = table[lists[r0:r0 + block_rows]]
+        t = rg._pairs(sel[:, :5, None, :].unbind(1),
+                      *(v[r0:r0 + block_rows, :, None] for v in rays))[0]
+        before = torch.cat([big.expand(*t.shape[:2], 1),
+                            torch.cummin(t, dim=-1).values[..., :-1]], -1)
+        wins = (t <= before) if winner else (t < before)
+        full += int((wins & (t < big)).sum())
+    return {"pairs": int(real[lists].sum()) * cols, "full_pairs": full}
