@@ -6,10 +6,11 @@ Drives the port's paths at full width (4096 agents, 1080 beams, 270 deg,
 max_range 10) on both bundled maps, levine and berlin, and checks them:
 
 1. the card's name and power limit, the PyTorch and CUDA versions;
-2. builds the four sources, ``csrc/sector_sweep.cu`` (the list-routed
+2. builds the five sources, ``csrc/sector_sweep.cu`` (the list-routed
    sweep), ``csrc/dense_sweep.cu``, ``csrc/edf_march.cu`` (the EDF march
-   and its gradient) and ``csrc/general_sweep.cu`` (the general-segment
-   sweep), with one nvcc per source, started together;
+   and its gradient), ``csrc/general_sweep.cu`` (the general-segment
+   sweep) and ``csrc/soft_edt.cu`` (the chamfer stencil of ``soft_edt``
+   and its gradient), with one nvcc per source, started together;
 3. per map, the sector backend: the list kernel against its plain PyTorch
    version on the card on the full 4096 x 1080 fan (mismatches must be 0),
    the CUDA scan against the CPU scan on 64 poses given the same fan
@@ -68,8 +69,24 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     equal to ``scan_poses_sectors`` bit for bit, EDF cotangent finite and
     non-zero, ``sector_sweep`` launched exactly once per scan; the dedup
     cotangent against the scatter one;
-13. per map, ``soft_edt`` of the occupancy on the card against the CPU
-    (hard min: bit-identical; softmin: 1e-4), and its time;
+13. per map, the chamfer stencil of ``soft_edt`` on the occupancy in
+    three modes (``STENCIL_MODES``: hard min and softmin at 64
+    iterations, ``demo_mapping``'s softmin with the log init at 96): the
+    kernel ``soft_edt`` against the plain loop on the card (values and
+    history; hard: 0 mismatches, softmin within ``STENCIL_TOL`` x max(1,
+    the largest |plain|)), its gradient ``soft_edt_grad`` against the
+    explicit plain backward (hard: 0 mismatches, softmin within
+    ``STENCIL_TOL``) and against autograd through the plain loop (hard
+    within ``STENCIL_TOL``, softmin ``STENCIL_GRAD_TOL``), the times of the
+    kernels and their plain versions, of ``soft_edt`` forward + backward
+    and of the plain loop under autograd, each beside its bound, and the
+    peak device memory of both; ``soft_edt`` on the card against the CPU
+    (hard min: bit-identical; softmin: 1e-4); then
+    ``scan_from_occupancy`` on levine at 4096 x 1080, forward and
+    backward: one launch each of ``soft_edt``, ``edf_march``,
+    ``edf_march_grad`` and ``soft_edt_grad`` and nothing else, the
+    occupancy gradient finite and non-zero, the ranges equal bit for bit
+    to the same path with the plain stencil, timed against it in turns;
 14. per map, "segments_simplified" (levine: every ray against the (6,
     128) table; berlin: each agent against its tile's list): the kernel
     ``general_sweep`` against its plain version on the card on the full
@@ -123,7 +140,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     where that is larger), steps and iterations cut: losses finite and
     falling where a demo optimises, ``demo_gradients`` within 0.01 m of
     the true pose, launch counters read around each (a demo that is meant
-    to run a kernel and launched none fails the run);
+    to run a kernel and launched none fails the run; ``demo_mapping``
+    runs the march and both stencil kernels);
 22. ``scripts/parity_report_torch.py`` through its ``main([...])`` on the
     card, 16 poses per map: every exact-geometry row agrees with the
     float64 oracle on >= 99.9% of its beams within 1e-4 m, the "edf" march
@@ -176,14 +194,19 @@ real pair); the march's are ``MARCH_OPS_PER_TRIP`` per
 trip of each ray (the kernel reports each ray's trips in this run), plus
 ``REFINE_OPS_PER_HIT`` per refined hit for the implicit variant, its
 gradient's ``MARCH_GRAD_OPS_PER_TRIP``; the march's bytes are the rays
-once, the outputs once and the EDF once (and its gradient once). Beside the bound stands, where the toolkit has
+once, the outputs once and the EDF once (and its gradient once). The
+chamfer stencil's are ``STENCIL_OPS`` a cell and iteration, its
+exponentials and logarithms at the SFU's rate (``SFU_COST`` FP32 slots
+each); its bytes the field in and out once and the history once. Beside the bound stands, where the toolkit has
 ``cuobjdump``, what the compiled loop issues per test or per trip (its
 SASS), as a reading.
 
-Prints a JSON line describing the eight kernels (the five TPU kernels'
+Prints a JSON line describing the ten kernels (the five TPU kernels'
 counterparts; the EDF march, which replaces three XLA loops, its
-gradient, which replaces the scan's transpose under ``jax.grad``, and the
-general sweep, which replaces the general-segment scans; their launches
+gradient, which replaces the scan's transpose under ``jax.grad``, the
+general sweep, which replaces the general-segment scans, and the chamfer
+stencil of ``soft_edt`` and its gradient, which replace its scan and that
+scan's transpose; their launches
 path by path, each path counted from 0), then as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Exits non-zero, without that line, on any failure or
@@ -241,6 +264,13 @@ KERNELS = {
                       "pyracecarsimulator_tpu/ops/raycast_general.py:73, "
                       "pyracecarsimulator_tpu/ops/raycast_general.py:145",
                       "segments_simplified backend"),
+    "soft_edt": (SRC + "soft_edt.cu",
+                 "pyracecarsimulator_tpu/ops/soft_edt.py:110",
+                 "soft_edt on the card: scan_from_occupancy, demo_mapping"),
+    "soft_edt_grad": (SRC + "soft_edt.cu",
+                      "pyracecarsimulator_tpu/ops/soft_edt.py:110 (the "
+                      "scan's transpose under jax.grad)",
+                      "soft_edt's backward"),
 }
 
 
@@ -309,6 +339,47 @@ GRAD_TOL = 1e-4
 # agents per block of the gradient's plain run (autograd keeps every
 # trip's taps: ~40 MB a trip per 512 x 1080 rays)
 GRAD_PLAIN_AGENTS = 512
+# soft_edt's modes on the full maps: the hard min and the softmin at 64
+# iterations (linear init), and examples/torch/demo_mapping.py's setting
+STENCIL_MODES = {
+    "hard": dict(iters=64),
+    "soft": dict(iters=64, temperature=0.25),
+    "demo": dict(iters=96, temperature=0.25, init="log", init_lambda=3.0)}
+# tolerances relative to max(1, the largest |plain|), as
+# tests/test_torch_kernels.py states them. STENCIL_TOL: the softmin against
+# the plain loop and its gradient against the explicit plain backward on
+# the same history (the 9 exponentials are summed in another order than
+# torch's reduction), and the hard gradient against autograd (whose
+# replicate-pad backward adds an edge cell's terms with atomics); the hard
+# min and its gradient against the explicit backward are held bit for bit.
+# STENCIL_GRAD_TOL: the softmin's gradient against autograd through the
+# plain loop, which runs its own forward (fields that differ by ulps), where
+# each weight exp(y_i - L) turns the rounding of |L| (up to (iters + 1) / T,
+# 388 at the demo's 96 iterations and T = 0.25: an ulp of 3e-5) into a
+# relative error of the weight
+STENCIL_TOL = 1e-5
+STENCIL_GRAD_TOL = 1e-4
+# the stencil's operations a cell and iteration, (FP32, SFU), counted from
+# the function (ops/soft_edt.py; -fmad=false: each multiply and add its
+# own operation; a negation is a sign modifier of the next operation):
+#   soft_edt hard: the candidates' 8 adds, 8 minima = 16;
+#   soft_edt soft: the candidates 8, y = (-c) * inv_t 9, the maximum 8, its
+#     infinity test and select 2, y - m 9, each exponential's scaling by
+#     log2(e) 9, the sum 8, the logarithm's scaling by ln(2) 1, + m 1,
+#     * neg_t 1 = 56, and 9 exponentials and 1 logarithm (MUFU.EX2 /
+#     MUFU.LG2) at the SFU's rate;
+#   soft_edt_grad hard: the candidates and the chain's running minima 16
+#     (recomputed from the history: the function's input), each of the 8
+#     links the halving 1, three compares, three selects = 56, the gather
+#     (8 slots into the padded cell, the pad's sum, slot 0) 10 = 82;
+#   soft_edt_grad soft: the softmin's L 55 (its 10 SFU), y - L 9 and the
+#     weights' scaling 9 (9 SFU), the products g * neg_t 1, * w 9, * inv_t
+#     9, the gather 10 = 102, and 19 SFU
+STENCIL_OPS = {("soft_edt", "hard"): (16, 0), ("soft_edt", "soft"): (56, 10),
+               ("soft_edt_grad", "hard"): (82, 0),
+               ("soft_edt_grad", "soft"): (102, 19)}
+# an SFU operation in FP32 slots: 16 SFU lanes per SM against 128 FP32
+SFU_COST = LANES_PER_SM // 16
 
 
 def log(*a):
@@ -349,7 +420,7 @@ def timed_ms(fn, reps, warmup=2):
 def wrappers():
     """The wrappers of ``KERNELS`` from the port's registry."""
     from pyracecarsimulator_tpu_torch.ops import _kernels
-    by_name = {w.__name__: w for w in _kernels.wrappers()}
+    by_name = _kernels.wrappers()
     return {name: by_name[name] for name in KERNELS}
 
 
@@ -493,6 +564,8 @@ def sass_report():
             continue
         if name == "general_sweep":
             report[name] = general_sass(sass)
+            continue
+        if name == "soft_edt":     # no sweep loop: nvcc's report above
             continue
         loops = []
         for body in innermost_loops(sass):
@@ -1320,24 +1393,231 @@ def mapgrad_phase(card, smap_bundle, poses):
     return {"fwd_bwd_ms": ms, "launches": used, "dedup_err": err}
 
 
-def soft_edt_phase(card, name, track):
-    """13: soft_edt of the map's occupancy, card against CPU."""
+def stencil_bound(cells, iters, key, rates, history=False):
+    """The least time the card could take for one call of the chamfer
+    stencil ``key`` = (kernel, mode) over ``cells`` cells and ``iters``
+    iterations: the larger of the operations (``STENCIL_OPS``: FP32
+    operations, and exponentials and logarithms at the SFU's rate, a cell
+    and iteration) and the bytes (the field in and out once; the history,
+    written by a forward that keeps it and read by the gradient, once)."""
+    fp32, sfu = STENCIL_OPS[key]
+    ops = cells * iters * (fp32 + SFU_COST * sfu)
+    nbytes = 4 * cells * (2 + iters * (history or key[0] == "soft_edt_grad")
+                          + (key[0] == "soft_edt_grad"))
+    ops_ms = ops / rates["slots_per_s"] * 1e3
+    bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ops_ms": ops_ms,
+            "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def plain_soft_edt(occupancy, resolution, iters=64, temperature=0.0,
+                   init="linear", init_lambda=3.0):
+    """``soft_edt`` as it ran before its kernels: the init, the plain
+    stencil loop under autograd and the clip, on the occupancy's device."""
+    from pyracecarsimulator_tpu_torch.ops import soft_edt as ps
+    d = ps.init_field(occupancy, iters, init, init_lambda)
+    d = ps.chamfer_stencil_plain(d, iters, temperature)
+    return ps._clip(d, 0.0, iters + 1.0) * resolution
+
+
+def peak_mb(fn):
+    """Device memory that one call of ``fn()`` holds at its peak above
+    what was allocated before it, in MB."""
     import torch
-    from pyracecarsimulator_tpu_torch.ops.soft_edt import soft_edt
-    out = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def soft_edt_phase(card, name, track, rates, errs, times):
+    """13: the chamfer stencil of ``soft_edt`` on the map's occupancy, in
+    ``STENCIL_MODES``: the kernels against the plain loop and autograd
+    through it on the card, times, bounds and peak memory; ``soft_edt``
+    on the card against the CPU (hard and soft, 64 iterations)."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops import soft_edt as ps
+    occ = track.occupancy
+    cells = occ.numel()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    g = torch.randn(occ.shape, generator=gen, device="cuda")
+    out = {"shape": list(occ.shape)}
+    for mode, kw in STENCIL_MODES.items():
+        iters, t = kw["iters"], kw.get("temperature", 0.0)
+        exact = t == 0.0
+        d0 = ps.init_field(occ, iters, kw.get("init", "linear"),
+                           kw.get("init_lambda", 3.0)).contiguous()
+        # the forward: kernel (with and without the history) against the
+        # plain loop
+        hist = torch.empty((iters, *occ.shape), device="cuda")
+        ref_hist = torch.empty_like(hist)
+        got = ps.chamfer_stencil(d0, iters, t)
+        got_h = ps.chamfer_stencil(d0, iters, t, hist)
+        ref = ps.chamfer_stencil_plain(d0, iters, t, ref_hist)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(ref.abs().max()))
+        fwd = {"mismatches": int((got != ref).sum()),
+               "history_mismatches": int((hist != ref_hist).sum()),
+               "max_abs_err": max(float((got - ref).abs().max()),
+                                  float((hist - ref_hist).abs().max())),
+               "scale": scale,
+               "equal_with_history": bool(torch.equal(got, got_h))}
+        del ref_hist
+        # the gradient: kernel against the explicit plain backward (same
+        # history) and against autograd through the plain loop
+        gk = ps.chamfer_stencil_grad(hist, g, t)
+        gp = ps.chamfer_stencil_grad_plain(hist, g, t)
+        x = d0.clone().requires_grad_(True)
+        ps.chamfer_stencil_plain(x, iters, t).backward(g)
+        torch.cuda.synchronize()
+        gscale = max(1.0, float(x.grad.abs().max()))
+        bwd = {"mismatches_vs_plain": int((gk != gp).sum()),
+               "err_vs_plain": float((gk - gp).abs().max()),
+               "mismatches_vs_autograd": int((gk != x.grad).sum()),
+               "err_vs_autograd": float((gk - x.grad).abs().max()),
+               "scale": gscale}
+        del x, gp
+        log(f"[{name}] soft_edt {mode} ({iters} iters) {tuple(occ.shape)}: "
+            f"kernel vs plain loop {fwd}; gradient kernel vs plain backward "
+            f"and vs autograd {bwd}")
+        tol = STENCIL_TOL * scale
+        check(fwd["equal_with_history"]
+              and (fwd["mismatches"] == 0 == fwd["history_mismatches"]
+                   if exact else fwd["max_abs_err"] <= tol),
+              f"{name} soft_edt {mode}: the kernel disagrees with the loop")
+        check((bwd["mismatches_vs_plain"] == 0 if exact
+               else bwd["err_vs_plain"] <= STENCIL_TOL * gscale)
+              and bwd["err_vs_autograd"] <= (
+                  STENCIL_TOL if exact else STENCIL_GRAD_TOL) * gscale,
+              f"{name} soft_edt {mode}: the gradient kernel disagrees")
+        errs["soft_edt"].append(fwd["max_abs_err"])
+        errs["soft_edt_grad"].append(bwd["err_vs_autograd"])
+        # times: kernel, plain, kernel
+        res = track.resolution
+
+        def kernel_fb(i):
+            o = occ.clone().requires_grad_(True)
+            ps.soft_edt(o, res, **kw).backward(g)
+
+        def plain_fb(i):
+            o = occ.clone().requires_grad_(True)
+            plain_soft_edt(o, res, **kw).backward(g)
+        fwd_ms = timed_ms(lambda i: ps.chamfer_stencil(d0, iters, t), 10)
+        plain_ms = timed_ms(lambda i: ps.chamfer_stencil_plain(d0, iters, t),
+                            3, warmup=1)
+        fwd_ms_2 = timed_ms(lambda i: ps.chamfer_stencil(d0, iters, t), 10)
+        grad_ms = timed_ms(lambda i: ps.chamfer_stencil_grad(hist, g, t), 10)
+        grad_plain_ms = timed_ms(
+            lambda i: ps.chamfer_stencil_grad_plain(hist, g, t), 3, warmup=1)
+        grad_ms_2 = timed_ms(lambda i: ps.chamfer_stencil_grad(hist, g, t),
+                             10)
+        del hist
+        fb_ms = timed_ms(kernel_fb, 5, warmup=1)
+        fb_plain_ms = timed_ms(plain_fb, 3, warmup=1)
+        fb_ms_2 = timed_ms(kernel_fb, 5, warmup=1)
+        mem = {"kernel_mb": peak_mb(lambda: kernel_fb(0)),
+               "plain_mb": peak_mb(lambda: plain_fb(0))}
+        soft = "soft" if t > 0 else "hard"
+        b_fwd = stencil_bound(cells, iters, ("soft_edt", soft), rates)
+        b_fwd_h = stencil_bound(cells, iters, ("soft_edt", soft), rates,
+                                history=True)
+        b_grad = stencil_bound(cells, iters, ("soft_edt_grad", soft), rates)
+        times["soft_edt"][f"{name} {mode}"] = {
+            "ms": fwd_ms, "ms_2": fwd_ms_2, "plain_ms": plain_ms, **b_fwd,
+            "share_of_bound": b_fwd["bound_ms"] / min(fwd_ms, fwd_ms_2),
+            "bound_with_history": b_fwd_h}
+        times["soft_edt_grad"][f"{name} {mode}"] = {
+            "ms": grad_ms, "ms_2": grad_ms_2, "plain_ms": grad_plain_ms,
+            **b_grad,
+            "share_of_bound": b_grad["bound_ms"] / min(grad_ms, grad_ms_2)}
+        fb_bound = b_fwd_h["bound_ms"] + b_grad["bound_ms"]
+        out[mode] = {"iters": iters, "forward": fwd, "gradient": bwd,
+                     "fwd_bwd_ms": [fb_ms, fb_ms_2],
+                     "fwd_bwd_plain_ms": fb_plain_ms,
+                     "fwd_bwd_bound_ms": fb_bound,
+                     "fwd_bwd_share": fb_bound / min(fb_ms, fb_ms_2),
+                     "peak_mb": mem}
+        log(f"[{name}] {card}: soft_edt {mode} ({iters} iters): forward "
+            f"{fwd_ms:.4f} / {fwd_ms_2:.4f} ms vs plain {plain_ms:.4f} "
+            f"(bound {b_fwd['bound_ms']:.4f} {b_fwd['bound_by']}, with the "
+            f"history {b_fwd_h['bound_ms']:.4f} {b_fwd_h['bound_by']}); "
+            f"gradient {grad_ms:.4f} / {grad_ms_2:.4f} ms vs plain backward "
+            f"{grad_plain_ms:.4f} (bound {b_grad['bound_ms']:.4f} "
+            f"{b_grad['bound_by']}); soft_edt forward + backward "
+            f"{fb_ms:.4f} / {fb_ms_2:.4f} ms vs plain loop under autograd "
+            f"{fb_plain_ms:.4f} (bound {fb_bound:.4f}); peak device memory "
+            f"{mem['kernel_mb']:.1f} MB vs {mem['plain_mb']:.1f} MB")
+        torch.cuda.empty_cache()
+    # soft_edt on the card (the kernels) against the CPU (the plain loop)
     for label, kw, exact, tol in (("hard", {}, True, 0.0),
                                   ("soft", dict(temperature=0.25), False,
                                    1e-4)):
-        out[f"{label}_err"] = same_fan_check(
-            f"{name} soft_edt {label} {tuple(track.occupancy.shape)}",
-            lambda occ: soft_edt(occ, track.resolution, **kw),
-            (track.occupancy,), exact=exact, tol=tol)
-        out[f"{label}_ms"] = timed_ms(
-            lambda i: soft_edt(track.occupancy, track.resolution, **kw), 3,
-            warmup=1)
-        log(f"[{name}] {card}: soft_edt {label} (64 iters) "
-            f"{out[f'{label}_ms']:.4f} ms")
+        out[f"{label}_cpu_err"] = same_fan_check(
+            f"{name} soft_edt {label} {tuple(occ.shape)}",
+            lambda o: ps.soft_edt(o, track.resolution, **kw),
+            (occ,), exact=exact, tol=tol)
     return out
+
+
+def occupancy_scan_phase(card, track, poses):
+    """13b: ``scan_from_occupancy`` at full width on levine, forward and
+    backward of a loss of the ranges: counted (one launch each of
+    ``soft_edt``, ``edf_march``, ``edf_march_grad`` and
+    ``soft_edt_grad``, nothing else), the occupancy gradient finite and
+    non-zero; against the same path with the plain stencil loop (the
+    parent's), whose ranges it equals bit for bit, timed in turns."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops import soft_edt as ps
+    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import scan_poses
+    p = torch.as_tensor(poses, device="cuda")
+    org = (track.origin_x, track.origin_y)
+    hw = (track.height, track.width)
+    w = torch.linspace(0.5, 1.5, BEAMS, device="cuda")
+    kw = dict(num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE, max_iters=128)
+
+    def run(plain):
+        o = track.occupancy.clone().requires_grad_(True)
+        if plain:
+            edf = plain_soft_edt(o, track.resolution, iters=64)
+            r = scan_poses(edf, track.resolution, org, p, interp="bilinear",
+                           bounds_hw=hw, **kw)
+        else:
+            r = ps.scan_from_occupancy(o, track.resolution, org, p,
+                                       edt_iters=64, bounds_hw=hw, **kw)
+        (r * w).sum().backward()
+        return r.detach(), o.grad
+
+    reset_counts()
+    r, g = run(False)
+    torch.cuda.synchronize()
+    used = {k: v for k, v in counts().items() if v}
+    r_p, g_p = run(True)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(r, r_p))
+    err = float((g - g_p).abs().max())
+    scale = max(1.0, float(g_p.abs().max()))
+    ok = bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    log(f"[levine] scan_from_occupancy {AGENTS} x {BEAMS}, forward + "
+        f"backward: launches {used}; ranges equal to the plain stencil's "
+        f"path = {same}; occupancy gradient finite and non-zero = {ok}, "
+        f"|.|_1 {float(g.abs().sum()):.6f}, max abs diff to the plain "
+        f"path {err} (max |.| {scale})")
+    check(used == {"soft_edt": 1, "edf_march": 1, "edf_march_grad": 1,
+                   "soft_edt_grad": 1},
+          f"scan_from_occupancy launched {used}")
+    check(same and ok and err <= GRAD_TOL * scale,
+          "scan_from_occupancy: ranges or occupancy gradient")
+    ms = [timed_ms(lambda i: run(plain), 3, warmup=1)
+          for plain in (True, False, False, True)]
+    log(f"[levine] {card}: scan_from_occupancy forward + backward, turns "
+        f"plain stencil, kernels, kernels, plain stencil: "
+        f"{', '.join(f'{v:.4f}' for v in ms)} ms")
+    return {"launches": used, "ranges_equal": same, "grad_err": err,
+            "grad_scale": scale, "ms_plain": [ms[0], ms[3]],
+            "ms_kernels": [ms[1], ms[2]]}
 
 
 def simplified_phase(card, name, track, poses, rates, errs, times):
@@ -2167,7 +2447,8 @@ def examples_phase(card):
                       "--control-steps", "5"], "dense_sweep"),
         ("demo_bptt", ["--iters", "10"], "dense_sweep"),
         ("demo_train", [*wide, "--iters", "8"], "sector_sweep"),
-        ("demo_mapping", ["--iters", "60"], "edf_march"),
+        ("demo_mapping", ["--iters", "60"],
+         ("edf_march", "soft_edt", "soft_edt_grad")),
         ("demo_mapping --fast", [], "sector_sweep"),
         ("demo_multitrack", wide, "sector_sweep"),
         # one rank, as torchrun would set it; the demo's own 65536 agents
@@ -2200,7 +2481,8 @@ def examples_phase(card):
         log(f"--- {label}: {seconds:.2f} s on {card}; launches {used}")
         check(not torch.distributed.is_initialized(),
               f"{label} left its process group open")
-        check(used.get(kname, 0) > 0 if kname else not used,
+        names = (kname,) if isinstance(kname, str) else kname
+        check(all(used.get(k, 0) > 0 for k in names),
               f"{label}: expected launches of {kname}, got {used}")
         out[label] = {"seconds": seconds, "launches": used, "result": res}
     r = {k: v["result"] for k, v in out.items()}
@@ -2711,8 +2993,8 @@ def run():
     # 2. build, one nvcc per source, together
     t0 = time.perf_counter()
     _kernels.build("sector_sweep", "dense_sweep", "edf_march",
-                   "general_sweep")
-    log(f"built the four sources in {time.perf_counter() - t0:.2f} s wall; "
+                   "general_sweep", "soft_edt")
+    log(f"built the five sources in {time.perf_counter() - t0:.2f} s wall; "
         f"nvcc: {' '.join(_kernels.NVCC_FLAGS)}")
     for name, info in _kernels.build_info.items():
         log(f"{name}: {info['seconds']:.2f} s\n{info['log']}")
@@ -2935,9 +3217,11 @@ def run():
             card, name, tracks[name], poses_by_map[name], rates, errs, times)
     slice_out["map_grad"] = mapgrad_phase(card, sec_bundles[big],
                                           poses_by_map[big])
+    slice_out["occupancy_scan"] = occupancy_scan_phase(
+        card, tracks[MAPS[0]], poses_by_map[MAPS[0]])
     for name in MAPS:
-        slice_out["soft_edt"][name] = soft_edt_phase(card, name,
-                                                     tracks[name])
+        slice_out["soft_edt"][name] = soft_edt_phase(
+            card, name, tracks[name], rates, errs, times)
         slice_out["segments_simplified"][name] = simplified_phase(
             card, name, tracks[name], poses_by_map[name], rates, errs, times)
         slice_out["obstacles"][name] = obstacle_phase(
@@ -2986,6 +3270,8 @@ def run():
         "sector scan, use_pallas": {"grp_sweep": route_counts["grp_sweep"]},
         **{f"BPTT train steps, {k}": v["launches"] for k, v in train.items()},
         "map_grad scans": slice_out["map_grad"]["launches"],
+        "scan_from_occupancy forward + backward, levine":
+            slice_out["occupancy_scan"]["launches"],
         **{f"edf step + rollout, {m}": res["edf_launches"]
            for m, res in slice_out["edf"].items()},
         **{f"{label} forward + backward, {m}":
@@ -3017,7 +3303,8 @@ def run():
                 "sector_sweep": "berlin", "sorted_tiles_sweep": "berlin",
                 "grp_sweep": "berlin", "edf_march": "levine nearest",
                 "edf_march_grad": "levine bilinear",
-                "general_sweep": "berlin min"}
+                "general_sweep": "berlin min", "soft_edt": "levine hard",
+                "soft_edt_grad": "levine hard"}
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "path": path, "launches": sum(launches_by_path[name].values()),
@@ -3027,10 +3314,12 @@ def run():
         "plain_ms": times[name][shape_of[name]]["plain_ms"],
         "bound_ms": times[name][shape_of[name]]["bound_ms"],
         "bound_by": times[name][shape_of[name]]["bound_by"],
-        # no PyTorch call computes the first-hit sweeps, the march or its
-        # gradient
+        # no PyTorch call computes the first-hit sweeps, the march, the
+        # chamfer iteration (its per-direction steps) or their gradients
         "library_ms": None,
-        "shape_of_ms": f"{shape_of[name]} {AGENTS}x{BEAMS}",
+        "shape_of_ms": f"{shape_of[name]} {AGENTS}x{BEAMS}"
+        if name not in ("soft_edt", "soft_edt_grad")
+        else f"{shape_of[name]} {STENCIL_MODES['hard']['iters']} iters",
         "ms_by_shape": times[name]}
         for name, (src, rep, path) in KERNELS.items()],
         "scans_ms": times["scans"], "steps_ms": times["steps"],

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "general_sweep": ("general_sweep", "general_sweep_launch",
                       [_I, _P, _L, _L, _L] + [_P] * 5 + [_L] * 10
                       + [_P] * 4),
+    "soft_edt": ("soft_edt", "soft_edt_launch",
+                 [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P]),
+    "soft_edt_grad": ("soft_edt", "soft_edt_grad_launch",
+                      [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P]),
     # not a launch: the march's persistent grid (blocks of one wave)
     "edf_march_wave": ("edf_march", "edf_march_wave", [_I] * 2),
 }
@@ -166,15 +170,17 @@ def launch(name, entry, *args):
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
 
 
-def register(wrapper):
+def register(wrapper, name=None):
     """Add ``wrapper`` (a function with a ``.launches`` counter) to the
-    wrappers that ``wrappers()`` lists."""
-    _WRAPPERS[wrapper.__name__] = wrapper
+    wrappers that ``wrappers()`` lists, under ``name`` (default: the
+    function's name)."""
+    _WRAPPERS[name or wrapper.__name__] = wrapper
     return wrapper
 
 
-def wrappers() -> tuple:
-    """Every registered wrapper: the sweeps' (``ops/sweeps.py``), the
-    march's (``ops/raymarch_xla.py``) and the general sweep's
-    (``ops/raycast_general.py``), once their modules are imported."""
-    return tuple(_WRAPPERS.values())
+def wrappers() -> dict:
+    """Every registered wrapper by name: the sweeps' (``ops/sweeps.py``),
+    the march's (``ops/raymarch_xla.py``), the general sweep's
+    (``ops/raycast_general.py``) and the chamfer stencil's
+    (``ops/soft_edt.py``), once their modules are imported."""
+    return dict(_WRAPPERS)

@@ -224,8 +224,9 @@ for _w in LIST_ROUTES + (dense_sweep,):
 
 def launch_counts() -> dict:
     """``{wrapper name: kernel launches so far}`` of every wrapper of
-    ``_kernels.wrappers()``: the sweeps' and the march's."""
-    return {w.__name__: w.launches for w in _kernels.wrappers()}
+    ``_kernels.wrappers()``: the sweeps', the marches' and the
+    stencil's."""
+    return {name: w.launches for name, w in _kernels.wrappers().items()}
 
 
 def add_launches(delta: dict):
@@ -233,6 +234,6 @@ def add_launches(delta: dict):
     graph launches the kernels it captured without passing through the
     wrappers: ``utils/graph.py`` adds the launches of one replay here, and
     takes back what the capture pass counted while no kernel ran."""
-    by_name = {w.__name__: w for w in _kernels.wrappers()}
+    by_name = _kernels.wrappers()
     for name, n in delta.items():
         by_name[name].launches += n

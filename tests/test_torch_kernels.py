@@ -11,7 +11,17 @@ math and must equal their plain versions (``list_sweep_plain``,
 ``dense_sweep_plain``, ``raycast_general.general_sweep_plain``, and for
 ``csrc/edf_march.cu`` the plain loop ``raymarch_xla.march_rays_plain`` and
 the implicit forward ``raymarch_diff._fwd_plain``) bit for bit on the same
-inputs.
+inputs. ``csrc/soft_edt.cu`` (the chamfer stencil of ``ops/soft_edt.py``
+and its gradient): hard min bit for bit against ``chamfer_stencil_plain``
+and ``chamfer_stencil_grad_plain``; softmin within 1e-5 x max(1, the
+largest |plain|) (the kernel sums the 9 exponentials in the candidates'
+order, torch's reduction in its own); the gradient against autograd
+through the plain loop within the same in hard mode (autograd's
+replicate-pad backward adds an edge cell's terms with atomics, in no fixed
+order), within 1e-4 x max(1, the largest |plain|) in softmin mode
+(autograd runs its own forward, whose fields differ by ulps, and each
+weight exp(y_i - L) turns the rounding of |L|, up to (iters + 1) / T
+cells, into a relative error of the weight).
 """
 
 import numpy as np
@@ -828,3 +838,133 @@ def test_general_sweep_graphed_equals_eager(cuda):
         assert pg.general_sweep.launches == before + 2
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
         assert float(ref[1].abs().sum()) > 0
+
+
+# -- the chamfer stencil of soft_edt ------------------------------------------
+
+STENCIL_TOL = 1e-5
+STENCIL_GRAD_TOL = 1e-4
+
+
+def _stencil_case(cuda, shape, mode):
+    """(d0, iters, temperature) on the card: a seeded binary map of
+    ``shape`` (linear init) for "hard" and "soft", fractional occupancy
+    with the log init for "soft-log"; or levine's occupancy ("levine") at
+    the full map's iterations (64; the demo's 96 for "soft-log")."""
+    from pyracecarsimulator_tpu_torch.maps import load_builtin
+    from pyracecarsimulator_tpu_torch.ops import soft_edt as ps
+    rng = np.random.RandomState(11)
+    log = mode == "soft-log"
+    if shape == "levine":
+        occ = load_builtin("levine", device="cpu").occupancy.numpy()
+        if log:
+            occ = np.clip(occ, 0.05, 0.95)
+        iters = 96 if log else 64
+    else:
+        occ = rng.rand(*shape).astype(np.float32)
+        if not log:
+            occ = (occ < 0.1).astype(np.float32)
+        iters = 24
+    d0 = ps.init_field(torch.tensor(occ, device=cuda), iters,
+                       "log" if log else "linear").contiguous()
+    return d0, iters, 0.0 if mode == "hard" else 0.25
+
+
+def _close(a, b, exact, tol=STENCIL_TOL):
+    if exact:
+        return torch.equal(a, b)
+    return float((a - b).abs().max()) <= tol * max(
+        1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(1, 17), (17, 1), (2, 2), (33, 47),
+                                   (48, 40), "levine"], ids=str)
+@pytest.mark.parametrize("mode", ["hard", "soft", "soft-log"])
+def test_soft_edt_kernels_match_plain(cuda, mode, shape):
+    """``chamfer_stencil`` against ``chamfer_stencil_plain`` (values and
+    history), ``chamfer_stencil_grad`` against
+    ``chamfer_stencil_grad_plain`` from the kernel's history and against
+    autograd through the plain loop, on the card; one launch each."""
+    from pyracecarsimulator_tpu_torch.ops import soft_edt as ps
+    d0, iters, t = _stencil_case(cuda, shape, mode)
+    exact = mode == "hard"
+    hist = torch.empty((iters, *d0.shape), device=cuda)
+    ref_hist = torch.empty_like(hist)
+    before = (ps.chamfer_stencil.launches, ps.chamfer_stencil_grad.launches)
+    out = ps.chamfer_stencil(d0, iters, t)
+    out_h = ps.chamfer_stencil(d0, iters, t, hist)
+    ref = ps.chamfer_stencil_plain(d0, iters, t, ref_hist)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_h)
+    assert _close(out, ref, exact) and _close(hist, ref_hist, exact)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn(d0.shape, generator=gen, device=cuda)
+    got = ps.chamfer_stencil_grad(hist, g, t)
+    plain = ps.chamfer_stencil_grad_plain(hist, g, t)
+    x = d0.clone().requires_grad_(True)
+    ps.chamfer_stencil_plain(x, iters, t).backward(g)
+    torch.cuda.synchronize()
+    assert (ps.chamfer_stencil.launches,
+            ps.chamfer_stencil_grad.launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    assert _close(got, plain, exact)
+    assert _close(got, x.grad, False,
+                  STENCIL_TOL if exact else STENCIL_GRAD_TOL)
+    assert float(got.abs().sum()) > 0
+
+
+def test_soft_edt_on_the_card_launches_both_kernels(cuda):
+    """``soft_edt`` of a CUDA occupancy, forward and backward: one launch
+    of each kernel, the values and the occupancy gradient against the CPU
+    bit for bit (hard min, binary map; the gradient kernel sums in the
+    order of the CPU's autograd, which equals JAX)."""
+    from pyracecarsimulator_tpu_torch.ops import soft_edt as ps
+    rng = np.random.RandomState(2)
+    occ = (rng.rand(300, 220) < 0.02).astype(np.float32)
+    w = rng.randn(300, 220).astype(np.float32)
+    grads = []
+    for device in ("cpu", cuda):
+        o = torch.tensor(occ, device=device, requires_grad=True)
+        before = (ps.chamfer_stencil.launches,
+                  ps.chamfer_stencil_grad.launches)
+        d = ps.soft_edt(o, 0.05, iters=64)
+        (d * torch.tensor(w, device=device)).sum().backward()
+        grads.append((d.detach().cpu(), o.grad.cpu()))
+        n = int(device != "cpu")
+        assert (ps.chamfer_stencil.launches,
+                ps.chamfer_stencil_grad.launches) == (before[0] + n,
+                                                      before[1] + n)
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+@pytest.mark.parametrize("mode", ["hard", "soft"])
+def test_soft_edt_kernels_replay_from_a_cuda_graph(cuda, mode):
+    """Neither entry synchronises with the host: the forward (with its
+    history) and the gradient captured in one CUDA graph replay, on
+    inputs changed in place, what the eager calls give."""
+    from pyracecarsimulator_tpu_torch.ops import soft_edt as ps
+    d0, iters, t = _stencil_case(cuda, (48, 40), mode)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    g = torch.randn(d0.shape, generator=gen, device=cuda)
+    hist = torch.empty((iters, *d0.shape), device=cuda)
+
+    def both():
+        return (ps.chamfer_stencil(d0, iters, t, hist),
+                ps.chamfer_stencil_grad(hist, g, t))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    for k in range(3):
+        d0.mul_(0.5 + 0.25 * k)
+        g.mul_(-1.0)
+        graph.replay()
+        ref = both()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
