@@ -196,8 +196,9 @@ trip of each ray (the kernel reports each ray's trips in this run), plus
 gradient's ``MARCH_GRAD_OPS_PER_TRIP``; the march's bytes are the rays
 once, the outputs once and the EDF once (and its gradient once). The
 chamfer stencil's are ``STENCIL_OPS`` a cell and iteration, its
-exponentials and logarithms at the SFU's rate (``SFU_COST`` FP32 slots
-each); its bytes the field in and out once and the history once. Beside the bound stands, where the toolkit has
+exponentials and logarithms an issue slot each on the FP32 side and
+``SFU_COST`` FP32 slots each on the SFU's own pipe, the longer of the two;
+its bytes the field in and out once and the history once. Beside the bound stands, where the toolkit has
 ``cuobjdump``, what the compiled loop issues per test or per trip (its
 SASS), as a reading.
 
@@ -374,7 +375,10 @@ STENCIL_GRAD_TOL = 1e-4
 #     (8 slots into the padded cell, the pad's sum, slot 0) 10 = 82;
 #   soft_edt_grad soft: the softmin's L 55 (its 10 SFU), y - L 9 and the
 #     weights' scaling 9 (9 SFU), the products g * neg_t 1, * w 9, * inv_t
-#     9, the gather 10 = 102, and 19 SFU
+#     9, the gather 10 = 102, and 19 SFU.
+# The SFU (MUFU) pipe runs beside the FP32 pipe, and every instruction,
+# MUFU included, takes one issue slot: a cell and iteration take at least
+# max(fp32 + sfu, SFU_COST * sfu) FP32 slots, not their sum
 STENCIL_OPS = {("soft_edt", "hard"): (16, 0), ("soft_edt", "soft"): (56, 10),
                ("soft_edt_grad", "hard"): (82, 0),
                ("soft_edt_grad", "soft"): (102, 19)}
@@ -1396,14 +1400,15 @@ def mapgrad_phase(card, smap_bundle, poses):
 def stencil_bound(cells, iters, key, rates, history=False):
     """The least time the card could take for one call of the chamfer
     stencil ``key`` = (kernel, mode) over ``cells`` cells and ``iters``
-    iterations: the larger of the operations (``STENCIL_OPS``: FP32
-    operations, and exponentials and logarithms at the SFU's rate, a cell
-    and iteration) and the bytes (the field in and out once; the history,
-    written by a forward that keeps it and read by the gradient, once)."""
+    iterations: the larger of the operations (``STENCIL_OPS`` a cell and
+    iteration: the FP32 and SFU operations' issue slots, or the SFU's
+    own pipe at its rate, whichever is longer) and the bytes (the field
+    in and out once; the history, written by a forward that keeps it and
+    read by the gradient, once: its first field is the gradient's input
+    field)."""
     fp32, sfu = STENCIL_OPS[key]
-    ops = cells * iters * (fp32 + SFU_COST * sfu)
-    nbytes = 4 * cells * (2 + iters * (history or key[0] == "soft_edt_grad")
-                          + (key[0] == "soft_edt_grad"))
+    ops = cells * iters * max(fp32 + sfu, SFU_COST * sfu)
+    nbytes = 4 * cells * (2 + iters * (history or key[0] == "soft_edt_grad"))
     ops_ms = ops / rates["slots_per_s"] * 1e3
     bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
     return {"ops": ops, "bytes": nbytes, "bound_ops_ms": ops_ms,

@@ -18,7 +18,8 @@ the current stream) and, as its backward through the
 ``torch.autograd.Function`` ``_ChamferStencil``, ``chamfer_stencil_grad``
 (kernel ``soft_edt_grad``), which walks the iterations in reverse from
 the forward's history of each iteration's input field. On CPU tensors
-``soft_edt`` runs the plain loop ``chamfer_stencil_plain`` under ordinary
+``soft_edt`` calls ``chamfer_stencil`` outside the Function, and the
+wrapper runs the plain loop ``chamfer_stencil_plain`` under ordinary
 autograd, so that its values and gradients stay those of the JAX
 package. The init and the final clip are plain elementwise passes on
 either device.
@@ -317,12 +318,13 @@ def soft_edt(occupancy, resolution=1.0, iters: int = 64,
         occupancy = torch.as_tensor(occupancy, device=resolve_device(None))
     occupancy = occupancy.to(torch.float32)
     cap = float(iters) + 1.0
-    d = init_field(occupancy, iters, init, init_lambda)
+    d = init_field(occupancy, iters, init, init_lambda).contiguous()
     if _kernels.on_cuda("soft_edt", d):
-        d = _ChamferStencil.apply(d.contiguous(), iters, float(temperature),
+        d = _ChamferStencil.apply(d, iters, float(temperature),
                                   torch.is_grad_enabled() and d.requires_grad)
     else:
-        d = chamfer_stencil_plain(d, iters, temperature)
+        # the wrapper's plain version, under ordinary autograd
+        d = chamfer_stencil(d, iters, temperature)
     return _clip(d, 0.0, cap) * resolution
 
 

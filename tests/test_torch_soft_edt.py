@@ -352,6 +352,30 @@ def test_plain_route_on_cpu_tensors():
             psoft.chamfer_stencil_grad.launches) == before
 
 
+def test_soft_edt_cpu_route_through_the_wrapper(monkeypatch):
+    """On CPU tensors ``soft_edt`` takes the wrapper ``chamfer_stencil``
+    (its plain version, no launch) with autograd through the plain loop:
+    one call with the init field, and a gradient equal to autograd's
+    through ``chamfer_stencil_plain``."""
+    occ = torch.tensor(_binary(11, shape=(24, 20)), requires_grad=True)
+    calls = []
+    wrapper = psoft.chamfer_stencil
+
+    def recording(d, iters, temperature=0.0, history=None):
+        calls.append((tuple(d.shape), iters, temperature, history))
+        return wrapper(d, iters, temperature, history)
+
+    monkeypatch.setattr(psoft, "chamfer_stencil", recording)
+    before = wrapper.launches
+    psoft.soft_edt(occ, 0.5, iters=8, temperature=0.25).sum().backward()
+    assert calls == [((24, 20), 8, 0.25, None)]
+    assert wrapper.launches == before
+    ref = occ.detach().clone().requires_grad_(True)
+    d = psoft.chamfer_stencil_plain(psoft.init_field(ref, 8), 8, 0.25)
+    (psoft._clip(d, 0.0, 9.0) * 0.5).sum().backward()
+    assert torch.equal(occ.grad, ref.grad)
+
+
 def test_non_tensor_occupancy_goes_to_the_default_device(monkeypatch):
     """A tensor keeps its device; anything else goes to
     ``config.resolve_device(None)``: without a card that raises the error
