@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 
 def add_scan_noise(ranges, generator, std_dev, max_range=None):
     """Add N(0, std) per beam, UNCLAMPED by default (the reference adds
@@ -30,9 +32,10 @@ def add_scan_noise(ranges, generator, std_dev, max_range=None):
     if (isinstance(std_dev, (int, float)) and std_dev == 0.0) \
             or generator is None:
         return ranges
-    noise = torch.randn(ranges.shape, generator=generator,
-                        dtype=ranges.dtype, device=ranges.device)
-    noisy = ranges + std_dev * noise
-    if max_range is not None:
-        noisy = torch.clamp(noisy, 0.0, max_range)
+    with span("step.noise"):
+        noise = torch.randn(ranges.shape, generator=generator,
+                            dtype=ranges.dtype, device=ranges.device)
+        noisy = ranges + std_dev * noise
+        if max_range is not None:
+            noisy = torch.clamp(noisy, 0.0, max_range)
     return noisy

@@ -59,6 +59,7 @@ from ..ops.common import beam_angles
 from ..state import FIELDS, CarState
 from ..utils.graph import (CudaGraphBackend, GraphedFunction,
                            require_capturable)
+from ..utils.profiling import span
 
 # bytes the graphed loop's trajectory block buffers may hold
 _BLOCK_BYTES = 1 << 28
@@ -73,17 +74,20 @@ def _eager_rollout(step_fn, policy, num_steps, num_beams, keep_scans,
                          dtype=torch.float32, device=state0.device)
     poses, collisions, scans = [], [], []
     for t in range(num_steps):
-        action = policy(state, ranges, t)
+        with span("rollout.policy"):
+            action = policy(state, ranges, t)
         out = step_fn(state, action, generator)
         state, ranges = out.state, out.ranges
-        poses.append(state.pose)
-        collisions.append(out.collision)
+        with span("rollout.carry"):
+            poses.append(state.pose)
+            collisions.append(out.collision)
+            if keep_scans:
+                scans.append(ranges)
+    with span("rollout.carry"):
+        traj = {"pose": torch.stack(poses), "collision": torch.stack(
+            collisions)}
         if keep_scans:
-            scans.append(ranges)
-    traj = {"pose": torch.stack(poses), "collision": torch.stack(
-        collisions)}
-    if keep_scans:
-        traj["ranges"] = torch.stack(scans)
+            traj["ranges"] = torch.stack(scans)
     return state, traj
 
 
@@ -119,8 +123,8 @@ class _GraphedRollout:
         watch = (lambda: (cell["map"],)) if cell is not None else None
         self.graphs = [
             GraphedFunction(self._one_step(step_fn, policy, first),
-                            watch=watch, device=dev, backend=backend,
-                            name=name)
+                            watch=watch, snapshot=self._rewind, device=dev,
+                            backend=backend, name=name)
             for first, name in (
                 (True, "rollout step t = 0"),
                 (False, "rollout steps t >= 1 (the policy's t is a "
@@ -132,19 +136,35 @@ class _GraphedRollout:
         def one(generator):
             state, ranges = self.state, self.ranges
             t = 0 if first else self.t
-            out = step_fn(state, policy(state, ranges, t), generator)
-            rows = {"pose": out.state.pose, "collision": out.collision,
-                    "ranges": out.ranges}
-            # the warm-up calls of a capture count on: wrap, never overrun
-            row = torch.remainder(self.index, self.block)
-            for name, buf in self.blocks.items():
-                buf.index_copy_(0, row, rows[name][None])
-            for f in FIELDS:
-                getattr(state, f).copy_(getattr(out.state, f))
-            ranges.copy_(out.ranges)
-            self.index.add_(1)
-            self.t.add_(1)
+            with span("rollout.policy"):
+                action = policy(state, ranges, t)
+            out = step_fn(state, action, generator)
+            with span("rollout.carry"):
+                rows = {"pose": out.state.pose, "collision": out.collision,
+                        "ranges": out.ranges}
+                # the warm-up calls of a capture count on: wrap, never
+                # overrun
+                row = torch.remainder(self.index, self.block)
+                for name, buf in self.blocks.items():
+                    buf.index_copy_(0, row, rows[name][None])
+                for f in FIELDS:
+                    getattr(state, f).copy_(getattr(out.state, f))
+                ranges.copy_(out.ranges)
+                self.index.add_(1)
+                self.t.add_(1)
         return one
+
+    def _rewind(self):
+        """Before the eager calls of a step's function (a capture's
+        warm-up; a labelling call of ``utils/profiling.py``, made at a
+        capture or at ``profiling.enable()``, which may come after a
+        whole rollout): the step index and the block row start at 1 and
+        0, so that the policy is handed a step it can be handed at a
+        replay. None of them comes between ``run``'s setting of the carry
+        and its last replay (``run`` captures first), so nothing is put
+        back."""
+        self.t.fill_(1)
+        self.index.zero_()
 
     def run(self, state0: CarState, generator):
         with torch.no_grad():
@@ -153,22 +173,26 @@ class _GraphedRollout:
             # capture first: the warm-up steps write the carry
             for g in graphs:
                 g.prepare(generator)
-            for f in FIELDS:
-                getattr(self.state, f).copy_(getattr(state0, f))
-            self.ranges.zero_()
-            self.t.zero_()
-            traj = {k: torch.empty((total,) + tuple(b.shape[1:]),
-                                   dtype=b.dtype, device=b.device)
-                    for k, b in self.blocks.items()}
+            with span("rollout.blocks"):
+                for f in FIELDS:
+                    getattr(self.state, f).copy_(getattr(state0, f))
+                self.ranges.zero_()
+                self.t.zero_()
+                traj = {k: torch.empty((total,) + tuple(b.shape[1:]),
+                                       dtype=b.dtype, device=b.device)
+                        for k, b in self.blocks.items()}
             for t0 in range(0, total, self.block):
                 n = min(self.block, total - t0)
-                self.index.zero_()
+                with span("rollout.blocks"):
+                    self.index.zero_()
                 for t in range(t0, t0 + n):
                     graphs[min(t, 1)](generator)
-                for k, b in self.blocks.items():
-                    traj[k][t0:t0 + n].copy_(b[:n])
-            final = CarState(**{f: getattr(self.state, f).clone()
-                                for f in FIELDS})
+                with span("rollout.blocks"):
+                    for k, b in self.blocks.items():
+                        traj[k][t0:t0 + n].copy_(b[:n])
+            with span("rollout.blocks"):
+                final = CarState(**{f: getattr(self.state, f).clone()
+                                    for f in FIELDS})
         return final, traj
 
 

@@ -44,6 +44,7 @@ import torch
 
 from ..state import CarState, FIELDS
 from ..utils.graph import GraphedFunction, require_capturable
+from ..utils.profiling import span
 
 
 def _optimizer_snapshot(params: list, optimizer):
@@ -130,18 +131,25 @@ def make_bptt_train_fn(step_fn: Callable, policy: Callable,
 
     def whole_step(step, params, opt_state, state0, generator,
                    keep_grads: bool):
-        opt_state.zero_grad(set_to_none=not keep_grads)
+        with span("train.optimizer"):
+            opt_state.zero_grad(set_to_none=not keep_grads)
         state = state0
         ranges = torch.zeros(state0.batch_shape + (num_beams,),
                              dtype=torch.float32, device=state0.device)
         losses = []
         for t in range(num_steps):
-            out = step(state, policy(params, state, ranges, t), generator)
-            losses.append(loss_fn(out, t))
+            with span("train.policy"):
+                action = policy(params, state, ranges, t)
+            out = step(state, action, generator)
+            with span("train.loss"):
+                losses.append(loss_fn(out, t))
             state, ranges = out.state, out.ranges
-        loss = torch.stack(losses).mean()
-        loss.backward()
-        opt_state.step()
+        with span("train.loss"):
+            loss = torch.stack(losses).mean()
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            opt_state.step()
         final = CarState(**{f: getattr(state, f).detach() for f in FIELDS})
         return loss.detach(), final
 

@@ -66,6 +66,7 @@ from .ops.raymarch_xla import scan_poses as _scan_edf
 from .ops.noise import add_scan_noise
 from .utils.graph import (CudaGraphBackend, GraphedFunction,
                           require_capturable)
+from .utils.profiling import span
 
 # backends whose map object is a compiled segment table (vs the EDF track)
 _SEGMENT_BACKENDS = ("segments", "segments_simplified", "segments_pallas",
@@ -257,20 +258,21 @@ def advance(state: CarState, action, car: CarParams, sim: SimParams):
     sy)``: the state before the scan and the lidar origin, which sits
     ``scan_distance_to_base_link`` ahead of the base link."""
     v_des, steer_des = action
-    accel, steer_vel = dyn.process_input(
-        v_des, steer_des, state, car, kp=sim.speed_kp,
-        steer_mode=sim.steer_mode, steer_kp=sim.steer_kp)
-    if sim.dynamics == "st":
-        new = dyn.st_step(state, accel, steer_vel, car, sim.dt)
-    elif sim.dynamics == "ks":
-        new = dyn.ks_step(state, accel, steer_vel, car, sim.dt)
-    elif sim.dynamics == "ackermann":
-        new = dyn.ackermann_step(state, v_des, steer_des, car, sim.dt)
-    else:
-        raise ValueError(f"unknown dynamics {sim.dynamics!r}")
-    new = dyn.apply_standstill(state, new)
-    sx = new.x + car.scan_distance_to_base_link * torch.cos(new.theta)
-    sy = new.y + car.scan_distance_to_base_link * torch.sin(new.theta)
+    with span("step.dynamics"):
+        accel, steer_vel = dyn.process_input(
+            v_des, steer_des, state, car, kp=sim.speed_kp,
+            steer_mode=sim.steer_mode, steer_kp=sim.steer_kp)
+        if sim.dynamics == "st":
+            new = dyn.st_step(state, accel, steer_vel, car, sim.dt)
+        elif sim.dynamics == "ks":
+            new = dyn.ks_step(state, accel, steer_vel, car, sim.dt)
+        elif sim.dynamics == "ackermann":
+            new = dyn.ackermann_step(state, v_des, steer_des, car, sim.dt)
+        else:
+            raise ValueError(f"unknown dynamics {sim.dynamics!r}")
+        new = dyn.apply_standstill(state, new)
+        sx = new.x + car.scan_distance_to_base_link * torch.cos(new.theta)
+        sy = new.y + car.scan_distance_to_base_link * torch.sin(new.theta)
     return new, sx, sy
 
 
@@ -324,14 +326,16 @@ def make_step_fn(bundle: SimBundle, backend: Optional[str] = None,
         # 1-2. input processing and the dynamics update
         new, sx, sy = advance(state, action, car, sim)
         # 3. scan from the lidar origin
-        ranges = scan_fn(torch.stack([sx, sy, new.theta], dim=-1))
+        with span("step.scan"):
+            ranges = scan_fn(torch.stack([sx, sy, new.theta], dim=-1))
         if with_noise and generator is not None:
             # unclamped, matching the reference/oracle noise model
             ranges = add_scan_noise(ranges, generator, sc.scan_std_dev)
         # 4. TTC collision -> latch
-        hit = check_ttc(ranges, new.velocity, cosines, car_dists,
-                        sim.ttc_threshold)
-        return latch(new, ranges, hit)
+        with span("step.ttc"):
+            hit = check_ttc(ranges, new.velocity, cosines, car_dists,
+                            sim.ttc_threshold)
+            return latch(new, ranges, hit)
 
     step.map_cell = map_cell        # swap maps here
     step.capturable = True

@@ -61,10 +61,16 @@ forbids and answers by invalidating the capture
 the card). Collecting before every capture instead, as ``torch.cuda.graph``
 once did, costs tenths of a second a capture in a large process
 (``PERF.md``).
+
+With tracing on (``utils/profiling.py``) each capture also gets a label
+table from one more eager call on the warm-up's terms, so that a trace of
+its replays can be split by span; with tracing off there is none, and
+capture and replay are exactly as described above.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import warnings
@@ -73,6 +79,8 @@ from typing import Callable, Optional
 import torch
 
 from ..ops import sweeps
+from . import profiling
+from .profiling import span
 
 _LEAF = "*"
 WARMUP_CALLS = 2        # eager calls on a side stream before a capture
@@ -112,6 +120,13 @@ def _flatten(obj, leaves: list):
     raise TypeError(
         f"a graphed function takes and returns tensors, generators, "
         f"numbers and containers of them, not {type(obj).__name__}")
+
+
+def _copy_in(statics: list, leaves: list):
+    """A call's tensor arguments into the capture's static inputs."""
+    for s, v in zip(statics, leaves):
+        if torch.is_tensor(v):
+            s.copy_(v)
 
 
 def _unflatten(spec, leaves):
@@ -195,6 +210,10 @@ class _Capture:
     out_spec: object
     replay: Callable
     launches: dict          # wrapper name -> kernel launches of one replay
+    run: Callable           # one eager call on the static inputs
+    generators: list
+    device: torch.device
+    table: Optional[int] = None     # its label table (utils/profiling.py)
 
 
 class GraphedFunction:
@@ -207,8 +226,9 @@ class GraphedFunction:
     again. ``grad=False`` captures and replays without autograd and
     refuses arguments that require grad; ``grad=True`` is for a function
     that runs its own backward (the train step). ``snapshot()``: called
-    before the warm-up, returns a function that puts back what the warm-up
-    calls changed; called after the capture. ``device``: where to capture
+    before the warm-up (and a labelling call), returns a function that
+    puts back what those calls changed, called after them, or None where
+    nothing need go back. ``device``: where to capture
     when no argument is a tensor. ``backend``: who warms up and captures
     (``CudaGraphBackend``; a test hands in a stand-in). ``captures`` and
     ``replays`` count.
@@ -227,6 +247,7 @@ class GraphedFunction:
         self.captures = 0
         self.replays = 0
         self._cap: Optional[_Capture] = None
+        profiling.register(self)
 
     def release(self):
         """Drop the capture and its memory pool."""
@@ -239,17 +260,52 @@ class GraphedFunction:
         self._ready(args)
         return self.captures != before
 
+    def label(self):
+        """Give the current capture its label table where tracing is on,
+        it has none and no profiler is running (``utils/profiling.py``):
+        one eager call on the warm-up's terms, after which generator
+        states and the caller's ``snapshot`` are put back."""
+        cap = self._cap
+        if cap is None or not profiling.wants_table(cap.table):
+            return
+        with self._put_back(cap.generators):
+            cap.table = profiling.label(
+                lambda: self.backend.warm_up(cap.run, cap.device, 1), cap)
+
+    @contextlib.contextmanager
+    def _put_back(self, generators):
+        """The capture's grad mode for eager calls of ``fn``; on leaving,
+        also after a failure, what they changed goes back: generator
+        states by this class, anything else by the caller's
+        ``snapshot``."""
+        restore = self.snapshot() if self.snapshot else None
+        states = [(g, g.get_state()) for g in generators]
+        try:
+            with torch.enable_grad() if self.grad else torch.no_grad():
+                yield
+        finally:
+            for g, state in states:
+                g.set_state(state)
+            if restore is not None:
+                restore()
+
     def __call__(self, *args):
         cap, leaves = self._ready(args)
         with torch.no_grad():
-            for s, v in zip(cap.statics, leaves):
-                if torch.is_tensor(v):
-                    s.copy_(v)
-            cap.replay()
+            if profiling.enabled():
+                with span("graph.copy_in"):
+                    _copy_in(cap.statics, leaves)
+                with profiling.replay_span(cap.table):
+                    cap.replay()
+                with span("graph.copy_out"):
+                    outs = [o.clone() for o in cap.outs]
+            else:
+                _copy_in(cap.statics, leaves)
+                cap.replay()
+                outs = [o.clone() for o in cap.outs]
             sweeps.add_launches(cap.launches)
             self.replays += 1
-            return _unflatten(cap.out_spec,
-                              iter([o.clone() for o in cap.outs]))
+            return _unflatten(cap.out_spec, iter(outs))
 
     def _ready(self, args):
         """(the capture that fits ``args``, their leaves)."""
@@ -298,10 +354,8 @@ class GraphedFunction:
                                 "generator")
             return outs
 
-        restore = self.snapshot() if self.snapshot else None
-        states = [(g, g.get_state()) for g in generators]
         try:
-            with torch.enable_grad() if self.grad else torch.no_grad():
+            with self._put_back(generators):
                 self.backend.warm_up(run, device, WARMUP_CALLS)
                 before = sweeps.launch_counts()
                 outs, replay = self.backend.capture(run, device, generators)
@@ -315,12 +369,6 @@ class GraphedFunction:
                 ".cpu(), a tensor built from host data) or whose optimizer "
                 "keeps its step count on the host cannot be captured: pass "
                 "graph=False to run it eagerly") from e
-        finally:
-            # what the warm-up calls changed goes back, also after a failure
-            for g, state in states:
-                g.set_state(state)
-            if restore is not None:
-                restore()
         after = sweeps.launch_counts()
         launches = {k: n - before[k] for k, n in after.items()
                     if n != before[k]}
@@ -329,5 +377,7 @@ class GraphedFunction:
         self.captures += 1
         self._cap = _Capture(key=key, held=held, statics=statics, outs=outs,
                              out_spec=out["spec"], replay=replay,
-                             launches=launches)
+                             launches=launches, run=run,
+                             generators=generators, device=device)
+        self.label()
         return self._cap

@@ -11,13 +11,13 @@ builds the step (``build_sim(name, backend=...)``,
 ``make_step_fn(with_noise=True)``) and warms it up. Then it times 50 steps
 with CUDA events, without the profiler, and records 10 more under
 ``torch.profiler``. It prints the card's name and power limit, the
-unprofiled step time, the device's busy time per step from the trace (the
-sum of the kernels' device time; one stream, so kernels do not overlap),
-the idle share ``1 - busy / unprofiled step time``, the EDF march's loop
-trips per step (``ops/raymarch_xla.MARCH_COUNTS``: on the card the
-kernel's device counter, the trips of each march's longest ray, read
-after the timed loop; 0 on the segment backends), and the kernels that
-take the most device time. The profiled
+unprofiled step time, the device's busy time per step from the trace (see
+below), the idle share ``1 - busy / unprofiled step time``, the EDF
+march's loop trips per step (``ops/raymarch_xla.MARCH_COUNTS``, read
+exactly through ``profiling.counters()`` around the timed loop:
+on the card the kernel's device counter, the trips of each march's
+longest ray; 0 on the segment backends), and the operations that take the
+most device time. The profiled
 wall time is printed too, only to show what the profiler adds.
 
 Beside the step it times the scan alone (``make_scan_fn``) twice, with its
@@ -26,6 +26,17 @@ scanner poses of the stepped state, which sit 0.275 m ahead of the base
 link; then it times the step a second time. A step that takes longer than
 its scan by more than the dynamics' ~2 ms shows here whether it marches
 further or does other work. Needs a CUDA card.
+
+The traced steps run with the port's spans on (``utils/profiling.py``:
+``profiling.enable()`` first, which also labels the graphed step's
+capture) after one warm-up step of the profiler, and are read by
+``profiling.report``, the attribution the benchmark's traced runs read:
+the device's busy time is the union of its operations' intervals over
+the traced steps, and beside it come the device time of each span path
+(the step's layers, ``.bwd`` for what autograd launches), the share of
+the device time they cover, and the device's idle time by the innermost
+span open at each gap. The idle share divides the busy time a step by
+the unprofiled step time, as ``device_idle_share`` does.
 
 ``--graph`` profiles the step replayed as one CUDA graph
 (``make_step_fn(..., graph=True)``; every backend, the EDF ones included,
@@ -62,11 +73,11 @@ def main(argv=None) -> dict:
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from pyracecarsimulator_tpu_torch import (build_sim, make_scan_fn,
                                               make_step_fn, state_from_pose)
     from pyracecarsimulator_tpu_torch.maps import sample_free_poses
-    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import MARCH_COUNTS
+    from pyracecarsimulator_tpu_torch.utils import profiling
     from pyracecarsimulator_tpu_torch.utils.profiling import (device_label,
                                                               timed_loop)
 
@@ -81,10 +92,11 @@ def main(argv=None) -> dict:
         """(ms per call, march trips per call) of ``fn(i)``."""
         for i in range(warmup):
             fn(i)
-        before = dict(MARCH_COUNTS)
+        before = profiling.counters()["march"]
         ms = timed_loop(fn, reps=reps, warmup=0, index=True,
                         device="cuda") * 1e3
-        return ms, (MARCH_COUNTS["trips"] - before["trips"]) / reps
+        after = profiling.counters()["march"]
+        return ms, (after["trips"] - before["trips"]) / reps
 
     results = {}
     for name, backend in ((n, b) for n in args.map.split(",")
@@ -127,18 +139,30 @@ def main(argv=None) -> dict:
         step_ms_2, step_trips_2 = counted(advance, reps, 1)
 
         traced = TRACED_STEPS
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(traced):
-                state = step(state, act, gen).state
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / traced
-        # kernels only: the aten ops that launch them carry the same
-        # device time again
+        profiling.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                advance()
+                torch.cuda.synchronize()
+                prof.step()
+                t0 = time.perf_counter()
+                for _ in range(traced):
+                    advance()
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3 / traced
+            rep = profiling.report(prof.events(), calls=traced,
+                                   steps=traced)
+        finally:
+            profiling.disable()
+        busy = rep["busy_s"] * 1e3 / traced
+        # device operations by name (kernels, copies and fills: the aten
+        # ops that launch them carry the same device time again)
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in events) / 1e3 / traced
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
         launches = sum(e.count for e in events) / traced
         graph_launches = sum(e.count for e in prof.key_averages()
                              if e.key == "cudaGraphLaunch") / traced
@@ -154,6 +178,18 @@ def main(argv=None) -> dict:
               f"scanner poses {lidar_ms:.4f} ms, {lidar_trips:.1f} march "
               f"trips/scan; the step again {step_ms_2:.4f} ms, "
               f"{step_trips_2:.1f} march trips/step")
+        spans = {p: r["self_s"] * 1e3 / traced
+                 for p, r in rep["spans"].items() if r["self_s"]}
+        idle = {k: v * 1e3 / traced for k, v in rep["idle_s"].items()}
+        print(f"[{name} {backend}] spans: {rep['coverage']:.4f} of the "
+              f"device time attributed, {rep['mismatched_replays']} of "
+              f"{rep['replays']} replays unmatched; device ms/step by span "
+              f"path (self):")
+        for p, ms in sorted(spans.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"    {ms:9.4f} ms/step  {p}")
+        print(f"[{name} {backend}] device idle ms/step by the span open: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          sorted(idle.items(), key=lambda kv: -kv[1])))
         events.sort(key=lambda e: -e.self_device_time_total)
         for e in events[:12]:
             print(f"    {e.self_device_time_total / 1e3 / traced:9.4f} "
@@ -166,7 +202,10 @@ def main(argv=None) -> dict:
             "step_ms_2": step_ms_2, "step_trips_2": step_trips_2,
             "scan_ms": scan_ms, "scan_trips": scan_trips,
             "lidar_scan_ms": lidar_ms, "lidar_scan_trips": lidar_trips,
-            "busy_ms": busy, "kernels_per_step": launches}
+            "busy_ms": busy, "kernels_per_step": launches,
+            "span_ms_per_step": spans, "span_coverage": rep["coverage"],
+            "mismatched_replays": rep["mismatched_replays"],
+            "idle_ms_per_step": idle}
     return results
 
 

@@ -35,6 +35,7 @@ card). Here, on the CPU:
   facade reads each edited map.
 """
 
+import contextlib
 import importlib
 
 import numpy as np
@@ -66,6 +67,7 @@ from pyracecarsimulator_tpu_torch.parallel import (
     make_bptt_train_fn, make_constant_policy, make_gap_follower_policy,
     make_rollout_fn, make_mesh)
 from pyracecarsimulator_tpu_torch.state import FIELDS
+from pyracecarsimulator_tpu_torch.utils import profiling
 from pyracecarsimulator_tpu_torch.utils.graph import (CudaGraphBackend,
                                                       GraphedFunction)
 
@@ -89,21 +91,25 @@ class _ReRun:
 
     def __init__(self):
         self.warmups = self.captured = self.replayed = 0
+        self.calls = []         # what was asked of it, in order
 
     def check(self, device):
         pass
 
     def warm_up(self, run, device, n):
+        self.calls.append(("warm_up", n))
         for _ in range(n):
             run()
             self.warmups += 1
 
     def capture(self, run, device, generators):
+        self.calls.append(("capture",))
         self.captured += 1
         grad = torch.is_grad_enabled()
         outs = run()
 
         def replay():
+            self.calls.append(("replay",))
             self.replayed += 1
             before = sweeps.launch_counts()
             with torch.set_grad_enabled(grad):
@@ -1050,6 +1056,199 @@ def test_graphed_edf_train_step_equals_eager(small_track, backend):
         assert torch.equal(got[True][i], got[False][i])
     assert _same_state(got[True][3], got[False][3])
     assert got[True][0][0] != got[True][0][-1]      # it trains
+
+
+# -- spans and label tables, with the stand-in backend ------------------------
+
+@pytest.fixture
+def tracing():
+    """Tracing on for one test, off and without tables afterwards."""
+    profiling.enable()
+    try:
+        yield profiling
+    finally:
+        profiling.disable()
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_graphed_function_labels_only_with_tracing_on(on):
+    """Tracing off: the backend is asked for the same calls in the same
+    order as ever (two warm-up calls, the capture, a replay a call) and no
+    table exists. On: one more eager call on the warm-up's terms after the
+    capture gives the capture its table, and ``enable`` labels a capture
+    made while tracing was off."""
+    backend = _ReRun()
+    g = GraphedFunction(lambda x: x * 2, backend=backend)
+    x = torch.arange(3.0)
+    try:
+        if on:
+            profiling.enable()
+        assert torch.equal(g(x), x * 2) and torch.equal(g(x + 1), x * 2 + 2)
+        label = [("warm_up", 1)] if on else []
+        assert backend.calls == [("warm_up", 2), ("capture",)] + label + [
+            ("replay",), ("replay",)]
+        assert (g._cap.table in profiling._tables) == on
+        profiling.enable()
+        assert g._cap.table in profiling._tables
+        assert backend.calls.count(("warm_up", 1)) == 1
+    finally:
+        profiling.disable()
+    assert not profiling._tables
+    g(x)
+    assert backend.calls[-1] == ("replay",) and backend.warmups == 3
+
+
+def test_labelling_changes_no_result(small_track, tracing):
+    """The labelling calls put back what they change: with tracing on the
+    graphed train step (the momentum buffers, the parameters)
+    and the graphed noisy rollout (the generator, the carry) equal the
+    eager ones bit for bit."""
+    bundle = psim.build_sim(
+        _port_track(small_track), scan=P.ScanParams(num_beams=BEAMS),
+        sim=P.SimParams(steer_mode="smooth"), backend="edf_implicit",
+        device="cpu")
+    step = psim.make_step_fn(bundle, with_noise=True)
+    state = P.state_from_numpy(_initial(small_track, 8), device="cpu")
+    got = {}
+    for graph in (False, True):
+        train, init = make_bptt_train_fn(
+            step, _train_policy, _edf_train_loss, 3, BEAMS,
+            optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9),
+            graph=graph)
+        train.graphed.backend = _ReRun()
+        params = {"w": torch.full((BEAMS,), 0.01), "b": torch.zeros(())}
+        opt = init(params)
+        losses = [float(train(params, opt, state)[2]) for _ in range(3)]
+        got[graph] = (losses, params["w"].detach().clone())
+    assert got[True][0] == got[False][0]
+    assert torch.equal(got[True][1], got[False][1])
+    policy = make_gap_follower_policy(BEAMS, FOV)
+    run, standin = _graphed_rollout(step, policy, 4, True, state)
+    eager = make_rollout_fn(step, policy, 4, BEAMS, keep_scans=True,
+                            graph=False)
+    for g in run.graphs:        # the stand-in's capture passes draw
+        g.prepare(torch.Generator().manual_seed(3))
+    fe, te = eager(state, torch.Generator().manual_seed(3))
+    fg, tg = run.run(state, torch.Generator().manual_seed(3))
+    assert all(torch.equal(te[k], tg[k]) for k in te)
+    assert _same_state(fe, fg)
+    # one labelling call a capture (a new generator captures again)
+    assert standin.calls.count(("warm_up", 1)) == standin.captured == 4
+
+
+def test_capture_under_a_profiler_is_never_labelled_inside_a_rollout(
+        small_track, tracing):
+    """A capture made while a profiler runs gets no table, and none is
+    made at its later calls: a labelling step there would run after
+    ``run`` has set the carry and move the rollout a step on. With
+    tracing on, a rollout captured inside ``profile()`` and called again
+    outside it equals the eager rollout bit for bit, both times."""
+    from torch.profiler import ProfilerActivity, profile
+    bundle = psim.build_sim(_port_track(small_track),
+                            scan=P.ScanParams(num_beams=BEAMS),
+                            backend="edf", device="cpu")
+    step = psim.make_step_fn(bundle)
+    policy = make_gap_follower_policy(BEAMS, FOV)
+    state = P.state_from_numpy(_initial(small_track, 8), device="cpu")
+    run, standin = _graphed_rollout(step, policy, 5, True, state, block=3)
+    eager = make_rollout_fn(step, policy, 5, BEAMS, keep_scans=True,
+                            graph=False)
+    for traced in (True, False):
+        with profile(activities=[ProfilerActivity.CPU]) if traced \
+                else contextlib.nullcontext():
+            fg, tg = run.run(state, None)
+        fe, te = eager(state, None)
+        assert all(torch.equal(te[k], tg[k]) for k in te)
+        assert _same_state(fe, fg)
+        state = fg
+    assert standin.captured == 2 and ("warm_up", 1) not in standin.calls
+    assert all(g._cap.table is None for g in run.graphs)
+
+
+def test_labelling_after_a_rollout_hands_the_policy_a_step_it_can_take(
+        small_track):
+    """After a whole rollout the step index stands at T; ``enable`` labels
+    the graphs from step 1 and row 0 (``_GraphedRollout._rewind``, which
+    the capture's warm-up calls start from too), so an open-loop policy
+    that indexes its commands by ``t`` is handed a step it has."""
+    bundle = psim.build_sim(_port_track(small_track),
+                            scan=P.ScanParams(num_beams=BEAMS),
+                            backend="edf", device="cpu")
+    seq = torch.linspace(-0.3, 0.3, 4)
+    seen = []
+
+    def policy(state, ranges, t):
+        seen.append(int(t))
+        return (torch.full(state.batch_shape, 2.0),
+                seq[t].expand(state.batch_shape))
+
+    state = P.state_from_numpy(_initial(small_track, 4), device="cpu")
+    run, standin = _graphed_rollout(psim.make_step_fn(bundle), policy, 4,
+                                    False, state)
+    run.run(state, None)
+    assert int(run.t) == 4
+    del seen[:]
+    try:
+        profiling.enable()
+        assert standin.calls.count(("warm_up", 1)) == 2
+    finally:
+        profiling.disable()
+    assert seen == [0, 1]
+
+
+def _ranges(prof):
+    """(name, start, end) of the port's spans in a CPU profile."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.name in profiling.SPANS]
+
+
+def _inside(ranges, outer):
+    """The names of the spans that lie inside some ``outer`` span."""
+    boxes = [(a, b) for n, a, b in ranges if n == outer]
+    return {n for n, a, b in ranges if n != outer
+            and any(a0 <= a and b <= b0 for a0, b0 in boxes)}
+
+
+def test_spans_nest_as_the_layers_do(small_track, tracing):
+    """With tracing on, a graphed rollout and a graphed train step
+    (stand-in) record the spans of ``utils/profiling.py`` and they nest:
+    a replay holds the step's and the loop's spans, a rollout's block
+    copies and a call's copies lie outside it."""
+    from torch.profiler import ProfilerActivity, profile
+    bundle = psim.build_sim(
+        _port_track(small_track), scan=P.ScanParams(num_beams=BEAMS),
+        sim=P.SimParams(steer_mode="smooth"), backend="sectors",
+        device="cpu")
+    step = psim.make_step_fn(bundle, with_noise=True)
+    state = P.state_from_numpy(_initial(small_track, 8), device="cpu")
+    run, _ = _graphed_rollout(step, make_gap_follower_policy(BEAMS, FOV), 3,
+                              True, state)
+    gen = torch.Generator().manual_seed(0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run.run(state, gen)
+    r = _ranges(prof)
+    assert {n for n, _, _ in r} == {
+        "rollout.blocks", "graph.copy_in",
+        "graph.replay", "graph.copy_out", "rollout.policy", "step.dynamics",
+        "step.scan", "step.noise", "step.ttc", "rollout.carry"}
+    assert _inside(r, "graph.replay") == {
+        "rollout.policy", "step.dynamics", "step.scan", "step.noise",
+        "step.ttc", "rollout.carry"}
+    assert not _inside(r, "rollout.blocks")
+    train, init = make_bptt_train_fn(
+        step, _train_policy, _train_loss, 2, BEAMS, graph=True)
+    train.graphed.backend = _ReRun()
+    params = {"w": torch.full((BEAMS,), 0.01), "b": torch.zeros(())}
+    opt = init(params)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train(params, opt, state, gen)
+    r = _ranges(prof)
+    assert {"graph.copy_in", "graph.replay", "graph.copy_out",
+            "train.backward"} <= {n for n, _, _ in r}
+    assert _inside(r, "graph.replay") == {
+        "train.optimizer", "train.policy", "train.loss", "train.backward",
+        "step.dynamics", "step.scan", "step.noise", "step.ttc"}
+    assert _inside(r, "step.scan") == set()
 
 
 def test_optimizer_snapshot_puts_back_values_in_place():

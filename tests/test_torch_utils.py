@@ -185,6 +185,169 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert len(prof.key_averages()) > 0
 
 
+# -- utils.profiling: spans and the report ---------------------------------
+
+@pytest.fixture
+def tracing():
+    """Tracing on for one test, off and without tables afterwards."""
+    profiling.enable()
+    try:
+        yield profiling
+    finally:
+        profiling.disable()
+
+
+def _ev(name, start, end, thread=1, id=0, dev=False, seq=-1, fwd=0,
+        mark=None):
+    """A profiler event as ``torch.profiler``'s ``events()`` gives it:
+    times in microseconds, a host span marked as a user annotation."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        name=name, id=id, thread=thread, fwd_thread=fwd, sequence_nr=seq,
+        device_type="DeviceType.CUDA" if dev else "DeviceType.CPU",
+        time_range=SimpleNamespace(start=start, end=end),
+        is_user_annotation=(name in profiling.SPANS or name.startswith(
+            "graph.table#")) if mark is None else mark)
+
+
+def test_span_is_a_shared_noop_when_tracing_is_off():
+    """Off: the same object at every call, nothing recorded (a CPU profile
+    of a step and a rollout shows no span); a name outside ``SPANS`` is
+    refused either way."""
+    from torch.profiler import ProfilerActivity, profile
+    assert not profiling.enabled()
+    assert profiling.span("step.scan") is profiling.span("step.scan")
+    assert profiling.replay_span(None) is profiling.span("graph.replay")
+    bundle = P.build_sim(ploader.load_builtin("levine", device="cpu"),
+                         scan=P.ScanParams(num_beams=16), backend="edf",
+                         device="cpu")
+    step = P.make_step_fn(bundle, with_noise=True)
+    state = P.state_from_pose(torch.tensor([7.0]), torch.tensor([4.0]),
+                              torch.tensor([0.0]))
+    act = (torch.full((1,), 2.0), torch.zeros(1))
+    from pyracecarsimulator_tpu_torch.parallel import (
+        make_constant_policy, rollout)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, act, torch.Generator().manual_seed(0))
+        rollout(step, state, make_constant_policy(2.0, 0.0), 2, 16)
+    assert not {e.name for e in prof.events()} & profiling.SPANS
+    for on in (False, True):
+        profiling.enable() if on else None
+        try:
+            with pytest.raises(KeyError):
+                profiling.span("step.other")
+        finally:
+            profiling.disable()
+
+
+def test_span_decorates_and_checks_at_each_call(tracing):
+    """A function decorated while tracing was off records its range once
+    tracing is on, and nothing once it is off again."""
+    from torch.profiler import ProfilerActivity, profile
+    profiling.disable()
+    built = profiling.span("step.noise")(lambda x: x + 1)
+    for on in (True, False):
+        profiling.enable() if on else profiling.disable()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            assert built(torch.ones(1)).item() == 2.0
+        names = [e.name for e in prof.events()]
+        assert names.count("step.noise") == (1 if on else 0)
+
+
+def test_report_attributes_replays_by_position_and_counts_a_mismatch(
+        tracing, monkeypatch):
+    """A replay's operations (the CUPTI correlation of the
+    ``cudaGraphLaunch`` inside its ``graph.replay``) take their table's
+    paths by position under the spans around the replay, checked by name
+    where the table has one (a copy by kind: the graph may run it as a
+    kernel); a replay whose count or names differ is counted and left
+    unattributed; the ranges the profiler draws on the device's timeline
+    are not operations."""
+    monkeypatch.setitem(profiling._tables, 7, [
+        ("k1", ("step.dynamics",)), (None, ("step.scan",)),
+        ("Memcpy DtoD (Device -> Device)", ("step.scan",))])
+
+    def replay(t, launch, names):
+        return [_ev("graph.replay", t, t + 30), _ev("graph.table#7", t + 1,
+                                                    t + 29),
+                _ev("cudaGraphLaunch", t + 2, t + 4, id=launch)] + [
+            _ev(n, t + 10 + 2 * i, t + 11 + 2 * i, id=launch, dev=True)
+            for i, n in enumerate(names)]
+
+    ev = ([_ev("rollout.blocks", 0, 200)]
+          + replay(10, 100, ["k1", "k2", "memcpy32_post"])
+          + [_ev("graph.replay", 20, 25, dev=True, mark=True)]
+          + replay(60, 101, ["k1", "k2"])
+          + replay(110, 102, ["kY", "k2",
+                              "Memcpy DtoD (Device -> Device)"]))
+    rep = profiling.report(ev, calls=1, steps=2)
+    spans = rep["spans"]
+    assert set(spans) == {"rollout.blocks", "rollout.blocks/graph.replay",
+                          "rollout.blocks/graph.replay/step.dynamics",
+                          "rollout.blocks/graph.replay/step.scan"}
+    scan = spans["rollout.blocks/graph.replay/step.scan"]
+    assert scan["self_s"] == pytest.approx(2e-6)
+    assert scan["ops"] == pytest.approx({"k2": 1e-6, "memcpy32_post": 1e-6})
+    assert spans["rollout.blocks"]["total_s"] == pytest.approx(3e-6)
+    assert spans["rollout.blocks"]["self_s"] == 0.0
+    assert (rep["replays"], rep["mismatched_replays"]) == (3, 2)
+    assert rep["device_s"] == pytest.approx(8e-6)
+    assert rep["unattributed_s"] == pytest.approx(5e-6)
+    assert rep["coverage"] == pytest.approx(3 / 8)
+    assert rep["busy_s"] == pytest.approx(8e-6)
+    assert (rep["calls"], rep["steps"]) == (1, 2)
+
+
+def test_report_gives_autograd_ops_their_forward_span(tracing):
+    """An operation launched under an autograd node takes the span of the
+    forward operation of the same sequence number, with ``.bwd``; one
+    under no node and no span on its thread takes the span open on
+    another (the caller in ``backward``); one under no span is outside
+    the program."""
+    ev = [_ev("step.scan", 0, 10), _ev("aten::mul", 1, 5, seq=5),
+          _ev("cudaLaunchKernel", 2, 3, id=200),
+          _ev("mul_kernel", 4, 6, id=200, dev=True),
+          _ev("train.backward", 15, 35),
+          _ev("autograd::engine::evaluate_function: MulBackward0", 20, 30,
+              thread=2, seq=5, fwd=1),
+          _ev("MulBackward0", 20.5, 29, thread=2, seq=5, fwd=1),
+          _ev("cudaLaunchKernel", 21, 22, thread=2, id=201),
+          _ev("mul_bwd_kernel", 23, 26, id=201, dev=True),
+          _ev("torch::autograd::AccumulateGrad", 30.5, 33, thread=2),
+          _ev("cudaLaunchKernel", 31, 32, thread=2, id=202),
+          _ev("add_kernel", 32, 33.5, id=202, dev=True),
+          _ev("cudaMemcpyAsync", 40, 41, id=203),
+          _ev("Memcpy DtoD", 41, 42, id=203, dev=True),
+          _ev("lost_kernel", 50, 51, id=999, dev=True)]
+    rep = profiling.report(ev, calls=1, steps=1)
+    self_s = {k: v["self_s"] for k, v in rep["spans"].items()}
+    assert self_s == pytest.approx({"step.scan": 2e-6,
+                                    "step.scan.bwd": 3e-6,
+                                    "train.backward": 1.5e-6})
+    assert rep["outside_s"] == pytest.approx(1e-6)
+    assert rep["unattributed_s"] == pytest.approx(1e-6)
+    assert rep["coverage"] == pytest.approx(6.5 / 8.5)
+    # idle gaps by the innermost span open at their middle
+    assert rep["idle_s"] == pytest.approx({
+        profiling.OUTSIDE: (17 + 7.5 + 8) * 1e-6, "train.backward": 6e-6})
+
+
+def test_counters_gather_the_ports_counters():
+    """``counters()``: the wrappers' launches, each live graphed function's
+    captures and replays, the march's counts (the exact read)."""
+    from pyracecarsimulator_tpu_torch.ops import sweeps
+    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import MARCH_COUNTS
+    from pyracecarsimulator_tpu_torch.utils.graph import GraphedFunction
+    g = GraphedFunction(lambda x: x, name="counted function")
+    got = profiling.counters()
+    assert got["launches"] == sweeps.launch_counts()
+    mine = [r for r in got["graphs"] if r["name"] == "counted function"]
+    assert mine == [{"name": "counted function", "captures": 0,
+                     "replays": 0}]
+    assert got["march"] == dict(MARCH_COUNTS)
+    del g
+
+
 # -- parallel.multihost ----------------------------------------------------
 
 @pytest.mark.parametrize("world, local, beams, want", [
