@@ -52,7 +52,15 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     another order); with time, plain time and bound; the kernels'
     persistent grids and, from nvcc's resource report, their registers,
     spills (none allowed) and stack frames (one allowed: the bilinear
-    gradient's ``GRAD_SLOTS`` positions a thread, 512 bytes); the
+    gradient's ``GRAD_SLOTS`` positions a thread, 512 bytes); the implicit
+    march's VJP in the poses ``implicit_pose_vjp`` against its plain
+    version on the same fan (each ray's terms with 0 mismatches, the
+    agents' sums within ``POSE_VJP_SUM_TOL`` x the sum of their |terms|,
+    the same bits on a second launch), its time beside its bound, the
+    plain version's and the composition's backward it replaces, and the
+    "edf_implicit" scan's forward bit for bit the composition's, its
+    forward + backward one ``edf_march`` and one ``implicit_pose_vjp``
+    launch; the
     "edf" march on the card against the CPU march on 64 poses
     given the same fan (bit-identical), the scan against the NumPy oracle
     ``oracle/raycast.py`` (its native body) on 64 poses, pose by pose
@@ -63,8 +71,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 11. per map, "edf_implicit" and "edf_bilinear" forward and backward at
     full width (EDF and pose gradients finite and non-zero; one
     ``edf_march`` launch a forward, the implicit variant for
-    "edf_implicit", and one ``edf_march_grad`` launch a bilinear backward,
-    nothing else);
+    "edf_implicit", one ``implicit_pose_vjp`` launch an implicit backward
+    and one ``edf_march_grad`` launch a bilinear backward, nothing else);
 12. ``make_scan_fn(map_grad=True)`` on berlin's sector backend: forward
     equal to ``scan_poses_sectors`` bit for bit, EDF cotangent finite and
     non-zero, ``sector_sweep`` launched exactly once per scan; the dedup
@@ -168,7 +176,10 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     Adam under ``graph=None`` trains eagerly; the graphed BPTT train step
     (T = 5, Adam with ``capturable=True``) against the eager one, losses
     and parameters after 3 steps (on "edf_bilinear" its backward launches
-    ``edf_march_grad``; the graphed "edf_implicit" step launches about as
+    ``edf_march_grad``, on "edf_implicit" ``implicit_pose_vjp`` once a
+    step of a call but the first (whose scan pose no parameter reaches),
+    eager or replayed, and on no other backend; the
+    graphed "edf_implicit" step launches about as
     many device kernels as the "edf" step: ``_refine``'s passes are
     gone); the facade with ``graph=True`` across
     ``add_obstacle`` and ``clear_obstacles`` against the eager facade (a
@@ -202,10 +213,12 @@ its bytes the field in and out once and the history once. Beside the bound stand
 ``cuobjdump``, what the compiled loop issues per test or per trip (its
 SASS), as a reading.
 
-Prints a JSON line describing the ten kernels (the five TPU kernels'
+Prints a JSON line describing the eleven kernels (the five TPU kernels'
 counterparts; the EDF march, which replaces three XLA loops, its
 gradient, which replaces the scan's transpose under ``jax.grad``, the
-general sweep, which replaces the general-segment scans, and the chamfer
+implicit march's pose VJP, which replaces its custom_vjp's backward and
+the fan's transpose, the general sweep, which replaces the
+general-segment scans, and the chamfer
 stencil of ``soft_edt`` and its gradient, which replace its scan and that
 scan's transpose; their launches
 path by path, each path counted from 0), then as
@@ -260,6 +273,11 @@ KERNELS = {
                        "(the scan's transpose under jax.grad)",
                        "the EDF marches' gradient: edf_bilinear, and a "
                        "march whose EDF requires grad"),
+    "implicit_pose_vjp": (SRC + "edf_march.cu",
+                          "pyracecarsimulator_tpu/ops/raymarch_diff.py:214 "
+                          "(_mri_bwd) and the transpose of the fan "
+                          "(ops/common.py rays_from_poses)",
+                          "edf_implicit's backward in the poses"),
     "general_sweep": (SRC + "general_sweep.cu",
                       "pyracecarsimulator_tpu/ops/raycast_general.py:34, "
                       "pyracecarsimulator_tpu/ops/raycast_general.py:73, "
@@ -337,6 +355,22 @@ MARCH_GRAD_OPS_PER_TRIP = {"nearest": 25, "bilinear": 85}
 # atomics, autograd's scatter in another order; the rays' gradients are
 # held bit for bit)
 GRAD_TOL = 1e-4
+# the implicit march's pose VJP (raymarch_diff.implicit_pose_vjp): the
+# operations of a hit ray, counted from raymarch_diff._pose_terms and its
+# sum (-fmad=false): the direction 6 (ct, st: 2 multiplies and an add
+# each), the position 8, the bounds 4, the patch's value 33 and slope 10,
+# (ex, ey) 2, dE/dr 3, the gates 5 (val - tau, two |.| and two compares),
+# the division 1, the x and y terms 2, the heading's term 5, the sums 3 and
+# the hit test 1 = 83; a miss costs its flag's test, 1. Its bytes: each ray's
+# cotangent, range and hit flag (9), each agent's x, y, cos and sin of the
+# heading and its three outputs (28), each beam's cos and sin (8), once; the
+# 4 taps of a hit come from the L2 (the EDF's cells, not counted)
+POSE_VJP_OPS_PER_HIT = 83
+POSE_VJP_BYTES_PER_RAY = 9
+# its sums against the plain version's, relative to the sum of the agent's
+# |terms| (float32 sums of 1080 terms in two orders; the terms themselves
+# are held bit for bit)
+POSE_VJP_SUM_TOL = 1e-5
 # agents per block of the gradient's plain run (autograd keeps every
 # trip's taps: ~40 MB a trip per 512 x 1080 rays)
 GRAD_PLAIN_AGENTS = 512
@@ -419,6 +453,33 @@ def timed_ms(fn, reps, warmup=2):
     from pyracecarsimulator_tpu_torch.utils.profiling import timed_loop
     return timed_loop(fn, reps=reps, warmup=warmup, index=True,
                       device="cuda") * 1e3
+
+
+def graphed_ms(fn, calls=50, reps=5):
+    """Device milliseconds per call of ``fn(i)``, ``calls`` calls captured
+    in one CUDA graph and the graph replayed ``reps`` times between CUDA
+    events: for a kernel shorter than its wrapper's host time, which
+    ``timed_ms`` would measure instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
 
 
 def wrappers():
@@ -980,9 +1041,9 @@ def same_fan_check(label, fn, dev_args, exact=True, tol=0.0):
 
 
 def march_resources():
-    """Each march and gradient kernel's registers, stack frame, spills and
-    static shared memory from nvcc's ``--resource-usage`` report of this
-    build.
+    """Each march and gradient kernel's (and the pose VJP's) registers,
+    stack frame, spills and static shared memory from nvcc's
+    ``--resource-usage`` report of this build.
     No kernel may spill, and only the bilinear gradient has a stack frame:
     its ``GRAD_SLOTS`` positions a thread (8 bytes each)."""
     from pyracecarsimulator_tpu_torch.ops import _kernels
@@ -992,7 +1053,12 @@ def march_resources():
     for chunk in re.split(r"Function (?:properties for )?", text)[1:]:
         name = chunk.split()[0].rstrip(":")
         m = re.search(r"edf_march(_grad)?_kernelILi(\d)EE", name)
-        if not m:
+        if "implicit_pose_vjp_kernel" in name:
+            label = "implicit_pose_vjp"
+        elif m:
+            label = (f"edf_march{m.group(1) or ''} "
+                     f"{list(MARCH_VARIANTS)[int(m.group(2))]}")
+        else:
             continue
 
         def field(*pats):
@@ -1001,8 +1067,6 @@ def march_resources():
                 if hit:
                     return int(hit.group(1))
             return None
-        label = (f"edf_march{m.group(1) or ''} "
-                 f"{list(MARCH_VARIANTS)[int(m.group(2))]}")
         res = {"registers": field(r"REG:(\d+)", r"Used (\d+) registers"),
                "stack": field(r"STACK:(\d+)", r"(\d+) bytes stack frame"),
                "spill_stores": field(r"(\d+) bytes spill stores"),
@@ -1230,6 +1294,127 @@ def march_kernel_checks(name, track, poses, rates, errs, times):
     rates["march_grid"] = grids
 
 
+def pose_vjp_checks(name, track, poses, rates, errs, times):
+    """10: ``implicit_pose_vjp`` (the implicit march's VJP in the poses)
+    against its plain version on the card, on the full 4096 x 1080 fan of
+    ``poses`` and a seeded cotangent: each ray's three terms bit for bit,
+    the agents' sums within ``POSE_VJP_SUM_TOL`` x the sum of the agent's
+    |terms|, the same bits on a second launch; the time, beside its bound,
+    the plain version's and the composition's it replaces (autograd
+    through ``rays_from_poses`` + ``_MarchImplicit``, whose sums it is
+    held to too, as a reading); "edf_implicit"'s scan forward bit for bit
+    the composition's, and its forward + backward counted: one
+    ``edf_march`` and one ``implicit_pose_vjp`` launch, the same
+    cotangent."""
+    import torch
+    from pyracecarsimulator_tpu_torch.config import ScanParams
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+    from pyracecarsimulator_tpu_torch.ops.common import (
+        beam_angles, fan_factors, rays_from_poses, rotate_fan)
+    from pyracecarsimulator_tpu_torch.ops.raymarch_xla import origin_xy_f32
+    sc = ScanParams()
+    eps, iters = sc.ray_tracing_epsilon, sc.max_march_iters
+    hw = (track.height, track.width)
+    res_m = track.resolution
+    org = torch.tensor([track.origin_x, track.origin_y], device="cuda")
+    ox, oy = origin_xy_f32(org, "cuda")
+    p = torch.as_tensor(poses, device="cuda")
+    fan = fan_factors(p[:, 2], beam_angles(BEAMS, FOV, p.device))
+    r, hit = rd._fwd_impl(track.edf, res_m, ox, oy, p[:, 0:1], p[:, 1:2],
+                          *rotate_fan(*fan), MAX_RANGE, eps, iters, hw)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    gs = [torch.randn(r.shape, generator=gen, device="cuda")
+          for _ in range(5)]
+    args = lambda g: (track.edf, res_m, ox, oy, p, *fan, r, hit, g, eps, hw)
+    terms = torch.empty((3, *r.shape), device="cuda")
+    reset_counts()
+    got = rd.implicit_pose_vjp(*args(gs[0]), terms=terms)
+    again = rd.implicit_pose_vjp(*args(gs[0]))
+    launched = counts()["implicit_pose_vjp"]
+    ref_terms = rd._pose_terms(*args(gs[0]))
+    ref = rd.implicit_pose_vjp_plain(*args(gs[0]))
+    torch.cuda.synchronize()
+    mism = [int((a != b).sum()) for a, b in zip(terms, ref_terms)]
+    scale = torch.stack([t.abs().sum(-1) for t in ref_terms], -1)
+    diff = (got - ref).abs()
+    rel = float((diff / scale.clamp_min(1e-30)).max())
+    ok_sums = bool((diff <= POSE_VJP_SUM_TOL * scale).all())
+    log(f"[{name}] implicit_pose_vjp vs plain on {tuple(r.shape)} rays: "
+        f"terms mismatches {dict(zip(('x', 'y', 'theta'), mism))}; sums "
+        f"max abs diff {float(diff.max())}, max diff / sum |terms| {rel} "
+        f"(tolerance {POSE_VJP_SUM_TOL}); second launch the same bits = "
+        f"{torch.equal(got, again)}; launches {launched}")
+    check(not any(mism) and ok_sums and torch.equal(got, again)
+          and launched == 2 and float(got.abs().sum()) > 0,
+          f"{name}: implicit_pose_vjp disagrees with its plain version")
+    errs["implicit_pose_vjp"].append(float(diff.max()))
+
+    # the composition it replaces, under autograd
+    q = p.clone().requires_grad_(True)
+    _, _, xb, yb, ct, st = rays_from_poses(q, BEAMS, FOV)
+    r_old = rd.march_rays_implicit(track.edf, res_m, org, xb, yb, ct, st,
+                                   MAX_RANGE, eps, iters, hw)
+    old = lambda i: torch.autograd.grad(r_old, q, gs[i % 5],
+                                        retain_graph=True)[0]
+    rel_old = float(((old(0) - got).abs() / scale.clamp_min(1e-30)).max())
+    hits = int(hit.sum())
+    rays, agents = r.numel(), r.shape[0]
+    ops = hits * POSE_VJP_OPS_PER_HIT + (rays - hits)
+    nbytes = POSE_VJP_BYTES_PER_RAY * rays + 28 * agents + 8 * BEAMS
+    ops_ms = ops / rates["slots_per_s"] * 1e3
+    bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
+    # the kernel's device time from a graph's replays (its wrapper's host
+    # time is longer), and beside it the host-bound time of eager calls
+    kernel = lambda i: rd.implicit_pose_vjp(*args(gs[i % 5]))
+    res = {"ms": graphed_ms(kernel),
+           "plain_ms": timed_ms(
+               lambda i: rd.implicit_pose_vjp_plain(*args(gs[i % 5])), 5),
+           "composition_ms": timed_ms(old, 5),
+           "ms_2": graphed_ms(kernel),
+           "eager_call_ms": timed_ms(kernel, 100),
+           "hits": hits, "ops": ops, "bytes": nbytes, "bound_ops_ms": ops_ms,
+           "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "composition_max_diff_over_sum": rel_old}
+    res["share_of_bound"] = res["bound_ms"] / min(res["ms"], res["ms_2"])
+    times["implicit_pose_vjp"][name] = res
+    log(f"[{name}] implicit_pose_vjp: {res['ms']:.4f} / {res['ms_2']:.4f} "
+        f"ms (graph replays; an eager call {res['eager_call_ms']:.4f} ms, "
+        f"its host time) vs plain {res['plain_ms']:.4f} ms, the "
+        f"composition's backward "
+        f"{res['composition_ms']:.4f} ms (its sums' max diff / sum |terms| "
+        f"{rel_old}); bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB, {ops:.4e} operations, {hits} hits), share "
+        f"{res['share_of_bound']:.3f}")
+
+    # the scan: forward bit for bit, forward + backward counted
+    with torch.no_grad():
+        reset_counts()
+        r_new = rd.scan_poses_implicit(
+            track.edf, res_m, org, p, num_beams=BEAMS, fov=FOV,
+            max_range=MAX_RANGE, eps=eps, max_iters=iters, bounds_hw=hw)
+        used_fwd = {k: v for k, v in counts().items() if v}
+    reset_counts()
+    q2 = p.clone().requires_grad_(True)
+    r_grad = rd.scan_poses_implicit(
+        track.edf, res_m, org, q2, num_beams=BEAMS, fov=FOV,
+        max_range=MAX_RANGE, eps=eps, max_iters=iters, bounds_hw=hw)
+    r_grad.backward(gs[0])
+    torch.cuda.synchronize()
+    used = {k: v for k, v in counts().items() if v}
+    same = [torch.equal(v, r_old.detach()) for v in (r_new, r_grad.detach())]
+    log(f"[{name}] edf_implicit scan: forward bit for bit the "
+        f"composition's (no grad, grad) = {same}; launches forward "
+        f"{used_fwd}, forward + backward {used}; pose cotangent the "
+        f"kernel's = {torch.equal(q2.grad, got)}")
+    check(all(same) and used_fwd == {"edf_march": 1}
+          and used == {"edf_march": 1, "implicit_pose_vjp": 1}
+          and torch.equal(q2.grad, got),
+          f"{name}: the edf_implicit scan's route or values")
+    del r_old, old
+    return res
+
+
 def march_phases(card, name, track, poses, rates, errs, times):
     """10-11: the EDF march backends on one map. Returns the times."""
     import numpy as np
@@ -1242,7 +1427,8 @@ def march_phases(card, name, track, poses, rates, errs, times):
     from pyracecarsimulator_tpu_torch.ops.raymarch_diff import (
         scan_poses_implicit)
     march_kernel_checks(name, track, poses, rates, errs, times)
-    out = {}
+    out = {"pose_vjp": pose_vjp_checks(name, track, poses, rates, errs,
+                                       times)}
     bundle = build_sim(track, backend="edf", device="cuda")
     sc = bundle.scan
     org = torch.tensor([track.origin_x, track.origin_y], device="cuda")
@@ -1295,10 +1481,11 @@ def march_phases(card, name, track, poses, rates, errs, times):
                              fov=FOV, interp="bilinear", **kw)
 
     # the implicit march's forward is one launch of the kernel's implicit
-    # variant, its VJP elementwise; the bilinear march's backward is
-    # edf_march_grad
+    # variant, its pose VJP one of implicit_pose_vjp (its map VJP
+    # elementwise); the bilinear march's backward is edf_march_grad
     for label, fn, q, kernels in (
-            ("edf_implicit", implicit, p, {"edf_march": 1}),
+            ("edf_implicit", implicit, p, {"edf_march": 1,
+                                           "implicit_pose_vjp": 1}),
             ("edf_bilinear", bilinear, p, {"edf_march": 1,
                                            "edf_march_grad": 1})):
         reset_counts()
@@ -2795,8 +2982,19 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                               params["b"].detach().clone(), final)
                 key = "graphed" if graph else "eager"
                 res[f"train_{key}_first_3_steps_s"] = first3
+                vjps = counts()["implicit_pose_vjp"]
                 res[f"train_{key}_ms"] = timed_ms(
                     lambda i: train(params, opt, s0), 5, warmup=1)
+                # the implicit march's pose VJP: one launch a step of a
+                # call but the first, eager or replayed (the first step's
+                # scan pose moves with the state's speed and steering,
+                # before the action acts: no parameter reaches it); none
+                # on the other backends
+                vjps = counts()["implicit_pose_vjp"] - vjps
+                check(vjps == (6 * (TRAIN_T - 1)
+                               if backend == "edf_implicit" else 0),
+                      f"{cell}: 6 {key} train steps launched "
+                      f"implicit_pose_vjp {vjps} times")
                 if graph:
                     check(train.graphed.captures == 1
                           and train.graphed.replays == 9,
@@ -3308,6 +3506,7 @@ def run():
                 "sector_sweep": "berlin", "sorted_tiles_sweep": "berlin",
                 "grp_sweep": "berlin", "edf_march": "levine nearest",
                 "edf_march_grad": "levine bilinear",
+                "implicit_pose_vjp": "levine",
                 "general_sweep": "berlin min", "soft_edt": "levine hard",
                 "soft_edt_grad": "levine hard"}
     log(json.dumps({"kernels": [{

@@ -11,6 +11,11 @@
 //     lax.while_loop of _march_nearest at :116 (the bracket of
 //     "edf_implicit") and the lax.fori_loop of _refine at :150 (its
 //     bisection), fused: the lane that marched a ray refines its hit.
+// and, in the backward of "edf_implicit" scans taken from poses, the XLA
+// code of _mri_bwd (pyracecarsimulator_tpu/ops/raymarch_diff.py:214, the
+// custom_vjp's backward of _fwd_impl) composed with the transpose of the
+// beam fan (ops/common.py rays_from_poses), fused into one kernel of the
+// pose cotangent (implicit_pose_vjp_kernel, below).
 // The JAX package has no Pallas march because a TPU has no vector gather
 // (raymarch_xla.py's module doc): every trip gathers the EDF at a
 // data-dependent cell. Hopper gathers natively, and each bundled map's EDF
@@ -68,6 +73,38 @@
 // keeps kSlots / 2 checkpoints there and marches each segment again from
 // its checkpoint, kSlots / 2 positions at a time (any length: a segment
 // longer than that is marched again for each part).
+//
+// The pose VJP (implicit_pose_vjp_kernel): given the cotangent g of the
+// ranges of a scan taken from poses (x0, y0, theta), the poses' cotangent
+// (N, 3). The implicit function theorem at the refined hit r (the module
+// doc of ops/raymarch_diff.py) gives, per ray, with scale = -g / (dE/dr)
+// where the hit is on the level set and not grazing (else 0) and (ex, ey)
+// the EDF's world-space slope at p(r): d/dx0 scale * ex, d/dy0 scale * ey,
+// and d/dtheta scale * r * (ey * ct - ex * st), the derivative that autograd
+// reaches through the fan's rotation and the heading's cos and sin
+// (d ct / d theta = -st, d st / d theta = ct). Each agent sums its beams'
+// terms. The port ran this as ~120 PyTorch passes over the (agents,
+// beams) rays (the per-ray VJP, the fan's products and the sums over the
+// beams: ~1.5 ms a step at 4096 x 1080). What bounds it on the H100: the
+// bytes of g, r and the hit flag (9 B a ray, ~40 MB, ~12 us at 3.35 TB/s);
+// the operations (~80 a hit ray) are a little less; the 4 taps of a hit
+// come from the L2, where the EDF stays. So the kernel waits on memory:
+// a ray's reads, then its taps (which depend on its range), two latencies
+// a ray. The design: one block an agent, each thread a strided share of
+// its beams (coalesced reads of g, r and the flag), kVjpBatch rays of a
+// thread in flight at once (their reads issued together, then their taps,
+// predicated on the hit: a miss reads no tap), the direction recomputed
+// from the agent's cos and sin of the heading and the offsets' (6
+// operations, where reading the forward's (N, B) cosines would cost 8 B a
+// ray and their memory until the backward), and the sum in a fixed order
+// (each thread's beams in order, a shuffle tree over a warp's lanes, the
+// block's warps in order): no atomics, the same bits from run to run.
+// Measured on an H100 at 4096 x 1080 (PERF.md): 128 threads and 3 rays in
+// flight 0.031 ms, one ray at a time 0.039-0.041, 256 threads 0.040-0.041,
+// 64 threads and 4 rays 0.038. The
+// terms are _hit_scale's and _pose_terms' float32 operations in their
+// order, so each equals the plain version's bit for bit; the sums differ
+// from torch.sum's by their order.
 //
 // Exact arithmetic: built with -fmad=false and no fast math, every float32
 // operation of the march in the order of the plain PyTorch loops
@@ -311,14 +348,18 @@ __device__ __forceinline__ float minimum_nan(float a, float b) {
   return a != a ? a : (b != b ? b : (a < b ? a : b));
 }
 
-// ops/raymarch_diff.py _bilinear_patch at (gx, gy): the value and, with
-// kSlope, the grid-space slope (dgx, dgy), in its order of operations. No
-// bounds test: the taps of the clamped base, as bilinear() takes them. A
-// NaN coordinate converts to cell 0 (__float2int_rz), so the taps stay in
-// the map and the value is NaN.
-template <bool kSlope>
-__device__ __forceinline__ float patch(const Map& m, float gx, float gy,
-                                       float& dgx, float& dgy) {
+// The 4 taps of ops/raymarch_diff.py _bilinear_patch at (gx, gy): the
+// fractions and the EDF at the clamped base. No bounds test: the taps of
+// the clamped base, as bilinear() takes them. A NaN coordinate converts to
+// cell 0 (__float2int_rz), so the taps stay in the map. With `load` false
+// the EDF is not read (the taps are 0).
+struct Patch {
+  float fx, fy;
+  float f00, f01, f10, f11;
+};
+
+__device__ __forceinline__ void patch_taps(const Map& m, float gx, float gy,
+                                           bool load, Patch& p) {
   const float xs = clamp_nan(gx - 0.5f, 0.0f, static_cast<float>(m.wp - 1));
   const float ys = clamp_nan(gy - 0.5f, 0.0f, static_cast<float>(m.hp - 1));
   float x0 = floorf(xs);
@@ -327,20 +368,38 @@ __device__ __forceinline__ float patch(const Map& m, float gx, float gy,
   const float ymax = static_cast<float>(m.hp - 2);
   x0 = x0 > xmax ? xmax : x0;
   y0 = y0 > ymax ? ymax : y0;
-  const float fx = xs - x0;
-  const float fy = ys - y0;
+  p.fx = xs - x0;
+  p.fy = ys - y0;
   const int base = __float2int_rz(y0) * m.wp + __float2int_rz(x0);
-  const float f00 = __ldg(m.edf + base);
-  const float f01 = __ldg(m.edf + base + 1);
-  const float f10 = __ldg(m.edf + base + m.wp);
-  const float f11 = __ldg(m.edf + base + m.wp + 1);
-  const float gx1 = 1.0f - fx;
-  const float gy1 = 1.0f - fy;
+  p.f00 = load ? __ldg(m.edf + base) : 0.0f;
+  p.f01 = load ? __ldg(m.edf + base + 1) : 0.0f;
+  p.f10 = load ? __ldg(m.edf + base + m.wp) : 0.0f;
+  p.f11 = load ? __ldg(m.edf + base + m.wp + 1) : 0.0f;
+}
+
+// _bilinear_patch's value and, with kSlope, its grid-space slope (dgx,
+// dgy) from the taps, in its order of operations.
+template <bool kSlope>
+__device__ __forceinline__ float patch_value(const Patch& p, float& dgx,
+                                             float& dgy) {
+  const float gx1 = 1.0f - p.fx;
+  const float gy1 = 1.0f - p.fy;
   if (kSlope) {
-    dgx = (f01 - f00) * gy1 + (f11 - f10) * fy;
-    dgy = (f10 - f00) * gx1 + (f11 - f01) * fx;
+    dgx = (p.f01 - p.f00) * gy1 + (p.f11 - p.f10) * p.fy;
+    dgy = (p.f10 - p.f00) * gx1 + (p.f11 - p.f01) * p.fx;
   }
-  return (f00 * gx1 + f01 * fx) * gy1 + (f10 * gx1 + f11 * fx) * fy;
+  return (p.f00 * gx1 + p.f01 * p.fx) * gy1 +
+         (p.f10 * gx1 + p.f11 * p.fx) * p.fy;
+}
+
+// ops/raymarch_diff.py _bilinear_patch at (gx, gy): the value and, with
+// kSlope, the grid-space slope (dgx, dgy). A NaN coordinate gives NaN.
+template <bool kSlope>
+__device__ __forceinline__ float patch(const Map& m, float gx, float gy,
+                                       float& dgx, float& dgy) {
+  Patch p;
+  patch_taps(m, gx, gy, true, p);
+  return patch_value<kSlope>(p, dgx, dgy);
 }
 
 // ops/raymarch_diff.py _refine for a hit of ray `ray` whose march stopped
@@ -748,6 +807,149 @@ __global__ void __launch_bounds__(kThreads, V == kBilinear ? 3 : 6)
   }
 }
 
+// -- the implicit march's VJP in the poses ----------------------------------
+
+// threads of a block of the pose VJP: one block an agent, each thread a
+// strided share of its beams (1080 beams: 8 or 9 a thread)
+constexpr int kVjpThreads = 128;
+// the rays a thread has in flight: their reads, then their taps, are
+// issued together, so that a thread waits twice for kVjpBatch rays
+constexpr int kVjpBatch = 3;
+
+// What the pose VJP reads beside the map: the poses (n, 3), read at
+// [a * ps0 + c * ps1], the fan's factors (cos and sin of each agent's
+// heading, (n,); of each beam offset, (beams,)), and the ranges, hit flags
+// and cotangent (n, beams), contiguous.
+struct PoseVjp {
+  const float* poses;
+  int ps0, ps1;
+  const float* cth;
+  const float* sth;
+  const float* cd;
+  const float* sd;
+  const float* r;
+  const bool* hit;
+  const float* g;
+  float inv_res;
+  float tau;          // the level set
+  float gate;         // 0.6 tau, rounded in float32
+  float denom_floor;  // _DENOM_FLOOR
+  int beams;
+};
+
+// One ray of the pose VJP between its phases.
+struct VjpRay {
+  float r, g, ct, st;
+  bool take;  // a hit on the map: its taps are read
+  Patch p;
+};
+
+// Phase 1 of beam b of an agent at (x0, y0) with heading factors (cth,
+// sth), whose range, cotangent and hit flag `ray` holds: the direction,
+// the hit point and its taps (read for a hit on the map only), in
+// ops/raymarch_diff.py _pose_terms' (and _hit_scale's) order.
+__device__ __forceinline__ void pose_taps(const Map& m, const PoseVjp& v,
+                                          float ox, float oy, float x0,
+                                          float y0, float cth, float sth,
+                                          int b, VjpRay& ray) {
+  const float cd = __ldg(v.cd + b);
+  const float sd = __ldg(v.sd + b);
+  ray.ct = cth * cd - sth * sd;
+  ray.st = sth * cd + cth * sd;
+  const float gx = ((x0 + ray.r * ray.ct) - ox) * v.inv_res;
+  const float gy = ((y0 + ray.r * ray.st) - oy) * v.inv_res;
+  ray.take = ray.take && gx >= 0.0f && gy >= 0.0f &&
+             gx < static_cast<float>(m.w) && gy < static_cast<float>(m.h);
+  patch_taps(m, gx, gy, ray.take, ray.p);
+}
+
+// Phase 2: the three terms (d/dx0, d/dy0, d/dtheta) of the ray, left at 0
+// where the hit is off the map, off the level set or grazing.
+__device__ __forceinline__ void pose_terms(const PoseVjp& v,
+                                           const VjpRay& ray, float (&t)[3]) {
+  float dgx, dgy;
+  const float val = patch_value<true>(ray.p, dgx, dgy);
+  const float ex = dgx * v.inv_res;
+  const float ey = dgy * v.inv_res;
+  const float denom = ex * ray.ct + ey * ray.st;
+  if (fabsf(val - v.tau) <= v.gate && fabsf(denom) >= v.denom_floor) {
+    const float scale = -ray.g / denom;
+    t[0] = scale * ex;
+    t[1] = scale * ey;
+    t[2] = (scale * ray.r) * (ey * ray.ct - ex * ray.st);
+  }
+}
+
+// Block `agent`: each thread takes its beams (b = threadIdx.x, +
+// kVjpThreads, ...) kVjpBatch at a time and sums their terms in order,
+// then a shuffle tree over each warp's lanes and the warps in order give
+// the agent's (d/dx0, d/dy0, d/dtheta). With `terms` set, also each ray's
+// terms at [k * n_rays + ray].
+__global__ void __launch_bounds__(kVjpThreads) implicit_pose_vjp_kernel(
+    Map m, const float* __restrict__ ox_p, const float* __restrict__ oy_p,
+    PoseVjp v, float* __restrict__ out, float* __restrict__ terms,
+    long long n_rays) {
+  const int agent = blockIdx.x;
+  const float ox = __ldg(ox_p);
+  const float oy = __ldg(oy_p);
+  const float x0 = __ldg(v.poses + agent * v.ps0);
+  const float y0 = __ldg(v.poses + (agent * v.ps0 + v.ps1));
+  const float cth = __ldg(v.cth + agent);
+  const float sth = __ldg(v.sth + agent);
+  const int row = agent * v.beams;
+  float sum[3] = {0.0f, 0.0f, 0.0f};
+  for (int b0 = threadIdx.x; b0 < v.beams;
+       b0 += kVjpThreads * kVjpBatch) {
+    VjpRay ray[kVjpBatch];
+#pragma unroll
+    for (int k = 0; k < kVjpBatch; ++k) {
+      const int b = b0 + k * kVjpThreads;
+      const int i = row + (b < v.beams ? b : 0);
+      ray[k].take = b < v.beams && v.hit[i];
+      ray[k].r = __ldg(v.r + i);
+      ray[k].g = __ldg(v.g + i);
+    }
+#pragma unroll
+    for (int k = 0; k < kVjpBatch; ++k) {
+      const int b = b0 + k * kVjpThreads;
+      pose_taps(m, v, ox, oy, x0, y0, cth, sth, b < v.beams ? b : 0, ray[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kVjpBatch; ++k) {
+      const int b = b0 + k * kVjpThreads;
+      float t[3] = {0.0f, 0.0f, 0.0f};
+      if (ray[k].take) pose_terms(v, ray[k], t);
+      if (b < v.beams) {
+        if (terms != nullptr) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) terms[c * n_rays + row + b] = t[c];
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) sum[c] = sum[c] + t[c];
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      sum[c] = sum[c] + __shfl_down_sync(kAll, sum[c], off);
+    }
+  }
+  __shared__ float part[3][kVjpThreads / 32];
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) part[c][threadIdx.x / 32] = sum[c];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    float s = part[threadIdx.x][0];
+#pragma unroll
+    for (int w = 1; w < kVjpThreads / 32; ++w) s = s + part[threadIdx.x][w];
+    out[agent * 3 + threadIdx.x] = s;
+  }
+}
+
 // -- launches ----------------------------------------------------------------
 
 Rays make_rays(const void* x0, const void* y0, const void* cos_t,
@@ -952,6 +1154,53 @@ extern "C" int edf_march_grad_launch(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Launches the pose VJP of n agents' scans of `beams` rays each on `stream`
+// (one block an agent) and returns cudaGetLastError(). edf (hp, wp) f32
+// contiguous, at least 2 x 2, with the real map (h, w) for the in-bounds
+// test; ox, oy f32 scalars; poses f32 read at [a * ps0 + c * ps1]; cth,
+// sth (n,) and cd, sd (beams,) f32, the fan's factors; r f32, hit bool and
+// g f32 (n, beams) contiguous: the ranges, hit flags and their cotangent;
+// out (n, 3) f32, contiguous, receives (d/dx0, d/dy0, d/dtheta) of each
+// agent; terms f32 (3, n, beams), contiguous, receives each ray's three
+// terms, or null. Sizes and offsets below 2^31.
+extern "C" int implicit_pose_vjp_launch(
+    const void* edf, long long hp, long long wp, long long h, long long w,
+    const void* ox, const void* oy, float inv_res, float tau, float gate,
+    float denom_floor, const void* poses, long long ps0, long long ps1,
+    const void* cth, const void* sth, const void* cd, const void* sd,
+    const void* r, const void* hit, const void* g, long long n,
+    long long beams, void* out, void* terms, void* stream) {
+  if (n <= 0) return 0;
+  if (hp < 2 || wp < 2 || beams <= 0 || !fits(hp * wp) || !fits(h) ||
+      !fits(w) || !fits(n * beams) || !fits(3 * n) ||
+      !fits((n - 1) * ps0 + ps1) || ps0 < 0 || ps1 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Map m{static_cast<const float*>(edf), static_cast<int>(hp),
+              static_cast<int>(wp), static_cast<int>(h), static_cast<int>(w)};
+  PoseVjp v;
+  v.poses = static_cast<const float*>(poses);
+  v.ps0 = static_cast<int>(ps0);
+  v.ps1 = static_cast<int>(ps1);
+  v.cth = static_cast<const float*>(cth);
+  v.sth = static_cast<const float*>(sth);
+  v.cd = static_cast<const float*>(cd);
+  v.sd = static_cast<const float*>(sd);
+  v.r = static_cast<const float*>(r);
+  v.hit = static_cast<const bool*>(hit);
+  v.g = static_cast<const float*>(g);
+  v.inv_res = inv_res;
+  v.tau = tau;
+  v.gate = gate;
+  v.denom_floor = denom_floor;
+  v.beams = static_cast<int>(beams);
+  implicit_pose_vjp_kernel<<<static_cast<unsigned>(n), kVjpThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      m, static_cast<const float*>(ox), static_cast<const float*>(oy), v,
+      static_cast<float*>(out), static_cast<float*>(terms), n * beams);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The persistent grid of a launch over many rays: the blocks of one wave

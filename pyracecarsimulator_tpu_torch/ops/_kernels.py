@@ -58,6 +58,10 @@ _SIGNATURES = {
                   _MARCH_HEAD + [_F] * 3 + [_P] * 7),
     "edf_march_grad": ("edf_march", "edf_march_grad_launch",
                        _MARCH_HEAD + [_P] * 9),
+    "implicit_pose_vjp": ("edf_march", "implicit_pose_vjp_launch",
+                          [_P, _L, _L, _L, _L, _P, _P] + [_F] * 4
+                          + [_P, _L, _L] + [_P] * 7 + [_L, _L]
+                          + [_P] * 3),
     "general_sweep": ("general_sweep", "general_sweep_launch",
                       [_I, _P, _L, _L, _L] + [_P] * 5 + [_L] * 10
                       + [_P] * 4),
@@ -180,7 +184,8 @@ def register(wrapper, name=None):
 
 def wrappers() -> dict:
     """Every registered wrapper by name: the sweeps' (``ops/sweeps.py``),
-    the march's (``ops/raymarch_xla.py``), the general sweep's
+    the march's (``ops/raymarch_xla.py``), the implicit march's pose VJP
+    (``ops/raymarch_diff.py``), the general sweep's
     (``ops/raycast_general.py``) and the chamfer stencil's
     (``ops/soft_edt.py``), once their modules are imported."""
     return dict(_WRAPPERS)

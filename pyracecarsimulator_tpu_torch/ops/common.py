@@ -120,10 +120,21 @@ def fan_cos_sin(theta, offs, theta_discretization: int = 0):
         ang = quantize_angles(theta[:, None] + offs[None, :],
                               theta_discretization)
         return torch.cos(ang), torch.sin(ang)
-    cth = torch.cos(theta)[:, None]
-    sth = torch.sin(theta)[:, None]
-    cd = torch.cos(offs)[None, :]
-    sd = torch.sin(offs)[None, :]
+    return rotate_fan(*fan_factors(theta, offs))
+
+
+def fan_factors(theta, offs):
+    """The exact fan's factors: (cos theta, sin theta) (A,) of the
+    headings and (cos d, sin d) (B,) of the beam offsets."""
+    return torch.cos(theta), torch.sin(theta), torch.cos(offs), \
+        torch.sin(offs)
+
+
+def rotate_fan(cth, sth, cd, sd):
+    """(ct, st) (A, B) of ``fan_factors``' (A,) and (B,) factors: the
+    heading rotated by each beam offset, ``ct = cth*cd - sth*sd``, ``st =
+    sth*cd + cth*sd``."""
+    cth, sth = cth[:, None], sth[:, None]
     return cth * cd - sth * sd, sth * cd + cth * sd
 
 

@@ -39,6 +39,26 @@ the whole forward and backward can be captured in a CUDA graph. The map
 cotangent is summed with ``index_add_``, which on CUDA adds with atomics:
 the order of the sum, and so its last bits, differ from JAX's and from run
 to run.
+
+A scan taken from poses with the exact fan (``scan_poses_implicit``, the
+"edf_implicit" backend) runs as one ``torch.autograd.Function``,
+``_ScanImplicit``, whose pose cotangent is one kernel,
+``implicit_pose_vjp`` (``csrc/edf_march.cu``). It replaces the XLA code
+of the JAX package's custom_vjp backward ``_mri_bwd`` composed with the
+transpose of the fan (``rays_from_poses``: the broadcasts' sums over the
+beams, the rotation's products, cos and sin of the heading), which the
+port had run as ~120 PyTorch passes over the (agents, beams) rays. Per
+ray the terms of ``_pose_terms`` (``_hit_scale``'s float32 operations,
+the direction recomputed from the agent's cos and sin of the heading and
+the beam offsets'), summed over each agent's beams in a fixed order: no
+atomics. Its bound is the bytes of the cotangent, the range and the hit
+flag (9 B a ray); the forward keeps the fan's (N,) and (B,) factors, not
+its (N, B) cosines. On CPU tensors ``implicit_pose_vjp_plain`` runs: the
+same terms, then ``sum``. The map cotangent, where the EDF requires grad,
+is ``_hit_scale`` and ``_scatter_taps``. The bucketed fan
+(``theta_discretization > 0``), whose heading has no gradient (a
+``floor``), and the ray-level ``march_rays_implicit`` keep
+``_MarchImplicit``'s per-ray VJP.
 """
 
 from __future__ import annotations
@@ -46,11 +66,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import rays_from_poses
+from .common import beam_angles, fan_factors, rays_from_poses, rotate_fan
 from . import _kernels
-from .raymarch_xla import (_ALIVE_CHECK, _bilinear_taps, _tap_values,
-                           count_march, edf_march, origin_xy_f32,
-                           sample_edf_nearest)
+from .raymarch_xla import (_ALIVE_CHECK, INDEX_LIMIT, _bilinear_taps,
+                           _tap_values, count_march, edf_march,
+                           origin_xy_f32, sample_edf_nearest)
 
 _DENOM_FLOOR = 1e-2    # |dE/dr| below this => grazing; zero gradient
 
@@ -142,10 +162,15 @@ def _surface_level(eps, resolution) -> float:
     return float(np.float32(max(eps, 0.5 * resolution)))
 
 
+def _gate_width(tau) -> float:
+    """0.6 tau, rounded in float32 as JAX rounds it."""
+    return float(np.float32(0.6) * np.float32(tau))
+
+
 def _surface_gate(val, tau):
-    """|val - tau| <= 0.6 tau, with 0.6 tau rounded in float32 as JAX
-    rounds it: the implicit formula holds only on the level set."""
-    return torch.abs(val - tau) <= float(np.float32(0.6) * np.float32(tau))
+    """|val - tau| <= 0.6 tau (``_gate_width``): the implicit formula holds
+    only on the level set."""
+    return torch.abs(val - tau) <= _gate_width(tau)
 
 
 def _hit_scale(edf, resolution, ox, oy, x0, y0, cos_t, sin_t, r, g, gate,
@@ -277,17 +302,160 @@ def march_rays_implicit(edf, resolution, origin_xy, x0, y0, cos_t, sin_t,
                                 max_range, eps, max_iters, bounds_hw)
 
 
+def _pose_terms(edf, resolution, ox, oy, poses, cth, sth, cd, sd, r, hit,
+                g, eps, bounds_hw):
+    """The per-ray terms of the pose cotangent of a scan taken from
+    ``poses`` (N, 3) with the exact fan of ``fan_factors`` (cth, sth (N,),
+    cd, sd (B,)): (d/dx0, d/dy0, d/dtheta), each (N, B), for ranges ``r``,
+    hit flags ``hit`` and their cotangent ``g``. ``scale * r * (ey * ct -
+    ex * st)`` is what autograd reaches through the fan (d ct/d theta =
+    -st, d st/d theta = ct): the same derivative."""
+    ct, st = rotate_fan(cth, sth, cd, sd)
+    scale, ex, ey, _, _, _ = _hit_scale(
+        edf, resolution, ox, oy, poses[:, 0:1], poses[:, 1:2], ct, st, r, g,
+        hit, eps, bounds_hw)
+    return scale * ex, scale * ey, scale * r * (ey * ct - ex * st)
+
+
+def implicit_pose_vjp_plain(edf, resolution, ox, oy, poses, cth, sth, cd,
+                            sd, r, hit, g, eps, bounds_hw):
+    """The plain PyTorch version of ``implicit_pose_vjp``, on any device:
+    ``_pose_terms`` summed over the beams. Returns (N, 3)."""
+    return torch.stack([t.sum(dim=-1) for t in _pose_terms(
+        edf, resolution, ox, oy, poses, cth, sth, cd, sd, r, hit, g, eps,
+        bounds_hw)], dim=-1)
+
+
+def implicit_pose_vjp(edf, resolution, ox, oy, poses, cth, sth, cd, sd, r,
+                      hit, g, eps, bounds_hw, terms=None):
+    """The pose cotangent (N, 3) of an "edf_implicit" scan taken from
+    ``poses`` (N, 3): ``_pose_terms`` summed over each agent's B beams.
+    CUDA tensors launch the kernel of ``csrc/edf_march.cu``
+    (``implicit_pose_vjp_kernel``: one block an agent, the sum in a fixed
+    order, no atomics), CPU tensors run ``implicit_pose_vjp_plain``. The
+    kernel's terms equal ``_pose_terms``' bit for bit; its sums differ
+    from ``torch.sum``'s by their order. ``terms``: a contiguous float32
+    (3, N, B) CUDA tensor that receives each ray's terms, or None.
+    ``implicit_pose_vjp.launches`` counts kernel launches."""
+    args = (edf, resolution, ox, oy, poses, cth, sth, cd, sd, r, hit, g,
+            eps, bounds_hw)
+    if not _kernels.on_cuda("implicit_pose_vjp", edf):
+        if terms is not None:
+            raise ValueError("implicit_pose_vjp: terms are the kernel's; "
+                             "CPU tensors take the plain version")
+        return implicit_pose_vjp_plain(*args)
+    name = "implicit_pose_vjp"
+    if edf.dtype != torch.float32 or edf.dim() != 2 \
+            or not edf.is_contiguous() or min(edf.shape) < 2:
+        raise ValueError(f"{name}: edf must be a contiguous float32 (H, W) "
+                         f"tensor, at least 2 x 2, got {edf.dtype} "
+                         f"{tuple(edf.shape)}")
+    n, b = r.shape
+    g = g.contiguous()
+    want = {"poses": (poses, (n, 3), torch.float32),
+            "cth": (cth, (n,), torch.float32),
+            "sth": (sth, (n,), torch.float32),
+            "cd": (cd, (b,), torch.float32),
+            "sd": (sd, (b,), torch.float32),
+            "r": (r, (n, b), torch.float32),
+            "hit": (hit, (n, b), torch.bool),
+            "g": (g, (n, b), torch.float32),
+            "ox": (ox, (), torch.float32), "oy": (oy, (), torch.float32)}
+    if terms is not None:
+        want["terms"] = (terms, (3, n, b), torch.float32)
+    for what, (v, shape, dtype) in want.items():
+        strided = what == "poses"     # read through its strides
+        if tuple(v.shape) != shape or v.dtype != dtype \
+                or v.device != edf.device \
+                or not (strided or v.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a "
+                             f"{'' if strided else 'contiguous '}{dtype} "
+                             f"tensor of shape {shape} on {edf.device}, got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    hp, wp = edf.shape
+    h, w = bounds_hw if bounds_hw is not None else (hp, wp)
+    last = (n - 1) * poses.stride(0) + poses.stride(1) if n else 0
+    for what, size in {"the map": hp * wp, "the rays": 3 * n * b,
+                       "the poses' last offset": last}.items():
+        if size > INDEX_LIMIT:
+            raise ValueError(f"{name}: {what} reaches {size}, past the "
+                             f"kernel's 32-bit index limit ({INDEX_LIMIT})")
+    out = torch.empty((n, 3), dtype=torch.float32, device=edf.device)
+    if n:
+        tau = _surface_level(eps, resolution)
+        _kernels.launch(name, name, edf, hp, wp, h, w, ox, oy,
+                        float(1.0 / resolution), tau, _gate_width(tau),
+                        _DENOM_FLOOR, poses, poses.stride(0),
+                        poses.stride(1), cth, sth, cd, sd, r, hit, g, n, b,
+                        out, terms)
+        implicit_pose_vjp.launches += 1
+    return out
+
+
+implicit_pose_vjp.launches = 0
+_kernels.register(implicit_pose_vjp)
+
+
+class _ScanImplicit(torch.autograd.Function):
+    """``scan_poses_implicit``'s exact-fan forward with its VJP in (edf,
+    poses): the pose cotangent by ``implicit_pose_vjp``, the map cotangent
+    as ``_MarchImplicit``'s. The forward launches what ``rays_from_poses``
+    and ``march_rays_implicit`` launch and keeps the fan's (N,) and (B,)
+    factors, not its (N, B) cosines."""
+
+    @staticmethod
+    def forward(ctx, edf, poses, resolution, origin_xy, num_beams, fov,
+                max_range, eps, max_iters, bounds_hw):
+        fan = fan_factors(poses[:, 2], beam_angles(num_beams, fov,
+                                                   poses.device))
+        ct, st = rotate_fan(*fan)
+        ox, oy = origin_xy_f32(origin_xy, edf.device)
+        r, hit = _fwd_impl(edf, resolution, ox, oy, poses[:, 0:1],
+                           poses[:, 1:2], ct, st, max_range, eps, max_iters,
+                           bounds_hw)
+        ctx.save_for_backward(edf, poses, *fan, r, hit, ox, oy)
+        ctx.consts = (resolution, eps, bounds_hw)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        edf, poses, cth, sth, cd, sd, r, hit, ox, oy = ctx.saved_tensors
+        resolution, eps, bounds_hw = ctx.consts
+        edf_ct = pose_ct = None
+        if ctx.needs_input_grad[1]:
+            pose_ct = implicit_pose_vjp(edf, resolution, ox, oy, poses, cth,
+                                        sth, cd, sd, r, hit, g, eps,
+                                        bounds_hw)
+        if ctx.needs_input_grad[0]:
+            ct, st = rotate_fan(cth, sth, cd, sd)
+            scale, _, _, weights, idx, _ = _hit_scale(
+                edf, resolution, ox, oy, poses[:, 0:1], poses[:, 1:2], ct,
+                st, r, g, hit, eps, bounds_hw)
+            edf_ct = _scatter_taps(edf, scale, weights, idx)
+        return (edf_ct, pose_ct) + (None,) * 8
+
+
 def scan_poses_implicit(edf, resolution, origin_xy, poses,
                         num_beams: int = 1080,
                         fov: float = 4.712388980384690,
                         max_range=10.0, eps=0.0001, max_iters: int = 256,
                         theta_discretization: int = 0, bounds_hw=None):
     """Full lidar scans with the implicit-gradient march; poses (..., 3)
-    on ``edf``'s device. Returns (..., num_beams)."""
-    batch, _, xb, yb, ct, st = rays_from_poses(
-        poses.to(torch.float32), num_beams, fov, theta_discretization)
-    r = march_rays_implicit(edf, resolution, origin_xy, xb, yb, ct, st,
-                            max_range, eps, max_iters, bounds_hw)
+    on ``edf``'s device. Returns (..., num_beams). The exact fan takes
+    ``_ScanImplicit`` (its pose cotangent: ``implicit_pose_vjp``); the
+    bucketed fan (``theta_discretization > 0``), whose heading has no
+    gradient, the rays' VJP of ``march_rays_implicit``."""
+    poses = poses.to(torch.float32)
+    if theta_discretization:
+        batch, _, xb, yb, ct, st = rays_from_poses(
+            poses, num_beams, fov, theta_discretization)
+        r = march_rays_implicit(edf, resolution, origin_xy, xb, yb, ct, st,
+                                max_range, eps, max_iters, bounds_hw)
+        return r.reshape(*batch, num_beams)
+    batch = tuple(poses.shape[:-1])
+    r = _ScanImplicit.apply(edf, poses.reshape(-1, 3), resolution,
+                            origin_xy, num_beams, fov, max_range, eps,
+                            max_iters, bounds_hw)
     return r.reshape(*batch, num_beams)
 
 

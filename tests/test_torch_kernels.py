@@ -10,8 +10,10 @@ Tolerance: none. The kernels are compiled without FMA contraction or fast
 math and must equal their plain versions (``list_sweep_plain``,
 ``dense_sweep_plain``, ``raycast_general.general_sweep_plain``, and for
 ``csrc/edf_march.cu`` the plain loop ``raymarch_xla.march_rays_plain`` and
-the implicit forward ``raymarch_diff._fwd_plain``) bit for bit on the same
-inputs. ``csrc/soft_edt.cu`` (the chamfer stencil of ``ops/soft_edt.py``
+the implicit forward ``raymarch_diff._fwd_plain``; for its pose VJP the
+per-ray terms of ``raymarch_diff._pose_terms``, whose sums over the beams
+are held within 1e-5 x the sum of the agent's |terms|: the kernel sums
+in another order than ``torch.sum``) bit for bit on the same inputs. ``csrc/soft_edt.cu`` (the chamfer stencil of ``ops/soft_edt.py``
 and its gradient): hard min bit for bit against ``chamfer_stencil_plain``
 and ``chamfer_stencil_grad_plain``; softmin within 1e-5 x max(1, the
 largest |plain|) (the kernel sums the 9 exponentials in the candidates'
@@ -528,6 +530,71 @@ def test_edf_march_matches_plain(cuda, variant, case):
             assert max(hits) > (rx.GRAD_SLOTS // 2) ** 2 + 1
 
 
+@pytest.mark.parametrize("beams", [1080, 37])
+def test_implicit_pose_vjp_matches_plain(cuda, beams):
+    """``implicit_pose_vjp`` (the implicit march's VJP in the poses) against
+    ``_pose_terms`` and ``implicit_pose_vjp_plain`` on levine: 48 free
+    poses, 8 outside the map and 8 in walls, read through a strided view
+    (a column slice of a wider tensor), a cotangent that is an expanded
+    view: each ray's terms bit for bit, the sums within 1e-5 x the sum of
+    the agent's |terms| (another order of the sum), the same bits again
+    and from a CUDA graph's replay; one launch a call; no agents, no
+    launch."""
+    from pyracecarsimulator_tpu_torch.maps import (load_builtin,
+                                                   sample_free_poses)
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
+    from pyracecarsimulator_tpu_torch.ops.common import (
+        beam_angles, fan_factors, rotate_fan)
+    track = load_builtin("levine", device=cuda)
+    rng = np.random.RandomState(5)
+    poses = sample_free_poses(track, 64, np.random.RandomState(0))
+    poses[48:56, 0] += 1000.0                       # outside the map
+    occ = track.occupancy.cpu().numpy()[: track.height, : track.width]
+    iy, ix = np.nonzero(occ > 0.5)
+    k = rng.randint(len(iy), size=8)
+    poses[56:, 0] = track.origin_x + (ix[k] + 0.5) * track.resolution
+    poses[56:, 1] = track.origin_y + (iy[k] + 0.5) * track.resolution
+    wide = torch.zeros((64, 5), device=cuda)
+    wide[:, 1:4] = torch.tensor(poses, device=cuda)
+    p = wide[:, 1:4]
+    org = torch.tensor([track.origin_x, track.origin_y], device=cuda)
+    ox, oy = org[0], org[1]
+    hw = (track.height, track.width)
+    fan = fan_factors(p[:, 2], beam_angles(beams, FOV, cuda))
+    r, hit = rd._fwd_impl(track.edf, track.resolution, ox, oy, p[:, 0:1],
+                          p[:, 1:2], *rotate_fan(*fan), 10.0, 1e-4, 200, hw)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn((1, beams), generator=gen, device=cuda).expand(64, -1)
+    args = (track.edf, track.resolution, ox, oy, p, *fan, r, hit, g, 1e-4,
+            hw)
+    terms = torch.empty((3, 64, beams), device=cuda)
+    before = rd.implicit_pose_vjp.launches
+    got = rd.implicit_pose_vjp(*args, terms=terms)
+    assert rd.implicit_pose_vjp.launches == before + 1
+    ref_terms = rd._pose_terms(*args)
+    assert all(torch.equal(a, b) for a, b in zip(terms, ref_terms))
+    scale = torch.stack([t.abs().sum(-1) for t in ref_terms], -1)
+    ref = rd.implicit_pose_vjp_plain(*args)
+    assert bool(((got - ref).abs() <= 1e-5 * scale).all())
+    assert bool((got[48:56] == 0).all()) and float(got.abs().sum()) > 0
+    assert torch.equal(rd.implicit_pose_vjp(*args), got)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        rd.implicit_pose_vjp(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rd.implicit_pose_vjp(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    none = rd.implicit_pose_vjp(track.edf, track.resolution, ox, oy,
+                                p[:0], *(v[:0] for v in fan[:2]), *fan[2:],
+                                r[:0], hit[:0], g[:0], 1e-4, hw)
+    assert none.shape == (0, 3)
+
+
 @pytest.mark.parametrize("case", ["random", "levine", "edges"])
 @pytest.mark.parametrize("interp", ["nearest", "bilinear"])
 def test_edf_march_grad_matches_plain(cuda, interp, case):
@@ -641,9 +708,11 @@ def test_edf_march_counts_concurrent_launches(cuda):
 def test_graphed_edf_train_step_equals_eager(cuda, backend):
     """The EDF train steps (T = 3, Adam with ``capturable=True``) in one
     CUDA graph against the eager ones after 3 steps, bit for bit; the
-    bilinear march's backward runs ``edf_march_grad`` in both."""
+    bilinear march's backward runs ``edf_march_grad`` in both, the
+    implicit march's ``implicit_pose_vjp``."""
     import pyracecarsimulator_tpu_torch as P
     from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.ops import raymarch_diff as rd
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
     from pyracecarsimulator_tpu_torch.parallel import make_bptt_train_fn
     beams, n = 128, 32
@@ -665,6 +734,7 @@ def test_graphed_edf_train_step_equals_eager(cuda, backend):
     adam = lambda ps: torch.optim.Adam(ps, lr=3e-3, capturable=True)
     got = {}
     grads = rx.edf_march_grad.launches
+    vjps = rd.implicit_pose_vjp.launches
     for graph in (False, True):
         train, init = make_bptt_train_fn(P.make_step_fn(bundle,
                                                         with_noise=False),
@@ -683,6 +753,7 @@ def test_graphed_edf_train_step_equals_eager(cuda, backend):
     assert all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
     assert float(got[True][1].abs().sum()) > 0          # it trains
     assert (rx.edf_march_grad.launches > grads) == (backend == "edf_bilinear")
+    assert (rd.implicit_pose_vjp.launches > vjps) == (backend == "edf_implicit")
 
 
 # -- the general-segment sweep ------------------------------------------------

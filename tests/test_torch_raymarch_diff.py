@@ -24,7 +24,16 @@ Tolerances:
 - the map-grad sector scan: forward equal to ``scan_poses_sectors`` bit for
   bit; the EDF cotangent against the JAX facade's within 1e-2 absolute +
   1e-3 relative (each package builds its own beam fan, ROADMAP.md fault
-  3.1, which moves a hit point by float32 ulps).
+  3.1, which moves a hit point by float32 ulps);
+- ``scan_poses_implicit``'s VJP in the poses (``_ScanImplicit``, the plain
+  ``implicit_pose_vjp_plain`` on this CPU): against ``jax.vjp`` of the JAX
+  package's ``scan_poses_implicit`` within 1e-4 + 1e-4 relative plus
+  ``SUM_TOL`` x the sum of the agent's |terms| (each package builds its own
+  fan, fault 3.1, and each sums the beams in its own order); against the
+  composition it replaces (``rays_from_poses`` + ``_MarchImplicit`` under
+  autograd) within ``SUM_TOL`` x the sum of |terms|, with the x and y
+  terms of each ray equal to that composition's ray cotangents bit for
+  bit and the forward's ranges equal bit for bit.
 """
 
 import numpy as np
@@ -50,6 +59,11 @@ from pyracecarsimulator_tpu_torch.ops.raymarch_xla import march_rays
 
 RES = 0.05
 MAXR = 6.0
+FOV = 4.712388980384690
+# the pose cotangent's beam sums, relative to the sum of the agent's
+# |terms|: float32 sums of ~1000 terms in two orders differ by a few ulps
+# of that sum in each (a sequential sum's bound is 1080 x 2^-24 = 6.4e-5)
+SUM_TOL = 1e-5
 T = lambda a: torch.tensor(np.asarray(a))      # an own, writable copy
 
 
@@ -284,3 +298,212 @@ def test_map_grad_sector_scan(small_track):
     p = T(poses).requires_grad_(True)
     scan_g(p, T(np.asarray(t.edf))).sum().backward()
     assert torch.isfinite(p.grad).all() and float(p.grad.abs().sum()) > 0
+
+
+def _pose_cases(field):
+    """Pose sets of the pose-VJP tests: (poses (N, 3) float32, num_beams,
+    theta_discretization). "exact": free poses; "bucketed": the same on
+    the theta-bucket fan; "misses": one pose outside the map (every beam
+    misses), one at the map's centre, and free poses with a short range
+    budget; "grazing": a pose 3 cm from the bottom wall heading along it,
+    whose fan of 1081 beams has a hit below the slope floor and hits off
+    the level set, beside free poses."""
+    _, edf, org, _ = field
+    rng = np.random.RandomState(21)
+    ys, xs = np.where(edf > 0.25)
+    k = rng.randint(len(ys), size=6)
+    free = np.stack([org[0] + (xs[k] + .5) * RES, org[1] + (ys[k] + .5) * RES,
+                     rng.uniform(-np.pi, np.pi, 6)], -1).astype(np.float32)
+    wall = org[1] + 3 * RES
+    return {
+        "exact": (free, 64, 0),
+        "bucketed": (free, 64, 2000),
+        "misses": (np.concatenate([[[50.0, 50.0, 0.2], [0.0, 0.0, 0.3]],
+                                   free[:3]]).astype(np.float32), 64, 0),
+        "grazing": (np.concatenate([[[0.0, wall + 0.03, 0.0]],
+                                    free[:2]]).astype(np.float32), 1081, 0),
+    }
+
+
+def _port_scan(field, edf, poses, beams, disc):
+    _, _, org, hw = field
+    return pdiff.scan_poses_implicit(edf, RES, T(org), poses,
+                                     num_beams=beams, fov=FOV,
+                                     max_range=MAXR,
+                                     theta_discretization=disc, bounds_hw=hw)
+
+
+def _term_sums(field, edf, poses, beams, g):
+    """The sum over each agent's beams of |terms| (N, 3) of the exact fan's
+    pose cotangent (``_pose_terms``), the scale of its sums' rounding."""
+    _, _, org, hw = field
+    p = T(poses)
+    fan = P.ops.common.fan_factors(
+        p[:, 2], P.ops.common.beam_angles(beams, FOV, "cpu"))
+    ox, oy = T(org)
+    with torch.no_grad():
+        r, hit = pdiff._fwd_impl(T(edf), RES, ox, oy, p[:, 0:1], p[:, 1:2],
+                                 *P.ops.common.rotate_fan(*fan), MAXR, 1e-4,
+                                 256, hw)
+        terms = pdiff._pose_terms(T(edf), RES, ox, oy, p, *fan, r, hit,
+                                  T(g), 1e-4, hw)
+    return torch.stack([t.abs().sum(-1) for t in terms], -1).numpy()
+
+
+@pytest.mark.parametrize("case", ["exact", "bucketed", "misses", "grazing"])
+def test_scan_pose_vjp_matches_jax(field, case):
+    """The scan's values and its VJP in the poses against ``jax.vjp`` of
+    the JAX package's ``scan_poses_implicit``."""
+    _, edf, org, hw = field
+    poses, beams, disc = _pose_cases(field)[case]
+    g = np.random.RandomState(3).randn(len(poses), beams).astype(np.float32)
+    r_ref, vjp = jax.vjp(
+        lambda p: jdiff.scan_poses_implicit(
+            jnp.asarray(edf), RES, jnp.asarray(org), p, num_beams=beams,
+            fov=FOV, max_range=MAXR, theta_discretization=disc,
+            bounds_hw=hw), jnp.asarray(poses))
+    (ct_ref,) = vjp(jnp.asarray(g))
+    p = T(poses).requires_grad_(True)
+    r = _port_scan(field, T(edf), p, beams, disc)
+    r.backward(T(g))
+    np.testing.assert_allclose(r.detach().numpy(), np.asarray(r_ref),
+                               atol=1e-5, rtol=1e-5)
+    got, ref = p.grad.numpy(), np.asarray(ct_ref)
+    scale = _term_sums(field, edf, poses, beams, g)
+    assert (np.abs(got - ref) <= 1e-4 + 1e-4 * np.abs(ref)
+            + SUM_TOL * scale).all(), np.abs(got - ref).max()
+    hits = r.detach().numpy() < MAXR
+    if case == "bucketed":     # the bucket's floor: no heading gradient
+        assert (got[:, 2] == 0).all() and np.abs(got[:, :2]).sum() > 0
+    else:
+        assert (np.abs(got).sum(-1) > 0).all() or case == "misses"
+    if case == "misses":
+        assert not hits[0].any() and (got[0] == 0).all()
+        assert np.abs(got[1:]).sum() > 0
+    if case == "grazing":
+        p0 = T(poses[:1])
+        fan = P.ops.common.fan_factors(
+            p0[:, 2], P.ops.common.beam_angles(beams, FOV, "cpu"))
+        ct, st = P.ops.common.rotate_fan(*fan)
+        ox, oy = T(org)
+        x0, y0 = p0[:, 0:1], p0[:, 1:2]
+        rr = r.detach()[:1]
+        gx, gy = (x0 + rr * ct - ox) / RES, (y0 + rr * st - oy) / RES
+        val, dgx, dgy, _, _, _ = pdiff._bilinear_patch(T(edf), gx, gy, hw)
+        denom = (dgx * ct + dgy * st) / RES
+        on = pdiff._surface_gate(val, pdiff._surface_level(1e-4, RES))
+        hit0 = T(hits[:1])
+        assert bool((hit0 & on & (denom.abs() < pdiff._DENOM_FLOOR)).any())
+        assert bool((hit0 & ~on).any())
+
+
+@pytest.mark.parametrize("case", ["exact", "misses", "grazing"])
+def test_scan_pose_vjp_matches_composition(field, case):
+    """``_ScanImplicit`` against the composition it replaces,
+    ``rays_from_poses`` + ``_MarchImplicit`` under autograd: the ranges bit
+    for bit, each ray's x and y terms equal to the composition's ray
+    cotangents bit for bit, the agents' sums within ``SUM_TOL`` x the sum
+    of their |terms|."""
+    _, edf, org, hw = field
+    poses, beams, _ = _pose_cases(field)[case]
+    g = T(np.random.RandomState(4).randn(len(poses), beams)
+          .astype(np.float32))
+    p = T(poses).requires_grad_(True)
+    r = _port_scan(field, T(edf), p, beams, 0)
+    r.backward(g)
+    q = T(poses).requires_grad_(True)
+    _, _, xb, yb, ct, st = P.ops.common.rays_from_poses(q, beams, FOV)
+    rays = [v.detach().requires_grad_(True) for v in (xb, yb, ct, st)]
+    r_old = pdiff.march_rays_implicit(T(edf), RES, T(org), *rays, MAXR,
+                                      1e-4, 256, hw)
+    r_old.backward(g)
+    torch.autograd.backward((xb, yb, ct, st), [v.grad for v in rays])
+    assert torch.equal(r.detach(), r_old.detach())
+    fan = P.ops.common.fan_factors(
+        T(poses)[:, 2], P.ops.common.beam_angles(beams, FOV, "cpu"))
+    ox, oy = T(org)
+    hit = pdiff._fwd_impl(T(edf), RES, ox, oy, xb.detach(), yb.detach(),
+                          ct.detach(), st.detach(), MAXR, 1e-4, 256, hw)[1]
+    terms = pdiff._pose_terms(T(edf), RES, ox, oy, T(poses), *fan,
+                              r.detach(), hit, g, 1e-4, hw)
+    assert torch.equal(terms[0], rays[0].grad)
+    assert torch.equal(terms[1], rays[1].grad)
+    scale = torch.stack([t.abs().sum(-1) for t in terms], -1)
+    assert bool(((p.grad - q.grad).abs() <= SUM_TOL * scale).all()), \
+        float((p.grad - q.grad).abs().max())
+    assert float(p.grad.abs().sum()) > 0
+
+
+def test_scan_map_and_pose_cotangents_match_jax(field):
+    """With the EDF requiring grad the scan's VJP gives both cotangents:
+    the map's (``_hit_scale`` + ``_scatter_taps``) and the poses', each
+    against ``jax.vjp``; the map's within the map-grad sector scan's 1e-2
+    + 1e-3 relative, as each package's own fan moves the hit points (fault
+    3.1), and bit for bit the composition's (``rays_from_poses`` +
+    ``_MarchImplicit``)."""
+    _, edf, org, hw = field
+    poses, beams, _ = _pose_cases(field)["exact"]
+    g = np.random.RandomState(5).randn(len(poses), beams).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda e, p: jdiff.scan_poses_implicit(
+            e, RES, jnp.asarray(org), p, num_beams=beams, fov=FOV,
+            max_range=MAXR, bounds_hw=hw),
+        jnp.asarray(edf), jnp.asarray(poses))
+    e_ref, p_ref = (np.asarray(v) for v in vjp(jnp.asarray(g)))
+    e = T(edf).requires_grad_(True)
+    p = T(poses).requires_grad_(True)
+    _port_scan(field, e, p, beams, 0).backward(T(g))
+    assert np.abs(e_ref).sum() > 0
+    np.testing.assert_allclose(e.grad.numpy(), e_ref, atol=1e-2, rtol=1e-3)
+    e_old = T(edf).requires_grad_(True)
+    _, _, *rays = P.ops.common.rays_from_poses(T(poses), beams, FOV)
+    pdiff.march_rays_implicit(e_old, RES, T(org), *rays, MAXR, 1e-4, 256,
+                              hw).backward(T(g))
+    assert torch.equal(e.grad, e_old.grad)
+    scale = _term_sums(field, edf, poses, beams, g)
+    assert (np.abs(p.grad.numpy() - p_ref) <= 1e-4 + 1e-4 * np.abs(p_ref)
+            + SUM_TOL * scale).all()
+
+
+def test_scan_saves_fan_factors_only(field):
+    """Under ``torch.no_grad`` the scan saves nothing for a backward; with
+    a gradient it keeps the ranges and hit flags and the fan's (N,) and
+    (B,) factors, not the (N, B) cosines."""
+    _, edf, _, _ = field
+    poses, beams, _ = _pose_cases(field)["exact"]
+    packed = []
+
+    def pack(t):
+        packed.append((tuple(t.shape), t.dtype))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        with torch.no_grad():
+            r0 = _port_scan(field, T(edf), T(poses).requires_grad_(True),
+                            beams, 0)
+        assert packed == [] and r0.grad_fn is None
+        r = _port_scan(field, T(edf), T(poses).requires_grad_(True), beams,
+                       0)
+    assert torch.equal(r.detach(), r0)
+    rays = (len(poses), beams)
+    assert sorted(str(d) for s, d in packed if s == rays) == [
+        "torch.bool", "torch.float32"]
+    assert ((len(poses),), torch.float32) in packed
+    assert ((beams,), torch.float32) in packed
+
+
+def test_pose_vjp_wrapper_refuses_terms_on_cpu(field):
+    _, edf, org, hw = field
+    poses, beams, _ = _pose_cases(field)["exact"]
+    p = T(poses)
+    fan = P.ops.common.fan_factors(
+        p[:, 2], P.ops.common.beam_angles(beams, FOV, "cpu"))
+    r = torch.zeros(len(poses), beams)
+    hit = torch.zeros(len(poses), beams, dtype=torch.bool)
+    ox, oy = T(org)
+    args = (T(edf), RES, ox, oy, p, *fan, r, hit, r, 1e-4, hw)
+    assert torch.equal(pdiff.implicit_pose_vjp(*args),
+                       torch.zeros(len(poses), 3))
+    with pytest.raises(ValueError, match="terms"):
+        pdiff.implicit_pose_vjp(*args, terms=torch.zeros(3, *r.shape))
+    assert pdiff.implicit_pose_vjp.launches == 0

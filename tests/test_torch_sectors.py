@@ -290,13 +290,16 @@ def test_block_width_matches_jax(blobby_bigk):
 def test_build_command_flags():
     """Hopper target, no FMA contraction, no fast math, for every kernel's
     source (the sweeps', the general sweep's, the EDF march's, which
-    holds the march, its gradient and their persistent grid's query, and
-    the chamfer stencil's, which holds the stencil and its gradient),
-    each entry point a C function of its source."""
+    holds the march, its gradient, their persistent grid's query and the
+    implicit march's pose VJP, and the chamfer stencil's, which holds the
+    stencil and its gradient), each entry point a C function of its
+    source."""
     assert set(_kernels._SIGNATURES) == {"sector_sweep", "dense_sweep",
                                          "edf_march", "edf_march_grad",
-                                         "edf_march_wave", "general_sweep",
-                                         "soft_edt", "soft_edt_grad"}
+                                         "edf_march_wave",
+                                         "implicit_pose_vjp",
+                                         "general_sweep", "soft_edt",
+                                         "soft_edt_grad"}
     for name, (source, symbol, _) in _kernels._SIGNATURES.items():
         cmd = _kernels.build_command(source, Path("out.so"))
         assert "arch=compute_90a,code=sm_90a" in cmd
