@@ -12,7 +12,9 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
    sweep) and ``csrc/soft_edt.cu`` (the chamfer stencil of ``soft_edt``
    and its gradient), with one nvcc per source, started together;
 3. per map, the sector backend: the list kernel against its plain PyTorch
-   version on the card on the full 4096 x 1080 fan (mismatches must be 0),
+   version on the card on the full 4096 x 1080 fan (mismatches must be 0;
+   the rows and real slots on the kernel's device counter equal to the
+   plain version's host count, ``sweeps.SWEEP_COUNTS``),
    the CUDA scan against the CPU scan on 64 poses given the same fan
    (bit-identical), and the scan against the float64 brute-force oracle
    ``maps.segments.raycast_segments_numpy`` on a few poses;
@@ -838,17 +840,27 @@ def general_bound(args, winner, rates):
 
 def kernel_vs_plain(label, name, args):
     """One launch of wrapper ``name`` against its plain version on the same
-    tensors; 0 mismatches required. Returns the max abs error."""
+    tensors; 0 mismatches required, and the rows and real slots the list
+    kernel adds to its device counter equal to what the plain version
+    counts on the host (``sweeps.SWEEP_COUNTS``). Returns the max abs
+    error."""
     import torch
+    from pyracecarsimulator_tpu_torch.ops.sweeps import SWEEP_COUNTS
+    before, host = dict(SWEEP_COUNTS), dict(SWEEP_COUNTS.host)
     bv, bh = wrappers()[name](*args)
+    kernel = {k: SWEEP_COUNTS[k] - before[k] for k in before}
     bv_p, bh_p = plain_of(name)(*args)
+    plain = {k: SWEEP_COUNTS.host[k] - host[k] for k in host}
     torch.cuda.synchronize()
     mism = int(((bv != bv_p) | (bh != bh_p)).sum())
     err = max(float((bv.double() - bv_p.double()).abs().max()),
               float((bh.double() - bh_p.double()).abs().max()))
     log(f"[{label}] {name} vs plain on {tuple(bv.shape)} rays: (bv, bh) "
-        f"mismatches = {mism}, max abs err = {err}")
+        f"mismatches = {mism}, max abs err = {err}; counted by the kernel "
+        f"{kernel}, by the plain version {plain}")
     check(mism == 0, f"{label}: {name} disagrees with its plain version")
+    check(kernel == plain, f"{label}: {name} counts other work than its "
+          "plain version")
     return err
 
 

@@ -24,6 +24,14 @@
 // unclamped vertical and horizontal minima bv, bh (3e38 where nothing is
 // hit); the wrapper clamps and takes isv = bv <= bh.
 //
+// Work count. Each row adds its real slot count n_v + h_end - h_lo (as
+// clamped below) and one row to a (lanes, 2) int64 device counter, [slots,
+// rows] in lane blockIdx.x % lanes, which the host sums on read
+// (ops/sweeps.SWEEP_COUNTS): one thread a block issues the two adds as it
+// leaves, with no return value, and spreading them over lanes keeps tens
+// of thousands of blocks a launch off one address. A replayed CUDA graph
+// adds too.
+//
 // Exact arithmetic. The result must equal the plain PyTorch sweep bit for
 // bit, so: the library is compiled with -fmad=false (no contraction of
 // a = y0 + t * sin into an FMA) and without fast math; the interval test
@@ -46,10 +54,11 @@
 // ~198 real slots per visited list x 128 beams ~ 9.3e8 ray-segment tests
 // per scan, ~14 instructions each on the FP32 pipes and shared-memory
 // broadcasts; the issue floor at 132 SMs x 4 issues per clock x ~1.7 GHz
-// is ~0.45 ms per scan. Berlin's tile table visits ~547 slots per row on
-// average, ~2.6x the sector work. On levine's sector table (~5 slots per
-// row) the ray tensors bound it. PERF.md holds the times measured on an
-// H100, each with the card's power limit.
+// is ~0.45 ms per scan. Berlin's tile table visits ~863 real slots per
+// row, ~4.4x the sector work (both counts read from the work counter above
+// on 4096 free poses, scripts/sweep_ab_torch.py). On levine's sector table
+// (~5 slots per row) the ray tensors bound it. PERF.md holds the times
+// measured on an H100, each with the card's power limit.
 
 #include <cuda_runtime.h>
 
@@ -63,7 +72,8 @@ __global__ void list_sweep_kernel(
     const float* __restrict__ y0, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, const float* __restrict__ inv_c,
     const float* __restrict__ inv_s, float* __restrict__ bv,
-    float* __restrict__ bh, int k) {
+    float* __restrict__ bh, int k, unsigned long long* __restrict__ counts,
+    int lanes) {
   extern __shared__ float seg[];  // [p | lo | hi], each k floats
   float* sp = seg;
   float* slo = seg + k;
@@ -114,6 +124,11 @@ __global__ void list_sweep_kernel(
   }
   bv[ray] = best_v;
   bh[ray] = best_h;
+  if (b == 0) {
+    unsigned long long* lane = counts + 2 * (row % lanes);
+    atomicAdd(&lane[0], static_cast<unsigned long long>(n));
+    atomicAdd(&lane[1], 1ULL);
+  }
 }
 
 }  // namespace
@@ -122,12 +137,12 @@ __global__ void list_sweep_kernel(
 // cudaGetLastError() (0 = launched). Pointers are device pointers to
 // contiguous tensors: table (L, 4, k) f32, meta (L, 3) i32, ids (g,) i32
 // (each in [0, L)), x0/y0 (g,) f32, cos/sin/inv_c/inv_s and bv/bh (g, bb)
-// f32.
+// f32, counts (lanes, 2) u64 [slots, rows], lanes >= 1.
 extern "C" int sector_sweep_launch(
     const void* table, const void* meta, const void* ids, const void* x0,
     const void* y0, const void* cos_t, const void* sin_t, const void* inv_c,
     const void* inv_s, void* bv, void* bh, int g, int bb, int k,
-    void* stream) {
+    void* counts, int lanes, void* stream) {
   if (g == 0) return 0;
   const size_t smem = 3 * static_cast<size_t>(k) * sizeof(float);
   list_sweep_kernel<<<g, bb, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -136,6 +151,7 @@ extern "C" int sector_sweep_launch(
       static_cast<const float*>(y0), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<const float*>(inv_c),
       static_cast<const float*>(inv_s), static_cast<float*>(bv),
-      static_cast<float*>(bh), k);
+      static_cast<float*>(bh), k, static_cast<unsigned long long*>(counts),
+      lanes);
   return static_cast<int>(cudaGetLastError());
 }

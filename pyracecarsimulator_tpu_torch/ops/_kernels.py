@@ -16,9 +16,10 @@ divisions).
 
 The launch layer of every wrapper lives here too: ``on_cuda`` (the plain
 version on CPU tensors, the kernel on CUDA tensors), ``launch`` (a kernel on
-the current stream) and the registry of wrappers (``register``,
+the current stream), the registry of wrappers (``register``,
 ``wrappers``) whose ``.launches`` counters ``ops/sweeps.launch_counts``
-reads.
+reads, and ``DeviceCounts``, the work counts that kernels add to on the
+device (``raymarch_xla.MARCH_COUNTS``, ``sweeps.SWEEP_COUNTS``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 import torch
@@ -51,7 +53,7 @@ _MARCH_HEAD = ([_I, _P, _L, _L, _L, _L, _P, _P, _F, _F, _F, _I] + [_P] * 4
 # restype is int: a cudaError_t
 _SIGNATURES = {
     "sector_sweep": ("sector_sweep", "sector_sweep_launch",
-                     [_P] * 11 + [_I, _I, _I, _P]),
+                     [_P] * 11 + [_I, _I, _I, _P, _I, _P]),
     "dense_sweep": ("dense_sweep", "dense_sweep_launch",
                     [_P] * 10 + [_I, _I, _P]),
     "edf_march": ("edf_march", "edf_march_launch",
@@ -172,6 +174,50 @@ def launch(name, entry, *args):
             stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
+
+
+class DeviceCounts(Mapping):
+    """Work counts by name (``columns``): the plain versions' counts on the
+    host (``host``) plus one int64 counter per device that the kernels add
+    to, replayed CUDA graphs included, read at each lookup (an exact read:
+    a synchronisation on the card). A counter is ``(len(columns),)``, or
+    ``(lanes, len(columns))`` where a kernel spreads its adds over
+    ``lanes`` rows, summed on read."""
+
+    def __init__(self, columns, lanes=None):
+        self.columns = tuple(columns)
+        self.lanes = lanes
+        self.host = dict.fromkeys(self.columns, 0)
+        self.device: dict = {}   # device -> its int64 counter
+
+    def counter(self, device) -> torch.Tensor:
+        """The kernels' counter on ``device``, made zero at its first use,
+        which must come before any capture that launches them: a counter
+        made inside a capture would be the graph's memory, and zeroed at
+        each replay."""
+        c = self.device.get(device)
+        if c is None:
+            if (torch.device(device).type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    "a kernel's work counter is made at its first eager "
+                    "launch; run it once before capturing a CUDA graph")
+            n = len(self.columns)
+            c = self.device[device] = torch.zeros(
+                (n,) if self.lanes is None else (self.lanes, n),
+                dtype=torch.int64, device=device)
+        return c
+
+    def __getitem__(self, key):
+        col = self.columns.index(key)
+        return self.host[key] + sum(int(c[..., col].sum())
+                                    for c in self.device.values())
+
+    def __iter__(self):
+        return iter(self.host)
+
+    def __len__(self):
+        return len(self.host)
 
 
 def register(wrapper, name=None):

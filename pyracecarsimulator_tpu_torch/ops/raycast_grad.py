@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .common import _ray_invs, finish_minima, tile_ids
 from .sweeps import dense_sweep, tile_sweep
 
@@ -108,11 +109,12 @@ def _tiled_minima(tiles, tile_sweep_meta, tiles_shape, tile_size,
                         for v in (cos_t, sin_t))
     inv_c, inv_s = _ray_invs(cos_t, sin_t)
     g_n = a_n * nblk
-    tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
+    with span("scan.route"):
+        tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
+        ids = tid.repeat_interleave(nblk).to(torch.int32).contiguous()
     rows = lambda v: v.reshape(g_n, LANES).contiguous()
     bv, bh = tile_sweep(
-        tiles, tile_sweep_meta,
-        tid.repeat_interleave(nblk).to(torch.int32).contiguous(),
+        tiles, tile_sweep_meta, ids,
         x[:, ::LANES].reshape(g_n).contiguous(),
         y[:, ::LANES].reshape(g_n).contiguous(),
         rows(cos_t), rows(sin_t), rows(inv_c), rows(inv_s))

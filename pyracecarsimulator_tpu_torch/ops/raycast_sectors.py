@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .common import (_f32, _padded_offsets, _ray_invs, apply_extent_mask,
                      block_mids, fan_cos_sin, tile_ids)
 from .raycast_grad import raycast_with_vjp
@@ -98,8 +99,9 @@ def raycast_sectors(table, meta, tiles_shape, tile_size, tile_origin, ns,
 
     def minima(x, y, cos_t, sin_t):
         a_n = cos_t.shape[0]
-        ids = _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0,
-                        cos_t, sin_t, bb)
+        with span("scan.route"):
+            ids = _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0,
+                            cos_t, sin_t, bb)
         inv_c, inv_s = _ray_invs(cos_t, sin_t)
         g_n = ids.numel()
         rows = lambda v: v.reshape(g_n, bb).contiguous()

@@ -48,8 +48,6 @@ differ on a few beams by up to about a cell.
 
 from __future__ import annotations
 
-from collections.abc import Mapping
-
 import torch
 
 from . import _kernels
@@ -69,36 +67,13 @@ MAX_GRAD_TRIPS = 64 * 32
 INDEX_LIMIT = 2 ** 31 - 1
 
 
-class _MarchCounts(Mapping):
+class _MarchCounts(_kernels.DeviceCounts):
     """``{"calls", "trips"}`` of every march of the port (this module's
     and ``raymarch_diff``'s): the plain loops' host counts plus the
-    kernel's device counters, read at each lookup (module doc)."""
-
-    _COLUMN = {"trips": 0, "calls": 1}
+    kernel's device counters, [trips, calls] (module doc)."""
 
     def __init__(self):
-        self.host = {"calls": 0, "trips": 0}
-        self.device: dict = {}   # device -> (2,) int64 counter of the kernel
-
-    def counter(self, device) -> torch.Tensor:
-        """The kernel's counter on ``device`` (made at its first march):
-        [trips, calls]."""
-        c = self.device.get(device)
-        if c is None:
-            c = self.device[device] = torch.zeros(2, dtype=torch.int64,
-                                                  device=device)
-        return c
-
-    def __getitem__(self, key):
-        col = self._COLUMN[key]
-        return self.host[key] + sum(int(c[col]) for c in
-                                    self.device.values())
-
-    def __iter__(self):
-        return iter(self.host)
-
-    def __len__(self):
-        return len(self.host)
+        super().__init__(("trips", "calls"))
 
 
 MARCH_COUNTS = _MarchCounts()

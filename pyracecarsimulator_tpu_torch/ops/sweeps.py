@@ -28,6 +28,13 @@ shows which path went through the kernel:
 ``dense_sweep`` replaces ``_kernel``. The plain versions visit exactly the
 real slots the kernels visit and compute each pair with the same float32
 operations, so kernel and plain version agree bit for bit.
+
+``SWEEP_COUNTS`` counts the list sweep's work, ``{"rows", "slots"}``: the
+rows swept and the real slots they visited, n_v + h_end - h_lo a row. The
+plain version counts on the host; the kernel adds each row to a device
+counter (``_kernels.DeviceCounts``, spread over ``COUNT_LANES`` lanes),
+which replayed CUDA graphs advance too. Reading ``SWEEP_COUNTS`` reads
+those counters (a synchronisation).
 """
 
 from __future__ import annotations
@@ -39,6 +46,10 @@ from . import _kernels
 _BIG = 3.0e38
 # bytes of each (rays, slots) intermediate the plain sweeps may hold at once
 _PLAIN_BYTES_BUDGET = 1 << 28
+# lanes of the list kernel's counter: the blocks of a launch add to lane
+# row % COUNT_LANES
+COUNT_LANES = 128
+SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows"), COUNT_LANES)
 
 
 def _hits(p, lo, hi, o_perp, o_along, u_inv, u_along):
@@ -59,7 +70,8 @@ def list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
     Each orientation is swept slot-chunk by slot-chunk as (G, chunk, bb)
     tensors, gathering only the chunk's slots of each row's list; slots
     outside a row's real bounds are masked (bounds clamped as the kernel
-    clamps them), so the contributing slots are exactly the kernel's.
+    clamps them), so the contributing slots are exactly the kernel's, and
+    so are the rows and slots it adds to ``SWEEP_COUNTS.host``.
     """
     g_n, bb = cos_t.shape
     k = table.shape[2]
@@ -69,6 +81,8 @@ def list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
     h_lo = m[:, 1:2].clamp(0, k)
     nv = torch.minimum(m[:, 0:1].clamp(min=0), h_lo)
     h_end = torch.maximum(m[:, 2:3], h_lo).clamp(max=k)
+    SWEEP_COUNTS.host["rows"] += g_n
+    SWEEP_COUNTS.host["slots"] += int((nv + h_end - h_lo).sum())
     big = torch.full((g_n, bb), _BIG, dtype=torch.float32, device=dev)
     if g_n == 0:
         return big, big.clone()
@@ -171,7 +185,8 @@ def _list_route(name: str, replaces: str):
         bv = torch.empty((g_n, bb), dtype=torch.float32, device=table.device)
         bh = torch.empty_like(bv)
         _kernels.launch(name, "sector_sweep", table, meta, ids, x0, y0,
-                        cos_t, sin_t, inv_c, inv_s, bv, bh, g_n, bb, k)
+                        cos_t, sin_t, inv_c, inv_s, bv, bh, g_n, bb, k,
+                        SWEEP_COUNTS.counter(table.device), COUNT_LANES)
         sweep.launches += 1
         return bv, bh
 

@@ -131,11 +131,13 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
         # phase 24, 4096 agents x 1080 beams), with the host out of the
         # step: a graphed rollout step takes 0.82 ms on "sectors" against
         # 0.92 ms on "segments" on levine, and 1.26 against 2.69 ms on
-        # berlin, whose sector lists hold 198 real slots a ray where its
-        # map tiles hold 863. Eagerly both are bound by the host's launch
-        # rate (2.1-4.7 ms a step either way). Values are equal on every
-        # exact backend. (The JAX package picks "sectors" for a TPU v5e
-        # reason of its own.)
+        # berlin (the benchmark's berlin rollout cells: 1.21 against 2.72
+        # ms of device time a step), whose sector lists hold 198 real slots
+        # a ray where its map tiles hold 863 (the list sweep's work
+        # counter, ops/sweeps.SWEEP_COUNTS, on 4096 free poses). Eagerly
+        # both are bound by the host's launch rate (2.1-4.7 ms a step
+        # either way). Values are equal on every exact backend. (The JAX
+        # package picks "sectors" for a TPU v5e reason of its own.)
         backend = "sectors"
     device = resolve_device(device)
     track = (load_builtin(track_or_name, device=device)

@@ -16,6 +16,10 @@ layer of the port; ``SPANS`` lists them all:
   ``make_step_fn``'s step: the fan, the backend's kernels, their glue and
   epilogue), ``step.noise`` (``add_scan_noise``), ``step.ttc``
   (``check_ttc`` and ``latch``);
+- ``scan.route``: the routing of ray rows to cull lists inside a scan
+  (the sector scan's tile, block-middle angle, sector and row ids,
+  ``raycast_sectors._list_ids``; the tile scan's tile and row ids,
+  ``raycast_grad._tiled_minima``), in a step under ``step.scan``;
 - ``rollout.policy``, ``rollout.carry`` (a rollout step's row writes and
   carry copies), ``rollout.blocks`` (the graphed rollout's carry copy-in,
   block copies into the trajectory and final clone);
@@ -56,9 +60,10 @@ unchanged.
 
 **Counters.** ``counters()`` gathers the port's counters: the kernel
 wrappers' launches (``ops/sweeps.launch_counts``), each live
-``GraphedFunction``'s captures and replays, and the EDF march's device
-counter (``ops/raymarch_xla.MARCH_COUNTS``, an exact read: a
-synchronisation on the card).
+``GraphedFunction``'s captures and replays, the EDF march's device
+counter (``ops/raymarch_xla.MARCH_COUNTS``) and the list sweep's
+(``ops/sweeps.SWEEP_COUNTS``), each an exact read: a synchronisation on
+the card.
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ from typing import Callable
 import torch
 
 SPANS = frozenset({
-    "step.dynamics", "step.scan", "step.noise", "step.ttc",
+    "step.dynamics", "step.scan", "step.noise", "step.ttc", "scan.route",
     "rollout.policy", "rollout.carry", "rollout.blocks",
     "train.policy", "train.loss", "train.backward", "train.optimizer",
     "graph.copy_in", "graph.replay", "graph.copy_out"})
@@ -237,15 +242,17 @@ def label(run_once: Callable, owner) -> int:
 def counters() -> dict:
     """The port's counters from one place (module doc): ``launches``
     (wrapper name -> kernel launches), ``graphs`` (one dict a live
-    ``GraphedFunction``: ``name``, ``captures``, ``replays``) and
-    ``march`` (``{"calls", "trips"}`` of the EDF marches, read exactly)."""
+    ``GraphedFunction``: ``name``, ``captures``, ``replays``), ``march``
+    (``{"calls", "trips"}`` of the EDF marches) and ``sweep`` (``{"rows",
+    "slots"}`` of the list sweeps), both read exactly."""
     from ..ops import sweeps
     from ..ops.raymarch_xla import MARCH_COUNTS
     return {"launches": sweeps.launch_counts(),
             "graphs": [{"name": g.name, "captures": g.captures,
                         "replays": g.replays}
                        for g in list(_graphs.values())],
-            "march": dict(MARCH_COUNTS)}
+            "march": dict(MARCH_COUNTS),
+            "sweep": dict(sweeps.SWEEP_COUNTS)}
 
 
 # -- reading a trace ---------------------------------------------------------

@@ -16,8 +16,10 @@ below), the idle share ``1 - busy / unprofiled step time``, the EDF
 march's loop trips per step (``ops/raymarch_xla.MARCH_COUNTS``, read
 exactly through ``profiling.counters()`` around the timed loop:
 on the card the kernel's device counter, the trips of each march's
-longest ray; 0 on the segment backends), and the operations that take the
-most device time. The profiled
+longest ray; 0 on the segment backends), the list sweep's real slots a
+row (``ops/sweeps.SWEEP_COUNTS``, its device counter read the same way:
+slots over rows of the timed steps; 0 where no list sweep runs), and the
+operations that take the most device time. The profiled
 wall time is printed too, only to show what the profiler adds.
 
 Beside the step it times the scan alone (``make_scan_fn``) twice, with its
@@ -89,14 +91,18 @@ def main(argv=None) -> dict:
     print(f"card: {card}")
 
     def counted(fn, reps, warmup):
-        """(ms per call, march trips per call) of ``fn(i)``."""
+        """(ms per call, march trips per call, list-sweep slots per row)
+        of ``fn(i)``."""
         for i in range(warmup):
             fn(i)
-        before = profiling.counters()["march"]
+        before = profiling.counters()
         ms = timed_loop(fn, reps=reps, warmup=0, index=True,
                         device="cuda") * 1e3
-        after = profiling.counters()["march"]
-        return ms, (after["trips"] - before["trips"]) / reps
+        after = profiling.counters()
+        grown = {k: {c: after[k][c] - before[k][c] for c in after[k]}
+                 for k in ("march", "sweep")}
+        return (ms, grown["march"]["trips"] / reps,
+                grown["sweep"]["slots"] / max(grown["sweep"]["rows"], 1))
 
     results = {}
     for name, backend in ((n, b) for n in args.map.split(",")
@@ -121,7 +127,7 @@ def main(argv=None) -> dict:
         advance()               # the first call: builds, and captures
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        step_ms, step_trips = counted(advance, reps, 5)
+        step_ms, step_trips, step_slots = counted(advance, reps, 5)
 
         # the scan alone: on the sampled poses, and where the step scans
         sets = []
@@ -129,14 +135,14 @@ def main(argv=None) -> dict:
             q = poses.clone()
             q[:, 2] += j * 1e-3
             sets.append(q)
-        scan_ms, scan_trips = counted(lambda i: scan(sets[i % 5]), reps, 1)
+        scan_ms, scan_trips, _ = counted(lambda i: scan(sets[i % 5]), reps, 1)
         d = bundle.car.scan_distance_to_base_link
         lidar = torch.stack([state.x + d * torch.cos(state.theta),
                              state.y + d * torch.sin(state.theta),
                              state.theta], dim=-1)
-        lidar_ms, lidar_trips = counted(lambda i: scan(lidar), reps, 1)
+        lidar_ms, lidar_trips, _ = counted(lambda i: scan(lidar), reps, 1)
         # the step once more, after the scans: the spread within one process
-        step_ms_2, step_trips_2 = counted(advance, reps, 1)
+        step_ms_2, step_trips_2, _ = counted(advance, reps, 1)
 
         traced = TRACED_STEPS
         profiling.enable()
@@ -172,7 +178,8 @@ def main(argv=None) -> dict:
               f"{step_ms:.4f} ms (CUDA events, no profiler), device busy "
               f"{busy:.4f} ms/step (trace), idle share {1 - busy / step_ms:.4f}, "
               f"{launches:.0f} kernels/step, {step_trips:.1f} march trips/"
-              f"step; wall under the profiler {traced_ms:.4f} ms/step")
+              f"step, {step_slots:.1f} sweep slots/row; wall under the "
+              f"profiler {traced_ms:.4f} ms/step")
         print(f"[{name} {backend}] scan alone: sampled poses {scan_ms:.4f} "
               f"ms, {scan_trips:.1f} march trips/scan; the stepped state's "
               f"scanner poses {lidar_ms:.4f} ms, {lidar_trips:.1f} march "
@@ -199,6 +206,7 @@ def main(argv=None) -> dict:
             "graph_launches_per_step": graph_launches,
             "idle_share": 1 - busy / step_ms,
             "step_ms": step_ms, "step_trips": step_trips,
+            "step_sweep_slots_per_row": step_slots,
             "step_ms_2": step_ms_2, "step_trips_2": step_trips_2,
             "scan_ms": scan_ms, "scan_trips": scan_trips,
             "lidar_scan_ms": lidar_ms, "lidar_scan_trips": lidar_trips,

@@ -1213,7 +1213,8 @@ def test_spans_nest_as_the_layers_do(small_track, tracing):
     """With tracing on, a graphed rollout and a graphed train step
     (stand-in) record the spans of ``utils/profiling.py`` and they nest:
     a replay holds the step's and the loop's spans, a rollout's block
-    copies and a call's copies lie outside it."""
+    copies and a call's copies lie outside it; the sector scan's routing
+    lies inside ``step.scan``."""
     from torch.profiler import ProfilerActivity, profile
     bundle = psim.build_sim(
         _port_track(small_track), scan=P.ScanParams(num_beams=BEAMS),
@@ -1230,10 +1231,12 @@ def test_spans_nest_as_the_layers_do(small_track, tracing):
     assert {n for n, _, _ in r} == {
         "rollout.blocks", "graph.copy_in",
         "graph.replay", "graph.copy_out", "rollout.policy", "step.dynamics",
-        "step.scan", "step.noise", "step.ttc", "rollout.carry"}
+        "step.scan", "scan.route", "step.noise", "step.ttc",
+        "rollout.carry"}
     assert _inside(r, "graph.replay") == {
-        "rollout.policy", "step.dynamics", "step.scan", "step.noise",
-        "step.ttc", "rollout.carry"}
+        "rollout.policy", "step.dynamics", "step.scan", "scan.route",
+        "step.noise", "step.ttc", "rollout.carry"}
+    assert _inside(r, "step.scan") == {"scan.route"}
     assert not _inside(r, "rollout.blocks")
     train, init = make_bptt_train_fn(
         step, _train_policy, _train_loss, 2, BEAMS, graph=True)
@@ -1247,8 +1250,8 @@ def test_spans_nest_as_the_layers_do(small_track, tracing):
             "train.backward"} <= {n for n, _, _ in r}
     assert _inside(r, "graph.replay") == {
         "train.optimizer", "train.policy", "train.loss", "train.backward",
-        "step.dynamics", "step.scan", "step.noise", "step.ttc"}
-    assert _inside(r, "step.scan") == set()
+        "step.dynamics", "step.scan", "scan.route", "step.noise", "step.ttc"}
+    assert _inside(r, "step.scan") == {"scan.route"}
 
 
 def test_optimizer_snapshot_puts_back_values_in_place():

@@ -98,6 +98,77 @@ def test_kernel_matches_plain(cuda, ns, tile_size, num_beams):
     assert bool((torch.minimum(bv, bh) < 10.0).float().mean() > 0.5)
 
 
+def _sector_args(cuda, poses_n=300, num_beams=1080):
+    """The list sweep's arguments for the corridor's sector scan of
+    ``poses_n`` free poses."""
+    track, smap = _corridor(16, 2.0)
+    rng = np.random.RandomState(2)
+    edf = track.edf.numpy()[:192, :192]
+    ys, xs = np.where(edf > 0.2)
+    k = rng.randint(len(ys), size=poses_n)
+    p = torch.tensor(np.stack([-4.8 + (xs[k] + .5) * .05,
+                               -4.8 + (ys[k] + .5) * .05,
+                               rng.uniform(-np.pi, np.pi, poses_n)], -1),
+                     dtype=torch.float32, device=cuda)
+    smap = smap.to(cuda)
+    bb = rs.sector_block_width(smap, num_beams, FOV)
+    ct, st = fan_cos_sin(p[:, 2], rs._padded_offsets(num_beams, FOV, bb,
+                                                     cuda))
+    ids = rs._list_ids(smap.tiles_shape, smap.tile_size, smap.tile_origin,
+                       smap.ns, p[:, 0], p[:, 1], ct, st, bb)
+    ic, is_ = _ray_invs(ct, st)
+    g = ids.numel()
+    nblk = g // poses_n
+    return (smap.table, smap.meta, ids.reshape(g).contiguous(),
+            p[:, 0].repeat_interleave(nblk).contiguous(),
+            p[:, 1].repeat_interleave(nblk).contiguous(),
+            *(v.reshape(g, bb).contiguous() for v in (ct, st, ic, is_)))
+
+
+@pytest.mark.parametrize("route", [w.__name__ for w in sweeps.LIST_ROUTES])
+def test_list_sweep_counts_rows_and_slots_on_the_device(cuda, route):
+    """Each route of the list kernel adds its rows and their real slots
+    to the device's counter: on the same inputs exactly what the plain
+    version adds on the host; one replay of a CUDA graph of the sweep
+    advances it by exactly one call's count; the outputs, eager and
+    replayed, are the plain version's bit for bit."""
+    wrapper = getattr(sweeps, route)
+    counts = sweeps.SWEEP_COUNTS
+    args = _sector_args(cuda)
+    wrapper(*args)              # the counter exists before any capture
+    torch.cuda.synchronize()
+    start, host = dict(counts), dict(counts.host)
+    bv, bh = wrapper(*args)
+    dev = {k: counts[k] - start[k] for k in start}
+    bv_p, bh_p = sweeps.list_sweep_plain(*args)
+    plain = {k: counts.host[k] - host[k] for k in host}
+    assert plain["rows"] == args[2].numel() and plain["slots"] > 0
+    assert dev == plain
+    assert torch.equal(bv, bv_p) and torch.equal(bh, bh_p)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wrapper(*args)
+    before = dict(counts)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert {k: counts[k] - before[k] for k in before} == plain
+    assert torch.equal(out[0], bv_p) and torch.equal(out[1], bh_p)
+
+
+def test_a_work_counter_is_never_made_inside_a_capture(cuda):
+    """A kernel's device counter made inside a CUDA graph's capture would
+    be the graph's memory, zeroed at each replay: ``counter`` refuses to
+    make one there; one made before is handed out as it is."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    fresh, made = _kernels.DeviceCounts(("a",)), _kernels.DeviceCounts(("a",))
+    c = made.counter(cuda)
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            assert made.counter(cuda) is c
+            fresh.counter(cuda)
+    assert not fresh.device
+
+
 def test_scan_on_card_matches_cpu_scan(cuda):
     """The whole scan: kernel on the card vs plain on the CPU, same fan."""
     _, smap = _corridor(16, 2.0)

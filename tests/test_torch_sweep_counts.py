@@ -1,0 +1,192 @@
+"""The list sweep's work count and the routing span, on the CPU.
+
+``ops/sweeps.SWEEP_COUNTS`` (read through ``profiling.counters()["sweep"]``)
+counts the rows a list sweep runs and the real slots they visit,
+n_v + h_end - h_lo a row; the plain version counts on the host, the kernel
+on the device (``tests/test_torch_kernels.py`` holds the two equal on the
+card). ``scan.route`` spans the routing of rows to cull lists inside
+``step.scan``. The card's side of both: ``tests/test_torch_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import pyracecarsimulator_tpu_torch as P
+from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+from pyracecarsimulator_tpu_torch.maps.loader import build_track_map
+from pyracecarsimulator_tpu_torch.maps.sectors import build_sector_map
+from pyracecarsimulator_tpu_torch.maps.segments import build_segment_map
+from pyracecarsimulator_tpu_torch.ops import _kernels
+from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
+from pyracecarsimulator_tpu_torch.ops import raycast_segments as rseg
+from pyracecarsimulator_tpu_torch.ops import sweeps
+from pyracecarsimulator_tpu_torch.ops.common import tile_ids
+from pyracecarsimulator_tpu_torch.utils import profiling
+
+FOV = 4.712388980384690
+BEAMS = 300
+MAX_RANGE = 2.0
+RES, ORIGIN = 0.05, (-5.5, -5.5)
+
+
+def _occupancy():
+    """tests/test_torch_sectors.py's blobby geometry: 168 wall segments,
+    enough that 1 m tiles at a 2 m range cull (the segment build keeps
+    tiles only where their lists are narrower than the whole set)."""
+    rng = np.random.RandomState(7)
+    occ = np.zeros((220, 220), np.float32)
+    occ[:3, :] = 1; occ[-3:, :] = 1; occ[:, :3] = 1; occ[:, -3:] = 1
+    for _ in range(40):
+        r, c = rng.randint(10, 208, 2)
+        h, w = rng.randint(2, 9, 2)
+        occ[r:r + h, c:c + w] = 1
+    return occ
+
+
+@pytest.fixture(scope="module")
+def track():
+    return build_track_map(_occupancy(), RES, ORIGIN, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def maps(track):
+    occ = _occupancy()
+    kw = dict(max_range=MAX_RANGE, tile_size=1.0, real_hw=occ.shape,
+              device="cpu")
+    smap = build_sector_map(occ, RES, ORIGIN, **kw)
+    segmap = build_segment_map(occ, RES, ORIGIN, **kw)
+    assert segmap.tiles is not None
+    return smap, segmap
+
+
+def _poses(track, n, seed):
+    return torch.as_tensor(sample_free_poses(track, n,
+                                             np.random.RandomState(seed)))
+
+
+def _real_slots(meta, ids):
+    """The sum over rows of n_v + h_end - h_lo, from ``meta[ids]``."""
+    m = meta.numpy().astype(np.int64)[ids.reshape(-1).numpy()]
+    return int((m[:, 0] + m[:, 2] - m[:, 1]).sum())
+
+
+def _sector_rows(smap, p):
+    bb = rs.sector_block_width(smap, BEAMS, FOV)
+    ct, st = rs.fan_cos_sin(p[:, 2], rs._padded_offsets(BEAMS, FOV, bb,
+                                                        "cpu"))
+    return rs._list_ids(smap.tiles_shape, smap.tile_size, smap.tile_origin,
+                        smap.ns, p[:, 0], p[:, 1], ct, st, bb)
+
+
+def _tile_rows(segmap, p):
+    nblk = -(-BEAMS // 128)
+    tid = tile_ids(segmap.tiles_shape, segmap.tile_size, segmap.tile_origin,
+                   p[:, 0], p[:, 1])
+    return tid[:, None].expand(-1, nblk)
+
+
+@pytest.mark.parametrize("kind", ["sectors", "tiles"])
+def test_sweep_counts_rows_and_real_slots_of_a_scan(track, maps, kind):
+    """After a sector scan and after a tile scan, ``counters()["sweep"]``
+    has grown by the scan's rows and by the sum of their real slots,
+    counted apart from the sweep from ``meta[ids]``; a scan differentiated
+    in the poses counts its one forward sweep."""
+    smap, segmap = maps
+    p = _poses(track, 24, 3)
+    if kind == "sectors":
+        scan = lambda q: rs.scan_poses_sectors(smap, q, BEAMS, FOV,
+                                               MAX_RANGE)
+        ids, meta, k = _sector_rows(smap, p), smap.meta, smap.table.shape[2]
+    else:
+        scan = lambda q: rseg.scan_poses_segments(segmap, q, BEAMS, FOV,
+                                                  MAX_RANGE)
+        ids, meta = _tile_rows(segmap, p), segmap.tile_sweep_meta
+        k = segmap.tiles.shape[2]
+    want = {"rows": ids.numel(), "slots": _real_slots(meta, ids)}
+    assert 0 < want["slots"] < ids.numel() * k
+    for grad in (False, True):
+        q = p.clone().requires_grad_(grad)
+        before = profiling.counters()["sweep"]
+        r = scan(q)
+        if grad:
+            r.sum().backward()
+            assert q.grad is not None
+        after = profiling.counters()["sweep"]
+        assert {k: after[k] - before[k] for k in after} == want
+
+
+def test_sweep_counts_add_the_device_counters_lanes():
+    """``SWEEP_COUNTS`` is the plain version's host counts plus every
+    device's (lanes, 2) counter of [slots, rows], summed over its lanes at
+    each lookup; a CPU tensor stands in for a device's counter here."""
+    counts = _kernels.DeviceCounts(("slots", "rows"), sweeps.COUNT_LANES)
+    counts.host.update(rows=5, slots=900)
+    c = counts.counter(torch.device("cpu"))
+    assert c.dtype == torch.int64
+    assert tuple(c.shape) == (sweeps.COUNT_LANES, 2) and not c.any()
+    c[0] = torch.tensor([100, 1])
+    c[-1] = torch.tensor([2 ** 40, 3])
+    assert dict(counts) == {"slots": 1000 + 2 ** 40, "rows": 9}
+    assert counts.counter(torch.device("cpu")) is c
+    assert set(sweeps.SWEEP_COUNTS) == {"slots", "rows"}
+    assert profiling.counters()["sweep"] == dict(sweeps.SWEEP_COUNTS)
+
+
+def _step_case(track, backend):
+    bundle = P.build_sim(track, scan=P.ScanParams(num_beams=BEAMS,
+                                                  max_range=MAX_RANGE),
+                         backend=backend, tile_size=1.0, device="cpu")
+    p = _poses(track, 8, 5)
+    state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    act = (torch.full((8,), 2.0), torch.zeros(8))
+    return P.make_step_fn(bundle, with_noise=False), state, act
+
+
+@pytest.fixture
+def tracing():
+    profiling.enable()
+    try:
+        yield profiling
+    finally:
+        profiling.disable()
+
+
+def test_scan_route_is_a_span_of_the_port():
+    assert "scan.route" in profiling.SPANS
+    assert profiling.span("scan.route") is profiling.span("scan.route")
+
+
+@pytest.mark.parametrize("backend", ["sectors", "segments"])
+def test_a_step_records_scan_route_inside_step_scan(track, tracing,
+                                                    backend):
+    """With tracing on, a sector step and a tile-routed step record
+    ``scan.route`` once, inside ``step.scan``, and it holds the routing's
+    operations (the sector scan's ``atan2``); with tracing off the step
+    runs the same aten operations in the same order."""
+    from torch.profiler import ProfilerActivity, profile
+    step, state, act = _step_case(track, backend)
+    if backend == "segments":
+        assert step.map_cell["map"].tiles is not None
+    seqs = {}
+    for on in (True, False):
+        profiling.enable() if on else profiling.disable()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, act)
+        ev = sorted(prof.events(), key=lambda e: e.time_range.start)
+        seqs[on] = [e.name for e in ev if e.name.startswith("aten::")]
+        spans = [e for e in ev if e.name in profiling.SPANS]
+        if not on:
+            assert not spans
+            continue
+        route = [e for e in spans if e.name == "scan.route"]
+        scans = [e for e in spans if e.name == "step.scan"]
+        assert len(route) == 1 and len(scans) == 1
+        r, s = route[0].time_range, scans[0].time_range
+        assert s.start <= r.start and r.end <= s.end
+        inside = {e.name for e in ev if r.start <= e.time_range.start
+                  and e.time_range.end <= r.end}
+        assert ("aten::atan2" in inside) == (backend == "sectors")
+        assert "aten::repeat_interleave" in inside or backend == "sectors"
+    assert seqs[True] == seqs[False]

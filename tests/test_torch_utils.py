@@ -334,7 +334,8 @@ def test_report_gives_autograd_ops_their_forward_span(tracing):
 
 def test_counters_gather_the_ports_counters():
     """``counters()``: the wrappers' launches, each live graphed function's
-    captures and replays, the march's counts (the exact read)."""
+    captures and replays, the march's and the list sweep's counts (the
+    exact reads)."""
     from pyracecarsimulator_tpu_torch.ops import sweeps
     from pyracecarsimulator_tpu_torch.ops.raymarch_xla import MARCH_COUNTS
     from pyracecarsimulator_tpu_torch.utils.graph import GraphedFunction
@@ -345,6 +346,8 @@ def test_counters_gather_the_ports_counters():
     assert mine == [{"name": "counted function", "captures": 0,
                      "replays": 0}]
     assert got["march"] == dict(MARCH_COUNTS)
+    assert got["sweep"] == dict(sweeps.SWEEP_COUNTS)
+    assert set(got["sweep"]) == {"rows", "slots"}
     del g
 
 
