@@ -13,8 +13,9 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
    and its gradient), with one nvcc per source, started together;
 3. per map, the sector backend: the list kernel against its plain PyTorch
    version on the card on the full 4096 x 1080 fan (mismatches must be 0;
-   the rows and real slots on the kernel's device counter equal to the
-   plain version's host count, ``sweeps.SWEEP_COUNTS``),
+   the rows, real slots and slots kept by the wedge cull on the kernel's
+   device counter equal to the plain version's host count,
+   ``sweeps.SWEEP_COUNTS``),
    the CUDA scan against the CPU scan on 64 poses given the same fan
    (bit-identical), and the scan against the float64 brute-force oracle
    ``maps.segments.raycast_segments_numpy`` on a few poses;
@@ -300,6 +301,11 @@ KERNELS = {
 # fusing), FP32 lanes per SM, and the HBM rate of an H100 SXM (NVIDIA's
 # data sheet)
 OPS_PER_TEST = 10
+# the list kernel's wedge cull, once a real slot of a row that culls: the
+# endpoints' offsets 3, the margin 7 (two maxima of magnitudes, two adds,
+# a multiply, an add and a negation), four cross products 12, four
+# compares, two ands and an or 7
+CULL_OPS_PER_SLOT = 29
 LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12
 # the march's variants, and the gathers a trip of each issues
@@ -557,9 +563,15 @@ def plain_of(name):
 def bound_of(name, args, rates):
     """The least time the card could take for one call of wrapper ``name``
     on ``args``: the larger of instruction slots over the instruction rate
-    and bytes over the HBM rate. Tests are counted from the real slots of
-    the lists the rows visit; bytes count each visited list, each ray
-    tensor and each output once."""
+    and bytes over the HBM rate. The dense sweep's tests are counted from
+    its real slots. The list kernel's are its kept slots' tests (the slots
+    its wedge cull keeps, from ``tests/torch_cull_cases.py``'s
+    ``cull_masks``, apart from the kernel) plus ``CULL_OPS_PER_SLOT`` a
+    real slot of each row long enough to cull; its bytes count each
+    visited list, each ray tensor and each output once, and beside them
+    stand the staged bytes (12 a real slot a row, read from L2) and the
+    old bound from every real slot's tests, which no longer bounds the
+    kernel."""
     import torch
     if name == "dense_sweep":
         params, sweep_meta, x = args[0], args[1], args[2]
@@ -570,7 +582,9 @@ def bound_of(name, args, rates):
         rays = x.numel()
         tests = rays * slots
         nbytes = 12 * slots + 12 + 4 * rays * (6 + 2)
+        extra = {}
     else:
+        from pyracecarsimulator_tpu_torch.ops.sweeps import CULL_MIN_SLOTS
         table, meta, ids, _, _, ct = args[:6]
         k = table.shape[2]
 
@@ -581,15 +595,27 @@ def bound_of(name, args, rates):
             return nv + torch.maximum(m[:, 2], h_lo).clamp(max=k) - h_lo
 
         g, bb = ct.shape
-        tests = int(real_slots(ids).sum()) * bb
+        cases = helper_module("torch_cull_cases")
+        kept = int(cases.cull_masks(args)[1].sum())
+        real = real_slots(ids)
+        tests = kept * bb
+        culled = int(real[real >= CULL_MIN_SLOTS].sum())
         uniq = torch.unique(ids)
         nbytes = (12 * int(real_slots(uniq).sum()) + 12 * uniq.numel()
                   + 12 * g + 4 * g * bb * (4 + 2))
-    ops_ms = tests * OPS_PER_TEST / rates["slots_per_s"] * 1e3
+        slot_tests = int(real.sum()) * bb
+        extra = {"kept_slots": kept, "real_slots": int(real.sum()),
+                 "cull_ops": culled * CULL_OPS_PER_SLOT,
+                 "staged_bytes": 12 * int(real.sum()),
+                 "old_slot_bound_ms": slot_tests * OPS_PER_TEST
+                 / rates["slots_per_s"] * 1e3}
+    ops = tests * OPS_PER_TEST + extra.get("cull_ops", 0)
+    ops_ms = ops / rates["slots_per_s"] * 1e3
     bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
     out = {"tests": tests, "bytes": nbytes, "bound_ops_ms": ops_ms,
            "bound_bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           **extra}
     # what the compiled loop spends per test (sass_report), where known:
     # the time its instruction stream needs at the full instruction rate
     per_test = rates.get("sass_per_test", {}).get(
@@ -781,17 +807,21 @@ def general_case(gmap, p):
     return (gmap.params[None], None, xb, yb, ct, st)
 
 
-def general_cases():
-    """``tests/torch_general_cases.py``: the general sweep's adversarial
-    set and its pair counter (no JAX)."""
+def helper_module(name):
+    """``tests/<name>.py``, a helper module of the tests (no JAX)."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_general_cases.py")
-    spec = importlib.util.spec_from_file_location("torch_general_cases",
-                                                  path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     cases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cases)
     return cases
+
+
+def general_cases():
+    """``tests/torch_general_cases.py``: the general sweep's adversarial
+    set and its pair counter."""
+    return helper_module("torch_general_cases")
 
 
 def general_bound(args, winner, rates):
@@ -842,8 +872,8 @@ def kernel_vs_plain(label, name, args):
     """One launch of wrapper ``name`` against its plain version on the same
     tensors; 0 mismatches required, and the rows and real slots the list
     kernel adds to its device counter equal to what the plain version
-    counts on the host (``sweeps.SWEEP_COUNTS``). Returns the max abs
-    error."""
+    counts on the host (``sweeps.SWEEP_COUNTS``), the slots its wedge cull
+    keeps included. Returns the max abs error."""
     import torch
     from pyracecarsimulator_tpu_torch.ops.sweeps import SWEEP_COUNTS
     before, host = dict(SWEEP_COUNTS), dict(SWEEP_COUNTS.host)
@@ -855,9 +885,13 @@ def kernel_vs_plain(label, name, args):
     mism = int(((bv != bv_p) | (bh != bh_p)).sum())
     err = max(float((bv.double() - bv_p.double()).abs().max()),
               float((bh.double() - bh_p.double()).abs().max()))
+    per_row = ""
+    if kernel.get("rows"):
+        per_row = (f"; a row {kernel['slots'] / kernel['rows']:.2f} real "
+                   f"slots, {kernel['kept'] / kernel['rows']:.2f} kept")
     log(f"[{label}] {name} vs plain on {tuple(bv.shape)} rays: (bv, bh) "
         f"mismatches = {mism}, max abs err = {err}; counted by the kernel "
-        f"{kernel}, by the plain version {plain}")
+        f"{kernel}, by the plain version {plain}{per_row}")
     check(mism == 0, f"{label}: {name} disagrees with its plain version")
     check(kernel == plain, f"{label}: {name} counts other work than its "
           "plain version")

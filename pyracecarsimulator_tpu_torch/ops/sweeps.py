@@ -29,12 +29,16 @@ shows which path went through the kernel:
 real slots the kernels visit and compute each pair with the same float32
 operations, so kernel and plain version agree bit for bit.
 
-``SWEEP_COUNTS`` counts the list sweep's work, ``{"rows", "slots"}``: the
-rows swept and the real slots they visited, n_v + h_end - h_lo a row. The
-plain version counts on the host; the kernel adds each row to a device
-counter (``_kernels.DeviceCounts``, spread over ``COUNT_LANES`` lanes),
-which replayed CUDA graphs advance too. Reading ``SWEEP_COUNTS`` reads
-those counters (a synchronisation).
+``SWEEP_COUNTS`` counts the list sweep's work, ``{"slots", "rows",
+"kept"}``: the rows swept, the real slots of their lists, n_v + h_end -
+h_lo a row, and the slots the kernel's wedge cull keeps of them (each
+row's list less the slots that lie wholly outside the row's own wedge of
+rays, ``wedge_edges`` and ``outside_wedge``), which is what the kernel
+sweeps. The plain version counts on the host, culling in the kernel's
+float32 operations but sweeping every real slot; the kernel adds each row
+to a device counter (``_kernels.DeviceCounts``, spread over
+``COUNT_LANES`` lanes), which replayed CUDA graphs advance too. Reading
+``SWEEP_COUNTS`` reads those counters (a synchronisation).
 """
 
 from __future__ import annotations
@@ -49,7 +53,19 @@ _PLAIN_BYTES_BUDGET = 1 << 28
 # lanes of the list kernel's counter: the blocks of a launch add to lane
 # row % COUNT_LANES
 COUNT_LANES = 128
-SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows"), COUNT_LANES)
+SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows", "kept"), COUNT_LANES)
+# the list kernel's wedge cull (csrc/sector_sweep.cu, which argues the
+# numbers): the least real slots a row culls, the margin's absolute part
+# (1 mm) and its part a metre (2^-16), the unit test's tolerance (2^-20)
+# and the least cosine to the row's reference ray
+CULL_MIN_SLOTS = 32
+CULL_ABS = 1.0e-3
+CULL_REL = 2.0 ** -16
+UNIT_TOL = 2.0 ** -20
+MIN_DOT = 0.5
+# shared memory the list kernel holds besides its 3 * K staged floats
+# (its wedge reduction and kept counters, as ptxas reports them)
+_STATIC_SMEM = 656
 
 
 def _hits(p, lo, hi, o_perp, o_along, u_inv, u_along):
@@ -57,6 +73,59 @@ def _hits(p, lo, hi, o_perp, o_along, u_inv, u_along):
     t = (p - o_perp) * u_inv
     a = o_along + t * u_along
     return torch.where((t >= 0.0) & ((a - lo) * (hi - a) >= 0.0), t, _BIG)
+
+
+def _order_key(v):
+    """float32 (or, for the gradient tests' float64 rays, float64) ->
+    integers of the same width whose signed order is the floats' own, -0
+    before +0 (the kernel's ``order_key``, which maps to unsigned
+    integers instead)."""
+    ity = torch.int32 if v.dtype == torch.float32 else torch.int64
+    u = v.contiguous().view(ity)
+    return torch.where(u < 0, u ^ torch.iinfo(ity).max, u)
+
+
+def wedge_edges(cos_t, sin_t, n):
+    """The wedge of each row of rays, as ``list_sweep_kernel`` finds it:
+    ray tensors (G, bb) and the rows' real slot counts ``n`` (G,) ->
+    ``(cull, lx, ly, hx, hy)``, each (G,): whether the row culls at all
+    (``n >= CULL_MIN_SLOTS``, every ray finite and unit within
+    ``UNIT_TOL`` and within 60 degrees of the middle ray ``bb // 2``), and
+    its edge rays: the rays of least and of greatest signed sine against
+    the middle ray, the lowest beam among ties for the first and the
+    highest for the second."""
+    bb = cos_t.shape[1]
+    rx = cos_t[:, bb // 2:bb // 2 + 1]
+    ry = sin_t[:, bb // 2:bb // 2 + 1]
+    unit = ((cos_t * cos_t + sin_t * sin_t) - 1.0).abs() <= UNIT_TOL
+    ok = unit & (rx * cos_t + ry * sin_t >= MIN_DOT)
+    key = _order_key(rx * sin_t - ry * cos_t)
+    beam = torch.arange(bb, device=cos_t.device)
+    i_lo = torch.where(key == key.amin(1, keepdim=True), beam, bb).amin(
+        1, keepdim=True)
+    i_hi = torch.where(key == key.amax(1, keepdim=True), beam, -1).amax(
+        1, keepdim=True)
+    cull = ok.all(1) & (n >= CULL_MIN_SLOTS)
+    return (cull, *(v.gather(1, i)[:, 0] for i in (i_lo, i_hi)
+                    for v in (cos_t, sin_t)))
+
+
+def outside_wedge(ex1, ey1, ex2, ey2, edges, ro):
+    """The kernel's cull test, elementwise (in float32 on the kernel's
+    inputs): True where the
+    segment from (ex1, ey1) to (ex2, ey2), offsets from the row's origin,
+    lies wholly on the far side of an edge ray of ``edges = (lx, ly, hx,
+    hy)`` by more than the margin ``CULL_ABS + CULL_REL * ((max|ex| +
+    max|ey|) + ro)``, ``ro = |x0| + |y0|``. A NaN keeps the slot."""
+    lx, ly, hx, hy = edges
+    # a Python number in a float32 operation is rounded to float32 first:
+    # the kernel's 1.0e-3f and 2^-16
+    m = CULL_ABS + CULL_REL * (
+        (torch.fmax(ex1.abs(), ex2.abs()) + torch.fmax(ey1.abs(), ey2.abs()))
+        + ro)
+    low = (lx * ey1 - ly * ex1 < -m) & (lx * ey2 - ly * ex2 < -m)
+    high = (hx * ey1 - hy * ex1 > m) & (hx * ey2 - hy * ex2 > m)
+    return low | high
 
 
 def list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
@@ -71,7 +140,9 @@ def list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
     tensors, gathering only the chunk's slots of each row's list; slots
     outside a row's real bounds are masked (bounds clamped as the kernel
     clamps them), so the contributing slots are exactly the kernel's, and
-    so are the rows and slots it adds to ``SWEEP_COUNTS.host``.
+    so are the rows and slots it adds to ``SWEEP_COUNTS.host``. Every real
+    slot is swept; the kernel's wedge cull is only counted (``kept``), so
+    that kernel against plain checks that the cull drops nothing hit.
     """
     g_n, bb = cos_t.shape
     k = table.shape[2]
@@ -81,11 +152,16 @@ def list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
     h_lo = m[:, 1:2].clamp(0, k)
     nv = torch.minimum(m[:, 0:1].clamp(min=0), h_lo)
     h_end = torch.maximum(m[:, 2:3], h_lo).clamp(max=k)
+    n = (nv + h_end - h_lo)[:, 0]
     SWEEP_COUNTS.host["rows"] += g_n
-    SWEEP_COUNTS.host["slots"] += int((nv + h_end - h_lo).sum())
+    SWEEP_COUNTS.host["slots"] += int(n.sum())
     big = torch.full((g_n, bb), _BIG, dtype=torch.float32, device=dev)
     if g_n == 0:
         return big, big.clone()
+    cull, *edges = wedge_edges(cos_t, sin_t, n)
+    edges = [e[:, None] for e in edges]
+    ro = (x0.abs() + y0.abs())[:, None]
+    kept = torch.zeros(g_n, dtype=torch.int64, device=dev)
     slot = torch.arange(k, device=dev)[None, :]
     chunk = max(1, _PLAIN_BYTES_BUDGET // max(1, g_n * bb * 4))
     x = x0[:, None, None]
@@ -103,12 +179,20 @@ def list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
             if vertical:
                 t = _hits(p, lo, hi, x, y, inv_c[:, None, :],
                           sin_t[:, None, :])
+                ex = p[..., 0] - x0[:, None]
+                ends = (ex, lo[..., 0] - y0[:, None], ex,
+                        hi[..., 0] - y0[:, None])
             else:
                 t = _hits(p, lo, hi, y, x, inv_s[:, None, :],
                           cos_t[:, None, :])
+                ey = p[..., 0] - y0[:, None]
+                ends = (lo[..., 0] - x0[:, None], ey,
+                        hi[..., 0] - x0[:, None], ey)
             t = torch.where(real[:, :, None], t, _BIG)
             b = torch.minimum(b, t.amin(dim=1))
+            kept += (real & ~outside_wedge(*ends, edges, ro)).sum(1)
         best.append(b)
+    SWEEP_COUNTS.host["kept"] += int(torch.where(cull, kept, n).sum())
     return best[0], best[1]
 
 
@@ -172,9 +256,10 @@ def _list_route(name: str, replaces: str):
         if not 0 < bb <= 1024:
             raise ValueError(f"{name}: rows of {bb} beams: one thread per "
                              "beam needs 1..1024")
-        if 3 * k * 4 > 48 * 1024:
+        if 3 * k * 4 + _STATIC_SMEM > 48 * 1024:
             raise ValueError(f"{name}: capacity K={k} needs {3 * k * 4} "
-                             "bytes of shared memory per row; the kernel "
+                             "bytes of shared memory per row beside the "
+                             f"kernel's own {_STATIC_SMEM}; the kernel "
                              "takes <= 48 KB")
         _check(name, table, (
             (table, torch.float32, (l_n, 4, k)),

@@ -13,15 +13,17 @@ On the map, at ``--agents`` x 1080 beams, 270 degrees, 10 m, on poses
 sampled from seed 0 (five sets that differ by 1e-3 rad, one a call), the
 sweep alone on the two tables the exact backends route rows to: the
 sector backend's (tile, sector) lists (``sector_sweep``) and the segment
-backend's 4 m map tiles (``tile_sweep``). Device milliseconds a call from
-CUDA graphs of 20 calls replayed between CUDA events, ``--turns`` times
-(their median and each turn); beside them the rows, the real slots a row
-from ``meta`` of the rows (what the sweep's counter counts, where the
-tree's port has it: ``ops/sweeps.SWEEP_COUNTS``, read around one eager
-call), and the sums of the outputs on the first set (float64, clamped to
-10 m), which two checkouts of one function share. Prints one JSON line
-(also written to ``--json``) with the card's name and power limit from
-``nvidia-smi``. Exits non-zero without a card.
+backend's 4 m map tiles (``tile_sweep``; none on an untiled map such as
+levine). Device milliseconds a call from CUDA graphs of 20 calls replayed
+between CUDA events, ``--turns`` times (their median and each turn);
+beside them the rows, the real slots a row from ``meta`` of the rows
+(what the sweep's counter counts, where the tree's port has it:
+``ops/sweeps.SWEEP_COUNTS``, read around one eager call), the slots a row
+the kernel's wedge cull keeps (``kept_per_row``, where the tree's counter
+has a ``kept`` column), and the sums of the outputs on the first set
+(float64, clamped to 10 m), which two checkouts of one function share.
+Prints one JSON line (also written to ``--json``) with the card's name
+and power limit from ``nvidia-smi``. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -93,8 +95,9 @@ def cases(bundles, poses):
                                                          fan_cos_sin,
                                                          tile_ids)
     smap, segmap = bundles["sectors"].segmap, bundles["segments"].segmap
-    out = {"sector_sweep": (sweeps.sector_sweep, []),
-           "tile_sweep": (sweeps.tile_sweep, [])}
+    out = {"sector_sweep": (sweeps.sector_sweep, [])}
+    if segmap.tiles is not None:
+        out["tile_sweep"] = (sweeps.tile_sweep, [])
     bb = rs.sector_block_width(smap, BEAMS, FOV)
     for p in poses:
         ct, st = fan_cos_sin(p[:, 2], _padded_offsets(BEAMS, FOV, bb,
@@ -104,6 +107,8 @@ def cases(bundles, poses):
                            st, bb)
         out["sector_sweep"][1].append(list_args(smap.table, smap.meta, ids,
                                                 p, ct, st, bb))
+        if "tile_sweep" not in out:
+            continue
         ct, st = fan_cos_sin(p[:, 2], _padded_offsets(BEAMS, FOV, 128,
                                                       p.device))
         nblk = ct.shape[1] // 128
@@ -160,6 +165,8 @@ def main(argv=None) -> int:
         if counted is not None:
             after = dict(counted)
             row["counted"] = {k: after[k] - before[k] for k in after}
+            if "kept" in row["counted"]:
+                row["kept_per_row"] = row["counted"]["kept"] / ids.numel()
         r = torch.clamp(torch.minimum(bv, bh), max=MAX_RANGE)
         row["sum_range"] = float(r.double().sum())
         turns = [graphed_ms(fn, sets) for _ in range(args.turns)]

@@ -39,6 +39,7 @@ from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
 from pyracecarsimulator_tpu_torch.ops import raycast_segments as rseg
 from pyracecarsimulator_tpu_torch.ops import sweeps
 from pyracecarsimulator_tpu_torch.ops.common import _ray_invs, fan_cos_sin
+from torch_cull_cases import BUILT_CASES, built_case, row_args
 
 pytestmark = pytest.mark.cuda
 
@@ -125,16 +126,61 @@ def _sector_args(cuda, poses_n=300, num_beams=1080):
             *(v.reshape(g, bb).contiguous() for v in (ct, st, ic, is_)))
 
 
+_MAP_TABLES = {}
+
+
+def _map_table_args(cuda, table):
+    """The list sweep's arguments on a bundled map's table: berlin's 4 m
+    tiles or sector lists, levine's sector lists; 512 free poses (seed 0)
+    and the padded fan of each route's rows. Made once a process."""
+    if table not in _MAP_TABLES:
+        import pyracecarsimulator_tpu_torch as P
+        from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+        from pyracecarsimulator_tpu_torch.ops.common import (_padded_offsets,
+                                                             tile_ids)
+        name, kind = table.split("_")
+        bundle = P.build_sim(name, backend="sectors" if kind == "sectors"
+                             else "segments", device=cuda)
+        p = torch.as_tensor(sample_free_poses(
+            bundle.track, 512, np.random.RandomState(0)), device=cuda)
+        m = bundle.segmap
+        bb = (rs.sector_block_width(m, 1080, FOV) if kind == "sectors"
+              else 128)
+        ct, st = fan_cos_sin(p[:, 2], _padded_offsets(1080, FOV, bb, cuda))
+        g_rows = ct.shape[1] // bb
+        if kind == "sectors":
+            table_, meta = m.table, m.meta
+            ids = rs._list_ids(m.tiles_shape, m.tile_size, m.tile_origin,
+                               m.ns, p[:, 0], p[:, 1], ct, st, bb)
+        else:
+            table_, meta = m.tiles, m.tile_sweep_meta
+            ids = tile_ids(m.tiles_shape, m.tile_size, m.tile_origin,
+                           p[:, 0], p[:, 1])[:, None].expand(-1, g_rows)
+        ic, is_ = _ray_invs(ct, st)
+        g = ids.numel()
+        _MAP_TABLES[table] = (
+            table_, meta, ids.reshape(g).to(torch.int32).contiguous(),
+            p[:, 0].repeat_interleave(g_rows).contiguous(),
+            p[:, 1].repeat_interleave(g_rows).contiguous(),
+            *(v.reshape(g, bb).contiguous() for v in (ct, st, ic, is_)))
+    return _MAP_TABLES[table]
+
+
+@pytest.mark.parametrize("table", ["corridor", "berlin_tiles",
+                                   "berlin_sectors", "levine_sectors"])
 @pytest.mark.parametrize("route", [w.__name__ for w in sweeps.LIST_ROUTES])
-def test_list_sweep_counts_rows_and_slots_on_the_device(cuda, route):
-    """Each route of the list kernel adds its rows and their real slots
-    to the device's counter: on the same inputs exactly what the plain
-    version adds on the host; one replay of a CUDA graph of the sweep
-    advances it by exactly one call's count; the outputs, eager and
-    replayed, are the plain version's bit for bit."""
+def test_list_sweep_counts_rows_and_slots_on_the_device(cuda, route, table):
+    """Each route of the list kernel adds its rows, their real slots and
+    the slots its wedge cull keeps to the device's counter: on the same
+    inputs exactly what the plain version adds on the host; one replay of
+    a CUDA graph of the sweep advances it by exactly one call's count; the
+    outputs, eager and replayed, are the plain version's (which sweeps
+    every real slot) bit for bit. On berlin's tables the cull keeps under
+    two fifths of the slots."""
     wrapper = getattr(sweeps, route)
     counts = sweeps.SWEEP_COUNTS
-    args = _sector_args(cuda)
+    args = (_sector_args(cuda) if table == "corridor"
+            else _map_table_args(cuda, table))
     wrapper(*args)              # the counter exists before any capture
     torch.cuda.synchronize()
     start, host = dict(counts), dict(counts.host)
@@ -143,6 +189,9 @@ def test_list_sweep_counts_rows_and_slots_on_the_device(cuda, route):
     bv_p, bh_p = sweeps.list_sweep_plain(*args)
     plain = {k: counts.host[k] - host[k] for k in host}
     assert plain["rows"] == args[2].numel() and plain["slots"] > 0
+    assert 0 < plain["kept"] <= plain["slots"]
+    if table.startswith("berlin"):
+        assert plain["kept"] < 0.4 * plain["slots"]
     assert dev == plain
     assert torch.equal(bv, bv_p) and torch.equal(bh, bh_p)
     graph = torch.cuda.CUDAGraph()
@@ -153,6 +202,29 @@ def test_list_sweep_counts_rows_and_slots_on_the_device(cuda, route):
     torch.cuda.synchronize()
     assert {k: counts[k] - before[k] for k in before} == plain
     assert torch.equal(out[0], bv_p) and torch.equal(out[1], bh_p)
+
+
+@pytest.mark.parametrize("name", BUILT_CASES)
+def test_list_sweep_cull_at_its_edges(cuda, name):
+    """The built rows of ``tests/torch_cull_cases.py`` (an endpoint on an
+    edge ray, a segment through the origin, rows the cull cannot bound,
+    one beam, axis-aligned beams, padding beams, a ragged warp, a short
+    list) through the kernel: the plain version's minima bit for bit and
+    its kept slots."""
+    table, meta, (x0, y0, ct, st), _ = built_case(name)
+    args = row_args(torch.tensor(table, device=cuda),
+                    torch.tensor(meta, device=cuda),
+                    torch.zeros(1, dtype=torch.int32, device=cuda),
+                    *(v.to(cuda) for v in (x0, y0, ct, st)))
+    counts = sweeps.SWEEP_COUNTS
+    sweeps.sector_sweep(*args)
+    torch.cuda.synchronize()
+    start, host = dict(counts), dict(counts.host)
+    bv, bh = sweeps.sector_sweep(*args)
+    dev = {k: counts[k] - start[k] for k in start}
+    bv_p, bh_p = sweeps.list_sweep_plain(*args)
+    assert dev == {k: counts.host[k] - host[k] for k in host}
+    assert torch.equal(bv, bv_p) and torch.equal(bh, bh_p)
 
 
 def test_a_work_counter_is_never_made_inside_a_capture(cuda):

@@ -1,10 +1,11 @@
 """The list sweep's work count and the routing span, on the CPU.
 
 ``ops/sweeps.SWEEP_COUNTS`` (read through ``profiling.counters()["sweep"]``)
-counts the rows a list sweep runs and the real slots they visit,
-n_v + h_end - h_lo a row; the plain version counts on the host, the kernel
-on the device (``tests/test_torch_kernels.py`` holds the two equal on the
-card). ``scan.route`` spans the routing of rows to cull lists inside
+counts the rows a list sweep runs, the real slots of their lists,
+n_v + h_end - h_lo a row, and the slots the kernel's wedge cull keeps of
+them; the plain version counts on the host, the kernel on the device
+(``tests/test_torch_kernels.py`` holds the two equal on the card).
+``scan.route`` spans the routing of rows to cull lists inside
 ``step.scan``. The card's side of both: ``tests/test_torch_kernels.py``.
 """
 
@@ -24,6 +25,7 @@ from pyracecarsimulator_tpu_torch.ops import raycast_segments as rseg
 from pyracecarsimulator_tpu_torch.ops import sweeps
 from pyracecarsimulator_tpu_torch.ops.common import tile_ids
 from pyracecarsimulator_tpu_torch.utils import profiling
+from torch_cull_cases import cull_masks, fan_args
 
 FOV = 4.712388980384690
 BEAMS = 300
@@ -76,36 +78,42 @@ def _sector_rows(smap, p):
     bb = rs.sector_block_width(smap, BEAMS, FOV)
     ct, st = rs.fan_cos_sin(p[:, 2], rs._padded_offsets(BEAMS, FOV, bb,
                                                         "cpu"))
-    return rs._list_ids(smap.tiles_shape, smap.tile_size, smap.tile_origin,
-                        smap.ns, p[:, 0], p[:, 1], ct, st, bb)
+    ids = rs._list_ids(smap.tiles_shape, smap.tile_size, smap.tile_origin,
+                       smap.ns, p[:, 0], p[:, 1], ct, st, bb)
+    return fan_args(smap.table, smap.meta, ids, p, bb, BEAMS, FOV)
 
 
 def _tile_rows(segmap, p):
     nblk = -(-BEAMS // 128)
     tid = tile_ids(segmap.tiles_shape, segmap.tile_size, segmap.tile_origin,
                    p[:, 0], p[:, 1])
-    return tid[:, None].expand(-1, nblk)
+    return fan_args(segmap.tiles, segmap.tile_sweep_meta,
+                    tid[:, None].expand(-1, nblk), p, 128, BEAMS, FOV)
 
 
 @pytest.mark.parametrize("kind", ["sectors", "tiles"])
 def test_sweep_counts_rows_and_real_slots_of_a_scan(track, maps, kind):
     """After a sector scan and after a tile scan, ``counters()["sweep"]``
-    has grown by the scan's rows and by the sum of their real slots,
-    counted apart from the sweep from ``meta[ids]``; a scan differentiated
-    in the poses counts its one forward sweep."""
+    has grown by the scan's rows, by the sum of their real slots and by
+    the slots the wedge cull keeps of them, counted apart from the sweep
+    from ``meta[ids]`` and the rows' rays; a scan differentiated in the
+    poses counts its one forward sweep."""
     smap, segmap = maps
     p = _poses(track, 24, 3)
     if kind == "sectors":
         scan = lambda q: rs.scan_poses_sectors(smap, q, BEAMS, FOV,
                                                MAX_RANGE)
-        ids, meta, k = _sector_rows(smap, p), smap.meta, smap.table.shape[2]
+        args, k = _sector_rows(smap, p), smap.table.shape[2]
     else:
         scan = lambda q: rseg.scan_poses_segments(segmap, q, BEAMS, FOV,
                                                   MAX_RANGE)
-        ids, meta = _tile_rows(segmap, p), segmap.tile_sweep_meta
-        k = segmap.tiles.shape[2]
-    want = {"rows": ids.numel(), "slots": _real_slots(meta, ids)}
+        args, k = _tile_rows(segmap, p), segmap.tiles.shape[2]
+    ids = args[2]
+    real, kept = cull_masks(args)
+    want = {"rows": ids.numel(), "slots": _real_slots(args[1], ids),
+            "kept": int(kept.sum())}
     assert 0 < want["slots"] < ids.numel() * k
+    assert want["slots"] == int(real.sum()) and want["kept"] <= want["slots"]
     for grad in (False, True):
         q = p.clone().requires_grad_(grad)
         before = profiling.counters()["sweep"]
@@ -119,19 +127,67 @@ def test_sweep_counts_rows_and_real_slots_of_a_scan(track, maps, kind):
 
 def test_sweep_counts_add_the_device_counters_lanes():
     """``SWEEP_COUNTS`` is the plain version's host counts plus every
-    device's (lanes, 2) counter of [slots, rows], summed over its lanes at
-    each lookup; a CPU tensor stands in for a device's counter here."""
-    counts = _kernels.DeviceCounts(("slots", "rows"), sweeps.COUNT_LANES)
-    counts.host.update(rows=5, slots=900)
+    device's (lanes, 3) counter of [slots, rows, kept], summed over its
+    lanes at each lookup; a CPU tensor stands in for a device's counter
+    here."""
+    counts = _kernels.DeviceCounts(("slots", "rows", "kept"),
+                                   sweeps.COUNT_LANES)
+    counts.host.update(rows=5, slots=900, kept=70)
     c = counts.counter(torch.device("cpu"))
     assert c.dtype == torch.int64
-    assert tuple(c.shape) == (sweeps.COUNT_LANES, 2) and not c.any()
-    c[0] = torch.tensor([100, 1])
-    c[-1] = torch.tensor([2 ** 40, 3])
-    assert dict(counts) == {"slots": 1000 + 2 ** 40, "rows": 9}
+    assert tuple(c.shape) == (sweeps.COUNT_LANES, 3) and not c.any()
+    c[0] = torch.tensor([100, 1, 9])
+    c[-1] = torch.tensor([2 ** 40, 3, 2 ** 33])
+    assert dict(counts) == {"slots": 1000 + 2 ** 40, "rows": 9,
+                            "kept": 79 + 2 ** 33}
     assert counts.counter(torch.device("cpu")) is c
-    assert set(sweeps.SWEEP_COUNTS) == {"slots", "rows"}
+    assert set(sweeps.SWEEP_COUNTS) == {"slots", "rows", "kept"}
     assert profiling.counters()["sweep"] == dict(sweeps.SWEEP_COUNTS)
+
+
+def _swept_slots_reader():
+    """``read`` of the benchmark's ``swept_slots_per_ray`` metric."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parents[1] / "benchmark"
+            / "metrics" / "swept_slots_per_ray.py")
+    spec = importlib.util.spec_from_file_location("swept_slots_reader",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("counters, want", [
+    (None, None),                                   # no counters() at all
+    ({"march": {"calls": 0, "trips": 0}}, None),
+    ({"sweep": {"rows": 9, "slots": 900}}, None),   # a port without kept
+    ({"sweep": {"rows": 0, "slots": 0, "kept": 0}}, None),
+    ({"sweep": {"rows": 8, "slots": 900, "kept": 570}}, 71.25)])
+def test_swept_slots_reader_reads_kept_over_rows(monkeypatch, counters,
+                                                 want):
+    """The benchmark's ``swept_slots_per_ray`` reads the port's kept slots
+    over its rows, and None where the port counts no kept slots (a program
+    before the cull) or swept no row."""
+    import sys
+    import types
+    read = _swept_slots_reader()
+    mod = types.ModuleType(profiling.__name__)
+    if counters is not None:
+        mod.counters = lambda: counters
+    monkeypatch.setitem(sys.modules, profiling.__name__, mod)
+    assert read({"trace": None, "spans": {}}) == want
+
+
+def test_swept_slots_reader_on_the_port(track, maps):
+    """On the port itself after a sector scan on the CPU: the plain
+    version's kept slots over its rows."""
+    smap, _ = maps
+    rs.scan_poses_sectors(smap, _poses(track, 4, 1), BEAMS, FOV, MAX_RANGE)
+    counts = dict(sweeps.SWEEP_COUNTS)
+    assert counts["rows"] > 0 and 0 < counts["kept"] <= counts["slots"]
+    assert _swept_slots_reader()({"trace": None, "spans": {}}) == \
+        counts["kept"] / counts["rows"]
 
 
 def _step_case(track, backend):
