@@ -8,8 +8,8 @@ Counterpart of ``bench.py``, stage for stage and key for key, on
 ``pyracecarsimulator_tpu_torch``: 4096 agents x 1080 beams, 270 deg, 10 m,
 rays from seeded NumPy on both bundled maps. Stages (``STAGES``) and their
 keys: the dense exact raycast (``<map>_fwd``, ``<map>_fwdbwd``) and its
-kernel entry points (``<map>_pallas_*``); the sector raycast through each
-wrapper of the list kernel (``<map>_sector_*``, ``<map>_sector_pallas_*``,
+kernel entry points (``<map>_pallas_*``); the sector raycast under each
+JAX sector kernel's key (``<map>_sector_*``, ``<map>_sector_pallas_*``,
 on tables of capacity >= 128 also ``<map>_sector_sorted_*`` and
 ``<map>_sector_fused_*``) with the gate ``<map>_sector_parity_maxabs``;
 ``levine_1024_fwd``; ``berlin_simplified_*``; the map-gradient paths
@@ -54,10 +54,11 @@ function's:
   and at most 3 loops.
 - No target and no headline: ``vs_baseline``, the rays/s north star and the
   ``headline_path`` contest belonged to the TPU rounds.
-- The sector wrappers share one CUDA kernel (``csrc/sector_sweep.cu``), so
-  ``*_sector_*``, ``*_sector_pallas_*``, ``*_sector_sorted_*`` and
-  ``*_sector_fused_*`` time the same device code behind four wrappers; the
-  keys stay so that a reader finds each counterpart.
+- The JAX package's four sector kernels are one wrapper of one CUDA kernel
+  here (``list_sweep``, ``csrc/sector_sweep.cu``), so ``*_sector_*``,
+  ``*_sector_pallas_*``, ``*_sector_sorted_*`` and ``*_sector_fused_*``
+  time the same call (each key's mode is checked, then ignored); the keys
+  stay so that a reader finds each counterpart.
 - No stage fails quietly. A stage that raises is reported and the others
   still run; a gate that is not 0.0 (the gates compare two paths of one
   function on the same inputs) and, on the card, a kernel stage whose
@@ -324,17 +325,17 @@ def stage_dense(b: Bench):
                                         MAX_RANGE)))
             b.time_fwd_bwd(key, once, perturbed(rays),
                            b.agents * b.beams,
-                           "tile_sweep" if tiled else "dense_sweep")
+                           "list_sweep" if tiled else "dense_sweep")
 
 
 def stage_sectors(b: Bench):
-    """The sector raycast through each wrapper of the list kernel, and the
+    """The sector raycast under the key of each JAX sector kernel, and the
     gate sector == dense on the same rays."""
     import torch
     from pyracecarsimulator_tpu_torch.ops.raycast_grad import (
         raycast_all_diff, raycast_tiled_diff)
     from pyracecarsimulator_tpu_torch.ops.raycast_sectors import (
-        _sweep_for, raycast_sectors)
+        _check_mode, raycast_sectors)
     for name in MAPS:
         routes = [("sector", "auto", None), ("sector_pallas", "auto", True),
                   ("sector_sorted", "sorted_pl@128", None),
@@ -350,24 +351,23 @@ def stage_sectors(b: Bench):
         padded = tuple(map(pad_beams, rays))
         sets = perturbed(padded + (x0, y0), shift=(0, 1, 4, 5))
 
-        def sec_once(sweep):
-            return lambda xb, yb, ct, st, x0, y0: raycast_sectors(
+        def sec_once(xb, yb, ct, st, x0, y0):
+            return raycast_sectors(
                 smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
                 smap.tile_origin, smap.ns, x0, y0, xb, yb, ct, st, MAX_RANGE,
-                128, sweep)
+                128)
 
         for key, mode, grouped in routes:
             if key in ("sector_sorted", "sector_fused") and \
                     smap.table.shape[2] < 128:
                 continue            # as bench.py: large-capacity tables only
-            sweep = _sweep_for(mode, grouped)
-            b.time_fwd_bwd(f"{name}_{key}", sec_once(sweep), sets,
-                           b.agents * b.beams, sweep.__name__)
+            _check_mode(mode, grouped)
+            b.time_fwd_bwd(f"{name}_{key}", sec_once, sets,
+                           b.agents * b.beams, "list_sweep")
         if b.wanted(gate):
             sm = b.segmap(name)
             with torch.no_grad():
-                r_s = sec_once(_sweep_for("auto", None))(
-                    *padded, x0, y0)[:, : b.beams]
+                r_s = sec_once(*padded, x0, y0)[:, : b.beams]
                 r_d = (raycast_tiled_diff(
                     sm.tiles, sm.tile_sweep_meta, sm.tiles_shape,
                     sm.tile_size, sm.tile_origin, x0, y0, *rays, MAX_RANGE)
@@ -441,8 +441,8 @@ def stage_dmap_bilinear(b: Bench):
 def stage_dmap_fast(b: Bench):
     """The implicit-function map gradients: the implicit march, and the
     sector forward with the map cotangent attached (scatter and dedup)."""
-    from pyracecarsimulator_tpu_torch.ops.raycast_sectors import (
-        raycast_sectors, sector_sweep)
+    from pyracecarsimulator_tpu_torch.ops.raycast_sectors import \
+        raycast_sectors
     from pyracecarsimulator_tpu_torch.ops.raymarch_diff import (
         scan_poses_implicit, with_map_gradient)
     keys = ("levine_dmap_implicit_fwdbwd", "levine_dmap_hybrid_fwdbwd",
@@ -470,7 +470,7 @@ def stage_dmap_fast(b: Bench):
             r = raycast_sectors(
                 smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
                 smap.tile_origin, smap.ns, x0, y0, xb, yb, ct, st, MAX_RANGE,
-                128, sector_sweep)[:, :nb]
+                128)[:, :nb]
             return with_map_gradient(
                 e, r, xb[:, :nb], yb[:, :nb], ct[:, :nb], st[:, :nb],
                 m.resolution, org, 1e-4, hw, dedup)
@@ -478,7 +478,7 @@ def stage_dmap_fast(b: Bench):
 
     for key, dedup in ((keys[1], False), (keys[2], True)):
         b.time(key, _fwd_bwd_of(hybrid(dedup), hyb_sets, n_grad=3),
-               n * b.beams, "sector_sweep")
+               n * b.beams, "list_sweep")
 
 
 def stage_rollouts(b: Bench):
@@ -497,9 +497,9 @@ def stage_rollouts(b: Bench):
     for name, backend, key, kernel in (
             ("levine", "segments", "env_steps_s_4096", "dense_sweep"),
             ("levine", "sectors", "env_steps_s_4096_sectors",
-             "sector_sweep"),
+             "list_sweep"),
             ("berlin", "sectors", "env_steps_s_4096_sectors_berlin",
-             "sector_sweep")):
+             "list_sweep")):
         if not b.wanted(key, f"{key}_eager", gate):
             continue
         step = make_step_fn(b.bundle(name, backend), with_noise=False)
@@ -557,7 +557,7 @@ def stage_train(b: Bench):
             opt = init(params)
             rate = b.time(
                 k, lambda j: train(params, opt, states[j]),
-                b.agents * b.train_t, "sector_sweep", slow=True,
+                b.agents * b.train_t, "list_sweep", slow=True,
                 aliases=(f"train_rays_s_{name}",) if graph is None else ())
             if graph is None and rate is not None:
                 b.rates[f"train_rays_s_{name}"] = rate * b.beams
@@ -592,7 +592,7 @@ def stage_multitrack(b: Bench):
     sets = [(poses + j * 1e-7,) for j in range(N_SETS)]
     once = lambda p: scan_poses_sectors_multi(stack, mids, p, **kw)
     b.time("multitrack_fwdbwd", _fwd_bwd_of(once, sets, n_grad=1),
-           2 * half * b.beams, "sector_sweep")
+           2 * half * b.beams, "list_sweep")
     if b.wanted("multitrack_parity_maxabs"):
         with torch.no_grad():
             per_map = torch.cat([
@@ -636,7 +636,7 @@ def stage_ring(b: Bench):
         ring = make_ring_scan(make_mesh(), smap, b.beams, FOV, MAX_RANGE)
         sets = [poses + j * 1e-7 for j in range(N_SETS)]
         b.time("ring_1dev_rays_s", lambda j: ring(sets[j]),
-               poses.shape[0] * b.beams, "sector_sweep")
+               poses.shape[0] * b.beams, "list_sweep")
         if b.wanted("ring_parity_maxabs"):
             ref = scan_poses_sectors(smap, poses, num_beams=b.beams, fov=FOV,
                                      mode="dense")
@@ -663,7 +663,7 @@ def stage_sharded_step(b: Bench):
             s = state[0]
             state[0] = step(set_field(s, x=s.x + j * 1e-7), act).state
         b.time("sharded_step_1dev_rays_s", one, b.agents * b.beams,
-               "sector_sweep")
+               "list_sweep")
 
 
 # -- the run ----------------------------------------------------------------

@@ -25,13 +25,14 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
    scan against the CPU scan, the scan against the oracle; and the dense
    kernel over berlin's 4442 untiled segments against its plain version
    on 256 agents;
-5. the sector routes of the JAX package's other two list kernels (mode
-   "sorted_pl", ``use_pallas=True``) against the plain version, and their
-   scans, counted, against the default sector scan;
+5. the sector scans that stand for the JAX package's other two list
+   kernels (mode "sorted_pl", ``use_pallas=True``; both run the one list
+   sweep), counted, against the default sector scan;
 6. the main path: ``build_sim(name)`` (default backend) -> one step plus
    a 20-step noisy rollout per map (replayed from CUDA graphs), with every
    launch counter set to 0 just before and read just after (levine must
-   have run the dense kernel, berlin the tile route, 25 times each: the
+   have run the dense kernel, berlin the list kernel over map tiles, 25
+   times each: the
    step, 4 warm-up steps of the capture, 20 replays); "segments_pallas"
    equal to "segments"; then the same drive on the sector backend;
 7. 3 BPTT train steps (T = 5, 4096 x 1080) on berlin with "segments" and
@@ -78,7 +79,7 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     and one ``edf_march_grad`` launch a bilinear backward, nothing else);
 12. ``make_scan_fn(map_grad=True)`` on berlin's sector backend: forward
     equal to ``scan_poses_sectors`` bit for bit, EDF cotangent finite and
-    non-zero, ``sector_sweep`` launched exactly once per scan; the dedup
+    non-zero, ``list_sweep`` launched exactly once per scan; the dedup
     cotangent against the scatter one;
 13. per map, the chamfer stencil of ``soft_edt`` on the occupancy in
     three modes (``STENCIL_MODES``: hard min and softmin at 64
@@ -122,9 +123,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 16. multitrack at full width: levine + berlin stacked, 2048 agents per
     map: the list kernel against its plain version over the stacked
     table, ``scan_poses_sectors_multi`` equal bit for bit to the two
-    per-map scans, exactly one ``sector_sweep`` launch per multi scan (one
-    ``sorted_tiles_sweep`` launch with ``mode="sorted_pl"``), forward +
-    backward, times;
+    per-map scans, exactly one ``list_sweep`` launch per multi scan (with
+    ``mode="sorted_pl"`` too), forward + backward, times;
 17. a 1 x 1 mesh on the card, backend NCCL, in this process: the sharded
     sector step equal to ``make_step_fn``'s, the stacked step equal to the
     multitrack scan, the ring scan (one slab) equal to
@@ -216,8 +216,9 @@ its bytes the field in and out once and the history once. Beside the bound stand
 ``cuobjdump``, what the compiled loop issues per test or per trip (its
 SASS), as a reading.
 
-Prints a JSON line describing the eleven kernels (the five TPU kernels'
-counterparts; the EDF march, which replaces three XLA loops, its
+Prints a JSON line describing the eight kernel wrappers (the two sweeps
+that replace the five TPU kernels, ``list_sweep`` four of them; the EDF
+march, which replaces three XLA loops, its
 gradient, which replaces the scan's transpose under ``jax.grad``, the
 implicit march's pose VJP, which replaces its custom_vjp's backward and
 the fan's transpose, the general sweep, which replaces the
@@ -255,16 +256,12 @@ SRC = "pyracecarsimulator_tpu_torch/csrc/"
 TPU = "pyracecarsimulator_tpu/ops/raycast_pallas.py:"
 # wrapper name -> (CUDA source, the TPU kernel it replaces, where it runs)
 KERNELS = {
-    "sector_sweep": (SRC + "sector_sweep.cu", TPU + "704",
-                     "sector backend"),
-    "sorted_tiles_sweep": (SRC + "sector_sweep.cu", TPU + "505",
-                           "sector backend, mode 'sorted_pl'"),
-    "grp_sweep": (SRC + "sector_sweep.cu", TPU + "239",
-                  "sector backend, use_pallas=True"),
+    "list_sweep": (SRC + "sector_sweep.cu",
+                   f"{TPU}704, {TPU}505, {TPU}239, {TPU}186",
+                   "sector backend (every mode, use_pallas), segments "
+                   "backend on tiled maps (berlin), stacked maps, the ring"),
     "dense_sweep": (SRC + "dense_sweep.cu", TPU + "116",
                     "segments backend, untiled maps (levine)"),
-    "tile_sweep": (SRC + "sector_sweep.cu", TPU + "186",
-                   "segments backend, tiled maps (berlin)"),
     # XLA loops, no pallas_call: the JAX package has no Pallas march
     "edf_march": (SRC + "edf_march.cu",
                   "pyracecarsimulator_tpu/ops/raymarch_xla.py:139, "
@@ -1592,7 +1589,7 @@ def mapgrad_phase(card, smap_bundle, poses):
     log(f"[berlin] map_grad sector scan: launches {used}, forward equal to "
         f"scan_poses_sectors = {same}, EDF cotangent |.|_1 "
         f"{float(g.abs().sum()):.4f}, finite and non-zero = {ok}")
-    check(used == {"sector_sweep": 1} and same and ok, "map_grad scan")
+    check(used == {"list_sweep": 1} and same and ok, "map_grad scan")
     sets = pose_sets(poses)
     n_scans = 3
     reset_counts()
@@ -1605,7 +1602,7 @@ def mapgrad_phase(card, smap_bundle, poses):
     log(f"[berlin] {card}: map_grad sector scan forward + backward "
         f"{ms:.4f} ms at {AGENTS} x {BEAMS}; launches over {n_scans} "
         f"scans {grown}")
-    check(grown == {**{k: 0 for k in KERNELS}, "sector_sweep": n_scans},
+    check(grown == {**{k: 0 for k in KERNELS}, "list_sweep": n_scans},
           f"map_grad: {n_scans} scans launched {grown}")
     # dedup against scatter, on the forward's own rays
     from pyracecarsimulator_tpu_torch.ops.common import rays_from_poses
@@ -2018,8 +2015,8 @@ def obstacle_phase(card, name, track, poses):
     ahead = BEAMS // 2                 # the beam straight ahead
     box_x = x + 0.275 + 1.0            # 1 m ahead of the scanner
     expect = {"segments": {"levine": "dense_sweep",
-                           "berlin": "tile_sweep"}[name],
-              "sectors": "sector_sweep", "edf": "edf_march",
+                           "berlin": "list_sweep"}[name],
+              "sectors": "list_sweep", "edf": "edf_march",
               "segments_simplified": "general_sweep"}
     out = {}
     for backend, kname in expect.items():
@@ -2129,10 +2126,9 @@ def multitrack_phase(card, sec_bundles, poses_by_map, rates, errs):
         q[:, 2] += j * 1e-3
         sets.append(q)
     args = [case(q) for q in sets]
-    for name in ("sector_sweep", "sorted_tiles_sweep"):
-        errs[name].append(kernel_vs_plain("stack", name, args[0]))
-    out["kernel"] = time_kernel("sector_sweep", args, rates)
-    log(f"[stack] {card}: sector_sweep over the stacked table "
+    errs["list_sweep"].append(kernel_vs_plain("stack", "list_sweep", args[0]))
+    out["kernel"] = time_kernel("list_sweep", args, rates)
+    log(f"[stack] {card}: list_sweep over the stacked table "
         f"{out['kernel']}")
 
     # the multi scan against the two per-map scans, counted
@@ -2141,9 +2137,8 @@ def multitrack_phase(card, sec_bundles, poses_by_map, rates, errs):
                               p[i * half:(i + 1) * half], **kw)
         for i, m in enumerate(MAPS)])
     ref = per_map(poses)
-    out["launches"] = {}
-    for mode, wname in (("auto", "sector_sweep"),
-                        ("sorted_pl", "sorted_tiles_sweep")):
+    out["launches"] = {"list_sweep": 0}
+    for mode in ("auto", "sorted_pl"):
         reset_counts()
         got = rs.scan_poses_sectors_multi(stack, mid, poses, mode=mode, **kw)
         torch.cuda.synchronize()
@@ -2152,9 +2147,9 @@ def multitrack_phase(card, sec_bundles, poses_by_map, rates, errs):
         log(f"[stack] scan_poses_sectors_multi(mode={mode!r}) on "
             f"{tuple(got.shape)}: launches {used}, equal to the two "
             f"per-map scans bit for bit = {same}")
-        check(same and used == {wname: 1},
+        check(same and used == {"list_sweep": 1},
               f"multitrack scan, mode {mode}: {used}, equal={same}")
-        out["launches"][wname] = used[wname]
+        out["launches"]["list_sweep"] += used["list_sweep"]
 
     # forward + backward once
     reset_counts()
@@ -2162,8 +2157,8 @@ def multitrack_phase(card, sec_bundles, poses_by_map, rates, errs):
     (rs.scan_poses_sectors_multi(stack, mid, p, **kw) ** 2).sum().backward()
     g = p.grad
     ok = (bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
-          and counts()["sector_sweep"] == 1)
-    out["launches"]["sector_sweep"] += counts()["sector_sweep"]
+          and counts()["list_sweep"] == 1)
+    out["launches"]["list_sweep"] += counts()["list_sweep"]
     log(f"[stack] multi scan forward + backward: pose grad |.|_1 "
         f"{float(g.abs().sum()):.4f}, finite and non-zero, one launch = {ok}")
     check(ok, "multitrack gradients")
@@ -2233,7 +2228,7 @@ def mesh_phase(card, bundle, stack, stack_poses, mid, poses, errs):
             f": launches {out['launches']['sharded sector step']}, equal to "
             f"make_step_fn's bit for bit = {same}")
         check(same and out["launches"]["sharded sector step"] == {
-            "sector_sweep": 1}, "sharded sector step")
+            "list_sweep": 1}, "sharded sector step")
 
         # the stacked step against the multitrack scan
         q = stack_poses
@@ -2251,7 +2246,7 @@ def mesh_phase(card, bundle, stack, stack_poses, mid, poses, errs):
             f"scan_poses_sectors_multi at the stepped poses = {same}; "
             f"{int(c.collision.sum())} of {AGENTS} cars latched")
         check(same and out["launches"]["stacked step"] == {
-            "sector_sweep": 1}, "stacked sharded step")
+            "list_sweep": 1}, "stacked sharded step")
 
         # the ring scan, one slab: its one launch sweeps the gathered
         # (G, 4, K) buffer as the table, row by row
@@ -2259,8 +2254,8 @@ def mesh_phase(card, bundle, stack, stack_poses, mid, poses, errs):
         _, (_, meta, ids, *rays) = sector_case(smap, p)
         slab, ls = ringmap.shard_sector_table(mesh, smap)
         buf = ringmap._ring_gather(mesh, slab, ids, ls)
-        errs["sector_sweep"].append(kernel_vs_plain(
-            f"ring buffer {tuple(buf.shape)}", "sector_sweep",
+        errs["list_sweep"].append(kernel_vs_plain(
+            f"ring buffer {tuple(buf.shape)}", "list_sweep",
             (buf, meta.index_select(0, ids.long()).contiguous(),
              torch.arange(ids.numel(), dtype=torch.int32, device="cuda"),
              *rays)))
@@ -2275,7 +2270,7 @@ def mesh_phase(card, bundle, stack, stack_poses, mid, poses, errs):
         log(f"[mesh 1x1 nccl] ring scan, S = 1, slab rows {ring.slab_rows}: "
             f"launches {out['launches']['ring scan']}, equal to "
             f"scan_poses_sectors bit for bit = {same}")
-        check(same and out["launches"]["ring scan"] == {"sector_sweep": 1}
+        check(same and out["launches"]["ring scan"] == {"list_sweep": 1}
               and ring.slab_rows == bundle.segmap.table.shape[0],
               "ring scan")
 
@@ -2332,7 +2327,7 @@ def ranks_phase(card, bundle, flat, track, poses, errs):
         f"{BEAMS}: mesh {res['mesh']}, backend {res['backend']}, "
         f"{out['wall_s']:.1f} s wall; launches per rank {res['launches']}")
     check(res["mesh"] == (2, 2) and res["backend"] == "gloo"
-          and res["launches"] == [{"sector_sweep": 3, "dense_sweep": 2}] * 4,
+          and res["launches"] == [{"list_sweep": 3, "dense_sweep": 2}] * 4,
           "the four ranks' mesh, backend or launches")
 
     kw = dict(num_beams=BEAMS, fov=FOV, max_range=MAX_RANGE)
@@ -2359,11 +2354,11 @@ def ranks_phase(card, bundle, flat, track, poses, errs):
                            smap.tile_origin, smap.ns, p[:, 0], p[:, 1], ct,
                            st, bb)
         args = list_args(smap.table, smap.meta, ids, p, ct, st)
-        errs["sector_sweep"].append(kernel_vs_plain(
-            f"berlin sectors, wedge {b} of 2", "sector_sweep", args))
+        errs["list_sweep"].append(kernel_vs_plain(
+            f"berlin sectors, wedge {b} of 2", "list_sweep", args))
         rows = args[2].long()
-        errs["sector_sweep"].append(kernel_vs_plain(
-            f"berlin ring buffer, wedge {b} of 2", "sector_sweep",
+        errs["list_sweep"].append(kernel_vs_plain(
+            f"berlin ring buffer, wedge {b} of 2", "list_sweep",
             (smap.table.index_select(0, rows),
              smap.meta.index_select(0, rows).contiguous(),
              torch.arange(rows.numel(), dtype=torch.int32, device="cuda"),
@@ -2684,14 +2679,14 @@ def examples_phase(card):
         ("demo_mpc", ["--candidates", str(AGENTS), "--beams", str(BEAMS),
                       "--control-steps", "5"], "dense_sweep"),
         ("demo_bptt", ["--iters", "10"], "dense_sweep"),
-        ("demo_train", [*wide, "--iters", "8"], "sector_sweep"),
+        ("demo_train", [*wide, "--iters", "8"], "list_sweep"),
         ("demo_mapping", ["--iters", "60"],
          ("edf_march", "soft_edt", "soft_edt_grad")),
-        ("demo_mapping --fast", [], "sector_sweep"),
-        ("demo_multitrack", wide, "sector_sweep"),
+        ("demo_mapping --fast", [], "list_sweep"),
+        ("demo_multitrack", wide, "list_sweep"),
         # one rank, as torchrun would set it; the demo's own 65536 agents
         ("demo_multihost", ["--beams", str(BEAMS), "--steps", "5"],
-         "sector_sweep"),
+         "list_sweep"),
     )
     rendezvous = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
                   "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
@@ -2853,9 +2848,9 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
     from pyracecarsimulator_tpu_torch.state import FIELDS
     T = 25
     kernel_of = {("levine", "segments"): "dense_sweep",
-                 ("berlin", "segments"): "tile_sweep",
-                 ("levine", "sectors"): "sector_sweep",
-                 ("berlin", "sectors"): "sector_sweep",
+                 ("berlin", "segments"): "list_sweep",
+                 ("levine", "sectors"): "list_sweep",
+                 ("berlin", "sectors"): "list_sweep",
                  ("levine", "segments_simplified"): "general_sweep",
                  ("berlin", "segments_simplified"): "general_sweep"}
 
@@ -3297,8 +3292,8 @@ def run():
 
         # 3. the sector backend
         fan, args = sector_case(smap, p)
-        errs["sector_sweep"].append(
-            kernel_vs_plain(f"{name} sectors", "sector_sweep", args))
+        errs["list_sweep"].append(
+            kernel_vs_plain(f"{name} sectors", "list_sweep", args))
         m = smap.meta[args[2].long()]
         log(f"[{name}] sector rows {args[2].numel()}, mean real slots per "
             f"visited list {float((m[:, 0] + m[:, 2] - m[:, 1]).float().mean()):.1f}")
@@ -3306,24 +3301,24 @@ def run():
                     smap.to("cpu"), poses, fan)
 
         # 4. the segments backend
-        kname = "tile_sweep" if segmap.tiles is not None else "dense_sweep"
+        kname = "list_sweep" if segmap.tiles is not None else "dense_sweep"
         check(kname == {"levine": "dense_sweep",
-                        "berlin": "tile_sweep"}[name],
+                        "berlin": "list_sweep"}[name],
               f"{name}: the default map layout changed")
         fan, args = segment_case(segmap, p)
         errs[kname].append(kernel_vs_plain(f"{name} segments", kname, args))
-        if kname == "tile_sweep":
+        if kname == "list_sweep":
             m = segmap.tile_sweep_meta[args[2].long()]
             log(f"[{name}] tile rows {args[2].numel()}, mean real slots "
                 f"per visited tile list "
                 f"{float((m[:, 0] + m[:, 2] - m[:, 1]).float().mean()):.1f}")
         scan_checks(f"{name} segments", track, segment_scan, segmap,
                     segmap.to("cpu"), poses, fan)
-        times[kname][name] = time_kernel(
-            kname, [segment_case(segmap, q)[1] for q in pose_sets(poses)],
-            rates)
-        times["sector_sweep"][name] = time_kernel(
-            "sector_sweep",
+        times[kname][name if kname == "dense_sweep" else f"{name} tiles"] = (
+            time_kernel(kname, [segment_case(segmap, q)[1]
+                                for q in pose_sets(poses)], rates))
+        times["list_sweep"][f"{name} sectors"] = time_kernel(
+            "list_sweep",
             [sector_case(smap, q)[1] for q in pose_sets(poses)], rates)
 
     # 4b. the dense kernel over berlin's untiled set: several smem chunks
@@ -3344,28 +3339,26 @@ def run():
     times["dense_sweep"]["berlin_untiled_4096_kernel_only_ms"] = timed_ms(
         lambda i: wrappers()["dense_sweep"](*full[i % 2]), 5, warmup=1)
 
-    # 5. the sector routes of kernels 2.2 and 2.3, counted
+    # 5. the sector scans of kernels 2.2 and 2.3, counted
     big = MAPS[-1]
-    sets = [sector_case(smaps[big], q)[1]
-            for q in pose_sets(poses_by_map[big])]
     p = torch.as_tensor(poses_by_map[big], device="cuda")
     ref = rs.scan_poses_sectors(smaps[big], p, num_beams=BEAMS, fov=FOV,
                                 max_range=MAX_RANGE)
     route_counts = {}
-    for name, kw in (("sorted_tiles_sweep", dict(mode="sorted_pl")),
-                     ("grp_sweep", dict(use_pallas=True))):
-        errs[name].append(kernel_vs_plain(f"{big} sectors", name, sets[0]))
+    for label, kw in (("mode sorted_pl", dict(mode="sorted_pl")),
+                      ("use_pallas", dict(use_pallas=True))):
         reset_counts()
         got = rs.scan_poses_sectors(smaps[big], p, num_beams=BEAMS, fov=FOV,
                                     max_range=MAX_RANGE, **kw)
         torch.cuda.synchronize()
-        route_counts[name] = counts()[name]
+        route_counts[label] = {k: v for k, v in counts().items() if v}
         same = bool(torch.equal(got, ref))
-        log(f"[{big}] sector scan with {kw}: launches {counts()}, equal to "
-            f"the default sector scan = {same}")
-        check(same and route_counts[name] == 1 and sum(counts().values()) == 1,
-              f"{name}: the route did not run alone or changed the scan")
-        times[name][big] = time_kernel(name, sets, rates)
+        log(f"[{big}] sector scan with {kw}: launches "
+            f"{route_counts[label]}, equal to the default sector scan = "
+            f"{same}")
+        check(same and route_counts[label] == {"list_sweep": 1},
+              f"sector scan, {label}: not one list_sweep launch, or the "
+              "scan changed")
 
     # 6. the main path: the default backend, then the sector backend
     # no device named: the entry points put everything on the card
@@ -3376,7 +3369,7 @@ def run():
     main_counts = drive(seg_bundles, "segments", poses_by_map)
     n_main = STEPS + 1 + WARMUP_STEPS
     check(main_counts["levine"] == {"dense_sweep": n_main}
-          and main_counts["berlin"] == {"tile_sweep": n_main},
+          and main_counts["berlin"] == {"list_sweep": n_main},
           f"the default path launched {main_counts}")
     from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
     for name in MAPS:
@@ -3395,14 +3388,14 @@ def run():
     sec_bundles = {name: build_sim(name, backend="sectors", device="cuda")
                    for name in MAPS}
     sec_counts = drive(sec_bundles, "sectors", poses_by_map)
-    check(all(c == {"sector_sweep": n_main} for c in sec_counts.values()),
+    check(all(c == {"list_sweep": n_main} for c in sec_counts.values()),
           f"the sector path launched {sec_counts}")
 
     # 7. BPTT on berlin, both backends
     train = {}
     for label, bundle, kname in (
-            ("segments", seg_bundles[big], "tile_sweep"),
-            ("sectors", sec_bundles[big], "sector_sweep")):
+            ("segments", seg_bundles[big], "list_sweep"),
+            ("sectors", sec_bundles[big], "list_sweep")):
         torch.cuda.reset_peak_memory_stats()
         losses, ms, used = train_phase(bundle, poses_by_map[big], label)
         # the default train step is one CUDA graph: 2 warm-up steps of its
@@ -3514,9 +3507,7 @@ def run():
     by_path = {
         **{f"default step + rollout, {m}": c for m, c in main_counts.items()},
         **{f"sector step + rollout, {m}": c for m, c in sec_counts.items()},
-        "sector scan, mode sorted_pl": {
-            "sorted_tiles_sweep": route_counts["sorted_tiles_sweep"]},
-        "sector scan, use_pallas": {"grp_sweep": route_counts["grp_sweep"]},
+        **{f"sector scan, {k}": c for k, c in route_counts.items()},
         **{f"BPTT train steps, {k}": v["launches"] for k, v in train.items()},
         "map_grad scans": slice_out["map_grad"]["launches"],
         "scan_from_occupancy forward + backward, levine":
@@ -3548,9 +3539,8 @@ def run():
     log(f"launches by path: {launches_by_path}")
     check(all(launches_by_path.values()),
           f"a kernel was never launched: {launches_by_path}")
-    shape_of = {"dense_sweep": "levine", "tile_sweep": "berlin",
-                "sector_sweep": "berlin", "sorted_tiles_sweep": "berlin",
-                "grp_sweep": "berlin", "edf_march": "levine nearest",
+    shape_of = {"dense_sweep": "levine", "list_sweep": "berlin sectors",
+                "edf_march": "levine nearest",
                 "edf_march_grad": "levine bilinear",
                 "implicit_pose_vjp": "levine",
                 "general_sweep": "berlin min", "soft_edt": "levine hard",

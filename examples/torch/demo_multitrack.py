@@ -72,7 +72,7 @@ def main(argv=None):
     sync()
     print(f"mixed-batch scan: {tuple(ranges.shape)} in "
           f"{(time.time() - t0) * 1e3:.2f} ms; sector kernel launches so "
-          f"far {sweeps.sector_sweep.launches}")
+          f"far {sweeps.list_sweep.launches}")
 
     # parity with each track's own scan
     for i, (n, b) in enumerate(zip(names, bundles)):

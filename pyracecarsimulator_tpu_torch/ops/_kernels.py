@@ -16,10 +16,11 @@ divisions).
 
 The launch layer of every wrapper lives here too: ``on_cuda`` (the plain
 version on CPU tensors, the kernel on CUDA tensors), ``launch`` (a kernel on
-the current stream), the registry of wrappers (``register``,
-``wrappers``) whose ``.launches`` counters ``ops/sweeps.launch_counts``
-reads, and ``DeviceCounts``, the work counts that kernels add to on the
-device (``raymarch_xla.MARCH_COUNTS``, ``sweeps.SWEEP_COUNTS``).
+the current stream, counted on its wrapper), the registry of wrappers
+(``register``, ``wrappers``) whose ``.launches`` counters
+``ops/sweeps.launch_counts`` reads, and ``DeviceCounts``, the work counts
+that kernels add to on the device (``raymarch_xla.MARCH_COUNTS``,
+``sweeps.SWEEP_COUNTS``).
 """
 
 from __future__ import annotations
@@ -164,8 +165,8 @@ def on_cuda(name, ref) -> bool:
 def launch(name, entry, *args):
     """Launch entry point ``entry`` on the current stream of the first
     tensor's device: tensors pass as their data pointers, None as a null
-    pointer, numbers as they are. ``name`` (the wrapper) labels a
-    failure."""
+    pointer, numbers as they are. ``name``, a registered wrapper, labels a
+    failure and counts the launch on its ``.launches``."""
     device = next(a.device for a in args if torch.is_tensor(a))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -174,6 +175,7 @@ def launch(name, entry, *args):
             stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
+    _WRAPPERS[name].launches += 1
 
 
 class DeviceCounts(Mapping):
@@ -221,9 +223,10 @@ class DeviceCounts(Mapping):
 
 
 def register(wrapper, name=None):
-    """Add ``wrapper`` (a function with a ``.launches`` counter) to the
-    wrappers that ``wrappers()`` lists, under ``name`` (default: the
-    function's name)."""
+    """Add ``wrapper`` to the wrappers that ``wrappers()`` lists, under
+    ``name`` (default: the function's name), with a ``.launches`` counter
+    at 0 that ``launch`` advances."""
+    wrapper.launches = 0
     _WRAPPERS[name or wrapper.__name__] = wrapper
     return wrapper
 

@@ -188,11 +188,9 @@ def general_sweep(table, ids, x, y, cos_t, sin_t, winner: bool):
                         l_n, k, chunk, ids, *views,
                         *(s for v in views for s in v.stride()), rows, cols,
                         *out, *(None,) * (3 - len(out)))
-        general_sweep.launches += 1
     return (out[0], None, None) if not winner else tuple(out)
 
 
-general_sweep.launches = 0
 _kernels.register(general_sweep)
 
 

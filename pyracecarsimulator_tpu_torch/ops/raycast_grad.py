@@ -37,7 +37,7 @@ import torch
 
 from ..utils.profiling import span
 from .common import _ray_invs, finish_minima, tile_ids
-from .sweeps import dense_sweep, tile_sweep
+from .sweeps import dense_sweep, list_sweep
 
 LANES = 128     # beams per row of the tile-routed sweep
 
@@ -96,29 +96,23 @@ def _all_minima(segment_params, sweep_meta, x, y, cos_t, sin_t):
     return bv.reshape(cos_t.shape), bh.reshape(cos_t.shape)
 
 
-def _tiled_minima(tiles, tile_sweep_meta, tiles_shape, tile_size,
-                  tile_origin, x0, y0, x, y, cos_t, sin_t):
-    """(bv, bh) of the tile-routed sweep for rays (A, B): each agent's
-    beams, in rows of 128, sweep its map tile's list. A row's origin is
-    that of its first beam (every beam of an agent shares its origin)."""
-    a_n, b_n = cos_t.shape
-    nblk = -(-b_n // LANES)
-    pad = nblk * LANES - b_n
-    if pad:                 # repeat the last beam; its outputs are cut off
-        cos_t, sin_t = (torch.cat([v, v[:, -1:].expand(a_n, pad)], dim=1)
-                        for v in (cos_t, sin_t))
-    inv_c, inv_s = _ray_invs(cos_t, sin_t)
+def _list_minima(table, meta, ids, x, y, cos_t, sin_t):
+    """(bv, bh) of the list-routed sweep, shaped like ``cos_t``: the rows
+    of beams of every route (map tiles, sector lists, stacked maps, the
+    ring's gathered rows) through ``list_sweep``. ``ids`` (A, NBLK) int32
+    rows of the (L, 4, K) ``table`` and its (L, 3) ``meta``; ``cos_t`` and
+    ``sin_t`` (A, NBLK * bb), row by row; a row's origin is ``x``/``y`` at
+    its first beam (every beam of an agent shares its origin)."""
+    a_n, nblk = ids.shape
     g_n = a_n * nblk
-    with span("scan.route"):
-        tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
-        ids = tid.repeat_interleave(nblk).to(torch.int32).contiguous()
-    rows = lambda v: v.reshape(g_n, LANES).contiguous()
-    bv, bh = tile_sweep(
-        tiles, tile_sweep_meta, ids,
-        x[:, ::LANES].reshape(g_n).contiguous(),
-        y[:, ::LANES].reshape(g_n).contiguous(),
-        rows(cos_t), rows(sin_t), rows(inv_c), rows(inv_s))
-    return (bv.reshape(a_n, -1)[:, :b_n], bh.reshape(a_n, -1)[:, :b_n])
+    bb = cos_t.shape[1] // nblk
+    inv_c, inv_s = _ray_invs(cos_t, sin_t)
+    rows = lambda v: v.reshape(g_n, bb).contiguous()
+    firsts = lambda v: v[:, ::bb].reshape(g_n).contiguous()
+    bv, bh = list_sweep(table, meta, ids.reshape(g_n).contiguous(),
+                        firsts(x), firsts(y), rows(cos_t), rows(sin_t),
+                        rows(inv_c), rows(inv_s))
+    return bv.reshape(cos_t.shape), bh.reshape(cos_t.shape)
 
 
 def raycast_all_diff(segment_params, sweep_meta, x, y, cos_t, sin_t,
@@ -140,7 +134,19 @@ def raycast_tiled_diff(tiles, tile_sweep_meta, tiles_shape, tile_size,
     ``tiles``, ``x0`` and ``y0`` get no gradient (tile selection is
     piecewise constant in position). ``chunk`` and ``kv_tile`` are ignored
     (module doc)."""
-    return raycast_with_vjp(
-        lambda *rays: _tiled_minima(tiles, tile_sweep_meta, tiles_shape,
-                                    tile_size, tile_origin, x0, y0, *rays),
-        x, y, cos_t, sin_t, max_range)
+    a_n, b_n = cos_t.shape
+    nblk = -(-b_n // LANES)
+    pad = nblk * LANES - b_n
+
+    def minima(x, y, cos_t, sin_t):
+        if pad:             # repeat the last beam; its outputs are cut off
+            cos_t, sin_t = (torch.cat([v, v[:, -1:].expand(a_n, pad)], dim=1)
+                            for v in (cos_t, sin_t))
+        with span("scan.route"):
+            tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
+            ids = tid.repeat_interleave(nblk).reshape(a_n, nblk)
+        bv, bh = _list_minima(tiles, tile_sweep_meta, ids, x, y, cos_t,
+                              sin_t)
+        return bv[:, :b_n], bh[:, :b_n]
+
+    return raycast_with_vjp(minima, x, y, cos_t, sin_t, max_range)

@@ -11,11 +11,11 @@ One sweep serves every map and mode: the list-routed sweep of
 kernel ``csrc/sector_sweep.cu`` on CUDA tensors), which visits a row's
 vertical slots [0, n_v) and horizontal slots [h_lo, h_end) from ``meta``.
 It replaces the JAX package's XLA dense sweep and its three Pallas sector
-kernels; each of those keeps a wrapper with its own launch counter: modes
-"auto", "dense" and "sorted_plf*" take ``sector_sweep``, mode "sorted_pl"
-``sorted_tiles_sweep`` and ``use_pallas=True`` ``grp_sweep``, all with the
-same values. The XLA-only sorted modes ("sorted", "sorted_pt", ...) raise.
-Left out as TPU machinery: ``table_ck``, the sort of rows into tiles, the
+kernels, so ``mode`` ("auto", "dense", "sorted_pl", "sorted_plf*", each
+with an optional "@N") and ``use_pallas`` are accepted and ignored: every
+one runs ``raycast_grad._list_minima``, with the same values. The XLA-only
+sorted modes ("sorted", "sorted_pt", ...) raise. Left out as TPU
+machinery: ``table_ck``, the sort of rows into tiles, the
 ``grp``/``interpret`` plumbing and SMEM-driven agent chunks.
 
 ``raycast_sectors`` is differentiable in the rays: its forward runs under
@@ -38,11 +38,9 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
-from .common import (_f32, _padded_offsets, _ray_invs, apply_extent_mask,
-                     block_mids, fan_cos_sin, tile_ids)
-from .raycast_grad import raycast_with_vjp
-from .sweeps import (grp_sweep, list_sweep_plain as sweep_plain,  # noqa: F401
-                     sector_sweep, sorted_tiles_sweep)
+from .common import (_f32, _padded_offsets, apply_extent_mask, block_mids,
+                     fan_cos_sin, tile_ids)
+from .raycast_grad import _list_minima, raycast_with_vjp
 
 _TWO_PI = np.float32(2.0 * np.pi)
 
@@ -87,42 +85,30 @@ def _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, ct, st,
 
 def raycast_sectors(table, meta, tiles_shape, tile_size, tile_origin, ns,
                     x0, y0, x, y, cos_t, sin_t, max_range: float = 10.0,
-                    bb: int = 128, sweep=sector_sweep):
+                    bb: int = 128):
     """Differentiable sector-culled raycast for (A,) agent positions
     ``x0``/``y0`` (the list lookup) and (A, B) rays, B a multiple of
     ``bb``. Returns the clamped range (A, B). A row's origin is that of
-    its first beam (every beam of an agent shares its origin). ``sweep``
-    is one of the list-kernel wrappers (module doc)."""
+    its first beam (every beam of an agent shares its origin)."""
     b_n = cos_t.shape[1]
     if b_n % bb:
         raise ValueError(f"beam count {b_n} is not a multiple of bb={bb}")
 
     def minima(x, y, cos_t, sin_t):
-        a_n = cos_t.shape[0]
         with span("scan.route"):
             ids = _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0,
                             cos_t, sin_t, bb)
-        inv_c, inv_s = _ray_invs(cos_t, sin_t)
-        g_n = ids.numel()
-        rows = lambda v: v.reshape(g_n, bb).contiguous()
-        bv, bh = sweep(table, meta, ids.reshape(g_n).contiguous(),
-                       x[:, ::bb].reshape(g_n).contiguous(),
-                       y[:, ::bb].reshape(g_n).contiguous(), rows(cos_t),
-                       rows(sin_t), rows(inv_c), rows(inv_s))
-        return bv.reshape(a_n, b_n), bh.reshape(a_n, b_n)
+        return _list_minima(table, meta, ids, x, y, cos_t, sin_t)
 
     return raycast_with_vjp(minima, x, y, cos_t, sin_t, max_range)
 
 
-def _sweep_for(mode: str, use_pallas):
-    """The list-kernel wrapper a mode selects (module doc)."""
-    if use_pallas:
-        return grp_sweep
+def _check_mode(mode: str, use_pallas):
+    """Raise for the modes the port does not run (module doc)."""
     kind = mode.split("@", 1)[0]
-    if kind == "sorted_pl":
-        return sorted_tiles_sweep
-    if kind in ("auto", "dense") or kind.startswith("sorted_plf"):
-        return sector_sweep
+    if (use_pallas or kind in ("auto", "dense", "sorted_pl")
+            or kind.startswith("sorted_plf")):
+        return
     raise NotImplementedError(
         f"sector sweep mode {mode!r} is not ported: it selects one of the "
         "JAX package's XLA sorted sweeps, TPU machinery (ROADMAP.md "
@@ -130,8 +116,29 @@ def _sweep_for(mode: str, use_pallas):
         "'sorted_pl' and 'sorted_plf*'")
 
 
-def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
-                sweep=sector_sweep):
+def _sector_fan(smap, poses, num_beams, fov, theta_discretization, bb):
+    """``(bb, poses2, ct, st)`` of a sector scan of poses (..., 3): the
+    block width, the poses as (A, 3) float32 and their fan padded to
+    blocks of ``bb``. The fan is built once for the whole batch, so
+    chunked and unchunked scans see the same directions."""
+    bb = sector_block_width(smap, num_beams, fov, bb)
+    poses2 = poses.reshape(-1, 3).to(torch.float32)
+    offs = _padded_offsets(num_beams, fov, bb, poses2.device)
+    return (bb, poses2,
+            *fan_cos_sin(poses2[:, 2], offs, theta_discretization))
+
+
+def _by_chunks(scan, agent_chunk, *per_agent):
+    """``scan(*per_agent)``, or its rows over sequential chunks of
+    ``agent_chunk`` agents (``None`` or ``0``: one call)."""
+    a_n = per_agent[0].shape[0]
+    if agent_chunk and a_n > agent_chunk:
+        return torch.cat([scan(*(v[i:i + agent_chunk] for v in per_agent))
+                          for i in range(0, a_n, agent_chunk)])
+    return scan(*per_agent)
+
+
+def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb):
     """Raycast + extent mask for one (A, 3) pose chunk whose padded beam
     fan (ct, st) was built outside the chunk loop. Returns (A,
     num_beams)."""
@@ -139,7 +146,7 @@ def _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
         smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
         smap.tile_origin, smap.ns, poses2[:, 0], poses2[:, 1],
         poses2[:, 0:1].expand(ct.shape), poses2[:, 1:2].expand(ct.shape),
-        ct, st, max_range, bb, sweep)
+        ct, st, max_range, bb)
     return apply_extent_mask(r[:, :num_beams], poses2[:, 0], poses2[:, 1],
                              smap.extent, max_range)
 
@@ -151,31 +158,20 @@ def scan_poses_sectors(smap, poses, num_beams: int = 1080,
                        agent_chunk=None) -> torch.Tensor:
     """Full lidar scans for poses (..., 3) on the sector backend; returns
     (..., num_beams) ranges, differentiable in the poses. ``poses`` must be
-    on the map's device.
+    on the map's device. ``mode`` and ``use_pallas`` are accepted and
+    ignored; the modes the port does not run raise (module doc).
 
     ``agent_chunk``: agents per sequential chunk; ``None`` or ``0`` never
     chunks (neither sweep's working set grows with the batch beyond its
     inputs and outputs). Values are identical either way.
     """
-    sweep = _sweep_for(mode, use_pallas)
-    bb = sector_block_width(smap, num_beams, fov, bb)
-    batch = tuple(poses.shape[:-1])
-    poses2 = poses.reshape(-1, 3).to(torch.float32)
-    a_n = poses2.shape[0]
-    offs = _padded_offsets(num_beams, fov, bb, poses2.device)
-    # the fan is built ONCE for the whole batch, so chunked and unchunked
-    # scans see the same directions
-    ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
-    if agent_chunk and a_n > agent_chunk:
-        r = torch.cat([
-            _scan_chunk(smap, poses2[i:i + agent_chunk],
-                        ct[i:i + agent_chunk], st[i:i + agent_chunk],
-                        num_beams, max_range, bb, sweep)
-            for i in range(0, a_n, agent_chunk)])
-    else:
-        r = _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb,
-                        sweep)
-    return r.reshape(*batch, num_beams)
+    _check_mode(mode, use_pallas)
+    bb, poses2, ct, st = _sector_fan(smap, poses, num_beams, fov,
+                                     theta_discretization, bb)
+    r = _by_chunks(lambda p, c, s: _scan_chunk(smap, p, c, s, num_beams,
+                                               max_range, bb),
+                   agent_chunk, poses2, ct, st)
+    return r.reshape(*poses.shape[:-1], num_beams)
 
 
 def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
@@ -187,11 +183,11 @@ def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
                                bb=None, dedup: bool = False) -> torch.Tensor:
     """Sector-culled scan with a d(range)/d(map) cotangent.
 
-    Values equal ``scan_poses_sectors`` bit for bit (the sector sweep,
-    ``sector_sweep``, computes them; ``with_map_gradient`` is
-    straight-through). Backward: the ray cotangents through the sector
-    scan's closed-form VJP, plus the implicit-function map cotangent into
-    ``edf`` at each hit (4 bilinear taps per ray).
+    Values equal ``scan_poses_sectors`` bit for bit (its scan computes
+    them; ``with_map_gradient`` is straight-through). Backward: the ray
+    cotangents through the sector scan's closed-form VJP, plus the
+    implicit-function map cotangent into ``edf`` at each hit (4 bilinear
+    taps per ray).
 
     ``edf``: the distance field the map cotangent lands in (for example
     ``track.edf``), on the map's device. It must describe the occupancy
@@ -199,50 +195,36 @@ def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,
     (h, w) if ``edf`` is padded.
     """
     from .raymarch_diff import with_map_gradient
-    bb = sector_block_width(smap, num_beams, fov, bb)
-    batch = tuple(poses.shape[:-1])
-    poses2 = poses.reshape(-1, 3).to(torch.float32)
-    offs = _padded_offsets(num_beams, fov, bb, poses2.device)
-    ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
-    xb = poses2[:, 0:1].expand(ct.shape)
-    yb = poses2[:, 1:2].expand(ct.shape)
-    r = raycast_sectors(
-        smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
-        smap.tile_origin, smap.ns, poses2[:, 0], poses2[:, 1], xb, yb, ct,
-        st, max_range, bb, sector_sweep)[:, :num_beams]
-    r = apply_extent_mask(r, poses2[:, 0], poses2[:, 1], smap.extent,
-                          max_range)
-    r = with_map_gradient(edf, r, xb[:, :num_beams], yb[:, :num_beams],
-                          ct[:, :num_beams], st[:, :num_beams], resolution,
-                          origin_xy, eps, bounds_hw, dedup)
-    return r.reshape(*batch, num_beams)
+    bb, poses2, ct, st = _sector_fan(smap, poses, num_beams, fov,
+                                     theta_discretization, bb)
+    r = _scan_chunk(smap, poses2, ct, st, num_beams, max_range, bb)
+    shape = r.shape
+    r = with_map_gradient(edf, r, poses2[:, 0:1].expand(shape),
+                          poses2[:, 1:2].expand(shape), ct[:, :num_beams],
+                          st[:, :num_beams], resolution, origin_xy, eps,
+                          bounds_hw, dedup)
+    return r.reshape(*poses.shape[:-1], num_beams)
 
 
 def raycast_sectors_ids(table, meta, ids, x, y, cos_t, sin_t,
-                        max_range: float = 10.0, sweep=sector_sweep):
+                        max_range: float = 10.0):
     """Sector sweep over precomputed list ids (the multitrack path).
 
     Ray args are (A, NBLK, bb); ``ids`` (A, NBLK) rows into ``table``. The
     values and the VJP are those of ``raycast_sectors``; only the routing
     differs (per-agent map offsets, ``maps.sectors.StackedSectorMap``).
-    ``table``, ``meta`` and ``ids`` get no gradient. ``sweep`` is one of
-    the list-kernel wrappers (module doc). Returns (A, NBLK*bb) clamped
-    ranges."""
+    ``table``, ``meta`` and ``ids`` get no gradient. Returns (A, NBLK*bb)
+    clamped ranges."""
     a_n, nblk, bb = cos_t.shape
-    g_n = a_n * nblk
+    flat = (v.reshape(a_n, nblk * bb) for v in (x, y, cos_t, sin_t))
+    return _raycast_rows(table, meta, ids.to(torch.int32), *flat, max_range)
 
-    def minima(x, y, cos_t, sin_t):
-        inv_c, inv_s = _ray_invs(cos_t, sin_t)
-        rows = lambda v: v.reshape(g_n, bb).contiguous()
-        bv, bh = sweep(table, meta,
-                       ids.reshape(g_n).to(torch.int32).contiguous(),
-                       x[:, :, 0].reshape(g_n).contiguous(),
-                       y[:, :, 0].reshape(g_n).contiguous(), rows(cos_t),
-                       rows(sin_t), rows(inv_c), rows(inv_s))
-        return bv.reshape(a_n, nblk, bb), bh.reshape(a_n, nblk, bb)
 
-    return raycast_with_vjp(minima, x, y, cos_t, sin_t,
-                            max_range).reshape(a_n, nblk * bb)
+def _raycast_rows(table, meta, ids, x, y, cos_t, sin_t, max_range):
+    """``raycast_sectors_ids`` on rays (A, NBLK * bb) and int32 ``ids``."""
+    return raycast_with_vjp(
+        lambda *rays: _list_minima(table, meta, ids, *rays), x, y, cos_t,
+        sin_t, max_range)
 
 
 def stack_block_ids(stack, mid, x0, y0, ct, st, b_real: int, bb: int):
@@ -299,19 +281,14 @@ def _map_ids_on(map_ids, device):
     return last[1]
 
 
-def _scan_chunk_multi(stack, poses2, mid, ct, st, num_beams, max_range, bb,
-                      sweep=sector_sweep):
+def _scan_chunk_multi(stack, poses2, mid, ct, st, num_beams, max_range, bb):
     """Stacked raycast + per-agent extent mask for one (A, 3) pose chunk
     whose padded fan (ct, st) was built outside the chunk loop."""
-    a_n = poses2.shape[0]
-    shp = (a_n, ct.shape[1] // bb, bb)
     ids, inside = stack_block_ids(stack, mid, poses2[:, 0], poses2[:, 1],
                                   ct, st, num_beams, bb)
-    r = raycast_sectors_ids(
-        stack.table, stack.meta, ids,
-        poses2[:, 0:1].expand(ct.shape).reshape(shp),
-        poses2[:, 1:2].expand(ct.shape).reshape(shp), ct.reshape(shp),
-        st.reshape(shp), max_range, sweep)[:, :num_beams]
+    r = _raycast_rows(
+        stack.table, stack.meta, ids, poses2[:, 0:1].expand(ct.shape),
+        poses2[:, 1:2].expand(ct.shape), ct, st, max_range)[:, :num_beams]
     # per-agent extent mask (reference out-of-map => max_range)
     return torch.where(inside[:, None], r, max_range)
 
@@ -328,22 +305,11 @@ def scan_poses_sectors_multi(stack, map_ids, poses, num_beams: int = 1080,
     poses. ``poses`` and ``map_ids`` must be on the stack's device.
 
     ``mode`` and ``agent_chunk`` as ``scan_poses_sectors``."""
-    sweep = _sweep_for(mode, None)
-    bb = sector_block_width(stack, num_beams, fov, bb)
-    batch = tuple(poses.shape[:-1])
-    poses2 = poses.reshape(-1, 3).to(torch.float32)
+    _check_mode(mode, None)
+    bb, poses2, ct, st = _sector_fan(stack, poses, num_beams, fov,
+                                     theta_discretization, bb)
     mid = _map_ids_on(map_ids, poses2.device).reshape(-1)
-    a_n = poses2.shape[0]
-    offs = _padded_offsets(num_beams, fov, bb, poses2.device)
-    # the fan is built once for the whole batch (see scan_poses_sectors)
-    ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
-    args = (num_beams, max_range, bb, sweep)
-    if agent_chunk and a_n > agent_chunk:
-        r = torch.cat([
-            _scan_chunk_multi(stack, *(v[i:i + agent_chunk]
-                                       for v in (poses2, mid, ct, st)),
-                              *args)
-            for i in range(0, a_n, agent_chunk)])
-    else:
-        r = _scan_chunk_multi(stack, poses2, mid, ct, st, *args)
-    return r.reshape(*batch, num_beams)
+    r = _by_chunks(lambda p, m, c, s: _scan_chunk_multi(
+        stack, p, m, c, s, num_beams, max_range, bb),
+        agent_chunk, poses2, mid, ct, st)
+    return r.reshape(*poses.shape[:-1], num_beams)

@@ -9,7 +9,7 @@ over the boundary segments of the exact ray/segment intersection distance
 - ``raycast_all``: flat rays against the real slots of the (4, K)
   ``params`` (``dense_sweep``: ``csrc/dense_sweep.cu`` on CUDA tensors);
 - ``raycast_tiled``: each agent's beams, in rows of 128, against its map
-  tile's list (``tile_sweep``: the list kernel ``csrc/sector_sweep.cu``).
+  tile's list (``list_sweep``: the list kernel ``csrc/sector_sweep.cu``).
 
 On CPU tensors both run the plain PyTorch sweeps. The JAX package's XLA
 sweeps here and its Pallas kernels (``ops/raycast_pallas.py``) have the

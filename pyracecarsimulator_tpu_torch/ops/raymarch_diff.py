@@ -388,11 +388,9 @@ def implicit_pose_vjp(edf, resolution, ox, oy, poses, cth, sth, cd, sd, r,
                         _DENOM_FLOOR, poses, poses.stride(0),
                         poses.stride(1), cth, sth, cd, sd, r, hit, g, n, b,
                         out, terms)
-        implicit_pose_vjp.launches += 1
     return out
 
 
-implicit_pose_vjp.launches = 0
 _kernels.register(implicit_pose_vjp)
 
 

@@ -260,11 +260,9 @@ def edf_march(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range, eps,
                         *(float(v) for v in refine or (0.0, 0.0, 0.0)),
                         total, hit, ray_trips, walk,
                         MARCH_COUNTS.counter(edf.device), scratch)
-        edf_march.launches += 1
     return (total, hit) if implicit else total
 
 
-edf_march.launches = 0
 _kernels.register(edf_march)
 
 
@@ -309,13 +307,11 @@ def edf_march_grad(edf, inv_res, ox, oy, x0, y0, cos_t, sin_t, max_range,
                         VARIANTS[interp], *head, float(inv_res),
                         float(max_range), float(eps), int(max_iters), *tail,
                         g, g_edf, *g_rays, walk, cursor)
-        edf_march_grad.launches += 1
     elif ray_grad:
         g_rays = tuple(v.zero_() for v in g_rays)
     return g_edf, (g_rays if ray_grad else None)
 
 
-edf_march_grad.launches = 0
 _kernels.register(edf_march_grad)
 
 

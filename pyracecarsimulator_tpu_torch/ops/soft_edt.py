@@ -242,11 +242,9 @@ def chamfer_stencil(d0, iters: int, temperature: float = 0.0,
     _kernels.launch("soft_edt", "soft_edt", d0, out, tmp, history,
                     d0.shape[0], d0.shape[1], int(iters),
                     *_scalars(temperature))
-    chamfer_stencil.launches += 1
     return out
 
 
-chamfer_stencil.launches = 0
 _kernels.register(chamfer_stencil, "soft_edt")
 
 
@@ -269,11 +267,9 @@ def chamfer_stencil_grad(history, g, temperature: float = 0.0):
     _kernels.launch("soft_edt_grad", "soft_edt_grad", history, g, out, tmp,
                     g.shape[0], g.shape[1], int(iters),
                     *_scalars(temperature))
-    chamfer_stencil_grad.launches += 1
     return out
 
 
-chamfer_stencil_grad.launches = 0
 _kernels.register(chamfer_stencil_grad, "soft_edt_grad")
 
 

@@ -14,16 +14,15 @@ sources):
 
 Each kernel has its plain PyTorch version here. A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises. The list kernel serves four TPU kernels of
-``pyracecarsimulator_tpu/ops/raycast_pallas.py``; each keeps a wrapper of
-its own with its own launch counter (``<wrapper>.launches``), so that a run
-shows which path went through the kernel:
+kernel or raises. ``list_sweep`` replaces four TPU kernels of
+``pyracecarsimulator_tpu/ops/raycast_pallas.py``, and all four run through
+it, as do the stacked maps and the ring (their shared row glue is
+``raycast_grad._list_minima``):
 
-- ``sector_sweep``: the sector backend (``_make_fused_tiles_kernel``);
-- ``sorted_tiles_sweep``: sector mode ``"sorted_pl"``
-  (``_make_sorted_tiles_kernel``);
-- ``grp_sweep``: sector ``use_pallas=True`` (``_make_kernel_grp``);
-- ``tile_sweep``: the dense backend's map tiles (``_kernel_tiled``).
+- ``_make_fused_tiles_kernel``: the sector backend;
+- ``_make_sorted_tiles_kernel``: sector mode ``"sorted_pl"``;
+- ``_make_kernel_grp``: sector ``use_pallas=True``;
+- ``_kernel_tiled``: the dense backend's map tiles.
 
 ``dense_sweep`` replaces ``_kernel``. The plain versions visit exactly the
 real slots the kernels visit and compute each pair with the same float32
@@ -240,55 +239,39 @@ def _check(name, ref, specs):
                 f"{v.device} (contiguous={v.is_contiguous()})")
 
 
-def _list_route(name: str, replaces: str):
-    """A wrapper of the list kernel with its own launch counter."""
-
-    def sweep(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
-        if not _kernels.on_cuda(name, table):
-            return list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t,
-                                    inv_c, inv_s)
-        g_n, bb = cos_t.shape
-        l_n, four, k = table.shape
-        if four != 4 or tuple(meta.shape) != (l_n, 3):
-            raise ValueError(f"{name}: table must be (L, 4, K) and meta "
-                             f"(L, 3); got {tuple(table.shape)}, "
-                             f"{tuple(meta.shape)}")
-        if not 0 < bb <= 1024:
-            raise ValueError(f"{name}: rows of {bb} beams: one thread per "
-                             "beam needs 1..1024")
-        if 3 * k * 4 + _STATIC_SMEM > 48 * 1024:
-            raise ValueError(f"{name}: capacity K={k} needs {3 * k * 4} "
-                             "bytes of shared memory per row beside the "
-                             f"kernel's own {_STATIC_SMEM}; the kernel "
-                             "takes <= 48 KB")
-        _check(name, table, (
-            (table, torch.float32, (l_n, 4, k)),
-            (meta, torch.int32, (l_n, 3)), (ids, torch.int32, (g_n,)),
-            (x0, torch.float32, (g_n,)), (y0, torch.float32, (g_n,)),
-            *((v, torch.float32, (g_n, bb))
-              for v in (cos_t, sin_t, inv_c, inv_s))))
-        bv = torch.empty((g_n, bb), dtype=torch.float32, device=table.device)
-        bh = torch.empty_like(bv)
-        _kernels.launch(name, "sector_sweep", table, meta, ids, x0, y0,
-                        cos_t, sin_t, inv_c, inv_s, bv, bh, g_n, bb, k,
-                        SWEEP_COUNTS.counter(table.device), COUNT_LANES)
-        sweep.launches += 1
-        return bv, bh
-
-    sweep.__name__ = sweep.__qualname__ = name
-    sweep.__doc__ = (
-        f"The list-routed sweep for {replaces}: ``list_sweep_plain`` on CPU "
-        "tensors, ``csrc/sector_sweep.cu`` on CUDA tensors. Returns (bv, "
-        f"bh), each (G, bb); ``{name}.launches`` counts kernel launches.")
-    sweep.launches = 0
-    return sweep
-
-
-sector_sweep = _list_route("sector_sweep", "the sector backend")
-sorted_tiles_sweep = _list_route("sorted_tiles_sweep",
-                                 "sector mode 'sorted_pl'")
-grp_sweep = _list_route("grp_sweep", "sector use_pallas=True")
-tile_sweep = _list_route("tile_sweep", "the dense backend's map tiles")
+def list_sweep(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
+    """The list-routed sweep: ``list_sweep_plain`` on CPU tensors,
+    ``csrc/sector_sweep.cu`` on CUDA tensors. Returns (bv, bh), each (G,
+    bb); ``list_sweep.launches`` counts kernel launches."""
+    if not _kernels.on_cuda("list_sweep", table):
+        return list_sweep_plain(table, meta, ids, x0, y0, cos_t, sin_t,
+                                inv_c, inv_s)
+    g_n, bb = cos_t.shape
+    l_n, four, k = table.shape
+    if four != 4 or tuple(meta.shape) != (l_n, 3):
+        raise ValueError(f"list_sweep: table must be (L, 4, K) and meta "
+                         f"(L, 3); got {tuple(table.shape)}, "
+                         f"{tuple(meta.shape)}")
+    if not 0 < bb <= 1024:
+        raise ValueError(f"list_sweep: rows of {bb} beams: one thread per "
+                         "beam needs 1..1024")
+    if 3 * k * 4 + _STATIC_SMEM > 48 * 1024:
+        raise ValueError(f"list_sweep: capacity K={k} needs {3 * k * 4} "
+                         "bytes of shared memory per row beside the "
+                         f"kernel's own {_STATIC_SMEM}; the kernel "
+                         "takes <= 48 KB")
+    _check("list_sweep", table, (
+        (table, torch.float32, (l_n, 4, k)),
+        (meta, torch.int32, (l_n, 3)), (ids, torch.int32, (g_n,)),
+        (x0, torch.float32, (g_n,)), (y0, torch.float32, (g_n,)),
+        *((v, torch.float32, (g_n, bb))
+          for v in (cos_t, sin_t, inv_c, inv_s))))
+    bv = torch.empty((g_n, bb), dtype=torch.float32, device=table.device)
+    bh = torch.empty_like(bv)
+    _kernels.launch("list_sweep", "sector_sweep", table, meta, ids, x0, y0,
+                    cos_t, sin_t, inv_c, inv_s, bv, bh, g_n, bb, k,
+                    SWEEP_COUNTS.counter(table.device), COUNT_LANES)
+    return bv, bh
 
 
 def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
@@ -311,15 +294,11 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
     bh = torch.empty_like(bv)
     _kernels.launch("dense_sweep", "dense_sweep", params, sweep_meta, x, y,
                     cos_t, sin_t, inv_c, inv_s, bv, bh, n, k)
-    dense_sweep.launches += 1
     return bv, bh
 
 
-dense_sweep.launches = 0
-
-LIST_ROUTES = (sector_sweep, sorted_tiles_sweep, grp_sweep, tile_sweep)
-for _w in LIST_ROUTES + (dense_sweep,):
-    _kernels.register(_w)
+_kernels.register(list_sweep)
+_kernels.register(dense_sweep)
 
 
 def launch_counts() -> dict:

@@ -151,7 +151,7 @@ def run_case(mesh, case: dict, device) -> dict:
     out = {"mesh": (mesh.agents, mesh.beams), "device": str(device),
            "backend": dist.get_backend()}
     paths = case.get("paths", PATHS)
-    for w in sweeps.LIST_ROUTES + (sweeps.dense_sweep,):
+    for w in (sweeps.list_sweep, sweeps.dense_sweep):
         w.launches = 0
 
     # the sharded scan and its pose gradient, sector and dense maps
@@ -201,8 +201,7 @@ def run_case(mesh, case: dict, device) -> dict:
         out["table_rows"] = int(smap.table.shape[0])
 
     mine = {w.__name__: w.launches
-            for w in sweeps.LIST_ROUTES + (sweeps.dense_sweep,)
-            if w.launches}
+            for w in (sweeps.list_sweep, sweeps.dense_sweep) if w.launches}
     per_rank = [None] * dist.get_world_size()
     dist.all_gather_object(per_rank, mine)
     out["launches"] = per_rank

@@ -57,7 +57,7 @@ from ..ops.noise import add_scan_noise
 from ..ops.raycast_general import raycast_general
 from ..ops.raycast_grad import raycast_all_diff
 from ..ops.raycast_sectors import (_scan_chunk_multi, raycast_sectors,
-                                   sector_block_width, sector_sweep)
+                                   sector_block_width)
 from ..state import FIELDS, CarState
 
 
@@ -301,8 +301,7 @@ def _make_wedge_scan(mesh: Mesh, proto, num_beams: int, fov: float,
         if is_sector:
             r = raycast_sectors(
                 m.table, m.meta, m.tiles_shape, m.tile_size, m.tile_origin,
-                m.ns, x, y, xb, yb, ct, st, max_range, bb,
-                sector_sweep)[:, :b_loc]
+                m.ns, x, y, xb, yb, ct, st, max_range, bb)[:, :b_loc]
         elif is_general:
             r = raycast_general(m.params, xb, yb, ct, st, max_range)
         else:

@@ -35,10 +35,9 @@ from __future__ import annotations
 import torch
 
 from ..maps.segments import _FAR
-from ..ops.common import _ray_invs, apply_extent_mask, fan_cos_sin
-from ..ops.raycast_grad import raycast_with_vjp
-from ..ops.raycast_sectors import (_list_ids, sector_block_width,
-                                   sector_sweep)
+from ..ops.common import apply_extent_mask, fan_cos_sin
+from ..ops.raycast_grad import _list_minima, raycast_with_vjp
+from ..ops.raycast_sectors import _list_ids, sector_block_width
 from .mesh import Mesh, _wedge, _wedge_offsets, ring_shift, \
     sum_grad_over_beams
 
@@ -88,13 +87,10 @@ def _ring_raycast(mesh: Mesh, slab, meta, ids, ls, x, y, cos_t, sin_t,
 
     def minima(x, y, cos_t, sin_t):
         buf = _ring_gather(mesh, slab, ids, ls)
-        g_n = ids.shape[0]
-        inv_c, inv_s = _ray_invs(cos_t, sin_t)
-        return sector_sweep(
-            buf, meta.index_select(0, ids.long()).contiguous(),
-            torch.arange(g_n, dtype=torch.int32, device=buf.device),
-            x[:, 0].contiguous(), y[:, 0].contiguous(), cos_t.contiguous(),
-            sin_t.contiguous(), inv_c.contiguous(), inv_s.contiguous())
+        rows = torch.arange(ids.shape[0], dtype=torch.int32,
+                            device=buf.device)
+        return _list_minima(buf, meta.index_select(0, ids.long()),
+                            rows[:, None], x, y, cos_t, sin_t)
 
     return raycast_with_vjp(minima, x, y, cos_t, sin_t, max_range)
 

@@ -19,7 +19,7 @@ layer of the port; ``SPANS`` lists them all:
 - ``scan.route``: the routing of ray rows to cull lists inside a scan
   (the sector scan's tile, block-middle angle, sector and row ids,
   ``raycast_sectors._list_ids``; the tile scan's tile and row ids,
-  ``raycast_grad._tiled_minima``), in a step under ``step.scan``;
+  ``raycast_grad.raycast_tiled_diff``), in a step under ``step.scan``;
 - ``rollout.policy``, ``rollout.carry`` (a rollout step's row writes and
   carry copies), ``rollout.blocks`` (the graphed rollout's carry copy-in,
   block copies into the trajectory and final clone);

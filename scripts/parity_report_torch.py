@@ -24,7 +24,7 @@ Per map, on poses sampled in free space from seed 0:
 
 Left out: the JAX report's "sectors exact (sorted sweep)" row. Its
 ``mode="sorted"`` selects an XLA-only sweep that the port does not carry
-(``ops/raycast_sectors._sweep_for`` raises for it).
+(``ops/raycast_sectors._check_mode`` raises for it).
 
 Beside each row stand the launches of the hand-written kernels' wrappers
 while the row ran (``ops/sweeps.launch_counts``, the EDF march's
@@ -128,7 +128,7 @@ def report(maps, n_poses, beams, device):
                                        tile_size=4.0, **kw)
         smap = build_sector_map(occ, t.resolution, org, tile_size=2.0, ns=16,
                                 **kw)
-        seg_kernel = "tile_sweep" if sm.tiles is not None else "dense_sweep"
+        seg_kernel = "list_sweep" if sm.tiles is not None else "dense_sweep"
 
         march = ("DT-march oracle", o_march)
         geom = ("geometry oracle", o_geom)
@@ -143,7 +143,7 @@ def report(maps, n_poses, beams, device):
                     ("segments exact (dense kernel)", "dense_sweep", geom,
                      lambda: raycast_pallas(sm.params, sm.sweep_meta, xb, yb,
                                             ct, st, MAX_RANGE)),
-                    ("sectors exact", "sector_sweep", geom,
+                    ("sectors exact", "list_sweep", geom,
                      lambda: scan_poses_sectors(smap, p, num_beams=beams)),
                     ("simplified tol=1", None, geom,
                      lambda: scan_poses_general(gm, p, num_beams=beams)),
@@ -163,17 +163,17 @@ def report(maps, n_poses, beams, device):
             _, _, xb18, yb18, ct18, st18 = rays_from_poses(p, 1080, FOV)
             o_geom_1080 = _geometry_oracle(segs, xb18, yb18, ct18, st18)
             for bname, kernel, fn in (
-                    ("sectors exact (grouped route, 1080b)", "grp_sweep",
+                    ("sectors exact (grouped route, 1080b)", "list_sweep",
                      lambda: scan_poses_sectors(smap, p, num_beams=1080,
                                                 use_pallas=True)),
                     ("segments exact (dense/tiled kernel, 1080b)",
                      seg_kernel,
                      lambda: scan_poses_pallas(sm, p, num_beams=1080)),
                     ("sectors exact (sorted-tile route, 1080b)",
-                     "sorted_tiles_sweep",
+                     "list_sweep",
                      lambda: scan_poses_sectors(smap, p, num_beams=1080,
                                                 mode="sorted_pl@128")),
-                    ("sectors exact (fused route, 1080b)", "sector_sweep",
+                    ("sectors exact (fused route, 1080b)", "list_sweep",
                      lambda: scan_poses_sectors(smap, p, num_beams=1080,
                                                 mode="sorted_plf@128"))):
                 r, used = counted(fn)
@@ -199,7 +199,7 @@ def report(maps, n_poses, beams, device):
         while beams % bb:           # any narrower block is within block_half
             bb -= 1
         for gname, kernel, fn in (
-                ("sectors vs dense VJP", "sector_sweep",
+                ("sectors vs dense VJP", "list_sweep",
                  lambda *rays: raycast_sectors(
                      smap.table, smap.meta, smap.tiles_shape, smap.tile_size,
                      smap.tile_origin, smap.ns, p2[:, 0], p2[:, 1], *rays,

@@ -11,11 +11,12 @@ the one holding this script), so one call can time a parent commit
 unpacked beside the change, in turns: parent, change, change, parent.
 On the map, at ``--agents`` x 1080 beams, 270 degrees, 10 m, on poses
 sampled from seed 0 (five sets that differ by 1e-3 rad, one a call), the
-sweep alone on the two tables the exact backends route rows to: the
-sector backend's (tile, sector) lists (``sector_sweep``) and the segment
-backend's 4 m map tiles (``tile_sweep``; none on an untiled map such as
-levine). Device milliseconds a call from CUDA graphs of 20 calls replayed
-between CUDA events, ``--turns`` times (their median and each turn);
+sweep alone (``ops/sweeps.list_sweep``) on the two tables the exact
+backends route rows to: the sector backend's (tile, sector) lists
+(``sectors``) and the segment backend's 4 m map tiles (``tiles``; none on
+an untiled map such as levine). Device milliseconds a call from CUDA
+graphs of 20 calls replayed between CUDA events, ``--turns`` times (their
+median and each turn);
 beside them the rows, the real slots a row from ``meta`` of the rows
 (what the sweep's counter counts, where the tree's port has it:
 ``ops/sweeps.SWEEP_COUNTS``, read around one eager call), the slots a row
@@ -88,16 +89,15 @@ def list_args(table, meta, ids, p, ct, st, bb):
 
 
 def cases(bundles, poses):
-    """{route: (wrapper, [argument sets])} on the two tables."""
+    """{table: [argument sets of ``list_sweep``]} on the two tables."""
     from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
-    from pyracecarsimulator_tpu_torch.ops import sweeps
     from pyracecarsimulator_tpu_torch.ops.common import (_padded_offsets,
                                                          fan_cos_sin,
                                                          tile_ids)
     smap, segmap = bundles["sectors"].segmap, bundles["segments"].segmap
-    out = {"sector_sweep": (sweeps.sector_sweep, [])}
+    out = {"sectors": []}
     if segmap.tiles is not None:
-        out["tile_sweep"] = (sweeps.tile_sweep, [])
+        out["tiles"] = []
     bb = rs.sector_block_width(smap, BEAMS, FOV)
     for p in poses:
         ct, st = fan_cos_sin(p[:, 2], _padded_offsets(BEAMS, FOV, bb,
@@ -105,16 +105,16 @@ def cases(bundles, poses):
         ids = rs._list_ids(smap.tiles_shape, smap.tile_size,
                            smap.tile_origin, smap.ns, p[:, 0], p[:, 1], ct,
                            st, bb)
-        out["sector_sweep"][1].append(list_args(smap.table, smap.meta, ids,
-                                                p, ct, st, bb))
-        if "tile_sweep" not in out:
+        out["sectors"].append(list_args(smap.table, smap.meta, ids, p, ct,
+                                        st, bb))
+        if "tiles" not in out:
             continue
         ct, st = fan_cos_sin(p[:, 2], _padded_offsets(BEAMS, FOV, 128,
                                                       p.device))
         nblk = ct.shape[1] // 128
         tid = tile_ids(segmap.tiles_shape, segmap.tile_size,
                        segmap.tile_origin, p[:, 0], p[:, 1])
-        out["tile_sweep"][1].append(list_args(
+        out["tiles"].append(list_args(
             segmap.tiles, segmap.tile_sweep_meta,
             tid[:, None].expand(-1, nblk), p, ct, st, 128))
     return out
@@ -154,7 +154,8 @@ def main(argv=None) -> int:
     counted = getattr(sweeps, "SWEEP_COUNTS", None)
     out = {"tree": tree, "card": card(), "map": args.map,
            "agents": args.agents, "counter": counted is not None}
-    for route, (fn, sets) in cases(bundles, poses).items():
+    fn = sweeps.list_sweep
+    for route, sets in cases(bundles, poses).items():
         table, meta, ids = sets[0][:3]
         m = meta[ids.long()].long()
         row = {"table": list(table.shape), "rows": ids.numel(),

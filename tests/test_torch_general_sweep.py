@@ -183,12 +183,14 @@ def test_plain_blocks_do_not_change_values(monkeypatch, budget):
 
 
 def _stand_in(monkeypatch, calls):
-    """The device check says "the card"; the launch is recorded and fills
+    """The device check says "the card"; the launch is recorded, counted
+    on the wrapper it names (as ``_kernels.launch`` counts it) and fills
     the outputs from the plain version, reading the rays through the
     views and strides it was handed."""
 
     def launch(name, entry, winner, table, n_lists, k, chunk, ids, x, y, c,
                s, *rest):
+        _kernels.wrappers()[name].launches += 1
         strides, (rows, cols), out = rest[:8], rest[8:10], rest[10:]
         calls.append(dict(entry=entry, winner=winner, k=k, chunk=chunk,
                           ids=ids, strides=strides, shape=(rows, cols)))

@@ -43,11 +43,22 @@ from pyracecarsimulator_tpu_torch.maps.sectors import SectorSegmentMap
 from pyracecarsimulator_tpu_torch.ops import raycast_grad as prg
 from pyracecarsimulator_tpu_torch.ops import raycast_pallas as prp
 from pyracecarsimulator_tpu_torch.ops import raycast_sectors as psec
+from pyracecarsimulator_tpu_torch.ops.common import tile_ids
 
 jrp = importlib.import_module("pyracecarsimulator_tpu.ops.raycast_pallas")
 
 MAXR = 4.0
 FOV = 4.712388980384690
+
+
+def _tile_minima(tiles, meta, tiles_shape, tile_size, tile_origin, x0, y0,
+                 *rays):
+    """(bv, bh) of the tile route for rays (A, NBLK * 128): each agent's
+    rows through the list sweep's row glue, on its map tile's list."""
+    nblk = rays[2].shape[1] // prg.LANES
+    ids = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
+    return prg._list_minima(tiles, meta, ids[:, None].expand(-1, nblk),
+                            *rays)
 
 
 def _blobby(seed, n_blocks):
@@ -182,8 +193,7 @@ def test_mixed_layout_vjp_under_the_ulp_contract(maps, name):
         ptile = (pmap.tiles, pmap.tile_sweep_meta, pmap.tiles_shape,
                  pmap.tile_size, pmap.tile_origin, _t(x0), _t(y0))
         pfn = lambda *r: prg.raycast_tiled_diff(*ptile, *r, MAXR)
-        minima = lambda: prg._tiled_minima(*ptile,
-                                           *map(_t, (xb, yb, ct, st)))
+        minima = lambda: _tile_minima(*ptile, *map(_t, (xb, yb, ct, st)))
     r_ref, g_ref = _jax_grads(jfn, x0, y0, ct, st, g)
     r, grads = _port_grads(pfn, x0, y0, ct, st, g)
     np.testing.assert_array_equal(r, np.asarray(plain))
@@ -284,7 +294,7 @@ def test_vjp_matches_finite_differences(maps, name):
         tl = (pmap.tiles, pmap.tile_sweep_meta, pmap.tiles_shape,
               pmap.tile_size, pmap.tile_origin, _t(x0), _t(y0))
         fn = lambda *r: prg.raycast_tiled_diff(*tl, *r, MAXR)
-        win = lambda *r: prg._tiled_minima(*tl, *r)
+        win = lambda *r: _tile_minima(*tl, *r)
     ts = [torch.tensor(v, requires_grad=True) for v in rays]
     fn(*ts).sum().backward()
     eps = 1e-6

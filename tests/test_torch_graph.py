@@ -697,7 +697,7 @@ def test_graphed_function_replays_the_launch_counters():
     replay; the warm-up calls' launches are real and stay."""
     def fn(x):
         sweeps.dense_sweep.launches += 2        # as two kernel launches
-        sweeps.sector_sweep.launches += 1
+        sweeps.list_sweep.launches += 1
         return x + 1
 
     before = sweeps.launch_counts()
@@ -706,12 +706,12 @@ def test_graphed_function_replays_the_launch_counters():
     g = GraphedFunction(fn, backend=_ReRun())
     try:
         g.prepare(torch.zeros(2))
-        assert grown() == {"dense_sweep": 4, "sector_sweep": 2}  # warm-ups
+        assert grown() == {"dense_sweep": 4, "list_sweep": 2}  # warm-ups
         g(torch.zeros(2))
-        assert grown() == {"dense_sweep": 6, "sector_sweep": 3}
+        assert grown() == {"dense_sweep": 6, "list_sweep": 3}
         for _ in range(5):
             g(torch.zeros(2))
-        assert grown() == {"dense_sweep": 16, "sector_sweep": 8}
+        assert grown() == {"dense_sweep": 16, "list_sweep": 8}
     finally:
         sweeps.add_launches({k: -n for k, n in grown().items()})
 

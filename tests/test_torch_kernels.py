@@ -38,7 +38,8 @@ from pyracecarsimulator_tpu_torch.ops import raycast_grad as rg
 from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
 from pyracecarsimulator_tpu_torch.ops import raycast_segments as rseg
 from pyracecarsimulator_tpu_torch.ops import sweeps
-from pyracecarsimulator_tpu_torch.ops.common import _ray_invs, fan_cos_sin
+from pyracecarsimulator_tpu_torch.ops.common import (_ray_invs, fan_cos_sin,
+                                                     tile_ids)
 from torch_cull_cases import BUILT_CASES, built_case, row_args
 
 pytestmark = pytest.mark.cuda
@@ -90,11 +91,11 @@ def test_kernel_matches_plain(cuda, ns, tile_size, num_beams):
             poses[:, 0].repeat_interleave(nblk).contiguous(),
             poses[:, 1].repeat_interleave(nblk).contiguous(),
             *(v.reshape(g, bb).contiguous() for v in (ct, st, ic, is_)))
-    before = rs.sector_sweep.launches
-    bv, bh = rs.sector_sweep(*args)
+    before = sweeps.list_sweep.launches
+    bv, bh = sweeps.list_sweep(*args)
     torch.cuda.synchronize()
-    assert rs.sector_sweep.launches == before + 1
-    bv_p, bh_p = rs.sweep_plain(*args)
+    assert sweeps.list_sweep.launches == before + 1
+    bv_p, bh_p = sweeps.list_sweep_plain(*args)
     assert torch.equal(bv, bv_p) and torch.equal(bh, bh_p)
     assert bool((torch.minimum(bv, bh) < 10.0).float().mean() > 0.5)
 
@@ -168,16 +169,15 @@ def _map_table_args(cuda, table):
 
 @pytest.mark.parametrize("table", ["corridor", "berlin_tiles",
                                    "berlin_sectors", "levine_sectors"])
-@pytest.mark.parametrize("route", [w.__name__ for w in sweeps.LIST_ROUTES])
-def test_list_sweep_counts_rows_and_slots_on_the_device(cuda, route, table):
-    """Each route of the list kernel adds its rows, their real slots and
-    the slots its wedge cull keeps to the device's counter: on the same
+def test_list_sweep_counts_rows_and_slots_on_the_device(cuda, table):
+    """The list kernel adds its rows, their real slots and the slots its
+    wedge cull keeps to the device's counter: on the same
     inputs exactly what the plain version adds on the host; one replay of
     a CUDA graph of the sweep advances it by exactly one call's count; the
     outputs, eager and replayed, are the plain version's (which sweeps
     every real slot) bit for bit. On berlin's tables the cull keeps under
     two fifths of the slots."""
-    wrapper = getattr(sweeps, route)
+    wrapper = sweeps.list_sweep
     counts = sweeps.SWEEP_COUNTS
     args = (_sector_args(cuda) if table == "corridor"
             else _map_table_args(cuda, table))
@@ -217,10 +217,10 @@ def test_list_sweep_cull_at_its_edges(cuda, name):
                     torch.zeros(1, dtype=torch.int32, device=cuda),
                     *(v.to(cuda) for v in (x0, y0, ct, st)))
     counts = sweeps.SWEEP_COUNTS
-    sweeps.sector_sweep(*args)
+    sweeps.list_sweep(*args)
     torch.cuda.synchronize()
     start, host = dict(counts), dict(counts.host)
-    bv, bh = sweeps.sector_sweep(*args)
+    bv, bh = sweeps.list_sweep(*args)
     dev = {k: counts[k] - start[k] for k in start}
     bv_p, bh_p = sweeps.list_sweep_plain(*args)
     assert dev == {k: counts.host[k] - host[k] for k in host}
@@ -265,17 +265,17 @@ def test_wrapper_rejects_bad_inputs(cuda):
     ok = dict(ids=torch.zeros(g, dtype=torch.int32, device=cuda),
               x0=torch.zeros(g, device=cuda), y0=torch.zeros(g, device=cuda))
     rays = [torch.ones(g, bb, device=cuda) for _ in range(4)]
-    for wrapper in sweeps.LIST_ROUTES:
-        with pytest.raises(ValueError, match="int32"):
-            wrapper(smap.table, smap.meta, ok["ids"].long(), ok["x0"],
-                    ok["y0"], *rays)
-        with pytest.raises(ValueError, match="contiguous"):
-            wrapper(smap.table, smap.meta, ok["ids"], ok["x0"], ok["y0"],
-                    torch.ones(bb, g, device=cuda).t(), *rays[1:])
-        with pytest.raises(ValueError, match="shared memory"):
-            wrapper(torch.zeros(2, 4, 8192, device=cuda),
-                    torch.zeros(2, 3, dtype=torch.int32, device=cuda),
-                    ok["ids"], ok["x0"], ok["y0"], *rays)
+    with pytest.raises(ValueError, match="int32"):
+        sweeps.list_sweep(smap.table, smap.meta, ok["ids"].long(), ok["x0"],
+                          ok["y0"], *rays)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweeps.list_sweep(smap.table, smap.meta, ok["ids"], ok["x0"],
+                          ok["y0"], torch.ones(bb, g, device=cuda).t(),
+                          *rays[1:])
+    with pytest.raises(ValueError, match="shared memory"):
+        sweeps.list_sweep(torch.zeros(2, 4, 8192, device=cuda),
+                          torch.zeros(2, 3, dtype=torch.int32, device=cuda),
+                          ok["ids"], ok["x0"], ok["y0"], *rays)
     params = torch.zeros(4, 256, device=cuda)
     meta = torch.tensor([0, 128, 128], dtype=torch.int32, device=cuda)
     flat = [torch.ones(300, device=cuda) for _ in range(6)]
@@ -349,9 +349,10 @@ def _blobby(seed, n_blocks):
     (7, 40, dict(tile_size=1.0, max_range=2.0)),     # mixed tiles
     (3, 400, dict(tile_size=2.0, max_range=4.0))])   # split tiles
 def test_tile_sweep_and_scans_match_plain(cuda, seed, n_blocks, kw):
-    """The tile route against the plain sweep on the scan's rows, and the
-    dense and tiled scans on the card against the CPU scans (same fan),
-    values and pose gradients."""
+    """The tile route's rows through the list sweep's row glue on the card
+    against the same on the CPU (the plain sweep), and the dense and tiled
+    scans on the card against the CPU scans (same fan), values and pose
+    gradients."""
     segmap = build_segment_map(_blobby(seed, n_blocks), 0.05, (-5.5, -5.5),
                                **kw, device="cpu")
     assert segmap.tiles is not None
@@ -364,19 +365,20 @@ def test_tile_sweep_and_scans_match_plain(cuda, seed, n_blocks, kw):
     ct, st = fan_cos_sin(poses[:, 2], offs)
     dev = segmap.to(cuda)
     p_d, ct_d, st_d = poses.to(cuda), ct.to(cuda), st.to(cuda)
-    mins = rg._tiled_minima(dev.tiles, dev.tile_sweep_meta, dev.tiles_shape,
-                            dev.tile_size, dev.tile_origin, p_d[:, 0],
-                            p_d[:, 1], p_d[:, 0:1].expand(ct_d.shape),
-                            p_d[:, 1:2].expand(ct_d.shape), ct_d, st_d)
-    ref = rg._tiled_minima(segmap.tiles, segmap.tile_sweep_meta,
-                           segmap.tiles_shape, segmap.tile_size,
-                           segmap.tile_origin, poses[:, 0], poses[:, 1],
-                           poses[:, 0:1].expand(ct.shape),
-                           poses[:, 1:2].expand(ct.shape), ct, st)
+
+    def tile_minima(m, p, ct, st):
+        ids = tile_ids(m.tiles_shape, m.tile_size, m.tile_origin, p[:, 0],
+                       p[:, 1])[:, None].expand(-1, ct.shape[1] // 128)
+        return rg._list_minima(m.tiles, m.tile_sweep_meta, ids,
+                               p[:, 0:1].expand(ct.shape),
+                               p[:, 1:2].expand(ct.shape), ct, st)
+
+    mins = tile_minima(dev, p_d, ct_d, st_d)
+    ref = tile_minima(segmap, poses, ct, st)
     for a, b in zip(mins, ref):
         assert torch.equal(a.cpu(), b)
     for use_tiles in (True, False):
-        before = (sweeps.tile_sweep.launches, sweeps.dense_sweep.launches)
+        before = (sweeps.list_sweep.launches, sweeps.dense_sweep.launches)
         pg = p_d.clone().requires_grad_(True)
         r_dev = rseg._scan_rays(dev, pg, ct_d, st_d, 1080, kw["max_range"],
                                 use_tiles)
@@ -387,16 +389,17 @@ def test_tile_sweep_and_scans_match_plain(cuda, seed, n_blocks, kw):
         r_cpu.sum().backward()
         assert torch.equal(r_dev.detach().cpu(), r_cpu.detach())
         assert torch.allclose(pg.grad.cpu(), pc.grad, rtol=1e-5, atol=1e-5)
-        after = (sweeps.tile_sweep.launches, sweeps.dense_sweep.launches)
+        after = (sweeps.list_sweep.launches, sweeps.dense_sweep.launches)
         assert after == (before[0] + use_tiles, before[1] + (not use_tiles))
 
 
-@pytest.mark.parametrize("mode, use_pallas, route", [
-    ("sorted_pl", None, "sorted_tiles_sweep"),
-    ("auto", True, "grp_sweep"), ("auto", None, "sector_sweep")])
-def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas, route):
-    """Kernels 2.2 and 2.3 run as routes onto the list kernel: each mode
-    counts on its own wrapper, with the sector scan's values."""
+@pytest.mark.parametrize("mode, use_pallas", [
+    ("sorted_pl", None), ("auto", True), ("auto", None), ("dense", None),
+    ("sorted_plf@128", None)])
+def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas):
+    """Every mode and ``use_pallas`` (kernels 2.2 and 2.3 among them) run
+    the one list sweep: one ``list_sweep`` launch a scan, with the sector
+    scan's values."""
     _, smap = _corridor(16, 2.0)
     rng = np.random.RandomState(2)
     poses = torch.tensor(np.stack([rng.uniform(-4, 4, 32),
@@ -405,12 +408,12 @@ def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas, route):
                          dtype=torch.float32)
     smap, poses = smap.to(cuda), poses.to(cuda)
     ref = rs.scan_poses_sectors(smap, poses)
-    wrapper = getattr(sweeps, route)
-    before = wrapper.launches
+    before = sweeps.launch_counts()
     got = rs.scan_poses_sectors(smap, poses, mode=mode,
                                 use_pallas=use_pallas)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert {k: n - before[k] for k, n in sweeps.launch_counts().items()
+            if n != before[k]} == {"list_sweep": 1}
     assert torch.equal(got, ref)
 
 

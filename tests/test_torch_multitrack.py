@@ -183,11 +183,10 @@ def test_raycast_sectors_ids_matches_jax(world):
     assert np.mean(got.numpy() < MAXR) > 0.3
 
 
-def _port_multi_on_fan(pstack, poses, mid, ct, st, num_beams=NB, bb=BB,
-                       sweep=sweeps.sector_sweep):
+def _port_multi_on_fan(pstack, poses, mid, ct, st, num_beams=NB, bb=BB):
     return prs._scan_chunk_multi(pstack, _t(poses), _t(mid),
                                  _t(np.asarray(ct)), _t(np.asarray(st)),
-                                 num_beams, MAXR, bb, sweep)
+                                 num_beams, MAXR, bb)
 
 
 def test_multi_scan_with_jax_fan_is_bit_identical(world):
@@ -303,13 +302,12 @@ def test_multi_sorted_pl_matches_pallas_kernel(world, mode):
     """mode="sorted_pl" through the multitrack path against the JAX
     package's sorted-tile Pallas kernel in interpret mode (as
     tests/test_sectors.py runs it), on the JAX fan: bit-exact. On the CPU
-    the port's route runs the plain list sweep."""
+    the port's one list sweep runs its plain version."""
     _, _, jstack, pstack, poses, mid = world
     ref = np.asarray(jrs.scan_poses_sectors_multi(
         jstack, jnp.asarray(mid), jnp.asarray(poses), num_beams=NB, fov=FOV,
         max_range=MAXR, bb=BB, mode=mode, interpret=True))
-    got = _port_multi_on_fan(pstack, poses, mid, *_jax_fan(poses),
-                             sweep=sweeps.sorted_tiles_sweep)
+    got = _port_multi_on_fan(pstack, poses, mid, *_jax_fan(poses))
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -318,8 +316,8 @@ def test_multi_sorted_pl_matches_pallas_kernel(world, mode):
                                       ("sorted_plf@128", True),
                                       ("sorted_pt", False)])
 def test_multi_modes(world, mode, ok):
-    """The modes of the single-map scan: the list kernel's routes give
-    the same values; the XLA-only sorted modes are not ported."""
+    """The modes of the single-map scan: each runs the one list sweep,
+    with the same values; the XLA-only sorted modes are not ported."""
     _, _, _, pstack, poses, mid = world
     kw = dict(num_beams=NB, fov=FOV, max_range=MAXR)
     if not ok:
@@ -331,7 +329,7 @@ def test_multi_modes(world, mode, ok):
     r = prs.scan_poses_sectors_multi(pstack, _t(mid), _t(poses), mode=mode,
                                      **kw)
     assert torch.equal(r, ref)
-    assert all(w.launches == 0 for w in sweeps.LIST_ROUTES)
+    assert sweeps.list_sweep.launches == 0
 
 
 @pytest.mark.parametrize("chunk", [7, 12, 100])

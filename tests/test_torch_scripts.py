@@ -241,7 +241,7 @@ def test_bench_every_key_and_gate(bench, capsys, tmp_path):
     record = json.loads(detail.read_text())
     assert record["device"] == "cpu" and record["rates"] == out["rates"]
     t = record["timing"]["berlin_sector_fwdbwd"]
-    assert len(t["loops_ms"]) == 2 and t["kernel"] == "sector_sweep"
+    assert len(t["loops_ms"]) == 2 and t["kernel"] == "list_sweep"
     assert t["launches"] == {}                  # the CPU launches no kernel
     assert record["timing"]["train_steps_s_berlin"]["work"] == 8 * 2
 

@@ -113,7 +113,7 @@ def _assert_same_result(bv_ref, bh_ref, bv, bh):
 
 @pytest.mark.parametrize("chunk", [8, 16])
 def test_sweep_plain_matches_fused_pallas_kernel(blobby_bigk, chunk):
-    """sweep_plain == sweep_sorted_tiles_fused (interpret mode), the TPU
+    """list_sweep_plain == sweep_sorted_tiles_fused (interpret mode), the TPU
     kernel the CUDA kernel replaces, on the same rows."""
     jmap, pmap, poses = blobby_bigk
     ids, x0, y0, (ct, st, ic, is_), _ = _jax_rows(jmap, poses, 540)
@@ -123,13 +123,14 @@ def test_sweep_plain_matches_fused_pallas_kernel(blobby_bigk, chunk):
         jnp.asarray(ids), jnp.asarray(x0), jnp.asarray(y0),
         *map(jnp.asarray, (ct, st, ic, is_)), chunk=chunk, tile_rows=16,
         interpret=True)
-    bv, bh = prs.sweep_plain(pmap.table, pmap.meta, _t(ids), _t(x0),
-                             _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
+    bv, bh = sweeps.list_sweep_plain(pmap.table, pmap.meta, _t(ids), _t(x0),
+                                     _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
     _assert_same_result(bv_ref, bh_ref, bv, bh)
 
 
 def test_sweep_plain_matches_xla_dense_sweep(blobby_bigk):
-    """sweep_plain == _sweep_xla (the JAX sweep of small-capacity maps)."""
+    """list_sweep_plain == _sweep_xla (the JAX sweep of small-capacity
+    maps)."""
     jmap, pmap, poses = blobby_bigk
     ids, x0, y0, (ct, st, ic, is_), _ = _jax_rows(jmap, poses, 1080)
     a_n = poses.shape[0]
@@ -140,8 +141,8 @@ def test_sweep_plain_matches_xla_dense_sweep(blobby_bigk):
     bv_ref, bh_ref = jrs._sweep_xla(
         jmap.table, jmap.kv_sec, jnp.asarray(ids).reshape(a_n, nblk),
         *map(shp, (xb, yb, ct, st, ic, is_)), 64)
-    bv, bh = prs.sweep_plain(pmap.table, pmap.meta, _t(ids), _t(x0),
-                             _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
+    bv, bh = sweeps.list_sweep_plain(pmap.table, pmap.meta, _t(ids), _t(x0),
+                                     _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
     _assert_same_result(np.asarray(bv_ref).reshape(-1, BB),
                         np.asarray(bh_ref).reshape(-1, BB), bv, bh)
 
@@ -199,27 +200,27 @@ def test_agent_chunks_are_bit_identical(blobby_bigk):
 
 
 def test_cpu_tensors_take_the_plain_sweep(blobby_bigk):
-    """sector_sweep routes CPU tensors to sweep_plain: same values, and the
-    kernel's launch counter does not move."""
+    """list_sweep routes CPU tensors to list_sweep_plain: same values, and
+    the kernel's launch counter does not move."""
     jmap, pmap, poses = blobby_bigk
     ids, x0, y0, rays, _ = _jax_rows(jmap, poses, 540)
     args = (pmap.table, pmap.meta, _t(ids), _t(x0), _t(y0), *map(_t, rays))
-    before = prs.sector_sweep.launches
-    bv, bh = prs.sector_sweep(*args)
-    bv2, bh2 = prs.sweep_plain(*args)
+    before = sweeps.list_sweep.launches
+    bv, bh = sweeps.list_sweep(*args)
+    bv2, bh2 = sweeps.list_sweep_plain(*args)
     assert torch.equal(bv, bv2) and torch.equal(bh, bh2)
     prs.scan_poses_sectors(pmap, _t(poses), num_beams=540, fov=FOV,
                            max_range=MAXR)
-    assert prs.sector_sweep.launches == before == 0
+    assert sweeps.list_sweep.launches == before == 0
 
 
 def test_sweep_rejects_other_devices(blobby_bigk):
     _, pmap, _ = blobby_bigk
     meta_dev = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(ValueError, match="device"):
-        prs.sector_sweep(meta_dev(4, 4, 16), meta_dev(4, 3),
-                         meta_dev(2), meta_dev(2), meta_dev(2),
-                         *(meta_dev(2, BB) for _ in range(4)))
+        sweeps.list_sweep(meta_dev(4, 4, 16), meta_dev(4, 3),
+                          meta_dev(2), meta_dev(2), meta_dev(2),
+                          *(meta_dev(2, BB) for _ in range(4)))
 
 
 @pytest.mark.parametrize("mode, ok", [
@@ -227,8 +228,8 @@ def test_sweep_rejects_other_devices(blobby_bigk):
     ("sorted_plfm@16", True), ("sorted_pl@128", True), ("sorted", False),
     ("sorted_pt", False)])
 def test_modes(blobby_bigk, mode, ok):
-    """'auto', 'dense', 'sorted_pl' and 'sorted_plf*' all run the list
-    kernel's routes with the same values, as does use_pallas=True; the
+    """'auto', 'dense', 'sorted_pl' and 'sorted_plf*' all run the one
+    list sweep with the same values, as does use_pallas=True; the
     XLA-only sorted modes are not ported."""
     _, pmap, poses = blobby_bigk
     kw = dict(num_beams=540, fov=FOV, max_range=MAXR)
@@ -242,12 +243,13 @@ def test_modes(blobby_bigk, mode, ok):
     r = prs.scan_poses_sectors(pmap, _t(poses), use_pallas=True, mode=mode,
                                **kw)
     assert torch.equal(r, ref)
-    assert all(w.launches == 0 for w in sweeps.LIST_ROUTES)
+    assert sweeps.list_sweep.launches == 0
 
 
 def test_sorted_pl_route_matches_pallas_kernel(blobby_bigk):
-    """The sorted_pl route (list_sweep_plain on CPU) ==
-    sweep_sorted_tiles_pallas (interpret mode), TPU kernel 2.2."""
+    """The one list sweep (list_sweep_plain on CPU), which mode
+    "sorted_pl" runs, == sweep_sorted_tiles_pallas (interpret mode), TPU
+    kernel 2.2."""
     jmap, pmap, poses = blobby_bigk
     ids, x0, y0, (ct, st, ic, is_), _ = _jax_rows(jmap, poses, 540)
     bv_ref, bh_ref = sweep_sorted_tiles_pallas(
@@ -255,16 +257,16 @@ def test_sorted_pl_route_matches_pallas_kernel(blobby_bigk):
         jnp.asarray(x0), jnp.asarray(y0),
         *map(jnp.asarray, (ct, st, ic, is_)), chunk=8, tile_rows=16,
         interpret=True)
-    bv, bh = sweeps.sorted_tiles_sweep(pmap.table, pmap.meta, _t(ids),
-                                       _t(x0), _t(y0), _t(ct), _t(st),
-                                       _t(ic), _t(is_))
+    bv, bh = sweeps.list_sweep(pmap.table, pmap.meta, _t(ids), _t(x0),
+                               _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
     _assert_same_result(bv_ref, bh_ref, bv, bh)
 
 
 def test_grp_route_matches_pallas_kernel(blobby_bigk):
-    """The use_pallas route == _raycast_pallas_ids_grp_raw (interpret
-    mode), TPU kernel 2.3; it takes per-beam origins, the port per-row
-    ones (equal here, as on every sector path)."""
+    """The one list sweep, which use_pallas=True runs, ==
+    _raycast_pallas_ids_grp_raw (interpret mode), TPU kernel 2.3; it takes
+    per-beam origins, the port per-row ones (equal here, as on every
+    sector path)."""
     jmap, pmap, poses = blobby_bigk
     ids, x0, y0, (ct, st, ic, is_), _ = _jax_rows(jmap, poses, 540)
     xb = np.repeat(x0[:, None], BB, 1)
@@ -273,8 +275,8 @@ def test_grp_route_matches_pallas_kernel(blobby_bigk):
         jnp.asarray(ids), jmap.meta, jmap.table,
         *map(jnp.asarray, (xb, yb, ct, st, ic, is_)), grp=4,
         interpret=True)
-    bv, bh = sweeps.grp_sweep(pmap.table, pmap.meta, _t(ids), _t(x0),
-                              _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
+    bv, bh = sweeps.list_sweep(pmap.table, pmap.meta, _t(ids), _t(x0),
+                               _t(y0), _t(ct), _t(st), _t(ic), _t(is_))
     _assert_same_result(bv_ref, bh_ref, bv, bh)
 
 
@@ -312,6 +314,34 @@ def test_build_command_flags():
     assert {s for s, _, _ in _kernels._SIGNATURES.values()} == {
         "sector_sweep", "dense_sweep", "edf_march", "general_sweep",
         "soft_edt"}
+
+
+def test_launch_counts_on_its_wrapper(monkeypatch):
+    """``_kernels.launch`` counts a launch on the wrapper registered under
+    the name it is given once the entry point returns success, and none
+    when it returns a CUDA error (the device calls stood in for)."""
+    import contextlib
+    import types
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    errs, calls = [0, 2], []
+
+    def entry(name):
+        return lambda *args: calls.append((name, args)) or errs.pop(0)
+
+    monkeypatch.setattr(_kernels, "kernel", entry)
+    for w in _kernels.wrappers().values():
+        monkeypatch.setattr(w, "launches", 0)
+    _kernels.launch("list_sweep", "sector_sweep", torch.zeros(1), 3, None)
+    with pytest.raises(RuntimeError, match="list_sweep: kernel launch"):
+        _kernels.launch("list_sweep", "sector_sweep", torch.zeros(1), 3,
+                        None)
+    assert [c[0] for c in calls] == ["sector_sweep"] * 2
+    assert calls[0][1][1:] == (3, None, 0)
+    assert {k: n for k, n in sweeps.launch_counts().items() if n} == {
+        "list_sweep": 1}
 
 
 def test_port_imports_no_jax():

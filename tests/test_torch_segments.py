@@ -258,7 +258,7 @@ def test_tile_plain_matches_pallas_kernel(small_track, rng, name):
         jnp.asarray(tid), jmap.tile_sweep_meta, jmap.tiles,
         *map(blk, (xb, yb, ct, st, ic, is_)), interpret=True)
     rows = lambda a: _t(a.reshape(a_n * nblk, 128))
-    bv, bh = sweeps.tile_sweep(
+    bv, bh = sweeps.list_sweep(
         pmap.tiles, pmap.tile_sweep_meta,
         _t(np.repeat(tid, nblk).astype(np.int32)),
         _t(np.repeat(x0, nblk)), _t(np.repeat(y0, nblk)),
@@ -353,12 +353,12 @@ def test_cpu_tensors_take_the_plain_sweeps(small_track, rng):
     x, y, ct, st = map(_t, _rays(rng, 200))
     ic, is_ = _ray_invs(ct, st)
     args = (pmap.params, pmap.sweep_meta, x, y, ct, st, ic, is_)
-    before = (sweeps.dense_sweep.launches, sweeps.tile_sweep.launches)
+    before = (sweeps.dense_sweep.launches, sweeps.list_sweep.launches)
     for a, b in zip(sweeps.dense_sweep(*args),
                     sweeps.dense_sweep_plain(*args)):
         assert torch.equal(a, b)
     prs.scan_poses_segments(pmap, torch.zeros(3, 3), num_beams=64)
-    assert (sweeps.dense_sweep.launches, sweeps.tile_sweep.launches) == \
+    assert (sweeps.dense_sweep.launches, sweeps.list_sweep.launches) == \
         before == (0, 0)
 
 
@@ -368,7 +368,7 @@ def test_sweeps_reject_other_devices():
         sweeps.dense_sweep(meta_dev(4, 128), meta_dev(3),
                            *(meta_dev(8) for _ in range(6)))
     with pytest.raises(ValueError, match="device"):
-        sweeps.tile_sweep(meta_dev(4, 4, 128), meta_dev(4, 3), meta_dev(2),
+        sweeps.list_sweep(meta_dev(4, 4, 128), meta_dev(4, 3), meta_dev(2),
                           meta_dev(2), meta_dev(2),
                           *(meta_dev(2, 128) for _ in range(4)))
 

@@ -217,10 +217,12 @@ def test_explicit_gradient_matches_jax(kind, mode, shape):
 
 
 def _stand_in(monkeypatch, calls):
-    """The device check says "the card"; each launch is recorded and fills
+    """The device check says "the card"; each launch is recorded, counted
+    on the wrapper it names (as ``_kernels.launch`` counts it) and fills
     its outputs from the plain versions."""
 
     def launch(name, entry, *args):
+        _kernels.wrappers()[name].launches += 1
         if entry == "soft_edt":
             d0, out, tmp, history, h, w, iters, soft, inv_t, neg_t = args
             out.copy_(psoft.chamfer_stencil_plain(
