@@ -55,7 +55,9 @@ function's:
 - No target and no headline: ``vs_baseline``, the rays/s north star and the
   ``headline_path`` contest belonged to the TPU rounds.
 - The JAX package's four sector kernels are one wrapper of one CUDA kernel
-  here (``list_sweep``, ``csrc/sector_sweep.cu``), so ``*_sector_*``,
+  here (``list_sweep``, ``csrc/sector_sweep.cu``; scans of poses without a
+  gradient, the rollouts', take its entry from poses, ``list_scan``), so
+  ``*_sector_*``,
   ``*_sector_pallas_*``, ``*_sector_sorted_*`` and ``*_sector_fused_*``
   time the same call (each key's mode is checked, then ignored); the keys
   stay so that a reader finds each counterpart.
@@ -497,9 +499,9 @@ def stage_rollouts(b: Bench):
     for name, backend, key, kernel in (
             ("levine", "segments", "env_steps_s_4096", "dense_sweep"),
             ("levine", "sectors", "env_steps_s_4096_sectors",
-             "list_sweep"),
+             "list_scan"),
             ("berlin", "sectors", "env_steps_s_4096_sectors_berlin",
-             "list_sweep")):
+             "list_scan")):
         if not b.wanted(key, f"{key}_eager", gate):
             continue
         step = make_step_fn(b.bundle(name, backend), with_noise=False)

@@ -20,24 +20,45 @@
 //     t = (p - x0) * inv_c,  a = y0 + t * sin,
 // and for a horizontal one y = p, x in [lo, hi]:
 //     t = (p - y0) * inv_s,  a = x0 + t * cos;
-// a hit is t >= 0 and (a - lo) * (hi - a) >= 0. The kernel writes the
-// unclamped vertical and horizontal minima bv, bh (3e38 where nothing is
-// hit); the wrapper clamps and takes isv = bv <= bh.
+// a hit is t >= 0 and (a - lo) * (hi - a) >= 0.
+//
+// Two entries, one kernel body (list_sweep_kernel<kFromPoses>):
+//   - rays given (sector_sweep_launch): the caller hands each ray's cos, sin
+//     and reciprocals as (g, bb) tensors, and the kernel writes the
+//     unclamped vertical and horizontal minima bv, bh (3e38 where nothing
+//     is hit); the caller clamps and takes isv = bv <= bh. Every scan whose
+//     rays take a gradient, the stacked maps and the ring run this one.
+//   - from poses (list_scan_launch): row g is agent g / nblk, beam block
+//     g % nblk. Each thread builds its ray from the agent's (cos theta,
+//     sin theta) and the beam's padded offset (cos d, sin d), as
+//     ops/common.rotate_fan does:
+//         c = cth * cd - sth * sd,  s = sth * cd + cth * sd,
+//     and its reciprocals 1 / c, 1 / s (NaN where the component is 0), as
+//     ops/common._ray_invs does; and it writes the finished range of each
+//     real beam (beam < num_beams): r = min(min(bv, bh), max_range), or
+//     max_range where the origin is not inside the map's extent
+//     (ex0 <= x < ex1 and ey0 <= y < ey1), as ops/common.finish_minima and
+//     apply_extent_mask do. Nothing of the fan, the reciprocals or the
+//     minima goes through memory. Scans of poses that take no gradient run
+//     this one.
 //
 // Work count. Each row adds its real slot count n_v + h_end - h_lo (as
-// clamped below), one row, and the slots it kept after the wedge cull
-// (below) to a (lanes, 3) int64 device counter, [slots, rows, kept] in lane
-// blockIdx.x % lanes, which the host sums on read (ops/sweeps.SWEEP_COUNTS):
-// one thread a block issues the three adds as it leaves, with no return
-// value, and spreading them over lanes keeps tens of thousands of blocks a
-// launch off one address. A replayed CUDA graph adds too.
+// clamped below), one row, the slots it kept after the wedge cull (below)
+// and whether it was built from poses to a (lanes, 4) int64 device counter,
+// [slots, rows, kept, fanned] in lane blockIdx.x % lanes, which the host
+// sums on read (ops/sweeps.SWEEP_COUNTS): one thread a block issues the
+// adds as it leaves (the rays-given entry adds nothing to fanned), with no
+// return value, and spreading them over lanes keeps tens of thousands of
+// blocks a launch off one address. A replayed CUDA graph adds too.
 //
-// Exact arithmetic. The result must equal the plain PyTorch sweep bit for
-// bit, so: the library is compiled with -fmad=false (no contraction of
-// a = y0 + t * sin into an FMA) and without fast math; the interval test
-// keeps the two-sided product form; the reciprocals come from the caller,
-// where a zero direction component gives NaN, which every comparison
-// rejects.
+// Exact arithmetic. The result must equal the plain PyTorch composition
+// bit for bit, so: the library is compiled with -fmad=false (no
+// contraction of a = y0 + t * sin, nor of the fan's c and s, into an FMA)
+// and without fast math (1 / c is the correctly rounded IEEE quotient that
+// PyTorch's division takes); the interval test keeps the two-sided product
+// form; a zero direction component gives a NaN reciprocal, which every
+// comparison rejects; min and the clamp are fminf, the instruction
+// PyTorch's minimum and clamp take on finite values.
 //
 // Design. One thread block per ray row, one thread per beam. The block
 // stages the [p, lo, hi] of its row's slots (at most K, 3*K*4 bytes of
@@ -96,9 +117,11 @@
 // (128 a kept slot, ~14 instructions each on the FP32 pipes and
 // shared-memory broadcasts) and the cull pass (~30 instructions a staged
 // slot, once a row) bound the kernel; the staged bytes (12 a real slot a
-// row, from L2) and the ray tensors bound it from below as well. The count
-// of real slots no longer bounds it. PERF.md holds the times measured on
-// an H100, each with the card's power limit.
+// row, from L2) and the ray tensors bound it from below as well (the
+// rays-given entry reads four (g, bb) ray tensors and writes two; the
+// from-poses entry reads a few KB of factors and writes one (A, num_beams)
+// range). The count of real slots no longer bounds it. PERF.md holds the
+// times measured on an H100, each with the card's power limit.
 
 #include <cuda_runtime.h>
 
@@ -137,6 +160,41 @@ __device__ __forceinline__ bool outside_wedge(float ex1, float ey1,
   return (l1 < -m && l2 < -m) || (h1 > m && h2 > m);
 }
 
+// The fan of the from-poses entry: per agent (cos theta, sin theta), (A,);
+// per beam of the padded fan (cos d, sin d), (nblk * bb,); the output
+// (A, num_beams); the clamp and the map's extent, as float32.
+struct Fan {
+  const float* cth;
+  const float* sth;
+  const float* cd;
+  const float* sd;
+  float* out;
+  int nblk;
+  int num_beams;
+  float max_range, ex0, ex1, ey0, ey1;
+};
+
+// The direction of the ray at beam `beam` of the padded fan, from agent
+// `agent`'s heading: rotate_fan's operations, each separately rounded.
+__device__ __forceinline__ void fan_ray(const Fan& f, int agent, int beam,
+                                        float& c, float& s) {
+  const float ct = __ldg(f.cth + agent);
+  const float st = __ldg(f.sth + agent);
+  const float cd = __ldg(f.cd + beam);
+  const float sd = __ldg(f.sd + beam);
+  c = ct * cd - st * sd;
+  s = st * cd + ct * sd;
+}
+
+// _ray_invs' reciprocal: NaN where the component is zero.
+__device__ __forceinline__ float ray_inv(float v) {
+  return v == 0.0f ? __int_as_float(0x7fc00000) : 1.0f / v;
+}
+
+// Rays given: cos_t .. inv_s are (g, bb) rows, bv, bh the outputs, x0 and
+// y0 a row's origin, and `fan` is not read. From poses: cos_t .. bh are
+// not read, x0 and y0 are an agent's origin and `fan` holds the rest.
+template <bool kFromPoses>
 __global__ void list_sweep_kernel(
     const float* __restrict__ table, const int* __restrict__ meta,
     const int* __restrict__ ids, const float* __restrict__ x0,
@@ -144,7 +202,7 @@ __global__ void list_sweep_kernel(
     const float* __restrict__ sin_t, const float* __restrict__ inv_c,
     const float* __restrict__ inv_s, float* __restrict__ bv,
     float* __restrict__ bh, int k, unsigned long long* __restrict__ counts,
-    int lanes) {
+    int lanes, const Fan fan) {
   extern __shared__ float seg[];  // [p | lo | hi], each k floats
   float* sp = seg;
   float* slo = seg + k;
@@ -173,20 +231,29 @@ __global__ void list_sweep_kernel(
 
   const size_t first = static_cast<size_t>(row) * bb;
   const size_t ray = first + b;
-  const float ox = x0[row];
-  const float oy = y0[row];
+  // from poses: the row's agent and the padded fan's beam of thread 0
+  const int agent = kFromPoses ? row / fan.nblk : row;
+  const int beam0 = kFromPoses ? (row - agent * fan.nblk) * bb : 0;
+  const float ox = x0[agent];
+  const float oy = y0[agent];
 
   bool cull = false;
   float lx = 0.0f, ly = 0.0f, hx = 0.0f, hy = 0.0f;
   if (n >= kCullMinSlots) {  // the same for every thread of the block
-    // this ray's direction through L2 here and again for the sweep, so that
-    // it is not held in registers across the staging (40 registers a
-    // thread against 32: a quarter fewer blocks resident, levine's short
-    // rows 43% slower)
-    const float c = __ldcg(cos_t + ray);
-    const float sn = __ldcg(sin_t + ray);
-    const float rx = cos_t[first + bb / 2];
-    const float ry = sin_t[first + bb / 2];
+    // this ray's direction through L2 (or rebuilt) here and again for the
+    // sweep, so that it is not held in registers across the staging (40
+    // registers a thread against 32: a quarter fewer blocks resident,
+    // levine's short rows 43% slower)
+    float c, sn, rx, ry;
+    if constexpr (kFromPoses) {
+      fan_ray(fan, agent, beam0 + b, c, sn);
+      fan_ray(fan, agent, beam0 + bb / 2, rx, ry);
+    } else {
+      c = __ldcg(cos_t + ray);
+      sn = __ldcg(sin_t + ray);
+      rx = cos_t[first + bb / 2];
+      ry = sin_t[first + bb / 2];
+    }
     const bool ok = fabsf((c * c + sn * sn) - 1.0f) <= kUnitTol &&
                     rx * c + ry * sn >= kMinDot;
     const unsigned key = order_key(rx * sn - ry * c);
@@ -221,10 +288,15 @@ __global__ void list_sweep_kernel(
       }
       cull = cull && w_ok[w];
     }
-    lx = cos_t[first + i_min];
-    ly = sin_t[first + i_min];
-    hx = cos_t[first + i_max];
-    hy = sin_t[first + i_max];
+    if constexpr (kFromPoses) {
+      fan_ray(fan, agent, beam0 + i_min, lx, ly);
+      fan_ray(fan, agent, beam0 + i_max, hx, hy);
+    } else {
+      lx = cos_t[first + i_min];
+      ly = sin_t[first + i_min];
+      hx = cos_t[first + i_max];
+      hy = sin_t[first + i_max];
+    }
   }
 
   int nv_k = nv;
@@ -277,10 +349,17 @@ __global__ void list_sweep_kernel(
     __syncthreads();
   }
 
-  const float c = cos_t[ray];
-  const float sn = sin_t[ray];
-  const float ic = inv_c[ray];
-  const float is = inv_s[ray];
+  float c, sn, ic, is;
+  if constexpr (kFromPoses) {
+    fan_ray(fan, agent, beam0 + b, c, sn);
+    ic = ray_inv(c);
+    is = ray_inv(sn);
+  } else {
+    c = cos_t[ray];
+    sn = sin_t[ray];
+    ic = inv_c[ray];
+    is = inv_s[ray];
+  }
   float best_v = kBig;
   float best_h = kBig;
   for (int s = 0; s < nv_k; ++s) {
@@ -297,23 +376,35 @@ __global__ void list_sweep_kernel(
       best_h = t;
     }
   }
-  bv[ray] = best_v;
-  bh[ray] = best_h;
+  if constexpr (kFromPoses) {
+    const int beam = beam0 + b;
+    if (beam < fan.num_beams) {
+      const bool inside = ox >= fan.ex0 && ox < fan.ex1 && oy >= fan.ey0 &&
+                          oy < fan.ey1;
+      fan.out[static_cast<size_t>(agent) * fan.num_beams + beam] =
+          inside ? fminf(fminf(best_v, best_h), fan.max_range)
+                 : fan.max_range;
+    }
+  } else {
+    bv[ray] = best_v;
+    bh[ray] = best_h;
+  }
   if (b == 0) {
-    unsigned long long* lane_c = counts + 3 * (row % lanes);
+    unsigned long long* lane_c = counts + 4 * (row % lanes);
     atomicAdd(&lane_c[0], static_cast<unsigned long long>(n));
     atomicAdd(&lane_c[1], 1ULL);
     atomicAdd(&lane_c[2], static_cast<unsigned long long>(nv_k + nh_k));
+    if constexpr (kFromPoses) atomicAdd(&lane_c[3], 1ULL);
   }
 }
 
 }  // namespace
 
-// Launches the sweep over g rows of bb beams on `stream` and returns
-// cudaGetLastError() (0 = launched). Pointers are device pointers to
-// contiguous tensors: table (L, 4, k) f32, meta (L, 3) i32, ids (g,) i32
+// Launches the rays-given sweep over g rows of bb beams on `stream` and
+// returns cudaGetLastError() (0 = launched). Pointers are device pointers
+// to contiguous tensors: table (L, 4, k) f32, meta (L, 3) i32, ids (g,) i32
 // (each in [0, L)), x0/y0 (g,) f32, cos/sin/inv_c/inv_s and bv/bh (g, bb)
-// f32, counts (lanes, 3) u64 [slots, rows, kept], lanes >= 1.
+// f32, counts (lanes, 4) u64 [slots, rows, kept, fanned], lanes >= 1.
 extern "C" int sector_sweep_launch(
     const void* table, const void* meta, const void* ids, const void* x0,
     const void* y0, const void* cos_t, const void* sin_t, const void* inv_c,
@@ -321,13 +412,42 @@ extern "C" int sector_sweep_launch(
     void* counts, int lanes, void* stream) {
   if (g == 0) return 0;
   const size_t smem = 3 * static_cast<size_t>(k) * sizeof(float);
-  list_sweep_kernel<<<g, bb, smem, static_cast<cudaStream_t>(stream)>>>(
+  list_sweep_kernel<false>
+      <<<g, bb, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(table), static_cast<const int*>(meta),
+          static_cast<const int*>(ids), static_cast<const float*>(x0),
+          static_cast<const float*>(y0), static_cast<const float*>(cos_t),
+          static_cast<const float*>(sin_t), static_cast<const float*>(inv_c),
+          static_cast<const float*>(inv_s), static_cast<float*>(bv),
+          static_cast<float*>(bh), k,
+          static_cast<unsigned long long*>(counts), lanes, Fan{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the from-poses scan over a * nblk rows of bb beams on `stream`
+// and returns cudaGetLastError() (0 = launched): table, meta and counts as
+// above, ids (a * nblk,) i32, x0/y0/cth/sth (a,) f32, cd/sd (nblk * bb,)
+// f32, out (a, num_beams) f32 with num_beams <= nblk * bb.
+extern "C" int list_scan_launch(
+    const void* table, const void* meta, const void* ids, const void* x0,
+    const void* y0, const void* cth, const void* sth, const void* cd,
+    const void* sd, void* out, int a, int nblk, int bb, int k,
+    int num_beams, float max_range, float ex0, float ex1, float ey0,
+    float ey1, void* counts, int lanes, void* stream) {
+  const int g = a * nblk;
+  if (g == 0) return 0;
+  const size_t smem = 3 * static_cast<size_t>(k) * sizeof(float);
+  const Fan fan{static_cast<const float*>(cth), static_cast<const float*>(sth),
+                static_cast<const float*>(cd),  static_cast<const float*>(sd),
+                static_cast<float*>(out),       nblk,
+                num_beams,                      max_range,
+                ex0,                            ex1,
+                ey0,                            ey1};
+  list_sweep_kernel<true><<<g, bb, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const int*>(meta),
       static_cast<const int*>(ids), static_cast<const float*>(x0),
-      static_cast<const float*>(y0), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<const float*>(inv_c),
-      static_cast<const float*>(inv_s), static_cast<float*>(bv),
-      static_cast<float*>(bh), k, static_cast<unsigned long long*>(counts),
-      lanes);
+      static_cast<const float*>(y0), nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, k, static_cast<unsigned long long*>(counts), lanes,
+      fan);
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,8 @@ _MARCH_HEAD = ([_I, _P, _L, _L, _L, _L, _P, _P, _F, _F, _F, _I] + [_P] * 4
 _SIGNATURES = {
     "sector_sweep": ("sector_sweep", "sector_sweep_launch",
                      [_P] * 11 + [_I, _I, _I, _P, _I, _P]),
+    "list_scan": ("sector_sweep", "list_scan_launch",
+                  [_P] * 10 + [_I] * 5 + [_F] * 5 + [_P, _I, _P]),
     "dense_sweep": ("dense_sweep", "dense_sweep_launch",
                     [_P] * 10 + [_I, _I, _P]),
     "edf_march": ("edf_march", "edf_march_launch",

@@ -13,8 +13,9 @@ XLA's on some inputs. Sweeps given the same fan agree bit for bit; a
 free-running scan agrees within a stated tolerance.
 
 Scan constants live on the device and are made once: the beam fan, the
-padded fan, the block lookup beams and every 0-dim scalar that divides
-(``_f32``) are cached per (arguments, device) in ``_CONSTANTS``. After the
+padded fan, its offsets' cos and sin (``offset_factors``, whole and at the
+block lookup beams), the block lookup beams and every 0-dim scalar that
+divides (``_f32``) are cached per (arguments, device) in ``_CONSTANTS``. After the
 first scan on a device a scan copies nothing from the host, which is what
 lets the step be captured in a CUDA graph (``utils/graph.py``; a copy from
 pageable host memory is not allowed while a stream captures). The cached
@@ -82,6 +83,40 @@ def _padded_offsets(num_beams, fov, bb, device=None):
         return torch.cat([offs, offs[-1:].expand(b_pad)]) if b_pad else offs
     return _constant(("padded_offsets", int(num_beams), float(fov), int(bb)),
                      device, make)
+
+
+def offset_factors(num_beams, fov, bb, device):
+    """``(cd, sd)``, each (NBLK*bb,): the cos and sin of
+    ``_padded_offsets``, computed on ``device`` once (the values
+    ``fan_factors`` gives on it). Cached (module doc): do not write them."""
+    def make():
+        offs = _padded_offsets(num_beams, fov, bb, device)
+        return torch.stack([torch.cos(offs), torch.sin(offs)])
+    cs = _constant(("offset_factors", int(num_beams), float(fov), int(bb)),
+                   device, make)
+    return cs[0], cs[1]
+
+
+def mid_offset_factors(num_beams, fov, bb, device):
+    """``(cd, sd)``, each (NBLK,): ``offset_factors`` at each block's
+    lookup beam (``block_mids`` over the padded fan, as the sector route
+    looks up a padded fan). Cached (module doc): do not write them."""
+    def make():
+        cd, sd = offset_factors(num_beams, fov, bb, device)
+        n_pad = cd.shape[0]
+        mids = block_mids(n_pad // bb, bb, n_pad, device)
+        return torch.stack([cd[mids], sd[mids]])
+    cs = _constant(("mid_offset_factors", int(num_beams), float(fov),
+                    int(bb)), device, make)
+    return cs[0], cs[1]
+
+
+def fused_scan(poses, theta_discretization: int) -> bool:
+    """Whether a scan of ``poses`` may take the list kernel's from-poses
+    entry (``sweeps.list_scan``): the exact fan, and no ray that takes a
+    gradient."""
+    return not theta_discretization and not (torch.is_grad_enabled()
+                                             and poses.requires_grad)
 
 
 def block_mids(nblk: int, bb: int, b_real: int, device) -> torch.Tensor:

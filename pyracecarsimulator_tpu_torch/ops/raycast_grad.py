@@ -142,11 +142,18 @@ def raycast_tiled_diff(tiles, tile_sweep_meta, tiles_shape, tile_size,
         if pad:             # repeat the last beam; its outputs are cut off
             cos_t, sin_t = (torch.cat([v, v[:, -1:].expand(a_n, pad)], dim=1)
                             for v in (cos_t, sin_t))
-        with span("scan.route"):
-            tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
-            ids = tid.repeat_interleave(nblk).reshape(a_n, nblk)
+        ids = tile_rows(tiles_shape, tile_size, tile_origin, x0, y0, nblk)
         bv, bh = _list_minima(tiles, tile_sweep_meta, ids, x, y, cos_t,
                               sin_t)
         return bv[:, :b_n], bh[:, :b_n]
 
     return raycast_with_vjp(minima, x, y, cos_t, sin_t, max_range)
+
+
+def tile_rows(tiles_shape, tile_size, tile_origin, x0, y0, nblk: int):
+    """(A, ``nblk``) int32 list rows of agents at ``x0``/``y0`` (A,) on a
+    tiled map: every block of an agent's beams sweeps its tile's list.
+    Spanned as ``scan.route``."""
+    with span("scan.route"):
+        tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
+        return tid.repeat_interleave(nblk).reshape(-1, nblk)

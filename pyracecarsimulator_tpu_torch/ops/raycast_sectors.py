@@ -10,6 +10,10 @@ One sweep serves every map and mode: the list-routed sweep of
 ``ops/sweeps.py`` (plain PyTorch on CPU tensors, the hand-written Hopper
 kernel ``csrc/sector_sweep.cu`` on CUDA tensors), which visits a row's
 vertical slots [0, n_v) and horizontal slots [h_lo, h_end) from ``meta``.
+A scan of poses whose rays take no gradient, on the exact fan, takes the
+kernel's from-poses entry (``sweeps.list_scan``: the fan, reciprocals,
+sweep, clamp and extent mask in one launch, bit for bit the composition);
+the route then looks up the directions of the block-middle beams alone.
 It replaces the JAX package's XLA dense sweep and its three Pallas sector
 kernels, so ``mode`` ("auto", "dense", "sorted_pl", "sorted_plf*", each
 with an optional "@N") and ``use_pallas`` are accepted and ignored: every
@@ -39,8 +43,10 @@ import torch
 
 from ..utils.profiling import span
 from .common import (_f32, _padded_offsets, apply_extent_mask, block_mids,
-                     fan_cos_sin, tile_ids)
+                     fan_cos_sin, fused_scan, mid_offset_factors,
+                     offset_factors, rotate_fan, tile_ids)
 from .raycast_grad import _list_minima, raycast_with_vjp
+from .sweeps import list_scan
 
 _TWO_PI = np.float32(2.0 * np.pi)
 
@@ -71,12 +77,18 @@ def _list_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, ct, st,
     """(A,) agent positions + (A, B) beam directions -> (A, NBLK) int32
     rows into the (T*NS, ...) sector table. A block's sector is read from
     one in-block beam within half a block of every real beam."""
-    a_n, b_n = ct.shape
-    nblk = -(-b_n // bb)
-    dev = ct.device
+    b_n = ct.shape[1]
+    mids = block_mids(-(-b_n // bb), bb, b_n, ct.device)
+    return _sector_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0,
+                       ct[:, mids], st[:, mids])
+
+
+def _sector_ids(tiles_shape, tile_size, tile_origin, ns, x0, y0, cm, sm):
+    """``_list_ids`` from the directions (cm, sm) (A, NBLK) of each
+    block's lookup beam."""
+    dev = cm.device
     tid = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)   # (A,)
-    mids = block_mids(nblk, bb, b_n, dev)
-    th = torch.atan2(st[:, mids], ct[:, mids])             # (A, NBLK)
+    th = torch.atan2(sm, cm)                               # (A, NBLK)
     th = torch.remainder(th, _f32(_TWO_PI, dev))
     sec = torch.clamp((th * _f32(np.float32(ns) / _TWO_PI, dev))
                       .to(torch.int32), 0, ns - 1)
@@ -166,12 +178,39 @@ def scan_poses_sectors(smap, poses, num_beams: int = 1080,
     inputs and outputs). Values are identical either way.
     """
     _check_mode(mode, use_pallas)
+    if fused_scan(poses, theta_discretization):
+        bb = sector_block_width(smap, num_beams, fov, bb)
+        poses2 = poses.reshape(-1, 3).to(torch.float32)
+        # the headings' factors over the whole batch, as ``_sector_fan``
+        cth, sth = torch.cos(poses2[:, 2]), torch.sin(poses2[:, 2])
+        r = _by_chunks(lambda p, c, s: _scan_chunk_fused(
+            smap, p, c, s, num_beams, fov, max_range, bb),
+            agent_chunk, poses2, cth, sth)
+        return r.reshape(*poses.shape[:-1], num_beams)
     bb, poses2, ct, st = _sector_fan(smap, poses, num_beams, fov,
                                      theta_discretization, bb)
     r = _by_chunks(lambda p, c, s: _scan_chunk(smap, p, c, s, num_beams,
                                                max_range, bb),
                    agent_chunk, poses2, ct, st)
     return r.reshape(*poses.shape[:-1], num_beams)
+
+
+def _scan_chunk_fused(smap, poses2, cth, sth, num_beams, fov, max_range,
+                      bb):
+    """``_scan_chunk`` for (A, 3) poses whose rays take no gradient, from
+    their headings' (cos, sin) (A,), in one launch of the list kernel's
+    from-poses entry; the route looks up the block-middle directions
+    alone. The same values bit for bit. Returns (A, num_beams)."""
+    dev = poses2.device
+    x0, y0 = (poses2[:, i].contiguous() for i in (0, 1))
+    with span("scan.route"):
+        ids = _sector_ids(smap.tiles_shape, smap.tile_size, smap.tile_origin,
+                          smap.ns, x0, y0, *rotate_fan(
+                              cth, sth, *mid_offset_factors(num_beams, fov,
+                                                            bb, dev)))
+    return list_scan(smap.table, smap.meta, ids, x0, y0, cth, sth,
+                     *offset_factors(num_beams, fov, bb, dev), max_range,
+                     smap.extent, num_beams)
 
 
 def scan_poses_sectors_mapgrad(smap, edf, resolution, origin_xy, poses,

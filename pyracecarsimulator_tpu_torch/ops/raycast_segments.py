@@ -11,7 +11,11 @@ over the boundary segments of the exact ray/segment intersection distance
 - ``raycast_tiled``: each agent's beams, in rows of 128, against its map
   tile's list (``list_sweep``: the list kernel ``csrc/sector_sweep.cu``).
 
-On CPU tensors both run the plain PyTorch sweeps. The JAX package's XLA
+A scan of poses on a tiled map whose rays take no gradient, on the exact
+fan, runs the list kernel's from-poses entry instead (``list_scan``: the
+fan, the reciprocals, the sweep, the clamp and the extent mask in one
+launch, bit for bit the composition). On CPU tensors every route runs the
+plain PyTorch versions. The JAX package's XLA
 sweeps here and its Pallas kernels (``ops/raycast_pallas.py``) have the
 same values, so the port has one sweep per shape and both backends,
 "segments" and "segments_pallas", run it. Both raycasts are differentiable
@@ -31,8 +35,10 @@ from __future__ import annotations
 import torch
 
 from .common import (_padded_offsets, apply_extent_mask, beam_angles,
-                     fan_cos_sin)
-from .raycast_grad import LANES, raycast_all_diff, raycast_tiled_diff
+                     fan_cos_sin, fused_scan, offset_factors)
+from .raycast_grad import (LANES, raycast_all_diff, raycast_tiled_diff,
+                           tile_rows)
+from .sweeps import list_scan
 
 
 def raycast_all(segment_params, sweep_meta, x, y, cos_t, sin_t,
@@ -83,8 +89,26 @@ def scan_poses_segments(segmap, poses, num_beams: int = 1080,
     batch = tuple(poses.shape[:-1])
     poses2 = poses.reshape(-1, 3).to(torch.float32)
     tiled = use_tiles and segmap.tiles is not None
+    if tiled and fused_scan(poses, theta_discretization):
+        r = _scan_tiles_fused(segmap, poses2, num_beams, fov, max_range)
+        return r.reshape(*batch, num_beams)
     offs = (_padded_offsets(num_beams, fov, LANES, poses2.device) if tiled
             else beam_angles(num_beams, fov, poses2.device))
     ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
     r = _scan_rays(segmap, poses2, ct, st, num_beams, max_range, use_tiles)
     return r.reshape(*batch, num_beams)
+
+
+def _scan_tiles_fused(segmap, poses2, num_beams, fov, max_range):
+    """The tile-routed scan of (A, 3) poses whose rays take no gradient,
+    in one launch of the list kernel's from-poses entry: the values of
+    ``_scan_rays`` on the exact padded fan, bit for bit. Returns (A,
+    num_beams)."""
+    dev = poses2.device
+    x0, y0 = (poses2[:, i].contiguous() for i in (0, 1))
+    cd, sd = offset_factors(num_beams, fov, LANES, dev)
+    ids = tile_rows(segmap.tiles_shape, segmap.tile_size, segmap.tile_origin,
+                    x0, y0, cd.shape[0] // LANES)
+    return list_scan(segmap.tiles, segmap.tile_sweep_meta, ids, x0, y0,
+                     torch.cos(poses2[:, 2]), torch.sin(poses2[:, 2]), cd,
+                     sd, max_range, segmap.extent, num_beams)

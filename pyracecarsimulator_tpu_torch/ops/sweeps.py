@@ -28,16 +28,26 @@ it, as do the stacked maps and the ring (their shared row glue is
 real slots the kernels visit and compute each pair with the same float32
 operations, so kernel and plain version agree bit for bit.
 
+``list_scan`` is the list kernel's second entry, for scans of poses
+whose rays take no gradient: from per-agent (cos, sin) of the headings
+and the padded fan's per-beam (cos, sin) of the offsets it builds each
+ray, its reciprocals, sweeps the row's list and writes the clamped,
+extent-masked range of the real beams, in one launch. Its plain version
+is the composition it replaces (``common.rotate_fan``,
+``common._ray_invs``, ``list_sweep_plain``, ``common.finish_minima``, the
+slice to the real beams and ``common.apply_extent_mask``).
+
 ``SWEEP_COUNTS`` counts the list sweep's work, ``{"slots", "rows",
-"kept"}``: the rows swept, the real slots of their lists, n_v + h_end -
-h_lo a row, and the slots the kernel's wedge cull keeps of them (each
+"kept", "fanned"}``: the rows swept, the real slots of their lists, n_v +
+h_end - h_lo a row, the slots the kernel's wedge cull keeps of them (each
 row's list less the slots that lie wholly outside the row's own wedge of
 rays, ``wedge_edges`` and ``outside_wedge``), which is what the kernel
-sweeps. The plain version counts on the host, culling in the kernel's
-float32 operations but sweeping every real slot; the kernel adds each row
-to a device counter (``_kernels.DeviceCounts``, spread over
-``COUNT_LANES`` lanes), which replayed CUDA graphs advance too. Reading
-``SWEEP_COUNTS`` reads those counters (a synchronisation).
+sweeps, and the rows that ``list_scan`` built from poses. The plain
+versions count on the host, culling in the kernel's float32 operations
+but sweeping every real slot; the kernel adds each row to a device
+counter (``_kernels.DeviceCounts``, spread over ``COUNT_LANES`` lanes),
+which replayed CUDA graphs advance too. Reading ``SWEEP_COUNTS`` reads
+those counters (a synchronisation).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+from .common import _ray_invs, apply_extent_mask, finish_minima, rotate_fan
 
 _BIG = 3.0e38
 # bytes of each (rays, slots) intermediate the plain sweeps may hold at once
@@ -52,7 +63,8 @@ _PLAIN_BYTES_BUDGET = 1 << 28
 # lanes of the list kernel's counter: the blocks of a launch add to lane
 # row % COUNT_LANES
 COUNT_LANES = 128
-SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows", "kept"), COUNT_LANES)
+SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows", "kept", "fanned"),
+                                     COUNT_LANES)
 # the list kernel's wedge cull (csrc/sector_sweep.cu, which argues the
 # numbers): the least real slots a row culls, the margin's absolute part
 # (1 mm) and its part a metre (2^-16), the unit test's tolerance (2^-20)
@@ -274,6 +286,74 @@ def list_sweep(table, meta, ids, x0, y0, cos_t, sin_t, inv_c, inv_s):
     return bv, bh
 
 
+def list_scan_plain(table, meta, ids, x0, y0, cth, sth, cd, sd, max_range,
+                    extent, num_beams):
+    """Plain PyTorch scan of poses over a list-routed table: the reference
+    of ``csrc/sector_sweep.cu``'s from-poses entry, and the composition it
+    replaces. ``ids`` (A, NBLK) int32 rows of ``table``; ``x0``, ``y0``,
+    ``cth``, ``sth`` (A,) the agents' origins and headings' cos and sin;
+    ``cd``, ``sd`` (NBLK * bb,) the padded beam offsets' cos and sin.
+    Returns (A, ``num_beams``) ranges clamped to ``max_range``, all
+    ``max_range`` for an origin outside ``extent``. Counts its rows in
+    ``SWEEP_COUNTS.host["fanned"]``."""
+    a_n, nblk = ids.shape
+    g_n = a_n * nblk
+    bb = cd.shape[0] // max(nblk, 1)
+    cos_t, sin_t = rotate_fan(cth, sth, cd, sd)
+    inv_c, inv_s = _ray_invs(cos_t, sin_t)
+    rows = lambda v: v.reshape(g_n, bb)
+    bv, bh = list_sweep_plain(table, meta, ids.reshape(g_n),
+                              x0.repeat_interleave(nblk),
+                              y0.repeat_interleave(nblk), rows(cos_t),
+                              rows(sin_t), rows(inv_c), rows(inv_s))
+    SWEEP_COUNTS.host["fanned"] += g_n
+    r = finish_minima(bv.reshape(cos_t.shape), bh.reshape(cos_t.shape),
+                      max_range)[0]
+    return apply_extent_mask(r[:, :num_beams], x0, y0, extent, max_range)
+
+
+def list_scan(table, meta, ids, x0, y0, cth, sth, cd, sd, max_range,
+              extent, num_beams):
+    """The list-routed scan of poses (``list_scan_plain``'s arguments and
+    result): ``list_scan_plain`` on CPU tensors, the from-poses entry of
+    ``csrc/sector_sweep.cu`` on CUDA tensors, one launch;
+    ``list_scan.launches`` counts them. ``max_range`` and ``extent`` are
+    numbers, compared in float32 as the plain version compares them."""
+    if not _kernels.on_cuda("list_scan", table):
+        return list_scan_plain(table, meta, ids, x0, y0, cth, sth, cd, sd,
+                               max_range, extent, num_beams)
+    a_n, nblk = ids.shape
+    n_pad = cd.shape[0]
+    l_n, four, k = table.shape
+    bb = n_pad // nblk if nblk else 0
+    if four != 4 or tuple(meta.shape) != (l_n, 3):
+        raise ValueError(f"list_scan: table must be (L, 4, K) and meta "
+                         f"(L, 3); got {tuple(table.shape)}, "
+                         f"{tuple(meta.shape)}")
+    if not (0 < bb <= 1024 and bb * nblk == n_pad
+            and 0 <= num_beams <= n_pad):
+        raise ValueError(f"list_scan: {n_pad} padded beams do not make "
+                         f"{nblk} rows of 1..1024 beams holding "
+                         f"{num_beams} real ones")
+    if 3 * k * 4 + _STATIC_SMEM > 48 * 1024:
+        raise ValueError(f"list_scan: capacity K={k} needs {3 * k * 4} "
+                         "bytes of shared memory per row beside the "
+                         f"kernel's own {_STATIC_SMEM}; the kernel "
+                         "takes <= 48 KB")
+    _check("list_scan", table, (
+        (table, torch.float32, (l_n, 4, k)),
+        (meta, torch.int32, (l_n, 3)), (ids, torch.int32, (a_n, nblk)),
+        *((v, torch.float32, (a_n,)) for v in (x0, y0, cth, sth)),
+        *((v, torch.float32, (n_pad,)) for v in (cd, sd))))
+    out = torch.empty((a_n, num_beams), dtype=torch.float32,
+                      device=table.device)
+    _kernels.launch("list_scan", "list_scan", table, meta, ids, x0, y0, cth,
+                    sth, cd, sd, out, a_n, nblk, bb, k, num_beams,
+                    float(max_range), *(float(e) for e in extent),
+                    SWEEP_COUNTS.counter(table.device), COUNT_LANES)
+    return out
+
+
 def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
     """The dense sweep: ``dense_sweep_plain`` on CPU tensors,
     ``csrc/dense_sweep.cu`` on CUDA tensors. Rays are flat (N,). Returns
@@ -298,6 +378,7 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
 
 
 _kernels.register(list_sweep)
+_kernels.register(list_scan)
 _kernels.register(dense_sweep)
 
 

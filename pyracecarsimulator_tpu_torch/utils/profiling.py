@@ -244,7 +244,8 @@ def counters() -> dict:
     (wrapper name -> kernel launches), ``graphs`` (one dict a live
     ``GraphedFunction``: ``name``, ``captures``, ``replays``), ``march``
     (``{"calls", "trips"}`` of the EDF marches) and ``sweep`` (``{"rows",
-    "slots"}`` of the list sweeps), both read exactly."""
+    "slots", "kept", "fanned"}`` of the list sweeps), both read
+    exactly."""
     from ..ops import sweeps
     from ..ops.raymarch_xla import MARCH_COUNTS
     return {"launches": sweeps.launch_counts(),

@@ -128,7 +128,9 @@ def report(maps, n_poses, beams, device):
                                        tile_size=4.0, **kw)
         smap = build_sector_map(occ, t.resolution, org, tile_size=2.0, ns=16,
                                 **kw)
-        seg_kernel = "list_sweep" if sm.tiles is not None else "dense_sweep"
+        # scans of poses without a gradient take the list kernel's entry
+        # from poses where the scan is list-routed
+        seg_kernel = "list_scan" if sm.tiles is not None else "dense_sweep"
 
         march = ("DT-march oracle", o_march)
         geom = ("geometry oracle", o_geom)
@@ -143,7 +145,7 @@ def report(maps, n_poses, beams, device):
                     ("segments exact (dense kernel)", "dense_sweep", geom,
                      lambda: raycast_pallas(sm.params, sm.sweep_meta, xb, yb,
                                             ct, st, MAX_RANGE)),
-                    ("sectors exact", "list_sweep", geom,
+                    ("sectors exact", "list_scan", geom,
                      lambda: scan_poses_sectors(smap, p, num_beams=beams)),
                     ("simplified tol=1", None, geom,
                      lambda: scan_poses_general(gm, p, num_beams=beams)),
@@ -163,17 +165,17 @@ def report(maps, n_poses, beams, device):
             _, _, xb18, yb18, ct18, st18 = rays_from_poses(p, 1080, FOV)
             o_geom_1080 = _geometry_oracle(segs, xb18, yb18, ct18, st18)
             for bname, kernel, fn in (
-                    ("sectors exact (grouped route, 1080b)", "list_sweep",
+                    ("sectors exact (grouped route, 1080b)", "list_scan",
                      lambda: scan_poses_sectors(smap, p, num_beams=1080,
                                                 use_pallas=True)),
                     ("segments exact (dense/tiled kernel, 1080b)",
                      seg_kernel,
                      lambda: scan_poses_pallas(sm, p, num_beams=1080)),
                     ("sectors exact (sorted-tile route, 1080b)",
-                     "list_sweep",
+                     "list_scan",
                      lambda: scan_poses_sectors(smap, p, num_beams=1080,
                                                 mode="sorted_pl@128")),
-                    ("sectors exact (fused route, 1080b)", "list_sweep",
+                    ("sectors exact (fused route, 1080b)", "list_scan",
                      lambda: scan_poses_sectors(smap, p, num_beams=1080,
                                                 mode="sorted_plf@128"))):
                 r, used = counted(fn)

@@ -227,6 +227,131 @@ def test_list_sweep_cull_at_its_edges(cuda, name):
     assert torch.equal(bv, bv_p) and torch.equal(bh, bh_p)
 
 
+_BERLIN = {}
+
+
+def _berlin_case(cuda, kind):
+    """Berlin's sector map or its 4 m tiles on the card, and 4096 seeded
+    free poses, the first moved outside the map's extent. Made once a
+    process."""
+    if kind not in _BERLIN:
+        import pyracecarsimulator_tpu_torch as P
+        from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+        bundle = P.build_sim("berlin", backend=kind, device=cuda)
+        p = torch.as_tensor(sample_free_poses(
+            bundle.track, 4096, np.random.RandomState(5)), device=cuda)
+        p[0, 0] = bundle.segmap.extent[1] + 1.0
+        _BERLIN[kind] = (bundle.segmap, p)
+    return _BERLIN[kind]
+
+
+@pytest.mark.parametrize("kind", ["sectors", "segments"])
+def test_list_scan_equals_the_rays_given_path_on_berlin(cuda, kind):
+    """The scan of 4096 poses x 1080 beams on berlin's sector lists and
+    tiles on the list kernel's entry from poses (one ``list_scan``
+    launch) against the same scan with the poses taking a gradient (the
+    rays-given kernel and the glue around it, one ``list_sweep`` launch):
+    0 mismatches, the same rows, real and kept slots on the device
+    counter, every row of the first and none of the second counted as
+    fanned; replayed from a CUDA graph, the same ranges and counts."""
+    m, p = _berlin_case(cuda, kind)
+    scan = (rs.scan_poses_sectors if kind == "sectors"
+            else rseg.scan_poses_segments)
+    counts = sweeps.SWEEP_COUNTS
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        c0, n0 = dict(counts), sweeps.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: counts[k] - c0[k] for k in c0}, {
+            k: n - n0[k] for k, n in sweeps.launch_counts().items()
+            if n != n0[k]}
+
+    scan(m, p)                  # the counter and constants, before capture
+    fused, c_f, n_f = counted(lambda: scan(m, p))
+    q = p.clone().requires_grad_(True)
+    given, c_g, n_g = counted(lambda: scan(m, q).detach())
+    assert n_f == {"list_scan": 1} and n_g == {"list_sweep": 1}
+    assert int((fused != given).sum()) == 0 and torch.equal(fused, given)
+    assert bool((fused[0] == 10.0).all())
+    assert c_f["fanned"] == c_f["rows"] > 0 and c_g["fanned"] == 0
+    assert {k: c_f[k] for k in ("rows", "slots", "kept")} == {
+        k: c_g[k] for k in ("rows", "slots", "kept")}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = scan(m, p)
+    replayed, c_r, _ = counted(graph.replay)
+    assert torch.equal(out, fused) and c_r == c_f
+
+
+def test_list_scan_on_an_odd_fan_at_heading_zero(cuda):
+    """An odd beam count's middle offset is exactly 0: at heading 0 its
+    sine is 0 and its reciprocal NaN. The entry from poses on the card
+    equals the scan with the poses taking a gradient (the rays-given
+    kernel) bit for bit, and, given the same factors (the card's cos and
+    sin differ from the CPU's by an ulp on some inputs), the plain
+    composition on the CPU; with padding beams too (541 beams in rows of
+    64)."""
+    from pyracecarsimulator_tpu_torch.ops.common import offset_factors
+    _, smap = _corridor(16, 2.0)
+    rng = np.random.RandomState(6)
+    poses = torch.tensor(np.stack([rng.uniform(-4, 4, 48),
+                                   rng.uniform(-4, 4, 48),
+                                   rng.uniform(-np.pi, np.pi, 48)], -1),
+                         dtype=torch.float32, device=cuda)
+    poses[:8, 2] = 0.0
+    poses[8, 0] = 50.0                          # outside the extent
+    smap = smap.to(cuda)
+    for num_beams in (541, 1080):
+        fused = rs.scan_poses_sectors(smap, poses, num_beams)
+        q = poses.clone().requires_grad_(True)
+        assert torch.equal(fused, rs.scan_poses_sectors(smap, q, num_beams))
+        bb = rs.sector_block_width(smap, num_beams, FOV)
+        cd, sd = offset_factors(num_beams, FOV, bb, cuda)
+        x0, y0 = poses[:, 0].contiguous(), poses[:, 1].contiguous()
+        cth, sth = torch.cos(poses[:, 2]), torch.sin(poses[:, 2])
+        ids = rs._list_ids(smap.tiles_shape, smap.tile_size, smap.tile_origin,
+                           smap.ns, x0, y0, *rs.rotate_fan(cth, sth, cd, sd),
+                           bb)
+        args = (smap.table, smap.meta, ids, x0, y0, cth, sth, cd, sd, 10.0,
+                smap.extent, num_beams)
+        assert torch.equal(sweeps.list_scan(*args), fused)
+        plain = sweeps.list_scan_plain(*(a.cpu() if torch.is_tensor(a)
+                                         else a for a in args))
+        assert torch.equal(fused.cpu(), plain)
+
+
+def test_list_kernel_entries_keep_their_registers(cuda, tmp_path):
+    """nvcc's resource report of ``csrc/sector_sweep.cu``: both entries
+    of ``list_sweep_kernel`` (rays given, from poses), neither spilling
+    nor with a stack frame, the rays-given one at 32 registers."""
+    import re
+    import subprocess
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    done = subprocess.run(_kernels.build_command(
+        "sector_sweep", tmp_path / "sweep.so", _kernels.nvcc_path()),
+        capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr
+    res = {}
+    for chunk in re.split(r"Function (?:properties for )?",
+                          done.stdout + done.stderr)[1:]:
+        m = re.search(r"list_sweep_kernelILb([01])E",
+                      chunk.split()[0].rstrip(":"))
+        reg = (re.search(r"REG:(\d+)", chunk)
+               or re.search(r"Used (\d+) registers", chunk))
+        if m and reg:
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
+            stack = (re.search(r"STACK:(\d+)", chunk)
+                     or re.search(r"(\d+) bytes stack frame", chunk))
+            res[m.group(1)] = (int(reg.group(1)),
+                               int(spill.group(1)) if spill else 0,
+                               int(stack.group(1)) if stack else 0)
+    assert set(res) == {"0", "1"}, res
+    assert res["0"][0] == 32, res
+    assert all(r[1] == 0 and r[2] == 0 for r in res.values()), res
+
+
 def test_a_work_counter_is_never_made_inside_a_capture(cuda):
     """A kernel's device counter made inside a CUDA graph's capture would
     be the graph's memory, zeroed at each replay: ``counter`` refuses to
@@ -398,8 +523,9 @@ def test_tile_sweep_and_scans_match_plain(cuda, seed, n_blocks, kw):
     ("sorted_plf@128", None)])
 def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas):
     """Every mode and ``use_pallas`` (kernels 2.2 and 2.3 among them) run
-    the one list sweep: one ``list_sweep`` launch a scan, with the sector
-    scan's values."""
+    the one list kernel: a scan of poses without a gradient one
+    ``list_scan`` launch (its entry from poses), with the sector scan's
+    values."""
     _, smap = _corridor(16, 2.0)
     rng = np.random.RandomState(2)
     poses = torch.tensor(np.stack([rng.uniform(-4, 4, 32),
@@ -413,7 +539,7 @@ def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas):
                                 use_pallas=use_pallas)
     torch.cuda.synchronize()
     assert {k: n - before[k] for k, n in sweeps.launch_counts().items()
-            if n != before[k]} == {"list_sweep": 1}
+            if n != before[k]} == {"list_scan": 1}
     assert torch.equal(got, ref)
 
 

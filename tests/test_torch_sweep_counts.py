@@ -97,7 +97,9 @@ def test_sweep_counts_rows_and_real_slots_of_a_scan(track, maps, kind):
     has grown by the scan's rows, by the sum of their real slots and by
     the slots the wedge cull keeps of them, counted apart from the sweep
     from ``meta[ids]`` and the rows' rays; a scan differentiated in the
-    poses counts its one forward sweep."""
+    poses counts its one forward sweep. A scan whose poses take no
+    gradient builds its rows from the poses (``list_scan``: every row
+    ``fanned``), one differentiated in the poses from its rays (none)."""
     smap, segmap = maps
     p = _poses(track, 24, 3)
     if kind == "sectors":
@@ -122,26 +124,27 @@ def test_sweep_counts_rows_and_real_slots_of_a_scan(track, maps, kind):
             r.sum().backward()
             assert q.grad is not None
         after = profiling.counters()["sweep"]
-        assert {k: after[k] - before[k] for k in after} == want
+        assert {k: after[k] - before[k] for k in after} == {
+            **want, "fanned": 0 if grad else want["rows"]}
 
 
 def test_sweep_counts_add_the_device_counters_lanes():
     """``SWEEP_COUNTS`` is the plain version's host counts plus every
-    device's (lanes, 3) counter of [slots, rows, kept], summed over its
-    lanes at each lookup; a CPU tensor stands in for a device's counter
-    here."""
-    counts = _kernels.DeviceCounts(("slots", "rows", "kept"),
+    device's (lanes, 4) counter of [slots, rows, kept, fanned], summed over
+    its lanes at each lookup; a CPU tensor stands in for a device's
+    counter here."""
+    counts = _kernels.DeviceCounts(("slots", "rows", "kept", "fanned"),
                                    sweeps.COUNT_LANES)
-    counts.host.update(rows=5, slots=900, kept=70)
+    counts.host.update(rows=5, slots=900, kept=70, fanned=2)
     c = counts.counter(torch.device("cpu"))
     assert c.dtype == torch.int64
-    assert tuple(c.shape) == (sweeps.COUNT_LANES, 3) and not c.any()
-    c[0] = torch.tensor([100, 1, 9])
-    c[-1] = torch.tensor([2 ** 40, 3, 2 ** 33])
+    assert tuple(c.shape) == (sweeps.COUNT_LANES, 4) and not c.any()
+    c[0] = torch.tensor([100, 1, 9, 1])
+    c[-1] = torch.tensor([2 ** 40, 3, 2 ** 33, 0])
     assert dict(counts) == {"slots": 1000 + 2 ** 40, "rows": 9,
-                            "kept": 79 + 2 ** 33}
+                            "kept": 79 + 2 ** 33, "fanned": 3}
     assert counts.counter(torch.device("cpu")) is c
-    assert set(sweeps.SWEEP_COUNTS) == {"slots", "rows", "kept"}
+    assert set(sweeps.SWEEP_COUNTS) == {"slots", "rows", "kept", "fanned"}
     assert profiling.counters()["sweep"] == dict(sweeps.SWEEP_COUNTS)
 
 

@@ -44,7 +44,7 @@ def _check_cull(args):
     bv, bh = sweeps.list_sweep_plain(*args)
     grown = {c: sweeps.SWEEP_COUNTS.host[c] - before[c] for c in before}
     assert grown == {"rows": args[2].numel(), "slots": int(real.sum()),
-                     "kept": int(keep.sum())}
+                     "kept": int(keep.sum()), "fanned": 0}
     kv, kh = sweeps.list_sweep_plain(*only_slots(args, keep))
     assert torch.equal(kv, bv) and torch.equal(kh, bh)
     dropped = real & ~keep

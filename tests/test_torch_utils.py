@@ -347,7 +347,7 @@ def test_counters_gather_the_ports_counters():
                      "replays": 0}]
     assert got["march"] == dict(MARCH_COUNTS)
     assert got["sweep"] == dict(sweeps.SWEEP_COUNTS)
-    assert set(got["sweep"]) == {"rows", "slots", "kept"}
+    assert set(got["sweep"]) == {"rows", "slots", "kept", "fanned"}
     del g
 
 
