@@ -329,6 +329,9 @@ OPS_PER_TEST = 10
 # a multiply, an add and a negation), four cross products 12, four
 # compares, two ands and an or 7
 CULL_OPS_PER_SLOT = 29
+# dense_sweep_kernel's registers in nvcc's report (sm_90a), as before it
+# counted its work (tests/test_torch_kernels.py holds the same)
+DENSE_REGISTERS = 40
 # the list kernel's entry from poses, once a ray besides the sweep: the fan
 # 6 (four multiplies, a subtract, an add), two reciprocals 2 and their zero
 # tests 2, the minimum and the clamp 2, the extent test 4 and its select 1
@@ -896,33 +899,41 @@ def general_bound(args, winner, rates):
     return out
 
 
+def resource_report(source, label_of):
+    """``{label: {"registers", "stack", "spill_stores", "shared"}}`` from
+    nvcc's ``--resource-usage`` report of this build of
+    ``csrc/<source>.cu``: one entry a kernel whose mangled name
+    ``label_of`` maps to a label (None leaves it out), the fields of its
+    records merged."""
+    from pyracecarsimulator_tpu_torch.ops import _kernels
+    text = _kernels.build_info.get(source, {}).get("log", "")
+    fields = (("registers", (r"REG:(\d+)", r"Used (\d+) registers")),
+              ("stack", (r"STACK:(\d+)", r"(\d+) bytes stack frame")),
+              ("spill_stores", (r"(\d+) bytes spill stores",)),
+              ("shared", (r"SHARED:(\d+)", r"(\d+) bytes smem")))
+    out = {}
+    for chunk in re.split(r"Function (?:properties for )?", text)[1:]:
+        label = label_of(chunk.split()[0].rstrip(":"))
+        if label is None:
+            continue
+        res = out.setdefault(label, {})
+        for key, pats in fields:
+            hit = next((h for h in (re.search(p, chunk) for p in pats) if h),
+                       None)
+            if hit:
+                res[key] = int(hit.group(1))
+    return out
+
+
 def list_resources():
     """Both instantiations of ``list_sweep_kernel`` (rays given, from
     poses): registers, stack frame, spills and static shared memory from
     nvcc's ``--resource-usage`` report of this build. Neither may spill
     nor have a stack frame, and the rays-given one keeps 32 registers."""
-    from pyracecarsimulator_tpu_torch.ops import _kernels
-    text = _kernels.build_info.get("sector_sweep", {}).get("log", "")
-    out = {}
-    for chunk in re.split(r"Function (?:properties for )?", text)[1:]:
-        m = re.search(r"list_sweep_kernelILb([01])E",
-                      chunk.split()[0].rstrip(":"))
-        if not m:
-            continue
-
-        def field(*pats):
-            for pat in pats:
-                hit = re.search(pat, chunk)
-                if hit:
-                    return int(hit.group(1))
-            return None
-        res = {"registers": field(r"REG:(\d+)", r"Used (\d+) registers"),
-               "stack": field(r"STACK:(\d+)", r"(\d+) bytes stack frame"),
-               "spill_stores": field(r"(\d+) bytes spill stores"),
-               "shared": field(r"SHARED:(\d+)", r"(\d+) bytes smem")}
-        label = "from poses" if m.group(1) == "1" else "rays given"
-        out[label] = {**out.get(label, {}),
-                      **{k: v for k, v in res.items() if v is not None}}
+    def label_of(name):
+        m = re.search(r"list_sweep_kernelILb([01])E", name)
+        return m and ("from poses" if m.group(1) == "1" else "rays given")
+    out = resource_report("sector_sweep", label_of)
     for label, res in sorted(out.items()):
         log(f"list_sweep_kernel, {label}: {res}")
     check(set(out) == {"rays given", "from poses"},
@@ -932,6 +943,23 @@ def list_resources():
           and out["rays given"].get("registers") == 32,
           f"a list kernel entry spills, has a stack frame, or the rays-given "
           f"one left 32 registers: {out}")
+    return out
+
+
+def dense_resources():
+    """``dense_sweep_kernel``'s registers, stack frame and spills from
+    nvcc's ``--resource-usage`` report of this build: no spill, no stack
+    frame, and the ``DENSE_REGISTERS`` it had before it counted its
+    work."""
+    out = resource_report(
+        "dense_sweep",
+        lambda name: "dense_sweep_kernel" if "dense_sweep_kernel" in name
+        else None).get("dense_sweep_kernel", {})
+    log(f"dense_sweep_kernel: {out}")
+    check(out.get("registers") == DENSE_REGISTERS
+          and out.get("spill_stores", 0) == 0 and out.get("stack", 0) == 0,
+          f"dense_sweep_kernel spills, has a stack frame, or left its "
+          f"{DENSE_REGISTERS} registers: {out}")
     return out
 
 
@@ -1071,17 +1099,20 @@ def list_scan_phase(card, name, smap, segmap, poses, rates, errs, times):
 
 def kernel_vs_plain(label, name, args):
     """One launch of wrapper ``name`` against its plain version on the same
-    tensors; 0 mismatches required, and the rows and real slots the list
-    kernel adds to its device counter equal to what the plain version
-    counts on the host (``sweeps.SWEEP_COUNTS``), the slots its wedge cull
-    keeps included. Returns the max abs error."""
+    tensors; 0 mismatches required, and the work the kernel adds to its
+    device counter equal to what the plain version counts on the host: the
+    list kernel's rows and real slots, the slots its wedge cull keeps
+    included (``sweeps.SWEEP_COUNTS``), the dense kernel's rays and pairs
+    (``sweeps.DENSE_COUNTS``). Returns the max abs error."""
     import torch
-    from pyracecarsimulator_tpu_torch.ops.sweeps import SWEEP_COUNTS
-    before, host = dict(SWEEP_COUNTS), dict(SWEEP_COUNTS.host)
+    from pyracecarsimulator_tpu_torch.ops.sweeps import (DENSE_COUNTS,
+                                                         SWEEP_COUNTS)
+    counts = DENSE_COUNTS if name == "dense_sweep" else SWEEP_COUNTS
+    before, host = dict(counts), dict(counts.host)
     bv, bh = wrappers()[name](*args)
-    kernel = {k: SWEEP_COUNTS[k] - before[k] for k in before}
+    kernel = {k: counts[k] - before[k] for k in before}
     bv_p, bh_p = plain_of(name)(*args)
-    plain = {k: SWEEP_COUNTS.host[k] - host[k] for k in host}
+    plain = {k: counts.host[k] - host[k] for k in host}
     torch.cuda.synchronize()
     mism = int(((bv != bv_p) | (bh != bh_p)).sum())
     err = max(float((bv.double() - bv_p.double()).abs().max()),
@@ -1090,6 +1121,8 @@ def kernel_vs_plain(label, name, args):
     if kernel.get("rows"):
         per_row = (f"; a row {kernel['slots'] / kernel['rows']:.2f} real "
                    f"slots, {kernel['kept'] / kernel['rows']:.2f} kept")
+    if kernel.get("rays"):
+        per_row = f"; {kernel['pairs'] / kernel['rays']} pairs a ray"
     log(f"[{label}] {name} vs plain on {tuple(bv.shape)} rays: (bv, bh) "
         f"mismatches = {mism}, max abs err = {err}; counted by the kernel "
         f"{kernel}, by the plain version {plain}{per_row}")
@@ -1143,7 +1176,33 @@ def time_kernel(name, sets, rates, plain_reps=5):
     out = {"ms": k_ms, "ms_2": k2_ms, "plain_ms": p_ms,
            **bound_of(name, sets[0], rates)}
     out["share_of_bound"] = out["bound_ms"] / min(k_ms, k2_ms)
+    if name == "dense_sweep":
+        out.update(dense_graphed(w, sets))
+        out["graphed_share_of_bound"] = out["bound_ms"] / min(
+            out["graphed_ms"], out["graphed_ms_2"])
     return out
+
+
+def dense_graphed(w, sets):
+    """The dense kernel's device time a call from CUDA graph replays
+    (``graphed_ms``, twice), and its counter over them: each eager warm-up
+    call and each replayed call adds its rays and their pairs, so the
+    counter grows by exactly 2 x (3 + 6 x 50) calls' worth."""
+    from pyracecarsimulator_tpu_torch.ops.sweeps import DENSE_COUNTS
+    n = len(sets)
+    rays = sets[0][2].numel()
+    v_hi, h_lo, h_end = sets[0][1].tolist()
+    before = dict(DENSE_COUNTS)
+    ms = [graphed_ms(lambda i: w(*sets[i % n])) for _ in range(2)]
+    grown = {k: DENSE_COUNTS[k] - before[k] for k in before}
+    calls = 2 * (3 + 6 * 50)
+    want = {"rays": calls * rays,
+            "pairs": calls * rays * (v_hi + h_end - h_lo)}
+    log(f"dense_sweep from graph replays: {ms[0]:.4f} / {ms[1]:.4f} ms a "
+        f"call; counted {grown} over {calls} calls (want {want})")
+    check(grown == want, "dense_sweep's counter missed graph replays")
+    return {"graphed_ms": ms[0], "graphed_ms_2": ms[1],
+            "pairs_per_ray": grown["pairs"] / grown["rays"]}
 
 
 def pose_sets(poses, n=5):
@@ -1161,6 +1220,7 @@ def drive(bundles, backend_label, poses_by_map):
     {map: launch counts} and checks the outputs."""
     import torch
     from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
+    from pyracecarsimulator_tpu_torch.ops.sweeps import DENSE_COUNTS
     from pyracecarsimulator_tpu_torch.parallel import (
         make_gap_follower_policy, make_rollout_fn)
     used = {}
@@ -1174,10 +1234,21 @@ def drive(bundles, backend_label, poses_by_map):
         run_fn = make_rollout_fn(step, make_gap_follower_policy(
             BEAMS, bundle.scan.fov), STEPS, BEAMS)
         reset_counts()
+        dense0 = dict(DENSE_COUNTS)
         first = step(state0, act, gen)
         final, traj = run_fn(state0, gen)
         torch.cuda.synchronize()
         used[name] = {k: v for k, v in counts().items() if v}
+        dense = {k: DENSE_COUNTS[k] - dense0[k] for k in dense0}
+        if used[name].get("dense_sweep"):
+            scans = used[name]["dense_sweep"]
+            log(f"[{name}] {backend_label} main path: the dense counter "
+                f"{dense}, {dense['pairs'] / dense['rays']} pairs a ray")
+            check(dense == {"rays": scans * AGENTS * BEAMS,
+                            "pairs": scans * AGENTS * BEAMS
+                            * bundle.segmap.n_segments},
+                  f"{name}: the dense counter is not every ray against "
+                  f"every segment: {dense}")
         log(f"[{name}] {backend_label} main path (1 step + {STEPS}-step "
             f"rollout, graphed where the step can be captured: "
             f"{step.capturable}): launches {used[name]}")
@@ -1293,33 +1364,15 @@ def march_resources():
     ``--resource-usage`` report of this build.
     No kernel may spill, and only the bilinear gradient has a stack frame:
     its ``GRAD_SLOTS`` positions a thread (8 bytes each)."""
-    from pyracecarsimulator_tpu_torch.ops import _kernels
     from pyracecarsimulator_tpu_torch.ops import raymarch_xla as rx
-    text = _kernels.build_info.get("edf_march", {}).get("log", "")
-    out = {}
-    for chunk in re.split(r"Function (?:properties for )?", text)[1:]:
-        name = chunk.split()[0].rstrip(":")
+
+    def label_of(name):
         m = re.search(r"edf_march(_grad)?_kernelILi(\d)EE", name)
         if "implicit_pose_vjp_kernel" in name:
-            label = "implicit_pose_vjp"
-        elif m:
-            label = (f"edf_march{m.group(1) or ''} "
-                     f"{list(MARCH_VARIANTS)[int(m.group(2))]}")
-        else:
-            continue
-
-        def field(*pats):
-            for pat in pats:
-                hit = re.search(pat, chunk)
-                if hit:
-                    return int(hit.group(1))
-            return None
-        res = {"registers": field(r"REG:(\d+)", r"Used (\d+) registers"),
-               "stack": field(r"STACK:(\d+)", r"(\d+) bytes stack frame"),
-               "spill_stores": field(r"(\d+) bytes spill stores"),
-               "shared": field(r"SHARED:(\d+)", r"(\d+) bytes smem")}
-        out[label] = {**out.get(label, {}),
-                      **{k: v for k, v in res.items() if v is not None}}
+            return "implicit_pose_vjp"
+        return m and (f"edf_march{m.group(1) or ''} "
+                      f"{list(MARCH_VARIANTS)[int(m.group(2))]}")
+    out = resource_report("edf_march", label_of)
     for label, res in sorted(out.items()):
         log(f"{label}: {res}")
     check(out, "no march kernel in nvcc's resource report")
@@ -3459,6 +3512,7 @@ def run():
     rates["general_sass"] = sass.get("general_sweep", {})
     rates["march_resources"] = march_resources()
     rates["list_resources"] = list_resources()
+    rates["dense_resources"] = dense_resources()
     log(f"bounds: {OPS_PER_TEST} instruction slots per test over "
         f"{rates['sms']} SMs x {LANES_PER_SM} lanes x "
         f"{rates['sm_clock_max_mhz']:.0f} MHz (clocks.max.sm) = {rates['slots_per_s']:.4e} slots/s; HBM "

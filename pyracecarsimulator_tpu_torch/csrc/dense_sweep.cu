@@ -23,6 +23,17 @@
 // fast math, the two-sided interval product, reciprocals from the caller;
 // the result equals the plain PyTorch version bit for bit.
 //
+// Work count. Each block adds its live rays, and the pairs they test
+// (v_hi + h_end - h_lo a ray, as clamped below: every live ray sweeps the
+// same slots), to a (lanes, 2) int64 device counter, [rays, pairs] in lane
+// blockIdx.x % lanes, which the host sums on read (ops/sweeps.DENSE_COUNTS):
+// thread 0 issues the two adds as the block starts, with no return value,
+// and spreading them over lanes keeps the ~17,000 blocks of a 4096 x 1080
+// launch off one address. Issued before the sweep, the count keeps no value
+// live across it: the kernel keeps the 40 registers it had before it
+// counted (issued at its end it took 48). A replayed CUDA graph adds too.
+// A change that skips pairs inside the loops has to count what it sweeps.
+//
 // Design. One thread per ray, kThreads rays per block; the last block
 // masks its ragged edge (no padding of the ray count). Segments stream
 // through shared memory in chunks of kChunk slots as [p, lo, hi] (12 KB),
@@ -53,7 +64,8 @@ __global__ void __launch_bounds__(kThreads) dense_sweep_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     const float* __restrict__ inv_c, const float* __restrict__ inv_s,
-    float* __restrict__ bv, float* __restrict__ bh, int n, int k) {
+    float* __restrict__ bv, float* __restrict__ bh, int n, int k,
+    unsigned long long* __restrict__ counts, int lanes) {
   __shared__ float sp[kChunk];
   __shared__ float slo[kChunk];
   __shared__ float shi[kChunk];
@@ -71,6 +83,14 @@ __global__ void __launch_bounds__(kThreads) dense_sweep_kernel(
   const int v_hi = min(max(meta[0], 0), k);
   const int h_lo = min(max(meta[1], 0), k);
   const int h_end = min(max(meta[2], h_lo), k);
+  if (threadIdx.x == 0) {
+    const unsigned long long rays = static_cast<unsigned long long>(
+        min(kThreads, n - static_cast<int>(blockIdx.x) * kThreads));
+    unsigned long long* lane_c = counts + 2 * (blockIdx.x % lanes);
+    atomicAdd(&lane_c[0], rays);
+    atomicAdd(&lane_c[1],
+              rays * static_cast<unsigned long long>(v_hi + h_end - h_lo));
+  }
 
   float best_v = kBig;
   for (int base = 0; base < v_hi; base += kChunk) {
@@ -119,11 +139,12 @@ __global__ void __launch_bounds__(kThreads) dense_sweep_kernel(
 // Launches the sweep over n rays on `stream` and returns cudaGetLastError()
 // (0 = launched). Pointers are device pointers to contiguous tensors:
 // params (4, k) f32, meta (3,) i32, x/y/cos/sin/inv_c/inv_s and bv/bh (n,)
-// f32.
+// f32, counts (lanes, 2) u64 [rays, pairs], lanes >= 1.
 extern "C" int dense_sweep_launch(
     const void* params, const void* meta, const void* x, const void* y,
     const void* cos_t, const void* sin_t, const void* inv_c,
-    const void* inv_s, void* bv, void* bh, int n, int k, void* stream) {
+    const void* inv_s, void* bv, void* bh, int n, int k, void* counts,
+    int lanes, void* stream) {
   if (n == 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
   dense_sweep_kernel<<<blocks, kThreads, 0,
@@ -132,6 +153,7 @@ extern "C" int dense_sweep_launch(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
       static_cast<const float*>(inv_c), static_cast<const float*>(inv_s),
-      static_cast<float*>(bv), static_cast<float*>(bh), n, k);
+      static_cast<float*>(bv), static_cast<float*>(bh), n, k,
+      static_cast<unsigned long long*>(counts), lanes);
   return static_cast<int>(cudaGetLastError());
 }

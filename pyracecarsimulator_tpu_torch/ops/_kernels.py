@@ -20,7 +20,7 @@ the current stream, counted on its wrapper), the registry of wrappers
 (``register``, ``wrappers``) whose ``.launches`` counters
 ``ops/sweeps.launch_counts`` reads, and ``DeviceCounts``, the work counts
 that kernels add to on the device (``raymarch_xla.MARCH_COUNTS``,
-``sweeps.SWEEP_COUNTS``).
+``sweeps.SWEEP_COUNTS``, ``sweeps.DENSE_COUNTS``).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "list_scan": ("sector_sweep", "list_scan_launch",
                   [_P] * 10 + [_I] * 5 + [_F] * 5 + [_P, _I, _P]),
     "dense_sweep": ("dense_sweep", "dense_sweep_launch",
-                    [_P] * 10 + [_I, _I, _P]),
+                    [_P] * 10 + [_I, _I, _P, _I, _P]),
     "edf_march": ("edf_march", "edf_march_launch",
                   _MARCH_HEAD + [_F] * 3 + [_P] * 7),
     "edf_march_grad": ("edf_march", "edf_march_grad_launch",

@@ -87,11 +87,14 @@ def raycast_with_vjp(minima, x, y, cos_t, sin_t, max_range: float = 10.0):
 
 
 def _all_minima(segment_params, sweep_meta, x, y, cos_t, sin_t):
-    """(bv, bh) of the dense sweep for rays of any common shape S."""
+    """(bv, bh) of the dense sweep for rays of any common shape S. The
+    reciprocals and the flat ray tensors the kernel reads are spanned as
+    ``scan.fan``."""
     x, y, cos_t, sin_t = torch.broadcast_tensors(x, y, cos_t, sin_t)
-    inv_c, inv_s = _ray_invs(cos_t, sin_t)
-    flat = [v.reshape(-1).contiguous()
-            for v in (x, y, cos_t, sin_t, inv_c, inv_s)]
+    with span("scan.fan"):
+        inv_c, inv_s = _ray_invs(cos_t, sin_t)
+        flat = [v.reshape(-1).contiguous()
+                for v in (x, y, cos_t, sin_t, inv_c, inv_s)]
     bv, bh = dense_sweep(segment_params, sweep_meta, *flat)
     return bv.reshape(cos_t.shape), bh.reshape(cos_t.shape)
 

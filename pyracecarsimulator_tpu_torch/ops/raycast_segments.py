@@ -14,13 +14,16 @@ over the boundary segments of the exact ray/segment intersection distance
 A scan of poses on a tiled map whose rays take no gradient, on the exact
 fan, runs the list kernel's from-poses entry instead (``list_scan``: the
 fan, the reciprocals, the sweep, the clamp and the extent mask in one
-launch, bit for bit the composition). On CPU tensors every route runs the
-plain PyTorch versions. The JAX package's XLA
-sweeps here and its Pallas kernels (``ops/raycast_pallas.py``) have the
-same values, so the port has one sweep per shape and both backends,
-"segments" and "segments_pallas", run it. Both raycasts are differentiable
-in the rays through the analytic VJP of ``ops/raycast_grad.py`` (JAX's
-``raycast_all`` gets the same gradient from plain autodiff).
+launch, bit for bit the composition). Every other scan of poses builds
+its fan here and hands the rays to a sweep: the fan, and on the dense
+route its reciprocals and flat ray tensors, are spanned as ``scan.fan``.
+On CPU tensors every route runs the plain PyTorch versions. The JAX
+package's XLA sweeps here and its Pallas kernels
+(``ops/raycast_pallas.py``) have the same values, so the port has one
+sweep per shape and both backends, "segments" and "segments_pallas", run
+it. Both raycasts are differentiable in the rays through the analytic VJP
+of ``ops/raycast_grad.py`` (JAX's ``raycast_all`` gets the same gradient
+from plain autodiff).
 
 The kernels read the real-slot bounds (``sweep_meta``,
 ``tile_sweep_meta``) instead of visiting every padded slot, so
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .common import (_padded_offsets, apply_extent_mask, beam_angles,
                      fan_cos_sin, fused_scan, offset_factors)
 from .raycast_grad import (LANES, raycast_all_diff, raycast_tiled_diff,
@@ -92,9 +96,10 @@ def scan_poses_segments(segmap, poses, num_beams: int = 1080,
     if tiled and fused_scan(poses, theta_discretization):
         r = _scan_tiles_fused(segmap, poses2, num_beams, fov, max_range)
         return r.reshape(*batch, num_beams)
-    offs = (_padded_offsets(num_beams, fov, LANES, poses2.device) if tiled
-            else beam_angles(num_beams, fov, poses2.device))
-    ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
+    with span("scan.fan"):
+        offs = (_padded_offsets(num_beams, fov, LANES, poses2.device)
+                if tiled else beam_angles(num_beams, fov, poses2.device))
+        ct, st = fan_cos_sin(poses2[:, 2], offs, theta_discretization)
     r = _scan_rays(segmap, poses2, ct, st, num_beams, max_range, use_tiles)
     return r.reshape(*batch, num_beams)
 

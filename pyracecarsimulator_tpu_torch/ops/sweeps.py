@@ -46,8 +46,11 @@ sweeps, and the rows that ``list_scan`` built from poses. The plain
 versions count on the host, culling in the kernel's float32 operations
 but sweeping every real slot; the kernel adds each row to a device
 counter (``_kernels.DeviceCounts``, spread over ``COUNT_LANES`` lanes),
-which replayed CUDA graphs advance too. Reading ``SWEEP_COUNTS`` reads
-those counters (a synchronisation).
+which replayed CUDA graphs advance too. ``DENSE_COUNTS`` counts the dense
+sweep's, ``{"rays", "pairs"}``: the rays swept and the ray-segment pairs
+they test, v_hi + h_end - h_lo a ray; ``dense_sweep_plain`` on the host,
+the kernel a block at a time on a device counter of the same kind. Reading
+either reads those counters (a synchronisation).
 """
 
 from __future__ import annotations
@@ -65,6 +68,8 @@ _PLAIN_BYTES_BUDGET = 1 << 28
 COUNT_LANES = 128
 SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows", "kept", "fanned"),
                                      COUNT_LANES)
+# the dense kernel's counter: each block adds to lane block % COUNT_LANES
+DENSE_COUNTS = _kernels.DeviceCounts(("rays", "pairs"), COUNT_LANES)
 # the list kernel's wedge cull (csrc/sector_sweep.cu, which argues the
 # numbers): the least real slots a row culls, the margin's absolute part
 # (1 mm) and its part a metre (2^-16), the unit test's tolerance (2^-20)
@@ -214,13 +219,16 @@ def dense_sweep_plain(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
     tensors (N,). Returns the unclamped minima (bv, bh), each (N,), 3e38
     where nothing is hit. Reads the bounds on the host (a synchronisation
     on the card: the plain version is a reference there) and sweeps
-    exactly the real slots, in chunks of (N, chunk) tensors.
+    exactly the real slots, in chunks of (N, chunk) tensors; adds the rays
+    and their pairs to ``DENSE_COUNTS.host``.
     """
     n = x.shape[0]
     k = params.shape[1]
     m0, m1, m2 = (int(v) for v in sweep_meta.tolist())
     h_lo = min(max(m1, 0), k)
     bounds = ((0, min(max(m0, 0), k)), (h_lo, min(max(m2, h_lo), k)))
+    DENSE_COUNTS.host["rays"] += n
+    DENSE_COUNTS.host["pairs"] += n * sum(hi - lo for lo, hi in bounds)
     chunk = max(1, _PLAIN_BYTES_BUDGET // max(1, n * 4))
     best = []
     for (lo_i, hi_i), vertical in zip(bounds, (True, False)):
@@ -373,7 +381,8 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
     bv = torch.empty((n,), dtype=torch.float32, device=params.device)
     bh = torch.empty_like(bv)
     _kernels.launch("dense_sweep", "dense_sweep", params, sweep_meta, x, y,
-                    cos_t, sin_t, inv_c, inv_s, bv, bh, n, k)
+                    cos_t, sin_t, inv_c, inv_s, bv, bh, n, k,
+                    DENSE_COUNTS.counter(params.device), COUNT_LANES)
     return bv, bh
 
 

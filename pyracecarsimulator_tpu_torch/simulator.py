@@ -129,15 +129,17 @@ def build_sim(track_or_name, car: CarParams = None, scan: ScanParams = None,
     if backend == "auto":
         # Decided on the H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
         # phase 24, 4096 agents x 1080 beams), with the host out of the
-        # step: a graphed rollout step takes 0.82 ms on "sectors" against
-        # 0.92 ms on "segments" on levine, and 1.26 against 2.69 ms on
-        # berlin (the benchmark's berlin rollout cells: 1.21 against 2.72
-        # ms of device time a step), whose sector lists hold 198 real slots
-        # a ray where its map tiles hold 863 (the list sweep's work
-        # counter, ops/sweeps.SWEEP_COUNTS, on 4096 free poses). Eagerly
-        # both are bound by the host's launch rate (2.1-4.7 ms a step
-        # either way). Values are equal on every exact backend. (The JAX
-        # package picks "sectors" for a TPU v5e reason of its own.)
+        # step: a graphed rollout step takes 0.49 ms on "sectors" against
+        # 0.93 ms on "segments" on levine, whose map "segments" leaves
+        # untiled, so that every ray is swept against all 82 segments (the
+        # dense sweep's work counter, ops/sweeps.DENSE_COUNTS; the
+        # benchmark's levine-segments rollout cell: 0.88 ms of device time
+        # a step), and 0.69 against 0.76 ms on berlin, whose sector lists
+        # hold 192 real slots a ray where its map tiles hold 881 (the list
+        # sweep's counter, ops/sweeps.SWEEP_COUNTS). Eagerly both are bound
+        # by the host's launch rate (2.2-3.9 ms a step either way). Values
+        # are equal on every exact backend. (The JAX package picks
+        # "sectors" for a TPU v5e reason of its own.)
         backend = "sectors"
     device = resolve_device(device)
     track = (load_builtin(track_or_name, device=device)

@@ -20,6 +20,10 @@ layer of the port; ``SPANS`` lists them all:
   (the sector scan's tile, block-middle angle, sector and row ids,
   ``raycast_sectors._list_ids``; the tile scan's tile and row ids,
   ``raycast_grad.raycast_tiled_diff``), in a step under ``step.scan``;
+- ``scan.fan``: the beam fan of a segment scan whose rays are built
+  outside the kernel (``raycast_segments.scan_poses_segments``), and the
+  dense route's reciprocals and flat ray tensors
+  (``raycast_grad.raycast_all_diff``), in a step under ``step.scan``;
 - ``rollout.policy``, ``rollout.carry`` (a rollout step's row writes and
   carry copies), ``rollout.blocks`` (the graphed rollout's carry copy-in,
   block copies into the trajectory and final clone);
@@ -61,8 +65,9 @@ unchanged.
 **Counters.** ``counters()`` gathers the port's counters: the kernel
 wrappers' launches (``ops/sweeps.launch_counts``), each live
 ``GraphedFunction``'s captures and replays, the EDF march's device
-counter (``ops/raymarch_xla.MARCH_COUNTS``) and the list sweep's
-(``ops/sweeps.SWEEP_COUNTS``), each an exact read: a synchronisation on
+counter (``ops/raymarch_xla.MARCH_COUNTS``), the list sweep's
+(``ops/sweeps.SWEEP_COUNTS``) and the dense sweep's
+(``ops/sweeps.DENSE_COUNTS``), each an exact read: a synchronisation on
 the card.
 """
 
@@ -84,6 +89,7 @@ import torch
 
 SPANS = frozenset({
     "step.dynamics", "step.scan", "step.noise", "step.ttc", "scan.route",
+    "scan.fan",
     "rollout.policy", "rollout.carry", "rollout.blocks",
     "train.policy", "train.loss", "train.backward", "train.optimizer",
     "graph.copy_in", "graph.replay", "graph.copy_out"})
@@ -243,9 +249,9 @@ def counters() -> dict:
     """The port's counters from one place (module doc): ``launches``
     (wrapper name -> kernel launches), ``graphs`` (one dict a live
     ``GraphedFunction``: ``name``, ``captures``, ``replays``), ``march``
-    (``{"calls", "trips"}`` of the EDF marches) and ``sweep`` (``{"rows",
-    "slots", "kept", "fanned"}`` of the list sweeps), both read
-    exactly."""
+    (``{"calls", "trips"}`` of the EDF marches), ``sweep`` (``{"rows",
+    "slots", "kept", "fanned"}`` of the list sweeps) and ``dense``
+    (``{"rays", "pairs"}`` of the dense sweep), each read exactly."""
     from ..ops import sweeps
     from ..ops.raymarch_xla import MARCH_COUNTS
     return {"launches": sweeps.launch_counts(),
@@ -253,7 +259,8 @@ def counters() -> dict:
                         "replays": g.replays}
                        for g in list(_graphs.values())],
             "march": dict(MARCH_COUNTS),
-            "sweep": dict(sweeps.SWEEP_COUNTS)}
+            "sweep": dict(sweeps.SWEEP_COUNTS),
+            "dense": dict(sweeps.DENSE_COUNTS)}
 
 
 # -- reading a trace ---------------------------------------------------------

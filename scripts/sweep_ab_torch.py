@@ -1,6 +1,7 @@
 """Time the list-routed sweep (``csrc/sector_sweep.cu``, kernel
-``list_sweep_kernel``) of one checkout of the port on the card: for
-comparing two commits on the same card.
+``list_sweep_kernel``) and, on an untiled map, the dense sweep
+(``csrc/dense_sweep.cu``, kernel ``dense_sweep_kernel``) of one checkout
+of the port on the card: for comparing two commits on the same card.
 
     python3 scripts/sweep_ab_torch.py [--tree DIR] [--map berlin]
                                       [--agents 4096] [--turns 3]
@@ -13,16 +14,21 @@ On the map, at ``--agents`` x 1080 beams, 270 degrees, 10 m, on poses
 sampled from seed 0 (five sets that differ by 1e-3 rad, one a call), the
 sweep alone (``ops/sweeps.list_sweep``) on the two tables the exact
 backends route rows to: the sector backend's (tile, sector) lists
-(``sectors``) and the segment backend's 4 m map tiles (``tiles``; none on
-an untiled map such as levine). Device milliseconds a call from CUDA
-graphs of 20 calls replayed between CUDA events, ``--turns`` times (their
-median and each turn);
+(``sectors``) and the segment backend's 4 m map tiles (``tiles``); on a
+map the segment backend leaves untiled, such as levine, instead the dense
+sweep of every ray over the full set (``dense``,
+``ops/sweeps.dense_sweep`` on the flat rays the dense route hands it).
+Device milliseconds a call from CUDA graphs of 20 calls replayed between
+CUDA events, ``--turns`` times (their median and each turn);
 beside them the rows, the real slots a row from ``meta`` of the rows
 (what the sweep's counter counts, where the tree's port has it:
 ``ops/sweeps.SWEEP_COUNTS``, read around one eager call), the slots a row
 the kernel's wedge cull keeps (``kept_per_row``, where the tree's counter
-has a ``kept`` column), and the sums of the outputs on the first set
-(float64, clamped to 10 m), which two checkouts of one function share.
+has a ``kept`` column), for ``dense`` the rays and pairs the dense
+counter counts (``ops/sweeps.DENSE_COUNTS``, where the tree has it) and
+the pairs a ray from ``sweep_meta``, and the sums of the outputs on the
+first set (float64, clamped to 10 m), which two checkouts of one
+function share.
 Prints one JSON line (also written to ``--json``) with the card's name
 and power limit from ``nvidia-smi``. Exits non-zero without a card.
 """
@@ -88,16 +94,31 @@ def list_args(table, meta, ids, p, ct, st, bb):
             *(v.reshape(g, bb).contiguous() for v in (ct, st, ic, is_)))
 
 
+def dense_args(segmap, p):
+    """The dense sweep's arguments for poses ``p``: the exact fan's flat
+    rays, as ``raycast_grad.raycast_all_diff`` hands them to the kernel."""
+    from pyracecarsimulator_tpu_torch.ops.common import (_ray_invs,
+                                                         beam_angles,
+                                                         fan_cos_sin)
+    ct, st = fan_cos_sin(p[:, 2], beam_angles(BEAMS, FOV, p.device))
+    ic, is_ = _ray_invs(ct, st)
+    flat = lambda v: v.reshape(-1).contiguous()
+    return (segmap.params, segmap.sweep_meta,
+            flat(p[:, 0:1].expand(ct.shape)),
+            flat(p[:, 1:2].expand(ct.shape)), *map(flat, (ct, st, ic, is_)))
+
+
 def cases(bundles, poses):
-    """{table: [argument sets of ``list_sweep``]} on the two tables."""
+    """{route: [argument sets of its sweep]}: the sector lists and the map
+    tiles (``list_sweep``), or the full set of an untiled map
+    (``dense_sweep``)."""
     from pyracecarsimulator_tpu_torch.ops import raycast_sectors as rs
     from pyracecarsimulator_tpu_torch.ops.common import (_padded_offsets,
                                                          fan_cos_sin,
                                                          tile_ids)
     smap, segmap = bundles["sectors"].segmap, bundles["segments"].segmap
-    out = {"sectors": []}
-    if segmap.tiles is not None:
-        out["tiles"] = []
+    out = {"sectors": [], "tiles" if segmap.tiles is not None
+           else "dense": []}
     bb = rs.sector_block_width(smap, BEAMS, FOV)
     for p in poses:
         ct, st = fan_cos_sin(p[:, 2], _padded_offsets(BEAMS, FOV, bb,
@@ -107,7 +128,8 @@ def cases(bundles, poses):
                            st, bb)
         out["sectors"].append(list_args(smap.table, smap.meta, ids, p, ct,
                                         st, bb))
-        if "tiles" not in out:
+        if "dense" in out:
+            out["dense"].append(dense_args(segmap, p))
             continue
         ct, st = fan_cos_sin(p[:, 2], _padded_offsets(BEAMS, FOV, 128,
                                                       p.device))
@@ -151,16 +173,26 @@ def main(argv=None) -> int:
         q = base.clone()
         q[:, 2] += j * 1e-3
         poses.append(q)
-    counted = getattr(sweeps, "SWEEP_COUNTS", None)
     out = {"tree": tree, "card": card(), "map": args.map,
-           "agents": args.agents, "counter": counted is not None}
-    fn = sweeps.list_sweep
+           "agents": args.agents,
+           "counter": hasattr(sweeps, "SWEEP_COUNTS"),
+           "dense_counter": hasattr(sweeps, "DENSE_COUNTS")}
     for route, sets in cases(bundles, poses).items():
-        table, meta, ids = sets[0][:3]
-        m = meta[ids.long()].long()
-        row = {"table": list(table.shape), "rows": ids.numel(),
-               "slots_per_row": float((m[:, 0] + m[:, 2] - m[:, 1])
-                                      .double().mean())}
+        if route == "dense":
+            fn = sweeps.dense_sweep
+            counted = getattr(sweeps, "DENSE_COUNTS", None)
+            params, meta = sets[0][:2]
+            v_hi, h_lo, h_end = meta.tolist()
+            row = {"table": list(params.shape), "rays": sets[0][2].numel(),
+                   "pairs_per_ray": v_hi + h_end - h_lo}
+        else:
+            fn = sweeps.list_sweep
+            counted = getattr(sweeps, "SWEEP_COUNTS", None)
+            table, meta, ids = sets[0][:3]
+            m = meta[ids.long()].long()
+            row = {"table": list(table.shape), "rows": ids.numel(),
+                   "slots_per_row": float((m[:, 0] + m[:, 2] - m[:, 1])
+                                          .double().mean())}
         before = dict(counted) if counted is not None else None
         bv, bh = fn(*sets[0])
         if counted is not None:
@@ -168,6 +200,9 @@ def main(argv=None) -> int:
             row["counted"] = {k: after[k] - before[k] for k in after}
             if "kept" in row["counted"]:
                 row["kept_per_row"] = row["counted"]["kept"] / ids.numel()
+            if "pairs" in row["counted"]:
+                row["counted_pairs_per_ray"] = (row["counted"]["pairs"]
+                                                / row["counted"]["rays"])
         r = torch.clamp(torch.minimum(bv, bh), max=MAX_RANGE)
         row["sum_range"] = float(r.double().sum())
         turns = [graphed_ms(fn, sets) for _ in range(args.turns)]

@@ -45,6 +45,9 @@ from torch_cull_cases import BUILT_CASES, built_case, row_args
 pytestmark = pytest.mark.cuda
 
 FOV = 4.712388980384690
+# dense_sweep_kernel's registers in nvcc's report (sm_90a), as before it
+# counted its work
+DENSE_REGISTERS = 40
 
 
 @pytest.fixture()
@@ -322,31 +325,40 @@ def test_list_scan_on_an_odd_fan_at_heading_zero(cuda):
         assert torch.equal(fused.cpu(), plain)
 
 
-def test_list_kernel_entries_keep_their_registers(cuda, tmp_path):
-    """nvcc's resource report of ``csrc/sector_sweep.cu``: both entries
-    of ``list_sweep_kernel`` (rays given, from poses), neither spilling
-    nor with a stack frame, the rays-given one at 32 registers."""
+def _nvcc_resources(source, tmp_path):
+    """``{mangled kernel name: (registers, spill store bytes, stack frame
+    bytes)}`` from nvcc's resource report of a fresh build of
+    ``csrc/<source>.cu``."""
     import re
     import subprocess
     from pyracecarsimulator_tpu_torch.ops import _kernels
     done = subprocess.run(_kernels.build_command(
-        "sector_sweep", tmp_path / "sweep.so", _kernels.nvcc_path()),
+        source, tmp_path / f"{source}.so", _kernels.nvcc_path()),
         capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, done.stderr
     res = {}
     for chunk in re.split(r"Function (?:properties for )?",
                           done.stdout + done.stderr)[1:]:
-        m = re.search(r"list_sweep_kernelILb([01])E",
-                      chunk.split()[0].rstrip(":"))
         reg = (re.search(r"REG:(\d+)", chunk)
                or re.search(r"Used (\d+) registers", chunk))
-        if m and reg:
+        if reg:
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             stack = (re.search(r"STACK:(\d+)", chunk)
                      or re.search(r"(\d+) bytes stack frame", chunk))
-            res[m.group(1)] = (int(reg.group(1)),
-                               int(spill.group(1)) if spill else 0,
-                               int(stack.group(1)) if stack else 0)
+            res[chunk.split()[0].rstrip(":")] = (
+                int(reg.group(1)), int(spill.group(1)) if spill else 0,
+                int(stack.group(1)) if stack else 0)
+    return res
+
+
+def test_list_kernel_entries_keep_their_registers(cuda, tmp_path):
+    """nvcc's resource report of ``csrc/sector_sweep.cu``: both entries
+    of ``list_sweep_kernel`` (rays given, from poses), neither spilling
+    nor with a stack frame, the rays-given one at 32 registers."""
+    import re
+    res = {m.group(1): r for name, r in
+           _nvcc_resources("sector_sweep", tmp_path).items()
+           for m in [re.search(r"list_sweep_kernelILb([01])E", name)] if m}
     assert set(res) == {"0", "1"}, res
     assert res["0"][0] == 32, res
     assert all(r[1] == 0 and r[2] == 0 for r in res.values()), res
@@ -457,6 +469,115 @@ def test_dense_matches_plain(cuda, n_v, kv, n_h, kh, n):
     bv_p, bh_p = sweeps.dense_sweep_plain(*args)
     assert torch.equal(bv, bv_p) and torch.equal(bh, bh_p)
     assert bool((torch.minimum(bv, bh) < 1e9).any())
+
+
+def _levine_dense_args(cuda, agents):
+    """The dense route's flat rays on levine's untiled map: ``agents``
+    free poses x 1080 beams over the full set."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.ops.common import beam_angles
+    bundle = P.build_sim("levine", device=cuda)
+    segmap = bundle.segmap
+    assert segmap.tiles is None
+    p = torch.as_tensor(sample_free_poses(bundle.track, agents,
+                                          np.random.RandomState(4)),
+                        device=cuda)
+    ct, st = fan_cos_sin(p[:, 2], beam_angles(1080, FOV, cuda))
+    flat = lambda v: v.reshape(-1).contiguous()
+    return (segmap.params, segmap.sweep_meta,
+            flat(p[:, 0:1].expand(ct.shape)),
+            flat(p[:, 1:2].expand(ct.shape)),
+            *map(flat, (ct, st, *_ray_invs(ct, st))))
+
+
+@pytest.mark.parametrize("case", ["mixed", "split", "levine"])
+def test_dense_sweep_counts_rays_and_pairs_on_the_device(cuda, case):
+    """The dense kernel adds each block's rays and the pairs they test
+    (v_hi + h_end - h_lo a ray) to the device's counter: on the same
+    inputs exactly what the plain version adds on the host, a ragged last
+    block counting its live rays only; one replay of a CUDA graph of the
+    sweep advances it by exactly one call's count; the outputs, eager and
+    replayed, are the plain version's bit for bit."""
+    counts = sweeps.DENSE_COUNTS
+    if case == "levine":
+        args = _levine_dense_args(cuda, 512)
+    else:
+        rng = np.random.RandomState(5)
+        n_v, kv, n_h, kh, n = ((41, 41, 41, 87, 3 * 256 + 17)
+                               if case == "mixed"
+                               else (84, 128, 128, 128, 1000))
+        params, meta = _random_segments(rng, n_v, kv, n_h, kh)
+        if case == "mixed":
+            meta = np.array([n_v, n_v, n_v + n_h], np.int32)
+        th = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+        rays = [torch.tensor(v, device=cuda) for v in (
+            rng.uniform(-8, 8, n).astype(np.float32),
+            rng.uniform(-8, 8, n).astype(np.float32), np.cos(th),
+            np.sin(th))]
+        args = (torch.tensor(params, device=cuda),
+                torch.tensor(meta, device=cuda), *rays,
+                *_ray_invs(*rays[2:]))
+    sweeps.dense_sweep(*args)   # the counter exists before any capture
+    torch.cuda.synchronize()
+    start, host = dict(counts), dict(counts.host)
+    bv, bh = sweeps.dense_sweep(*args)
+    dev = {k: counts[k] - start[k] for k in start}
+    bv_p, bh_p = sweeps.dense_sweep_plain(*args)
+    plain = {k: counts.host[k] - host[k] for k in host}
+    v_hi, h_lo, h_end = args[1].tolist()
+    assert plain == {"rays": args[2].numel(),
+                     "pairs": args[2].numel() * (v_hi + h_end - h_lo)}
+    if case == "levine":
+        assert plain["pairs"] == 82 * plain["rays"]
+    assert dev == plain
+    assert torch.equal(bv, bv_p) and torch.equal(bh, bh_p)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sweeps.dense_sweep(*args)
+    before = dict(counts)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert {k: counts[k] - before[k] for k in before} == plain
+    assert torch.equal(out[0], bv_p) and torch.equal(out[1], bh_p)
+
+
+def test_graphed_levine_step_counts_82_pairs_a_ray(cuda):
+    """``build_sim("levine")`` with no backend named sweeps every ray
+    against levine's 82 segments: each replay of the graphed step adds its
+    agents x beams rays and 82 pairs each to ``counters()["dense"]``."""
+    import pyracecarsimulator_tpu_torch as P
+    from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+    from pyracecarsimulator_tpu_torch.utils import profiling
+    beams, agents = 256, 64
+    bundle = P.build_sim("levine", scan=P.ScanParams(num_beams=beams),
+                         device=cuda)
+    assert bundle.backend == "segments" and bundle.segmap.tiles is None
+    p = torch.as_tensor(sample_free_poses(bundle.track, agents,
+                                          np.random.RandomState(3)),
+                        device=cuda)
+    state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    act = (torch.full((agents,), 2.0, device=cuda),
+           torch.zeros(agents, device=cuda))
+    step = P.make_step_fn(bundle, with_noise=False, graph=True)
+    step(state, act)
+    torch.cuda.synchronize()
+    before = profiling.counters()["dense"]
+    for _ in range(3):
+        step(state, act)
+    after = profiling.counters()["dense"]
+    assert step.graphed.replays >= 3
+    assert {k: after[k] - before[k] for k in after} == {
+        "rays": 3 * agents * beams, "pairs": 3 * agents * beams * 82}
+
+
+def test_dense_kernel_keeps_its_registers(cuda, tmp_path):
+    """nvcc's resource report of ``csrc/dense_sweep.cu``: the kernel keeps
+    the registers it had before it counted its work, with no spill and no
+    stack frame."""
+    res = [r for name, r in _nvcc_resources("dense_sweep", tmp_path).items()
+           if "dense_sweep_kernel" in name]
+    assert res == [(DENSE_REGISTERS, 0, 0)], res
 
 
 def _blobby(seed, n_blocks):
