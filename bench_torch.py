@@ -497,7 +497,7 @@ def stage_rollouts(b: Bench):
     gate = "rollout_graph_parity_maxabs"
     worst = None
     for name, backend, key, kernel in (
-            ("levine", "segments", "env_steps_s_4096", "dense_sweep"),
+            ("levine", "segments", "env_steps_s_4096", "dense_scan"),
             ("levine", "sectors", "env_steps_s_4096_sectors",
              "list_scan"),
             ("berlin", "sectors", "env_steps_s_4096_sectors_berlin",

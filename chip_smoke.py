@@ -32,8 +32,9 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 6. the main path: ``build_sim(name)`` (default backend) -> one step plus
    a 20-step noisy rollout per map (replayed from CUDA graphs), with every
    launch counter set to 0 just before and read just after (levine must
-   have run the dense kernel, berlin the list kernel's entry from poses
-   over map tiles, ``list_scan``, 25 times each: the
+   have run the dense kernel's entry from poses, ``dense_scan``, berlin
+   the list kernel's entry from poses over map tiles, ``list_scan``, 25
+   times each: the
    step, 4 warm-up steps of the capture, 20 replays); "segments_pallas"
    equal to "segments"; then the same drive on the sector backend
    (``list_scan`` on both maps);
@@ -208,7 +209,19 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     ``list_sweep`` alone, the plain time, and the bound (the sweep's kept
     tests and cull pass plus ``FAN_OPS_PER_RAY`` a ray; bytes: the range
     written and the staged slots); from nvcc's report both entries'
-    registers (the rays-given one 32), no spill, no stack frame.
+    registers (the rays-given one 32), no spill, no stack frame;
+26. (run inside the loop of 3-4, and after 4b) on levine and on berlin
+    untiled, the dense kernel's entry from poses ``dense_scan`` at 4096 x
+    1080, one origin outside the map's extent: against
+    ``dense_scan_plain``, against the composition it replaces (the fan,
+    the reciprocals, the flat rays, the rays-given ``dense_sweep``, the
+    clamp and the extent mask) and from a replayed CUDA graph, 0
+    mismatches, the rays and pairs on the device counter equal to both,
+    every ray ``fanned``; device times from graph replays of the entry,
+    of the composition and of ``dense_sweep`` alone, the plain time, and
+    the bound (the sweep's tests plus ``FAN_OPS_PER_RAY`` a ray; bytes:
+    the range written); from nvcc's report both entries' registers (the
+    rays-given one ``DENSE_REGISTERS``), no spill, no stack frame.
 
 Every kernel's time stands beside its bound: the larger of its
 operations over the card's FP32 instruction rate at ``clocks.max.sm``,
@@ -232,10 +245,10 @@ its bytes the field in and out once and the history once. Beside the bound stand
 ``cuobjdump``, what the compiled loop issues per test or per trip (its
 SASS), as a reading.
 
-Prints a JSON line describing the nine kernel wrappers (the two sweeps
-that replace the five TPU kernels, ``list_sweep`` four of them, and the
-list kernel's entry from poses ``list_scan``, which folds the fan and the
-finished range into it; the EDF
+Prints a JSON line describing the ten kernel wrappers (the two sweeps
+that replace the five TPU kernels, ``list_sweep`` four of them, and their
+entries from poses ``list_scan`` and ``dense_scan``, which fold the fan
+and the finished range into them; the EDF
 march, which replaces three XLA loops, its
 gradient, which replaces the scan's transpose under ``jax.grad``, the
 implicit march's pose VJP, which replaces its custom_vjp's backward and
@@ -287,7 +300,17 @@ KERNELS = {
                   "and on map tiles (berlin): steps, rollouts, the first "
                   "step of a train call"),
     "dense_sweep": (SRC + "dense_sweep.cu", TPU + "116",
-                    "segments backend, untiled maps (levine)"),
+                    "segments backend, untiled maps (levine): scans whose "
+                    "rays take a gradient, the theta table, the sharded "
+                    "wedges"),
+    "dense_scan": (SRC + "dense_sweep.cu",
+                   f"{TPU}116 (the dense sweep's entry from poses, with the "
+                   "fan of pyracecarsimulator_tpu/ops/common.py rotate_fan, "
+                   "raycast_segments._ray_invs, the clamp and the extent "
+                   "mask)",
+                   "scans of poses without a gradient on the segments "
+                   "backend on untiled maps (levine): steps, rollouts, the "
+                   "first step of a train call"),
     # XLA loops, no pallas_call: the JAX package has no Pallas march
     "edf_march": (SRC + "edf_march.cu",
                   "pyracecarsimulator_tpu/ops/raymarch_xla.py:139, "
@@ -329,10 +352,10 @@ OPS_PER_TEST = 10
 # a multiply, an add and a negation), four cross products 12, four
 # compares, two ands and an or 7
 CULL_OPS_PER_SLOT = 29
-# dense_sweep_kernel's registers in nvcc's report (sm_90a), as before it
-# counted its work (tests/test_torch_kernels.py holds the same)
+# the rays-given dense_sweep_kernel's registers in nvcc's report (sm_90a),
+# as before it counted its work (tests/test_torch_kernels.py holds the same)
 DENSE_REGISTERS = 40
-# the list kernel's entry from poses, once a ray besides the sweep: the fan
+# each kernel's entry from poses, once a ray besides the sweep: the fan
 # 6 (four multiplies, a subtract, an add), two reciprocals 2 and their zero
 # tests 2, the minimum and the clamp 2, the extent test 4 and its select 1
 FAN_OPS_PER_RAY = 17
@@ -587,6 +610,7 @@ def segment_case(segmap, p):
 def plain_of(name):
     from pyracecarsimulator_tpu_torch.ops import sweeps
     return {"dense_sweep": sweeps.dense_sweep_plain,
+            "dense_scan": sweeps.dense_scan_plain,
             "list_scan": sweeps.list_scan_plain}.get(name,
                                                      sweeps.list_sweep_plain)
 
@@ -947,19 +971,24 @@ def list_resources():
 
 
 def dense_resources():
-    """``dense_sweep_kernel``'s registers, stack frame and spills from
-    nvcc's ``--resource-usage`` report of this build: no spill, no stack
-    frame, and the ``DENSE_REGISTERS`` it had before it counted its
-    work."""
-    out = resource_report(
-        "dense_sweep",
-        lambda name: "dense_sweep_kernel" if "dense_sweep_kernel" in name
-        else None).get("dense_sweep_kernel", {})
-    log(f"dense_sweep_kernel: {out}")
-    check(out.get("registers") == DENSE_REGISTERS
-          and out.get("spill_stores", 0) == 0 and out.get("stack", 0) == 0,
-          f"dense_sweep_kernel spills, has a stack frame, or left its "
-          f"{DENSE_REGISTERS} registers: {out}")
+    """Both instantiations of ``dense_sweep_kernel`` (rays given, from
+    poses): registers, stack frame and spills from nvcc's
+    ``--resource-usage`` report of this build. Neither may spill nor have
+    a stack frame, and the rays-given one keeps the ``DENSE_REGISTERS`` it
+    had before it counted its work."""
+    def label_of(name):
+        m = re.search(r"dense_sweep_kernelILb([01])E", name)
+        return m and ("from poses" if m.group(1) == "1" else "rays given")
+    out = resource_report("dense_sweep", label_of)
+    for label, res in sorted(out.items()):
+        log(f"dense_sweep_kernel, {label}: {res}")
+    check(set(out) == {"rays given", "from poses"},
+          f"the dense kernel's two entries are not in nvcc's report: {out}")
+    check(all(r.get("spill_stores", 0) == 0 and r.get("stack", 0) == 0
+              for r in out.values())
+          and out["rays given"].get("registers") == DENSE_REGISTERS,
+          f"a dense kernel entry spills, has a stack frame, or the "
+          f"rays-given one left its {DENSE_REGISTERS} registers: {out}")
     return out
 
 
@@ -1097,6 +1126,121 @@ def list_scan_phase(card, name, smap, segmap, poses, rates, errs, times):
     return out
 
 
+def dense_scan_args(segmap, p):
+    """The dense kernel's entry from poses: its arguments for poses ``p``
+    (A, 3) over every real segment of the untiled ``segmap``."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops.common import offset_factors
+    return (segmap.params, segmap.sweep_meta, p[:, 0].contiguous(),
+            p[:, 1].contiguous(), torch.cos(p[:, 2]), torch.sin(p[:, 2]),
+            *offset_factors(BEAMS, FOV, 1, p.device), MAX_RANGE,
+            segmap.extent)
+
+
+def composed_dense_scan(args):
+    """What ``dense_scan`` replaces, with the rays-given kernel: the fan,
+    the reciprocals, the flat rays, ``dense_sweep``, the clamp and the
+    extent mask. Returns (ranges, the sweep's arguments)."""
+    from pyracecarsimulator_tpu_torch.ops.common import (
+        _ray_invs, apply_extent_mask, finish_minima, rotate_fan)
+    params, meta, x0, y0, cth, sth, cd, sd, max_range, extent = args
+    ct, st = rotate_fan(cth, sth, cd, sd)
+    flat = lambda v: v.reshape(-1).contiguous()
+    rays = (params, meta, flat(x0[:, None].expand(ct.shape)),
+            flat(y0[:, None].expand(ct.shape)),
+            *map(flat, (ct, st, *_ray_invs(ct, st))))
+    bv, bh = wrappers()["dense_sweep"](*rays)
+    r = finish_minima(bv.reshape(ct.shape), bh.reshape(ct.shape),
+                      max_range)[0]
+    return apply_extent_mask(r, x0, y0, extent, max_range), rays
+
+
+def dense_scan_phase(card, label, segmap, poses, rates, errs, times,
+                     n_sets=5, calls=50, plain_reps=3):
+    """26: ``dense_scan`` (the dense kernel's entry from poses) over every
+    real segment of the untiled ``segmap`` at 4096 x 1080, one origin
+    moved outside the map's extent: against ``dense_scan_plain`` and
+    against the composition it replaces with the rays-given kernel, 0
+    mismatches, eager and from a replayed CUDA graph; the rays and pairs
+    on the device counter equal to both, every ray ``fanned`` (none by
+    the rays-given kernel); device times from graph replays of the entry,
+    of the composition and of ``dense_sweep`` alone, the plain time, and
+    the bound."""
+    import torch
+    from pyracecarsimulator_tpu_torch.ops.sweeps import DENSE_COUNTS
+    sets = pose_sets(poses, n_sets)
+    for q in sets:
+        q[0, 0] = segmap.extent[1] + 1.0    # outside: all max_range
+    args = [dense_scan_args(segmap, q) for q in sets]
+    scan = wrappers()["dense_scan"]
+    c0, h0 = dict(DENSE_COUNTS), dict(DENSE_COUNTS.host)
+    r = scan(*args[0])
+    r_p = plain_of("dense_scan")(*args[0])
+    plain = {k: DENSE_COUNTS.host[k] - h0[k] for k in h0}
+    c1 = dict(DENSE_COUNTS)
+    r_c, rays = composed_dense_scan(args[0])
+    c2 = dict(DENSE_COUNTS)
+    torch.cuda.synchronize()
+    kernel = {k: c1[k] - c0[k] - plain[k] for k in c0}
+    given = {k: c2[k] - c1[k] for k in c1}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        r_g = scan(*args[0])
+    c3 = dict(DENSE_COUNTS)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = {k: DENSE_COUNTS[k] - c3[k] for k in c3}
+    mism = sum(int((r != v).sum()) for v in (r_p, r_c, r_g))
+    err = max(float((r.double() - v.double()).abs().max())
+              for v in (r_p, r_c, r_g))
+    outside = bool((r[0] == MAX_RANGE).all())
+    log(f"[{label}] dense_scan vs dense_scan_plain, vs the composition with "
+        f"dense_sweep and from a graph replay on {tuple(r.shape)}: "
+        f"mismatches {mism}, max abs err {err}; the origin outside the "
+        f"extent all max_range {outside}; counted by the entry {kernel}, by "
+        f"the plain version {plain}, by the rays-given kernel {given}, by "
+        f"a replay {replayed}")
+    check(mism == 0 and outside, f"{label}: dense_scan disagrees")
+    check(kernel == plain == replayed and kernel["fanned"] == kernel["rays"]
+          and given["fanned"] == 0
+          and {k: given[k] for k in ("rays", "pairs")}
+          == {k: kernel[k] for k in ("rays", "pairs")},
+          f"{label}: dense_scan counts other work than the rays-given "
+          "kernel or the plain version")
+    errs["dense_scan"].append(err)
+    n = len(args)
+    res = {"ms": graphed_ms(lambda i: scan(*args[i % n]), calls),
+           "composed_ms": graphed_ms(lambda i: composed_dense_scan(
+               args[i % n]), calls),
+           "dense_sweep_alone_ms": graphed_ms(
+               lambda i: wrappers()["dense_sweep"](*rays), calls),
+           "plain_ms": timed_ms(lambda i: plain_of("dense_scan")(
+               *args[i % n]), plain_reps, warmup=min(1, plain_reps - 1))}
+    res["ms_2"] = graphed_ms(lambda i: scan(*args[i % n]), calls)
+    sweep = bound_of("dense_sweep", rays, rates)
+    a_n = r.shape[0]
+    ops = sweep["tests"] * OPS_PER_TEST + FAN_OPS_PER_RAY * rays[2].numel()
+    nbytes = (4 * a_n * BEAMS + 12 * (sweep["tests"] // rays[2].numel())
+              + 16 * a_n + 8 * BEAMS)
+    ops_ms = ops / rates["slots_per_s"] * 1e3
+    bytes_ms = nbytes / rates["hbm_bytes_per_s"] * 1e3
+    res.update({"bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "range_bytes": 4 * a_n * BEAMS,
+                "pairs_per_ray": kernel["pairs"] / kernel["rays"]})
+    res["share_of_bound"] = res["bound_ms"] / min(res["ms"], res["ms_2"])
+    times["dense_scan"][label] = res
+    log(f"[{label}] {card}: dense_scan {res['ms']:.4f} / {res['ms_2']:.4f} "
+        f"ms from graph replays, the composition it replaces "
+        f"{res['composed_ms']:.4f} ms (dense_sweep alone "
+        f"{res['dense_sweep_alone_ms']:.4f}), plain {res['plain_ms']:.2f} "
+        f"ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']}; bytes "
+        f"{res['bound_bytes_ms']:.4f}: the range {res['range_bytes']} B); "
+        f"share {res['share_of_bound']:.3f}")
+    return res
+
+
 def kernel_vs_plain(label, name, args):
     """One launch of wrapper ``name`` against its plain version on the same
     tensors; 0 mismatches required, and the work the kernel adds to its
@@ -1186,8 +1330,9 @@ def time_kernel(name, sets, rates, plain_reps=5):
 def dense_graphed(w, sets):
     """The dense kernel's device time a call from CUDA graph replays
     (``graphed_ms``, twice), and its counter over them: each eager warm-up
-    call and each replayed call adds its rays and their pairs, so the
-    counter grows by exactly 2 x (3 + 6 x 50) calls' worth."""
+    call and each replayed call adds its rays and their pairs (and no
+    fanned ray: the rays are given), so the counter grows by exactly
+    2 x (3 + 6 x 50) calls' worth."""
     from pyracecarsimulator_tpu_torch.ops.sweeps import DENSE_COUNTS
     n = len(sets)
     rays = sets[0][2].numel()
@@ -1197,7 +1342,7 @@ def dense_graphed(w, sets):
     grown = {k: DENSE_COUNTS[k] - before[k] for k in before}
     calls = 2 * (3 + 6 * 50)
     want = {"rays": calls * rays,
-            "pairs": calls * rays * (v_hi + h_end - h_lo)}
+            "pairs": calls * rays * (v_hi + h_end - h_lo), "fanned": 0}
     log(f"dense_sweep from graph replays: {ms[0]:.4f} / {ms[1]:.4f} ms a "
         f"call; counted {grown} over {calls} calls (want {want})")
     check(grown == want, "dense_sweep's counter missed graph replays")
@@ -1240,15 +1385,18 @@ def drive(bundles, backend_label, poses_by_map):
         torch.cuda.synchronize()
         used[name] = {k: v for k, v in counts().items() if v}
         dense = {k: DENSE_COUNTS[k] - dense0[k] for k in dense0}
-        if used[name].get("dense_sweep"):
-            scans = used[name]["dense_sweep"]
+        fanned = used[name].get("dense_scan", 0)
+        scans = used[name].get("dense_sweep", 0) + fanned
+        if scans:
             log(f"[{name}] {backend_label} main path: the dense counter "
                 f"{dense}, {dense['pairs'] / dense['rays']} pairs a ray")
             check(dense == {"rays": scans * AGENTS * BEAMS,
                             "pairs": scans * AGENTS * BEAMS
-                            * bundle.segmap.n_segments},
+                            * bundle.segmap.n_segments,
+                            "fanned": fanned * AGENTS * BEAMS},
                   f"{name}: the dense counter is not every ray against "
-                  f"every segment: {dense}")
+                  f"every segment, every ray of a scan from poses fanned: "
+                  f"{dense}")
         log(f"[{name}] {backend_label} main path (1 step + {STEPS}-step "
             f"rollout, graphed where the step can be captured: "
             f"{step.capturable}): launches {used[name]}")
@@ -2271,7 +2419,7 @@ def obstacle_phase(card, name, track, poses):
     y = track.origin_y + (iy + 0.5) * track.resolution
     ahead = BEAMS // 2                 # the beam straight ahead
     box_x = x + 0.275 + 1.0            # 1 m ahead of the scanner
-    expect = {"segments": {"levine": "dense_sweep",
+    expect = {"segments": {"levine": "dense_scan",
                            "berlin": "list_scan"}[name],
               "sectors": "list_scan", "edf": "edf_march",
               "segments_simplified": "general_sweep"}
@@ -2931,11 +3079,12 @@ def examples_phase(card):
                         "examples", "torch")
     wide = ["--agents", str(AGENTS), "--beams", str(BEAMS)]
     runs = (
-        ("demo_rollout", [*wide, "--steps", "200"], "dense_sweep"),
-        ("demo_gradients", [], "dense_sweep"),
+        ("demo_rollout", [*wide, "--steps", "200"], "dense_scan"),
+        # the observed scan and the last objective without a gradient
+        ("demo_gradients", [], ("dense_scan", "dense_sweep")),
         ("demo_mpc", ["--candidates", str(AGENTS), "--beams", str(BEAMS),
-                      "--control-steps", "5"], "dense_sweep"),
-        ("demo_bptt", ["--iters", "10"], "dense_sweep"),
+                      "--control-steps", "5"], "dense_scan"),
+        ("demo_bptt", ["--iters", "10"], ("dense_scan", "dense_sweep")),
         ("demo_train", [*wide, "--iters", "8"], "list_sweep"),
         ("demo_mapping", ["--iters", "60"],
          ("edf_march", "soft_edt", "soft_edt_grad")),
@@ -3104,7 +3253,7 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
         make_bptt_train_fn, make_gap_follower_policy, make_rollout_fn)
     from pyracecarsimulator_tpu_torch.state import FIELDS
     T = 25
-    kernel_of = {("levine", "segments"): "dense_sweep",
+    kernel_of = {("levine", "segments"): "dense_scan",
                  ("berlin", "segments"): "list_scan",
                  ("levine", "sectors"): "list_scan",
                  ("berlin", "sectors"): "list_scan",
@@ -3582,6 +3731,9 @@ def run():
 
         # 25. the list kernel's entry from poses
         list_scan_phase(card, name, smap, segmap, poses, rates, errs, times)
+        # 26. the dense kernel's entry from poses, where the map is untiled
+        if segmap.tiles is None:
+            dense_scan_phase(card, name, segmap, poses, rates, errs, times)
 
     # 4b. the dense kernel over berlin's untiled set: several smem chunks
     flat = build_segment_map(
@@ -3600,6 +3752,10 @@ def run():
             for q in pose_sets(poses_by_map["berlin"], 2)]
     times["dense_sweep"]["berlin_untiled_4096_kernel_only_ms"] = timed_ms(
         lambda i: wrappers()["dense_sweep"](*full[i % 2]), 5, warmup=1)
+    del full
+    # 26 on berlin untiled: several chunks of shared memory a ray
+    dense_scan_phase(card, "berlin untiled", flat, poses_by_map["berlin"],
+                     rates, errs, times, n_sets=2, calls=5, plain_reps=1)
 
     # 5. the sector scans of kernels 2.2 and 2.3, counted
     big = MAPS[-1]
@@ -3630,7 +3786,7 @@ def run():
           "build_sim's default is not the 'segments' backend on the card")
     main_counts = drive(seg_bundles, "segments", poses_by_map)
     n_main = STEPS + 1 + WARMUP_STEPS
-    check(main_counts["levine"] == {"dense_sweep": n_main}
+    check(main_counts["levine"] == {"dense_scan": n_main}
           and main_counts["berlin"] == {"list_scan": n_main},
           f"the default path launched {main_counts}")
     from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
@@ -3802,7 +3958,8 @@ def run():
     log(f"launches by path: {launches_by_path}")
     check(all(launches_by_path.values()),
           f"a kernel was never launched: {launches_by_path}")
-    shape_of = {"dense_sweep": "levine", "list_sweep": "berlin sectors",
+    shape_of = {"dense_sweep": "levine", "dense_scan": "levine",
+                "list_sweep": "berlin sectors",
                 "list_scan": "berlin sectors",
                 "edf_march": "levine nearest",
                 "edf_march_grad": "levine bilinear",

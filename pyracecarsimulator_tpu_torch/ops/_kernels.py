@@ -59,6 +59,8 @@ _SIGNATURES = {
                   [_P] * 10 + [_I] * 5 + [_F] * 5 + [_P, _I, _P]),
     "dense_sweep": ("dense_sweep", "dense_sweep_launch",
                     [_P] * 10 + [_I, _I, _P, _I, _P]),
+    "dense_scan": ("dense_sweep", "dense_scan_launch",
+                   [_P] * 9 + [_I] * 3 + [_F] * 5 + [_P, _I, _P]),
     "edf_march": ("edf_march", "edf_march_launch",
                   _MARCH_HEAD + [_F] * 3 + [_P] * 7),
     "edf_march_grad": ("edf_march", "edf_march_grad_launch",

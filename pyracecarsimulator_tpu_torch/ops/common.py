@@ -88,7 +88,8 @@ def _padded_offsets(num_beams, fov, bb, device=None):
 def offset_factors(num_beams, fov, bb, device):
     """``(cd, sd)``, each (NBLK*bb,): the cos and sin of
     ``_padded_offsets``, computed on ``device`` once (the values
-    ``fan_factors`` gives on it). Cached (module doc): do not write them."""
+    ``fan_factors`` gives on it; ``bb = 1``: the fan unpadded, as the
+    dense route takes it). Cached (module doc): do not write them."""
     def make():
         offs = _padded_offsets(num_beams, fov, bb, device)
         return torch.stack([torch.cos(offs), torch.sin(offs)])
@@ -112,9 +113,9 @@ def mid_offset_factors(num_beams, fov, bb, device):
 
 
 def fused_scan(poses, theta_discretization: int) -> bool:
-    """Whether a scan of ``poses`` may take the list kernel's from-poses
-    entry (``sweeps.list_scan``): the exact fan, and no ray that takes a
-    gradient."""
+    """Whether a scan of ``poses`` may take a sweep kernel's from-poses
+    entry (``sweeps.list_scan``, ``sweeps.dense_scan``): the exact fan,
+    and no ray that takes a gradient."""
     return not theta_discretization and not (torch.is_grad_enabled()
                                              and poses.requires_grad)
 

@@ -11,12 +11,14 @@ over the boundary segments of the exact ray/segment intersection distance
 - ``raycast_tiled``: each agent's beams, in rows of 128, against its map
   tile's list (``list_sweep``: the list kernel ``csrc/sector_sweep.cu``).
 
-A scan of poses on a tiled map whose rays take no gradient, on the exact
-fan, runs the list kernel's from-poses entry instead (``list_scan``: the
-fan, the reciprocals, the sweep, the clamp and the extent mask in one
-launch, bit for bit the composition). Every other scan of poses builds
-its fan here and hands the rays to a sweep: the fan, and on the dense
-route its reciprocals and flat ray tensors, are spanned as ``scan.fan``.
+A scan of poses whose rays take no gradient, on the exact fan, runs a
+kernel's from-poses entry instead: the list kernel's on a tiled map
+(``list_scan``), the dense kernel's on an untiled one (``dense_scan``),
+each the fan, the reciprocals, the sweep, the clamp and the extent mask
+in one launch, bit for bit the composition. Every other scan of poses
+builds its fan here and hands the rays to a sweep: the fan, and on the
+dense route its reciprocals and flat ray tensors, are spanned as
+``scan.fan``.
 On CPU tensors every route runs the plain PyTorch versions. The JAX
 package's XLA sweeps here and its Pallas kernels
 (``ops/raycast_pallas.py``) have the same values, so the port has one
@@ -42,7 +44,7 @@ from .common import (_padded_offsets, apply_extent_mask, beam_angles,
                      fan_cos_sin, fused_scan, offset_factors)
 from .raycast_grad import (LANES, raycast_all_diff, raycast_tiled_diff,
                            tile_rows)
-from .sweeps import list_scan
+from .sweeps import dense_scan, list_scan
 
 
 def raycast_all(segment_params, sweep_meta, x, y, cos_t, sin_t,
@@ -93,8 +95,9 @@ def scan_poses_segments(segmap, poses, num_beams: int = 1080,
     batch = tuple(poses.shape[:-1])
     poses2 = poses.reshape(-1, 3).to(torch.float32)
     tiled = use_tiles and segmap.tiles is not None
-    if tiled and fused_scan(poses, theta_discretization):
-        r = _scan_tiles_fused(segmap, poses2, num_beams, fov, max_range)
+    if fused_scan(poses, theta_discretization):
+        fused = _scan_tiles_fused if tiled else _scan_dense_fused
+        r = fused(segmap, poses2, num_beams, fov, max_range)
         return r.reshape(*batch, num_beams)
     with span("scan.fan"):
         offs = (_padded_offsets(num_beams, fov, LANES, poses2.device)
@@ -117,3 +120,15 @@ def _scan_tiles_fused(segmap, poses2, num_beams, fov, max_range):
     return list_scan(segmap.tiles, segmap.tile_sweep_meta, ids, x0, y0,
                      torch.cos(poses2[:, 2]), torch.sin(poses2[:, 2]), cd,
                      sd, max_range, segmap.extent, num_beams)
+
+
+def _scan_dense_fused(segmap, poses2, num_beams, fov, max_range):
+    """The dense scan of (A, 3) poses whose rays take no gradient, in one
+    launch of the dense kernel's from-poses entry: the values of
+    ``_scan_rays`` on the exact fan over every real segment, bit for bit.
+    Returns (A, num_beams)."""
+    x0, y0 = (poses2[:, i].contiguous() for i in (0, 1))
+    cd, sd = offset_factors(num_beams, fov, 1, poses2.device)
+    return dense_scan(segmap.params, segmap.sweep_meta, x0, y0,
+                      torch.cos(poses2[:, 2]), torch.sin(poses2[:, 2]), cd,
+                      sd, max_range, segmap.extent)

@@ -28,14 +28,16 @@ it, as do the stacked maps and the ring (their shared row glue is
 real slots the kernels visit and compute each pair with the same float32
 operations, so kernel and plain version agree bit for bit.
 
-``list_scan`` is the list kernel's second entry, for scans of poses
-whose rays take no gradient: from per-agent (cos, sin) of the headings
-and the padded fan's per-beam (cos, sin) of the offsets it builds each
-ray, its reciprocals, sweeps the row's list and writes the clamped,
-extent-masked range of the real beams, in one launch. Its plain version
-is the composition it replaces (``common.rotate_fan``,
-``common._ray_invs``, ``list_sweep_plain``, ``common.finish_minima``, the
-slice to the real beams and ``common.apply_extent_mask``).
+``list_scan`` and ``dense_scan`` are the two kernels' second entries, for
+scans of poses whose rays take no gradient: from per-agent (cos, sin) of
+the headings and per-beam (cos, sin) of the offsets (the list kernel's
+fan padded to its rows) each builds each ray and its reciprocals, sweeps
+(the row's list; every real segment) and writes the clamped,
+extent-masked range of the real beams, in one launch. Their plain
+versions are the compositions they replace (``common.rotate_fan``,
+``common._ray_invs``, ``list_sweep_plain`` or ``dense_sweep_plain``,
+``common.finish_minima``, the slice to the real beams and
+``common.apply_extent_mask``).
 
 ``SWEEP_COUNTS`` counts the list sweep's work, ``{"slots", "rows",
 "kept", "fanned"}``: the rows swept, the real slots of their lists, n_v +
@@ -47,10 +49,12 @@ versions count on the host, culling in the kernel's float32 operations
 but sweeping every real slot; the kernel adds each row to a device
 counter (``_kernels.DeviceCounts``, spread over ``COUNT_LANES`` lanes),
 which replayed CUDA graphs advance too. ``DENSE_COUNTS`` counts the dense
-sweep's, ``{"rays", "pairs"}``: the rays swept and the ray-segment pairs
-they test, v_hi + h_end - h_lo a ray; ``dense_sweep_plain`` on the host,
-the kernel a block at a time on a device counter of the same kind. Reading
-either reads those counters (a synchronisation).
+sweep's, ``{"rays", "pairs", "fanned"}``: the rays swept, the ray-segment
+pairs they test, v_hi + h_end - h_lo a ray, and the rays that
+``dense_scan`` built from poses; ``dense_sweep_plain`` and
+``dense_scan_plain`` on the host, the kernel a block at a time on a device
+counter of the same kind. Reading either reads those counters (a
+synchronisation).
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ COUNT_LANES = 128
 SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows", "kept", "fanned"),
                                      COUNT_LANES)
 # the dense kernel's counter: each block adds to lane block % COUNT_LANES
-DENSE_COUNTS = _kernels.DeviceCounts(("rays", "pairs"), COUNT_LANES)
+DENSE_COUNTS = _kernels.DeviceCounts(("rays", "pairs", "fanned"),
+                                     COUNT_LANES)
 # the list kernel's wedge cull (csrc/sector_sweep.cu, which argues the
 # numbers): the least real slots a row culls, the margin's absolute part
 # (1 mm) and its part a metre (2^-16), the unit test's tolerance (2^-20)
@@ -386,9 +391,63 @@ def dense_sweep(params, sweep_meta, x, y, cos_t, sin_t, inv_c, inv_s):
     return bv, bh
 
 
+def dense_scan_plain(params, sweep_meta, x0, y0, cth, sth, cd, sd,
+                     max_range, extent):
+    """Plain PyTorch scan of poses over every real segment: the reference
+    of ``csrc/dense_sweep.cu``'s from-poses entry, and the composition it
+    replaces. ``params`` (4, K) f32 and ``sweep_meta`` (3,) i32 as in
+    ``dense_sweep_plain``; ``x0``, ``y0``, ``cth``, ``sth`` (A,) the
+    agents' origins and headings' cos and sin; ``cd``, ``sd`` (B,) the beam
+    offsets' cos and sin. Returns (A, B) ranges clamped to ``max_range``,
+    all ``max_range`` for an origin outside ``extent``. Counts its rays in
+    ``DENSE_COUNTS.host["fanned"]``."""
+    cos_t, sin_t = rotate_fan(cth, sth, cd, sd)
+    inv_c, inv_s = _ray_invs(cos_t, sin_t)
+    flat = lambda v: v.reshape(-1)
+    bv, bh = dense_sweep_plain(
+        params, sweep_meta, flat(x0[:, None].expand(cos_t.shape)),
+        flat(y0[:, None].expand(cos_t.shape)), flat(cos_t), flat(sin_t),
+        flat(inv_c), flat(inv_s))
+    DENSE_COUNTS.host["fanned"] += cos_t.numel()
+    r = finish_minima(bv.reshape(cos_t.shape), bh.reshape(cos_t.shape),
+                      max_range)[0]
+    return apply_extent_mask(r, x0, y0, extent, max_range)
+
+
+def dense_scan(params, sweep_meta, x0, y0, cth, sth, cd, sd, max_range,
+               extent):
+    """The dense scan of poses (``dense_scan_plain``'s arguments and
+    result): ``dense_scan_plain`` on CPU tensors, the from-poses entry of
+    ``csrc/dense_sweep.cu`` on CUDA tensors, one launch;
+    ``dense_scan.launches`` counts them. ``max_range`` and ``extent`` are
+    numbers, compared in float32 as the plain version compares them."""
+    if not _kernels.on_cuda("dense_scan", params):
+        return dense_scan_plain(params, sweep_meta, x0, y0, cth, sth, cd, sd,
+                                max_range, extent)
+    if params.ndim != 2 or params.shape[0] != 4:
+        raise ValueError(f"dense_scan: params must be (4, K), got "
+                         f"{tuple(params.shape)}")
+    a_n, b_n = x0.shape[0], cd.shape[0]
+    k = params.shape[1]
+    if a_n * b_n >= 2 ** 31:
+        raise ValueError(f"dense_scan: {a_n} agents x {b_n} beams: one "
+                         "thread a ray needs fewer than 2^31 rays")
+    _check("dense_scan", params, (
+        (params, torch.float32, (4, k)), (sweep_meta, torch.int32, (3,)),
+        *((v, torch.float32, (a_n,)) for v in (x0, y0, cth, sth)),
+        *((v, torch.float32, (b_n,)) for v in (cd, sd))))
+    out = torch.empty((a_n, b_n), dtype=torch.float32, device=params.device)
+    _kernels.launch("dense_scan", "dense_scan", params, sweep_meta, x0, y0,
+                    cth, sth, cd, sd, out, a_n, b_n, k, float(max_range),
+                    *(float(e) for e in extent),
+                    DENSE_COUNTS.counter(params.device), COUNT_LANES)
+    return out
+
+
 _kernels.register(list_sweep)
 _kernels.register(list_scan)
 _kernels.register(dense_sweep)
+_kernels.register(dense_scan)
 
 
 def launch_counts() -> dict:

@@ -21,9 +21,11 @@ layer of the port; ``SPANS`` lists them all:
   ``raycast_sectors._list_ids``; the tile scan's tile and row ids,
   ``raycast_grad.raycast_tiled_diff``), in a step under ``step.scan``;
 - ``scan.fan``: the beam fan of a segment scan whose rays are built
-  outside the kernel (``raycast_segments.scan_poses_segments``), and the
-  dense route's reciprocals and flat ray tensors
-  (``raycast_grad.raycast_all_diff``), in a step under ``step.scan``;
+  outside the kernel (``raycast_segments.scan_poses_segments``: rays that
+  take a gradient, or the theta table's; the kernels' from-poses entries
+  build the others inside), and the rays-given dense route's reciprocals
+  and flat ray tensors (``raycast_grad.raycast_all_diff``), in a step
+  under ``step.scan``;
 - ``rollout.policy``, ``rollout.carry`` (a rollout step's row writes and
   carry copies), ``rollout.blocks`` (the graphed rollout's carry copy-in,
   block copies into the trajectory and final clone);

@@ -128,9 +128,9 @@ def report(maps, n_poses, beams, device):
                                        tile_size=4.0, **kw)
         smap = build_sector_map(occ, t.resolution, org, tile_size=2.0, ns=16,
                                 **kw)
-        # scans of poses without a gradient take the list kernel's entry
-        # from poses where the scan is list-routed
-        seg_kernel = "list_scan" if sm.tiles is not None else "dense_sweep"
+        # scans of poses without a gradient take a kernel's entry from
+        # poses: the list kernel's on map tiles, the dense kernel's else
+        seg_kernel = "list_scan" if sm.tiles is not None else "dense_scan"
 
         march = ("DT-march oracle", o_march)
         geom = ("geometry oracle", o_geom)

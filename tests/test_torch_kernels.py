@@ -45,8 +45,8 @@ from torch_cull_cases import BUILT_CASES, built_case, row_args
 pytestmark = pytest.mark.cuda
 
 FOV = 4.712388980384690
-# dense_sweep_kernel's registers in nvcc's report (sm_90a), as before it
-# counted its work
+# the rays-given dense_sweep_kernel's registers in nvcc's report (sm_90a),
+# as before it counted its work
 DENSE_REGISTERS = 40
 
 
@@ -494,7 +494,8 @@ def _levine_dense_args(cuda, agents):
 @pytest.mark.parametrize("case", ["mixed", "split", "levine"])
 def test_dense_sweep_counts_rays_and_pairs_on_the_device(cuda, case):
     """The dense kernel adds each block's rays and the pairs they test
-    (v_hi + h_end - h_lo a ray) to the device's counter: on the same
+    (v_hi + h_end - h_lo a ray), and no fanned ray (the rays were given),
+    to the device's counter: on the same
     inputs exactly what the plain version adds on the host, a ragged last
     block counting its live rays only; one replay of a CUDA graph of the
     sweep advances it by exactly one call's count; the outputs, eager and
@@ -527,7 +528,8 @@ def test_dense_sweep_counts_rays_and_pairs_on_the_device(cuda, case):
     plain = {k: counts.host[k] - host[k] for k in host}
     v_hi, h_lo, h_end = args[1].tolist()
     assert plain == {"rays": args[2].numel(),
-                     "pairs": args[2].numel() * (v_hi + h_end - h_lo)}
+                     "pairs": args[2].numel() * (v_hi + h_end - h_lo),
+                     "fanned": 0}
     if case == "levine":
         assert plain["pairs"] == 82 * plain["rays"]
     assert dev == plain
@@ -568,16 +570,139 @@ def test_graphed_levine_step_counts_82_pairs_a_ray(cuda):
     after = profiling.counters()["dense"]
     assert step.graphed.replays >= 3
     assert {k: after[k] - before[k] for k in after} == {
-        "rays": 3 * agents * beams, "pairs": 3 * agents * beams * 82}
+        "rays": 3 * agents * beams, "pairs": 3 * agents * beams * 82,
+        "fanned": 3 * agents * beams}
 
 
 def test_dense_kernel_keeps_its_registers(cuda, tmp_path):
-    """nvcc's resource report of ``csrc/dense_sweep.cu``: the kernel keeps
-    the registers it had before it counted its work, with no spill and no
-    stack frame."""
-    res = [r for name, r in _nvcc_resources("dense_sweep", tmp_path).items()
-           if "dense_sweep_kernel" in name]
-    assert res == [(DENSE_REGISTERS, 0, 0)], res
+    """nvcc's resource report of ``csrc/dense_sweep.cu``: both entries of
+    ``dense_sweep_kernel`` (rays given, from poses), neither spilling nor
+    with a stack frame, the rays-given one at the registers it had before
+    it counted its work."""
+    import re
+    res = {m.group(1): r for name, r in
+           _nvcc_resources("dense_sweep", tmp_path).items()
+           for m in [re.search(r"dense_sweep_kernelILb([01])E", name)] if m}
+    assert set(res) == {"0", "1"}, res
+    assert res["0"] == (DENSE_REGISTERS, 0, 0), res
+    assert res["1"][1:] == (0, 0), res
+
+
+_UNTILED = {}
+
+
+def _untiled_case(cuda, name):
+    """(segment map, 4096 free poses) of ``name`` compiled untiled on the
+    card (levine as ``build_sim`` compiles it by default; berlin with
+    ``tile_size=0``: 4442 segments, several chunks of shared memory), the
+    first pose moved outside the map's extent and the second turned to
+    heading exactly 0."""
+    if name not in _UNTILED:
+        import pyracecarsimulator_tpu_torch as P
+        from pyracecarsimulator_tpu_torch.maps import sample_free_poses
+        bundle = P.build_sim(name, device=cuda, tile_size=(
+            None if name == "levine" else 0.0))
+        assert bundle.segmap.tiles is None
+        p = torch.as_tensor(sample_free_poses(
+            bundle.track, 4096, np.random.RandomState(8)), device=cuda)
+        p[0, 0] = bundle.segmap.extent[1] + 1.0
+        p[1, 2] = 0.0
+        _UNTILED[name] = (bundle.segmap, p)
+    return _UNTILED[name]
+
+
+@pytest.mark.parametrize("name", ["levine", "berlin"])
+def test_dense_scan_equals_plain_and_the_rays_given_path(cuda, name):
+    """The scan of 4096 poses x 1080 beams over every real segment on the
+    dense kernel's entry from poses (one ``dense_scan`` launch) against
+    ``dense_scan_plain`` on the same card tensors and against the same
+    scan with the poses taking a gradient (the rays-given kernel and the
+    glue around it, one ``dense_sweep`` launch): 0 mismatches, eager and
+    from a replayed CUDA graph; the same rays and pairs on the device
+    counter, every ray of the first and none of the second fanned."""
+    from pyracecarsimulator_tpu_torch.ops.common import offset_factors
+    m, p = _untiled_case(cuda, name)
+    counts = sweeps.DENSE_COUNTS
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        c0, n0 = dict(counts), sweeps.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: counts[k] - c0[k] for k in c0}, {
+            k: n - n0[k] for k, n in sweeps.launch_counts().items()
+            if n != n0[k]}
+
+    scan = lambda q: rseg.scan_poses_segments(m, q)
+    scan(p)                     # the counter and constants, before capture
+    fused, c_f, n_f = counted(lambda: scan(p))
+    q = p.clone().requires_grad_(True)
+    given, c_g, n_g = counted(lambda: scan(q).detach())
+    assert n_f == {"dense_scan": 1} and n_g == {"dense_sweep": 1}
+    assert int((fused != given).sum()) == 0 and torch.equal(fused, given)
+    assert bool((fused[0] == 10.0).all()) and bool((fused < 10.0).any())
+    rays = 4096 * 1080
+    assert c_f == {"rays": rays, "pairs": rays * m.n_segments,
+                   "fanned": rays}
+    assert c_g == {**c_f, "fanned": 0}
+    cd, sd = offset_factors(1080, FOV, 1, cuda)
+    args = (m.params, m.sweep_meta, p[:, 0].contiguous(),
+            p[:, 1].contiguous(), torch.cos(p[:, 2]), torch.sin(p[:, 2]), cd,
+            sd, 10.0, m.extent)
+    plain = sweeps.dense_scan_plain(*args)
+    assert int((fused != plain).sum()) == 0
+    assert torch.equal(sweeps.dense_scan(*args), fused)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = scan(p)
+    _, c_r, _ = counted(graph.replay)
+    assert torch.equal(out, fused) and c_r == c_f
+
+
+def test_dense_scan_on_an_odd_fan_at_heading_zero(cuda):
+    """An odd beam count's middle offset is exactly 0: at heading 0 its
+    sine is 0 and its reciprocal NaN. The entry from poses on the card,
+    on a ragged agent count, equals the scan with the poses taking a
+    gradient (the rays-given kernel) bit for bit, and, given the same
+    factors (the card's cos and sin differ from the CPU's by an ulp on
+    some inputs), the plain composition on the CPU."""
+    from pyracecarsimulator_tpu_torch.ops.common import offset_factors
+    m, p = _untiled_case(cuda, "levine")
+    poses = p[:301].clone()
+    poses[2:9, 2] = 0.0
+    for num_beams in (541, 1080):
+        fused = rseg.scan_poses_segments(m, poses, num_beams)
+        q = poses.clone().requires_grad_(True)
+        assert torch.equal(fused, rseg.scan_poses_segments(m, q, num_beams))
+        cd, sd = offset_factors(num_beams, FOV, 1, cuda)
+        args = (m.params, m.sweep_meta, poses[:, 0].contiguous(),
+                poses[:, 1].contiguous(), torch.cos(poses[:, 2]),
+                torch.sin(poses[:, 2]), cd, sd, 10.0, m.extent)
+        assert torch.equal(sweeps.dense_scan(*args), fused)
+        plain = sweeps.dense_scan_plain(*(a.cpu() if torch.is_tensor(a)
+                                          else a for a in args))
+        assert torch.equal(fused.cpu(), plain)
+
+
+def test_dense_scan_rejects_bad_inputs(cuda):
+    params = torch.zeros(4, 256, device=cuda)
+    meta = torch.tensor([0, 128, 128], dtype=torch.int32, device=cuda)
+    agents = [torch.ones(30, device=cuda) for _ in range(4)]
+    fan = [torch.ones(64, device=cuda) for _ in range(2)]
+    ext = (0.0, 1.0, 0.0, 1.0)
+    with pytest.raises(ValueError, match="int32"):
+        sweeps.dense_scan(params, meta.long(), *agents, *fan, 10.0, ext)
+    with pytest.raises(ValueError, match=r"\(4, K\)"):
+        sweeps.dense_scan(params[:3], meta, *agents, *fan, 10.0, ext)
+    with pytest.raises(ValueError, match="float32"):
+        sweeps.dense_scan(params, meta, *agents[:3], agents[3].double(),
+                          *fan, 10.0, ext)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweeps.dense_scan(params, meta, *agents, torch.ones(
+            128, device=cuda)[::2], fan[1], 10.0, ext)
+    with pytest.raises(ValueError, match=r"\(30,\)"):
+        sweeps.dense_scan(params, meta, *agents[:3],
+                          torch.ones(31, device=cuda), *fan, 10.0, ext)
 
 
 def _blobby(seed, n_blocks):

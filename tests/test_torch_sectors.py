@@ -291,14 +291,14 @@ def test_block_width_matches_jax(blobby_bigk):
 
 def test_build_command_flags():
     """Hopper target, no FMA contraction, no fast math, for every kernel's
-    source (the sweeps', whose list kernel has an entry from poses too,
-    the general sweep's, the EDF march's, which
+    source (the sweeps', whose list and dense kernels each have an entry
+    from poses too, the general sweep's, the EDF march's, which
     holds the march, its gradient, their persistent grid's query and the
     implicit march's pose VJP, and the chamfer stencil's, which holds the
     stencil and its gradient), each entry point a C function of its
     source."""
     assert set(_kernels._SIGNATURES) == {"sector_sweep", "list_scan",
-                                         "dense_sweep",
+                                         "dense_sweep", "dense_scan",
                                          "edf_march", "edf_march_grad",
                                          "edf_march_wave",
                                          "implicit_pose_vjp",

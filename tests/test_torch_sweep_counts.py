@@ -7,9 +7,10 @@ them; the plain version counts on the host, the kernel on the device
 (``tests/test_torch_kernels.py`` holds the two equal on the card).
 ``scan.route`` spans the routing of rows to cull lists inside
 ``step.scan``. ``ops/sweeps.DENSE_COUNTS`` (``counters()["dense"]``)
-counts the dense sweep's rays and the pairs they test, v_hi + h_end - h_lo
-a ray, and ``scan.fan`` spans the fan, reciprocals and flat rays that the
-dense route builds outside its kernel. The card's side of the counts:
+counts the dense sweep's rays, the pairs they test, v_hi + h_end - h_lo
+a ray, and the rays its entry from poses built; ``scan.fan`` spans the
+fan, reciprocals and flat rays that the rays-given dense route builds
+outside its kernel. The card's side of the counts:
 ``tests/test_torch_kernels.py``.
 """
 
@@ -267,7 +268,7 @@ def test_a_step_records_scan_route_inside_step_scan(track, tracing,
 def test_dense_sweep_plain_counts_rays_and_pairs(meta, k, pairs):
     """``dense_sweep_plain`` adds its rays, and v_hi + h_end - h_lo pairs
     a ray with the bounds clamped to the table as the kernel clamps them,
-    to ``counters()["dense"]``."""
+    to ``counters()["dense"]``, and no fanned ray: the rays were given."""
     n = 37
     params = torch.zeros(4, k)
     rays = [torch.rand(n) for _ in range(6)]
@@ -276,13 +277,15 @@ def test_dense_sweep_plain_counts_rays_and_pairs(meta, k, pairs):
                              *rays)
     after = profiling.counters()["dense"]
     assert {c: after[c] - before[c] for c in after} == {
-        "rays": n, "pairs": n * pairs}
+        "rays": n, "pairs": n * pairs, "fanned": 0}
 
 
 def test_a_dense_scan_counts_every_ray_against_every_segment(track):
     """A scan of poses over an untiled map takes the dense route: its rays
     are the poses' beams, each tested against every real segment; a scan
-    differentiated in the poses counts its one forward sweep."""
+    without a gradient builds every ray from poses (fanned), one
+    differentiated in the poses counts its one forward sweep and no
+    fanned ray."""
     occ = _occupancy()
     flat = build_segment_map(occ, RES, ORIGIN, max_range=MAX_RANGE,
                              tile_size=0.0, real_hw=occ.shape, device="cpu")
@@ -299,22 +302,26 @@ def test_a_dense_scan_counts_every_ray_against_every_segment(track):
             assert q.grad is not None
         after = profiling.counters()["dense"]
         assert {c: after[c] - before[c] for c in after} == {
-            "rays": 6 * BEAMS, "pairs": 6 * BEAMS * flat.n_segments}
+            "rays": 6 * BEAMS, "pairs": 6 * BEAMS * flat.n_segments,
+            "fanned": 0 if grad else 6 * BEAMS}
 
 
 def test_dense_counts_add_the_device_counters_lanes():
     """``DENSE_COUNTS`` is the plain version's host counts plus every
-    device's (lanes, 2) counter of [rays, pairs], summed over its lanes at
-    each lookup; a CPU tensor stands in for a device's counter here."""
-    counts = _kernels.DeviceCounts(("rays", "pairs"), sweeps.COUNT_LANES)
-    counts.host.update(rays=3, pairs=246)
+    device's (lanes, 3) counter of [rays, pairs, fanned], summed over its
+    lanes at each lookup; a CPU tensor stands in for a device's counter
+    here."""
+    counts = _kernels.DeviceCounts(("rays", "pairs", "fanned"),
+                                   sweeps.COUNT_LANES)
+    counts.host.update(rays=3, pairs=246, fanned=3)
     c = counts.counter(torch.device("cpu"))
-    assert tuple(c.shape) == (sweeps.COUNT_LANES, 2) and not c.any()
-    c[0] = torch.tensor([256, 256 * 82])
-    c[-1] = torch.tensor([2 ** 36, 82 * 2 ** 36])
+    assert tuple(c.shape) == (sweeps.COUNT_LANES, 3) and not c.any()
+    c[0] = torch.tensor([256, 256 * 82, 0])
+    c[-1] = torch.tensor([2 ** 36, 82 * 2 ** 36, 2 ** 36])
     assert dict(counts) == {"rays": 259 + 2 ** 36,
-                            "pairs": 82 * (259 + 2 ** 36)}
-    assert set(sweeps.DENSE_COUNTS) == {"rays", "pairs"}
+                            "pairs": 82 * (259 + 2 ** 36),
+                            "fanned": 3 + 2 ** 36}
+    assert sweeps.DENSE_COUNTS.columns == ("rays", "pairs", "fanned")
     assert sweeps.DENSE_COUNTS.lanes == sweeps.COUNT_LANES
     got = profiling.counters()
     assert got["dense"] == dict(sweeps.DENSE_COUNTS)
@@ -323,50 +330,62 @@ def test_dense_counts_add_the_device_counters_lanes():
 
 def test_a_dense_step_records_scan_fan_inside_step_scan(track):
     """With tracing on (set up here, and put back as it was), a step on an
-    untiled map records ``scan.fan`` inside ``step.scan``, twice: the fan,
-    then the reciprocals and flat rays of the dense sweep, which lie
-    outside both; no ``scan.route``. With tracing off the step runs the
-    same aten operations in the same order and records no span."""
+    untiled map that builds its rays outside the kernel (the theta table's
+    fan: the rays-given route) records ``scan.fan`` inside ``step.scan``,
+    twice: the fan, then the reciprocals and flat rays of the dense sweep,
+    which lie outside both; no ``scan.route``. The same step on the exact
+    fan takes the kernel's entry from poses and records no ``scan.fan``.
+    With tracing off each step runs the same aten operations in the same
+    order and records no span."""
     from torch.profiler import ProfilerActivity, profile
     assert "scan.fan" in profiling.SPANS
-    bundle = P.build_sim(track, scan=P.ScanParams(num_beams=BEAMS,
-                                                  max_range=MAX_RANGE),
-                         backend="segments", tile_size=0.0, device="cpu")
-    assert bundle.segmap.tiles is None
     p = _poses(track, 8, 5)
     state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
     act = (torch.full((8,), 2.0), torch.zeros(8))
-    step = P.make_step_fn(bundle, with_noise=False)
     was_on = profiling.enabled()
-    seqs = {}
     try:
-        profiling.disable()
-        step(state, act)        # the scan's cached constants, made once
-        for on in (True, False):
-            profiling.enable() if on else profiling.disable()
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
-                step(state, act)
-            ev = sorted(prof.events(), key=lambda e: e.time_range.start)
-            seqs[on] = [e.name for e in ev if e.name.startswith("aten::")]
-            spans = [e for e in ev if e.name in profiling.SPANS]
-            if not on:
-                assert not spans
-                continue
-            fans = [e.time_range for e in spans if e.name == "scan.fan"]
-            scans = [e.time_range for e in spans if e.name == "step.scan"]
-            assert len(fans) == 2 and len(scans) == 1
-            assert not [e for e in spans if e.name == "scan.route"]
-            s = scans[0]
-            assert all(s.start <= f.start and f.end <= s.end for f in fans)
-            assert fans[0].end <= fans[1].start
-            inside = [{e.name for e in ev if f.start <= e.time_range.start
-                       and e.time_range.end <= f.end} for f in fans]
-            assert "aten::cos" in inside[0] and "aten::sin" in inside[0]
-            assert "aten::reciprocal" in inside[1] or \
-                "aten::div" in inside[1]
+        for table in (True, False):
+            bundle = P.build_sim(
+                track, scan=P.ScanParams(num_beams=BEAMS, max_range=MAX_RANGE,
+                                         use_theta_table=table),
+                backend="segments", tile_size=0.0, device="cpu")
+            assert bundle.segmap.tiles is None
+            step = P.make_step_fn(bundle, with_noise=False)
+            seqs = {}
+            profiling.disable()
+            step(state, act)        # the scan's cached constants, made once
+            for on in (True, False):
+                profiling.enable() if on else profiling.disable()
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    step(state, act)
+                ev = sorted(prof.events(), key=lambda e: e.time_range.start)
+                seqs[on] = [e.name for e in ev
+                            if e.name.startswith("aten::")]
+                spans = [e for e in ev if e.name in profiling.SPANS]
+                if not on:
+                    assert not spans
+                    continue
+                fans = [e.time_range for e in spans if e.name == "scan.fan"]
+                scans = [e.time_range for e in spans
+                         if e.name == "step.scan"]
+                assert len(scans) == 1
+                assert not [e for e in spans if e.name == "scan.route"]
+                if not table:
+                    assert not fans
+                    continue
+                assert len(fans) == 2
+                s = scans[0]
+                assert all(s.start <= f.start and f.end <= s.end
+                           for f in fans)
+                assert fans[0].end <= fans[1].start
+                inside = [{e.name for e in ev if f.start <= e.time_range.start
+                           and e.time_range.end <= f.end} for f in fans]
+                assert "aten::cos" in inside[0] and "aten::sin" in inside[0]
+                assert "aten::reciprocal" in inside[1] or \
+                    "aten::div" in inside[1]
+            assert seqs[True] == seqs[False]
     finally:
         profiling.enable() if was_on else profiling.disable()
-    assert seqs[True] == seqs[False]
 
 
 @pytest.mark.parametrize("counters, want", [

@@ -349,7 +349,7 @@ def test_counters_gather_the_ports_counters():
     assert got["sweep"] == dict(sweeps.SWEEP_COUNTS)
     assert set(got["sweep"]) == {"rows", "slots", "kept", "fanned"}
     assert got["dense"] == dict(sweeps.DENSE_COUNTS)
-    assert set(got["dense"]) == {"rays", "pairs"}
+    assert set(got["dense"]) == {"rays", "pairs", "fanned"}
     del g
 
 
