@@ -109,7 +109,10 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     ``general_sweep`` against its plain version on the card on the full
     4096 x 1080 fan, min-only and winner (0 mismatches on the ranges, wx
     and wy), with time, plain time and bound (and the bound at 27
-    operations a real pair beside it); on the first map also against it
+    operations a real pair beside it), the rays and pairs on its device
+    counter equal to the plain version's (``sweeps.GENERAL_COUNTS``), and
+    from nvcc's report both instantiations at ``GENERAL_REGISTERS``, no
+    spill, no stack frame; on the first map also against it
     on the adversarial set of ``tests/torch_general_cases.py`` (0
     mismatches in both modes, flat and per list, unknown lists NaN); the
     CUDA scan against the CPU scan given the same fan (bit-identical); one
@@ -355,6 +358,9 @@ CULL_OPS_PER_SLOT = 29
 # the rays-given dense_sweep_kernel's registers in nvcc's report (sm_90a),
 # as before it counted its work (tests/test_torch_kernels.py holds the same)
 DENSE_REGISTERS = 40
+# general_sweep_kernel's, min-only and winner, as before it counted its
+# work (tests/test_torch_kernels.py holds the same)
+GENERAL_REGISTERS = {"min": 48, "winner": 56}
 # each kernel's entry from poses, once a ray besides the sweep: the fan
 # 6 (four multiplies, a subtract, an add), two reciprocals 2 and their zero
 # tests 2, the minimum and the clamp 2, the extent test 4 and its select 1
@@ -989,6 +995,26 @@ def dense_resources():
           and out["rays given"].get("registers") == DENSE_REGISTERS,
           f"a dense kernel entry spills, has a stack frame, or the "
           f"rays-given one left its {DENSE_REGISTERS} registers: {out}")
+    return out
+
+
+def general_resources():
+    """Both instantiations of ``general_sweep_kernel`` (min-only, winner):
+    registers, stack frame and spills from nvcc's ``--resource-usage``
+    report of this build. Each keeps the ``GENERAL_REGISTERS`` it had
+    before it counted its work, with no spill and no stack frame."""
+    def label_of(name):
+        m = re.search(r"general_sweep_kernelILb([01])E", name)
+        return m and ("winner" if m.group(1) == "1" else "min")
+    out = resource_report("general_sweep", label_of)
+    for label, res in sorted(out.items()):
+        log(f"general_sweep_kernel, {label}: {res}")
+    check(set(out) == {"min", "winner"}
+          and all(out[k].get("registers") == GENERAL_REGISTERS[k]
+                  and out[k].get("spill_stores", 0) == 0
+                  and out[k].get("stack", 0) == 0 for k in out),
+          f"a general kernel instantiation spills, has a stack frame, or "
+          f"left its registers {GENERAL_REGISTERS}: {out}")
     return out
 
 
@@ -2263,13 +2289,15 @@ def occupancy_scan_phase(card, track, poses):
 def simplified_phase(card, name, track, poses, rates, errs, times):
     """14: the "segments_simplified" backend on one map: the general
     sweep against its plain version on the full fan, both modes, timed
-    beside its bound; the scan on the card against the CPU's; one launch
+    beside its bound, and its device counter's rays and pairs against the
+    plain version's; the scan on the card against the CPU's; one launch
     a scan; the step and the rollout, counted."""
     import torch
     from pyracecarsimulator_tpu_torch import build_sim, make_scan_fn
     from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
     from pyracecarsimulator_tpu_torch.ops.common import (apply_extent_mask,
                                                          rays_from_poses)
+    from pyracecarsimulator_tpu_torch.ops.sweeps import GENERAL_COUNTS
     out = {}
     t0 = time.perf_counter()
     bundle = build_sim(track, backend="segments_simplified", device="cuda")
@@ -2296,9 +2324,22 @@ def simplified_phase(card, name, track, poses, rates, errs, times):
     layout = "tiled" if gmap.tiles is not None else "flat"
     for winner in (False, True):
         mode = "winner" if winner else "min"
+        counted = [dict(GENERAL_COUNTS)]
         got = rg.general_sweep(*args[0], winner)
+        counted.append(dict(GENERAL_COUNTS))
         ref = rg.general_sweep_plain(*args[0], winner)
+        counted.append(dict(GENERAL_COUNTS))
         torch.cuda.synchronize()
+        # the kernel's device counter against the plain version's host one
+        k_counts, p_counts = ({c: b[c] - a[c] for c in a}
+                              for a, b in zip(counted, counted[1:]))
+        log(f"[{name}] general_sweep {mode} counts: kernel {k_counts}, "
+            f"plain {p_counts}")
+        check(k_counts == p_counts and k_counts["rays"] == got[0].numel()
+              and k_counts["pairs"] > 0,
+              f"{name}: general_sweep {mode} counted {k_counts}, its plain "
+              f"version {p_counts}")
+        out[f"counts {mode}"] = k_counts
         pairs = [(k, a, b) for k, a, b in zip(("best", "wx", "wy"), got, ref)
                  if a is not None]
         mism = {k: int((a != b).sum()) for k, a, b in pairs}
@@ -3662,6 +3703,7 @@ def run():
     rates["march_resources"] = march_resources()
     rates["list_resources"] = list_resources()
     rates["dense_resources"] = dense_resources()
+    rates["general_resources"] = general_resources()
     log(f"bounds: {OPS_PER_TEST} instruction slots per test over "
         f"{rates['sms']} SMs x {LANES_PER_SM} lanes x "
         f"{rates['sm_clock_max_mhz']:.0f} MHz (clocks.max.sm) = {rates['slots_per_s']:.4e} slots/s; HBM "

@@ -89,6 +89,20 @@
 //    overflows to inf; thr is at most 3e38, so hi is finite.
 // 3. The winner's two divisions run only where a valid t reaches the
 //    chunk's running minimum.
+// Work count. As the block ends, its thread 0 adds the block's live rays,
+// and the pairs they test (n_real a ray: every ray of a block sweeps the
+// same list up to its last real slot; 0 for a row whose list is unknown),
+// to a (kLanes, 2) int64 device counter, [rays, pairs] in lane blockIdx.x %
+// kLanes, which the host sums on read (ops/sweeps.GENERAL_COUNTS): two adds
+// with no return value, spread over lanes to keep the blocks of a 4096 x
+// 1080 launch off one address. A replayed CUDA graph adds too. The skips of
+// 2 and 3 happen inside a pair: a skipped pair is still a pair tested. The
+// count reads nothing the sweep keeps (n_real from shared memory, the first
+// column from the block's index) and lives in a function kept out of line:
+// so placed, both instantiations keep the registers they had before they
+// counted (48 min-only, 56 winner); inline, before the sweep or after it,
+// the min-only one took 56 registers and ran 1.2-2% slower on an H100
+// (PERF.md).
 // Tensor cores do not apply (2-term products whose rounding order must be
 // the plain version's); TMA or cp.async do not pay (a list is at most a
 // few KB, staged once a block). PERF.md holds the times measured on an
@@ -106,6 +120,7 @@ constexpr int kRays = 2;                  // rays a thread
 constexpr int kThreads = 128 / kRays;     // a block spans 128 columns
 constexpr int kCols = kThreads * kRays;
 constexpr int kStage = 512;  // the largest chunk: _fit_chunk(K, 512)
+constexpr int kLanes = 128;  // lanes of the work counter (a power of 2)
 
 struct Rays {
   const float* x;
@@ -134,12 +149,25 @@ struct Ray {
   int tied;
 };
 
+// the work count of a block of `cols`-column rows that sweeps `n_real`
+// slots a ray (Work count above)
+__device__ __noinline__ void count_block(unsigned long long* counts,
+                                         int col_blocks, int cols,
+                                         int n_real) {
+  const int first = (blockIdx.x % col_blocks) * kCols;
+  const unsigned long long rays =
+      static_cast<unsigned long long>(min(kCols, cols - first));
+  unsigned long long* lane_c = counts + 2 * (blockIdx.x & (kLanes - 1));
+  atomicAdd(&lane_c[0], rays);
+  atomicAdd(&lane_c[1], rays * static_cast<unsigned long long>(n_real));
+}
+
 template <bool kWinner>
 __global__ void __launch_bounds__(kThreads) general_sweep_kernel(
     const float* __restrict__ table, int n_lists, int k, int chunk,
     const int* __restrict__ ids, Rays r, int cols, int col_blocks,
     float* __restrict__ best_out, float* __restrict__ wx_out,
-    float* __restrict__ wy_out) {
+    float* __restrict__ wy_out, unsigned long long* __restrict__ counts) {
   extern __shared__ float4 seg[];        // chunk slots (p0x, p0y, ex, ey)
   float* len = reinterpret_cast<float*>(seg + chunk);  // chunk lengths
   __shared__ int n_real;                 // 1 + the list's last real slot
@@ -272,6 +300,7 @@ __global__ void __launch_bounds__(kThreads) general_sweep_kernel(
       wy_out[i] = known ? ray[j].wy : nan;
     }
   }
+  if (threadIdx.x == 0) count_block(counts, col_blocks, cols, n_real);
 }
 
 bool fits(long long v) { return v >= 0 && v <= 0x7fffffffLL; }
@@ -283,21 +312,23 @@ bool fits(long long v) { return v >= 0 && v <= 0x7fffffffLL; }
 // only best. Device pointers: table (n_lists, 6, k) f32 contiguous; ids
 // (rows,) i32 or null (every row list 0); x, y, cos, sin f32 read at
 // [row * s_row + col * s_col]; best, wx, wy (rows * cols,) f32 contiguous
-// (wx and wy null without winner). chunk divides k and is at most 512.
-// Sizes and offsets below 2^31.
+// (wx and wy null without winner); counts (lanes, 2) u64 [rays, pairs],
+// lanes 128. chunk divides k and is at most 512. Sizes and offsets below
+// 2^31.
 extern "C" int general_sweep_launch(
     int winner, const void* table, long long n_lists, long long k,
     long long chunk, const void* ids, const void* x, const void* y,
     const void* cos_t, const void* sin_t, long long sx0, long long sx1,
     long long sy0, long long sy1, long long sc0, long long sc1,
     long long ss0, long long ss1, long long rows, long long cols,
-    void* best, void* wx, void* wy, void* stream) {
+    void* best, void* wx, void* wy, void* counts, int lanes, void* stream) {
   if (rows * cols <= 0) return 0;
   const long long st[8] = {sx0, sx1, sy0, sy1, sc0, sc1, ss0, ss1};
   const long long col_blocks = (cols + kCols - 1) / kCols;
   if (n_lists <= 0 || k <= 0 || chunk <= 0 || chunk > kStage ||
       k % chunk != 0 || !fits(n_lists * 6 * k) || !fits(rows * cols) ||
-      !fits(rows * col_blocks) || (winner && (wx == nullptr || wy == nullptr))) {
+      !fits(rows * col_blocks) || counts == nullptr || lanes != kLanes ||
+      (winner && (wx == nullptr || wy == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Rays r;
@@ -320,17 +351,18 @@ extern "C" int general_sweep_launch(
   const float* tb = static_cast<const float*>(table);
   const int* id = static_cast<const int*>(ids);
   float* b = static_cast<float*>(best);
+  unsigned long long* cnt = static_cast<unsigned long long*>(counts);
   if (winner) {
     general_sweep_kernel<true><<<grid, kThreads, smem, s>>>(
         tb, static_cast<int>(n_lists), static_cast<int>(k),
         static_cast<int>(chunk), id, r, static_cast<int>(cols),
         static_cast<int>(col_blocks), b, static_cast<float*>(wx),
-        static_cast<float*>(wy));
+        static_cast<float*>(wy), cnt);
   } else {
     general_sweep_kernel<false><<<grid, kThreads, smem, s>>>(
         tb, static_cast<int>(n_lists), static_cast<int>(k),
         static_cast<int>(chunk), id, r, static_cast<int>(cols),
-        static_cast<int>(col_blocks), b, nullptr, nullptr);
+        static_cast<int>(col_blocks), b, nullptr, nullptr, cnt);
   }
   return static_cast<int>(cudaGetLastError());
 }

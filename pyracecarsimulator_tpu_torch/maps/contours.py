@@ -10,6 +10,51 @@ Douglas-Peucker at ``tol_cells`` collapses them into a few hundred general
 The host code is the JAX module's NumPy, unchanged, so the segment tables
 equal its build bit for bit; ``GeneralSegmentMap`` holds them as tensors
 on a device.
+
+The rules of ``extract_general_segments``, in full (a plain reference
+can rebuild the same segment set from them):
+
+1. Edges. Outside the grid is free. Every unit cell edge between an
+   occupied and a free cell is one directed edge between integer grid
+   corners (x, y), oriented so that the occupied cell lies on its left.
+   They are emitted in this order: first the edges of constant x, for
+   each (row i, column j) in row-major order with cells (i, j - 1) and
+   (i, j) of different occupancy, going +y from (j, i) to (j, i + 1)
+   where (i, j - 1) is the occupied one, else -y from (j, i + 1) to
+   (j, i); then the edges of constant y, for each (i, j) in row-major
+   order with cells (i - 1, j) and (i, j) of different occupancy, going
+   +x from (j, i) to (j + 1, i) where (i, j) is occupied, else -x from
+   (j + 1, i) to (j, i). A corner's outgoing edges keep this order.
+2. Loops. The corners are ranked by the first emitted edge that starts
+   at them. Each loop starts at the first corner in that rank that still
+   has an untraced outgoing edge and leaves it by the first of those in
+   emission order. At every later corner it takes, of the corner's
+   untraced outgoing edges, the one that turns most to the left of the
+   edge it arrived by (a left turn before straight on before a right
+   turn; only a corner where two occupied cells touch diagonally has a
+   choice). Each edge taken is traced. The loop ends when it comes back
+   to its start corner (or, never on a grid's boundary, at a corner with
+   no untraced edge left); its vertices are the corners visited from the
+   start on, the start once. Loops of fewer than 4 corners are dropped.
+   Loops keep their order of tracing.
+3. Simplification (``tol_cells`` > 0), each loop on its own; a loop of
+   fewer than 8 vertices is kept as it is. Anchors: vertex 0 and vertex
+   k, the first vertex whose float64 ``np.hypot`` distance from vertex 0
+   is the largest. The open polylines v[0..k] and v[k..n-1] followed by
+   v[0] are each simplified by Douglas-Peucker with their ends kept:
+   between two kept vertices a and b, each vertex between them has the
+   distance d, in float64 and rounded operation by operation as written,
+   ``|(dx / L) * ry - (dy / L) * rx|`` with (dx, dy) = v[b] - v[a],
+   ``L = np.hypot(dx, dy)`` and (rx, ry) = the vertex less v[a] (where
+   L = 0: ``np.hypot(rx, ry)``); the first vertex of the largest d is
+   kept where d > ``tol_cells`` (strictly), and both halves it makes are
+   simplified in turn. The loop is then the kept vertices of the first
+   polyline but its last, followed by those of the second but its last.
+4. Segments. Each loop, closed by its first vertex, gives one segment a
+   pair of consecutive vertices a, b: (dx, dy) = b - a, ``L =
+   np.hypot(dx, dy)``, a pair with L = 0 dropped, and the row
+   ``[ox + a_x * resolution, oy + a_y * resolution, dx / L, dy / L,
+   L * resolution, 0]``, in float64, loop after loop.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ the current stream, counted on its wrapper), the registry of wrappers
 (``register``, ``wrappers``) whose ``.launches`` counters
 ``ops/sweeps.launch_counts`` reads, and ``DeviceCounts``, the work counts
 that kernels add to on the device (``raymarch_xla.MARCH_COUNTS``,
-``sweeps.SWEEP_COUNTS``, ``sweeps.DENSE_COUNTS``).
+``sweeps.SWEEP_COUNTS``, ``sweeps.DENSE_COUNTS``,
+``sweeps.GENERAL_COUNTS``).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ _SIGNATURES = {
                           + [_P] * 3),
     "general_sweep": ("general_sweep", "general_sweep_launch",
                       [_I, _P, _L, _L, _L] + [_P] * 5 + [_L] * 10
-                      + [_P] * 4),
+                      + [_P] * 4 + [_I, _P]),
     "soft_edt": ("soft_edt", "soft_edt_launch",
                  [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P]),
     "soft_edt_grad": ("soft_edt", "soft_edt_grad_launch",

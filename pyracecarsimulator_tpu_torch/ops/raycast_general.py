@@ -36,7 +36,8 @@ import torch
 from . import _kernels
 from .common import apply_extent_mask, rays_from_poses, tile_ids
 from .raymarch_xla import INDEX_LIMIT, _as_rows
-from .sweeps import _PLAIN_BYTES_BUDGET
+from .sweeps import _PLAIN_BYTES_BUDGET, COUNT_LANES, GENERAL_COUNTS
+from ..utils.profiling import span
 
 _BIG = 3.0e38
 # the JAX sweeps' slot chunk (``raycast_general``'s default ``chunk``)
@@ -104,7 +105,10 @@ def general_sweep_plain(table, ids, x, y, cos_t, sin_t, winner: bool):
     ``csrc/general_sweep.cu``. Same arguments and returns as
     ``general_sweep``. The rays go in blocks of rows and columns whose
     (rays x chunk) intermediates stay within ``_PLAIN_BYTES_BUDGET``; a
-    ray's values do not depend on its block."""
+    ray's values do not depend on its block. Adds the rays, and the pairs
+    they test as the kernel counts them (each ray its row's list up to
+    the list's last slot of length >= 0), to ``GENERAL_COUNTS.host`` (a
+    synchronisation on the card)."""
     x, y, cos_t, sin_t = torch.broadcast_tensors(x, y, cos_t, sin_t)
     shape = x.shape
     views = [_as_rows(v) for v in (x, y, cos_t, sin_t)]
@@ -112,6 +116,11 @@ def general_sweep_plain(table, ids, x, y, cos_t, sin_t, winner: bool):
     k = table.shape[2]
     chunk = _fit_chunk(k)
     lists = table[:1] if ids is None else table.index_select(0, ids.long())
+    slot = torch.arange(1, k + 1, device=table.device)
+    n_real = torch.where(lists[:, 4] >= 0.0, slot, 0).amax(dim=1)
+    GENERAL_COUNTS.host["rays"] += rows * cols
+    GENERAL_COUNTS.host["pairs"] += cols * int(
+        n_real.sum() * (rows if ids is None else 1))
     best = torch.full((rows, cols), _BIG, dtype=torch.float32,
                       device=table.device)
     wx = torch.zeros_like(best)
@@ -147,7 +156,8 @@ def general_sweep(table, ids, x, y, cos_t, sin_t, winner: bool):
     hit t (3e38 where nothing is hit) and, with ``winner``, the winning
     segment's (nx, ny) / (u . n) with the JAX scan's ties (module doc);
     without it (best, None, None). ``general_sweep.launches`` counts
-    kernel launches."""
+    kernel launches; the kernel adds its rays and pairs to
+    ``sweeps.GENERAL_COUNTS``' device counter."""
     if not _kernels.on_cuda("general_sweep", table):
         return general_sweep_plain(table, ids, x, y, cos_t, sin_t, winner)
     if (table.dim() != 3 or table.shape[1] != 6 or table.shape[0] < 1
@@ -187,7 +197,8 @@ def general_sweep(table, ids, x, y, cos_t, sin_t, winner: bool):
         _kernels.launch("general_sweep", "general_sweep", int(winner), table,
                         l_n, k, chunk, ids, *views,
                         *(s for v in views for s in v.stride()), rows, cols,
-                        *out, *(None,) * (3 - len(out)))
+                        *out, *(None,) * (3 - len(out)),
+                        GENERAL_COUNTS.counter(table.device), COUNT_LANES)
     return (out[0], None, None) if not winner else tuple(out)
 
 
@@ -236,9 +247,11 @@ def raycast_general_tiled(tiles, tiles_shape, tile_size, tile_origin,
                           x0, y0, x, y, cos_t, sin_t, max_range=10.0):
     """Tile-culled differentiable raycast: agents at ``x0``/``y0`` (A,)
     sweep their map tile's list of ``tiles`` (T, 6, K_tile); rays (A, B).
-    ``tiles``, ``x0`` and ``y0`` get no gradient."""
-    return _raycast(tiles, tile_ids(tiles_shape, tile_size, tile_origin,
-                                    x0, y0), x, y, cos_t, sin_t, max_range)
+    ``tiles``, ``x0`` and ``y0`` get no gradient. The tile ids are spanned
+    as ``scan.route``."""
+    with span("scan.route"):
+        ids = tile_ids(tiles_shape, tile_size, tile_origin, x0, y0)
+    return _raycast(tiles, ids, x, y, cos_t, sin_t, max_range)
 
 
 def raycast_general_numpy(segs: np.ndarray, x, y, cos_t, sin_t,
@@ -267,9 +280,10 @@ def scan_poses_general(gmap, poses, num_beams: int = 1080,
                        use_tiles: bool = True) -> torch.Tensor:
     """Full lidar scans for poses (..., 3) on the simplified-geometry
     backend, on the map's device; differentiable in the poses. Returns
-    (..., num_beams)."""
-    batch, poses2, xb, yb, ct, st = rays_from_poses(
-        poses.to(torch.float32), num_beams, fov, theta_discretization)
+    (..., num_beams). The fan is spanned as ``scan.fan``."""
+    with span("scan.fan"):
+        batch, poses2, xb, yb, ct, st = rays_from_poses(
+            poses.to(torch.float32), num_beams, fov, theta_discretization)
     if use_tiles and gmap.tiles is not None:
         r = raycast_general_tiled(gmap.tiles, gmap.tiles_shape,
                                   gmap.tile_size, gmap.tile_origin,

@@ -53,8 +53,13 @@ sweep's, ``{"rays", "pairs", "fanned"}``: the rays swept, the ray-segment
 pairs they test, v_hi + h_end - h_lo a ray, and the rays that
 ``dense_scan`` built from poses; ``dense_sweep_plain`` and
 ``dense_scan_plain`` on the host, the kernel a block at a time on a device
-counter of the same kind. Reading either reads those counters (a
-synchronisation).
+counter of the same kind. ``GENERAL_COUNTS`` counts the general-segment
+sweep's (``ops/raycast_general.general_sweep``, the "segments_simplified"
+backend), ``{"rays", "pairs"}``: the rays swept and the ray-segment pairs
+they test, each ray its list's real slots up to the last; its plain
+version on the host, ``csrc/general_sweep.cu`` a block at a time on a
+device counter of the same kind. Reading any of them reads those counters
+(a synchronisation).
 """
 
 from __future__ import annotations
@@ -75,6 +80,8 @@ SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows", "kept", "fanned"),
 # the dense kernel's counter: each block adds to lane block % COUNT_LANES
 DENSE_COUNTS = _kernels.DeviceCounts(("rays", "pairs", "fanned"),
                                      COUNT_LANES)
+# the general-segment kernel's, the same way
+GENERAL_COUNTS = _kernels.DeviceCounts(("rays", "pairs"), COUNT_LANES)
 # the list kernel's wedge cull (csrc/sector_sweep.cu, which argues the
 # numbers): the least real slots a row culls, the margin's absolute part
 # (1 mm) and its part a metre (2^-16), the unit test's tolerance (2^-20)

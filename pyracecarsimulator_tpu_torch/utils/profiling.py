@@ -19,13 +19,16 @@ layer of the port; ``SPANS`` lists them all:
 - ``scan.route``: the routing of ray rows to cull lists inside a scan
   (the sector scan's tile, block-middle angle, sector and row ids,
   ``raycast_sectors._list_ids``; the tile scan's tile and row ids,
-  ``raycast_grad.raycast_tiled_diff``), in a step under ``step.scan``;
+  ``raycast_grad.raycast_tiled_diff``; the general-segment scan's tile
+  ids, ``raycast_general.raycast_general_tiled``), in a step under
+  ``step.scan``;
 - ``scan.fan``: the beam fan of a segment scan whose rays are built
   outside the kernel (``raycast_segments.scan_poses_segments``: rays that
   take a gradient, or the theta table's; the kernels' from-poses entries
   build the others inside), and the rays-given dense route's reciprocals
-  and flat ray tensors (``raycast_grad.raycast_all_diff``), in a step
-  under ``step.scan``;
+  and flat ray tensors (``raycast_grad.raycast_all_diff``), and the fan of
+  every general-segment scan (``raycast_general.scan_poses_general``), in
+  a step under ``step.scan``;
 - ``rollout.policy``, ``rollout.carry`` (a rollout step's row writes and
   carry copies), ``rollout.blocks`` (the graphed rollout's carry copy-in,
   block copies into the trajectory and final clone);
@@ -68,8 +71,9 @@ unchanged.
 wrappers' launches (``ops/sweeps.launch_counts``), each live
 ``GraphedFunction``'s captures and replays, the EDF march's device
 counter (``ops/raymarch_xla.MARCH_COUNTS``), the list sweep's
-(``ops/sweeps.SWEEP_COUNTS``) and the dense sweep's
-(``ops/sweeps.DENSE_COUNTS``), each an exact read: a synchronisation on
+(``ops/sweeps.SWEEP_COUNTS``), the dense sweep's
+(``ops/sweeps.DENSE_COUNTS``) and the general-segment sweep's
+(``ops/sweeps.GENERAL_COUNTS``), each an exact read: a synchronisation on
 the card.
 """
 
@@ -252,8 +256,10 @@ def counters() -> dict:
     (wrapper name -> kernel launches), ``graphs`` (one dict a live
     ``GraphedFunction``: ``name``, ``captures``, ``replays``), ``march``
     (``{"calls", "trips"}`` of the EDF marches), ``sweep`` (``{"rows",
-    "slots", "kept", "fanned"}`` of the list sweeps) and ``dense``
-    (``{"rays", "pairs"}`` of the dense sweep), each read exactly."""
+    "slots", "kept", "fanned"}`` of the list sweeps), ``dense``
+    (``{"rays", "pairs", "fanned"}`` of the dense sweep) and ``general``
+    (``{"rays", "pairs"}`` of the general-segment sweep), each read
+    exactly."""
     from ..ops import sweeps
     from ..ops.raymarch_xla import MARCH_COUNTS
     return {"launches": sweeps.launch_counts(),
@@ -262,7 +268,8 @@ def counters() -> dict:
                        for g in list(_graphs.values())],
             "march": dict(MARCH_COUNTS),
             "sweep": dict(sweeps.SWEEP_COUNTS),
-            "dense": dict(sweeps.DENSE_COUNTS)}
+            "dense": dict(sweeps.DENSE_COUNTS),
+            "general": dict(sweeps.GENERAL_COUNTS)}
 
 
 # -- reading a trace ---------------------------------------------------------

@@ -48,6 +48,8 @@ FOV = 4.712388980384690
 # the rays-given dense_sweep_kernel's registers in nvcc's report (sm_90a),
 # as before it counted its work
 DENSE_REGISTERS = 40
+# general_sweep_kernel's, min-only and winner, as before it counted its work
+GENERAL_REGISTERS = {"0": 48, "1": 56}
 
 
 @pytest.fixture()
@@ -1427,6 +1429,62 @@ def test_general_sweep_graphed_equals_eager(cuda):
         assert pg.general_sweep.launches == before + 2
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
         assert float(ref[1].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("winner", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_general_sweep_counts_rays_and_pairs_on_the_device(cuda, tiled,
+                                                          winner):
+    """The general kernel adds each block's live rays, and for each the
+    slots of its row's list up to the list's last real slot, to the
+    device's counter (``sweeps.GENERAL_COUNTS``): on the same inputs
+    exactly what the plain version adds on the host (a list of padding
+    only counting no pair, a ragged last block of 1080 columns its live
+    rays only); one replay of a CUDA graph of the sweep advances it by
+    exactly one call's count; the outputs, eager and replayed, are the
+    plain version's bit for bit."""
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as pg
+    counts = sweeps.GENERAL_COUNTS
+    table, ids, rays = _general_case(cuda)
+    tbl, ix = (table, ids) if tiled else (table[:1].contiguous(), None)
+    pg.general_sweep(tbl, ix, *rays, winner)   # the counter, before capture
+    torch.cuda.synchronize()
+    start, host = dict(counts), dict(counts.host)
+    got = pg.general_sweep(tbl, ix, *rays, winner)
+    dev = {k: counts[k] - start[k] for k in start}
+    ref = pg.general_sweep_plain(tbl, ix, *rays, winner)
+    plain = {k: counts.host[k] - host[k] for k in host}
+    real = torch.where(tbl[:, 4] >= 0,
+                       torch.arange(1, tbl.shape[2] + 1, device=cuda),
+                       0).amax(dim=1)
+    lists = ix.long() if tiled else torch.zeros(64, dtype=torch.long,
+                                                device=cuda)
+    assert plain == {"rays": 64 * 1080,
+                     "pairs": 1080 * int(real[lists].sum())}
+    assert dev == plain
+    same = lambda a, b: all(u is None or torch.equal(u, v)
+                            for u, v in zip(a, b))
+    assert same(got, ref)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pg.general_sweep(tbl, ix, *rays, winner)
+    before = dict(counts)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert {k: counts[k] - before[k] for k in before} == plain
+    assert same(out, ref)
+
+
+def test_general_kernel_keeps_its_registers(cuda, tmp_path):
+    """nvcc's resource report of ``csrc/general_sweep.cu``: both
+    instantiations of ``general_sweep_kernel`` (min-only, winner) at the
+    registers they had before they counted their work, neither spilling
+    nor with a stack frame."""
+    import re
+    res = {m.group(1): r for name, r in
+           _nvcc_resources("general_sweep", tmp_path).items()
+           for m in [re.search(r"general_sweep_kernelILb([01])E", name)] if m}
+    assert res == {k: (v, 0, 0) for k, v in GENERAL_REGISTERS.items()}, res
 
 
 # -- the chamfer stencil of soft_edt ------------------------------------------

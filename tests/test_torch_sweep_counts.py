@@ -10,7 +10,10 @@ them; the plain version counts on the host, the kernel on the device
 counts the dense sweep's rays, the pairs they test, v_hi + h_end - h_lo
 a ray, and the rays its entry from poses built; ``scan.fan`` spans the
 fan, reciprocals and flat rays that the rays-given dense route builds
-outside its kernel. The card's side of the counts:
+outside its kernel. ``ops/sweeps.GENERAL_COUNTS`` (``counters()["general"]``)
+counts the general-segment sweep's rays and the pairs they test, each
+ray its list up to the last real slot; ``scan.fan`` and ``scan.route``
+span its fan and tile ids. The card's side of the counts:
 ``tests/test_torch_kernels.py``.
 """
 
@@ -423,3 +426,187 @@ def test_dense_pairs_reader_on_the_port(track):
     assert counts["rays"] > 0
     got = _reader("dense_pairs_per_ray")({"trace": None, "spans": {}})
     assert got == counts["pairs"] / counts["rays"]
+
+
+# -- the general-segment sweep ("segments_simplified") ------------------------
+
+def _general_table(n_real, k=128):
+    """(len(n_real), 6, k) general lists: list i has real slots (length >=
+    0) up to slot n_real[i] - 1, with one padding slot (length -1) inside
+    wherever there are three or more."""
+    table = torch.zeros(len(n_real), 6, k)
+    table[:, 2] = 1.0
+    table[:, 4] = -1.0
+    for i, n in enumerate(n_real):
+        table[i, 0, :n] = torch.arange(n) * 0.01
+        table[i, 4, :n] = 0.5
+        if n >= 3:
+            table[i, 4, 1] = -1.0
+    return table
+
+
+@pytest.mark.parametrize("winner", [False, True])
+@pytest.mark.parametrize("layout", ["flat", "tiled"])
+def test_general_sweep_plain_counts_rays_and_pairs(layout, winner):
+    """``general_sweep_plain`` adds its rays, and for each ray the slots of
+    its row's list up to the list's last real slot (a padding slot inside
+    the list counts, as the kernel sweeps it), to
+    ``counters()["general"]``, in both modes: every row list 0 without
+    ids, each row its own list with them."""
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
+    rows, cols = 5, 37
+    if layout == "flat":
+        table, ids, want = _general_table([90]), None, rows * 90
+    else:
+        table = _general_table([90, 0, 3, 128])
+        ids = torch.tensor([3, 0, 1, 2, 2], dtype=torch.int32)
+        want = 128 + 90 + 0 + 3 + 3
+    rays = [torch.rand(rows, cols) for _ in range(4)]
+    before = profiling.counters()["general"]
+    rg.general_sweep_plain(table, ids, *rays, winner)
+    after = profiling.counters()["general"]
+    assert {c: after[c] - before[c] for c in after} == {
+        "rays": rows * cols, "pairs": cols * want}
+
+
+def _general_map(tile_size):
+    from pyracecarsimulator_tpu_torch.maps.contours import (
+        build_general_segment_map)
+    occ = _occupancy()
+    return build_general_segment_map(occ, RES, ORIGIN, max_range=MAX_RANGE,
+                                     tile_size=tile_size, real_hw=occ.shape,
+                                     device="cpu")
+
+
+@pytest.mark.parametrize("tile_size", [0.0, 1.0])
+def test_a_general_scan_counts_each_ray_against_its_list(track, tile_size):
+    """A "segments_simplified" scan of poses counts each beam as a ray and
+    its list's real slots as its pairs: the agent's tile list on a tiled
+    map, the whole set on a flat one; the same with and without a
+    gradient (the winner and the min-only sweep)."""
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
+    gmap = _general_map(tile_size)
+    assert (gmap.tiles is None) == (tile_size == 0.0)
+    p = _poses(track, 6, 3)
+    if gmap.tiles is None:
+        lists = torch.zeros(6, dtype=torch.long)
+        real = torch.tensor([gmap.n_segments])
+    else:
+        lists = tile_ids(gmap.tiles_shape, gmap.tile_size, gmap.tile_origin,
+                         p[:, 0], p[:, 1]).long()
+        real = (gmap.tiles[:, 4] >= 0).sum(dim=1)
+    for grad in (False, True):
+        q = p.clone().requires_grad_(grad)
+        before = profiling.counters()["general"]
+        r = rg.scan_poses_general(gmap, q, BEAMS, FOV, MAX_RANGE)
+        if grad:
+            r.sum().backward()
+            assert q.grad is not None
+        after = profiling.counters()["general"]
+        assert {c: after[c] - before[c] for c in after} == {
+            "rays": 6 * BEAMS, "pairs": BEAMS * int(real[lists].sum())}
+
+
+def test_general_counts_add_the_device_counters_lanes():
+    """``GENERAL_COUNTS`` is the plain version's host counts plus every
+    device's (lanes, 2) counter of [rays, pairs], summed over its lanes at
+    each lookup; a CPU tensor stands in for a device's counter here."""
+    counts = _kernels.DeviceCounts(("rays", "pairs"), sweeps.COUNT_LANES)
+    counts.host.update(rays=5, pairs=500)
+    c = counts.counter(torch.device("cpu"))
+    assert tuple(c.shape) == (sweeps.COUNT_LANES, 2) and not c.any()
+    c[3] = torch.tensor([128, 128 * 146])
+    c[-1] = torch.tensor([2 ** 35, 105 * 2 ** 35])
+    assert dict(counts) == {"rays": 133 + 2 ** 35,
+                            "pairs": 500 + 128 * 146 + 105 * 2 ** 35}
+    assert sweeps.GENERAL_COUNTS.columns == ("rays", "pairs")
+    assert sweeps.GENERAL_COUNTS.lanes == sweeps.COUNT_LANES
+    assert profiling.counters()["general"] == dict(sweeps.GENERAL_COUNTS)
+
+
+@pytest.mark.parametrize("counters, want", [
+    (None, None),                                   # no counters() at all
+    ({"dense": {"rays": 9, "pairs": 738}}, None),   # a port before it
+    ({"general": {"rays": 0, "pairs": 0}}, None),
+    ({"general": {"rays": 4423680, "pairs": 4423680 * 105}}, 105.0),
+    ({"general": {"rays": 8, "pairs": 841}}, 105.125)])
+def test_general_pairs_reader_reads_pairs_over_rays(monkeypatch, counters,
+                                                    want):
+    """The benchmark's ``general_pairs_per_ray`` reads the port's general
+    pairs over its rays, and None where the port has no general counter
+    (a program before it), no port is loaded, or no ray was swept."""
+    import sys
+    import types
+    read = _reader("general_pairs_per_ray")
+    mod = types.ModuleType(profiling.__name__)
+    if counters is not None:
+        mod.counters = lambda: counters
+    monkeypatch.setitem(sys.modules, profiling.__name__, mod)
+    assert read({"trace": None, "spans": {}}) == want
+    monkeypatch.delitem(sys.modules, profiling.__name__)
+    assert read({"trace": None, "spans": {}}) is None
+
+
+def test_general_pairs_reader_on_the_port(track):
+    """On the port itself after a general scan on the CPU: the counter's
+    pairs over its rays, as ``GENERAL_COUNTS`` holds them."""
+    from pyracecarsimulator_tpu_torch.ops import raycast_general as rg
+    rg.scan_poses_general(_general_map(1.0), _poses(track, 3, 4), BEAMS,
+                          FOV, MAX_RANGE)
+    counts = dict(sweeps.GENERAL_COUNTS)
+    assert counts["rays"] > 0
+    got = _reader("general_pairs_per_ray")({"trace": None, "spans": {}})
+    assert got == counts["pairs"] / counts["rays"]
+
+
+@pytest.mark.parametrize("tile_size", [0.0, 1.0])
+def test_a_general_step_records_scan_fan_and_route_inside_step_scan(
+        track, tile_size):
+    """With tracing on (set up here, and put back as it was), a
+    "segments_simplified" step records ``scan.fan`` (the fan: ``cos`` and
+    ``sin``) inside ``step.scan``, and on a tiled map ``scan.route`` (the
+    tile ids) after it, inside ``step.scan`` too; with tracing off the
+    step runs the same aten operations in the same order and records no
+    span."""
+    from torch.profiler import ProfilerActivity, profile
+    p = _poses(track, 8, 5)
+    state = P.state_from_pose(p[:, 0], p[:, 1], p[:, 2])
+    act = (torch.full((8,), 2.0), torch.zeros(8))
+    bundle = P.build_sim(track, scan=P.ScanParams(num_beams=BEAMS,
+                                                  max_range=MAX_RANGE),
+                         backend="segments_simplified", tile_size=tile_size,
+                         device="cpu")
+    tiled = bundle.segmap.tiles is not None
+    assert tiled == (tile_size > 0)
+    step = P.make_step_fn(bundle, with_noise=False)
+    was_on = profiling.enabled()
+    seqs = {}
+    try:
+        profiling.disable()
+        step(state, act)            # the scan's cached constants, made once
+        for on in (True, False):
+            profiling.enable() if on else profiling.disable()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                step(state, act)
+            ev = sorted(prof.events(), key=lambda e: e.time_range.start)
+            seqs[on] = [e.name for e in ev if e.name.startswith("aten::")]
+            spans = [e for e in ev if e.name in profiling.SPANS]
+            if not on:
+                assert not spans
+                continue
+            scans = [e.time_range for e in spans if e.name == "step.scan"]
+            fans = [e.time_range for e in spans if e.name == "scan.fan"]
+            routes = [e.time_range for e in spans if e.name == "scan.route"]
+            assert len(scans) == 1 and len(fans) == 1
+            assert len(routes) == (1 if tiled else 0)
+            s = scans[0]
+            assert all(s.start <= f.start and f.end <= s.end
+                       for f in fans + routes)
+            inside = {e.name for e in ev if fans[0].start <= e.time_range.start
+                      and e.time_range.end <= fans[0].end}
+            assert "aten::cos" in inside and "aten::sin" in inside
+            if tiled:
+                assert fans[0].end <= routes[0].start
+    finally:
+        profiling.enable() if was_on else profiling.disable()
+    assert seqs[True] == seqs[False]

@@ -334,8 +334,8 @@ def test_report_gives_autograd_ops_their_forward_span(tracing):
 
 def test_counters_gather_the_ports_counters():
     """``counters()``: the wrappers' launches, each live graphed function's
-    captures and replays, the march's, the list sweep's and the dense
-    sweep's counts (the exact reads)."""
+    captures and replays, the march's, the list sweep's, the dense
+    sweep's and the general-segment sweep's counts (the exact reads)."""
     from pyracecarsimulator_tpu_torch.ops import sweeps
     from pyracecarsimulator_tpu_torch.ops.raymarch_xla import MARCH_COUNTS
     from pyracecarsimulator_tpu_torch.utils.graph import GraphedFunction
@@ -350,6 +350,8 @@ def test_counters_gather_the_ports_counters():
     assert set(got["sweep"]) == {"rows", "slots", "kept", "fanned"}
     assert got["dense"] == dict(sweeps.DENSE_COUNTS)
     assert set(got["dense"]) == {"rays", "pairs", "fanned"}
+    assert got["general"] == dict(sweeps.GENERAL_COUNTS)
+    assert set(got["general"]) == {"rays", "pairs"}
     del g
 
 
