@@ -6,11 +6,12 @@ Drives the port's paths at full width (4096 agents, 1080 beams, 270 deg,
 max_range 10) on both bundled maps, levine and berlin, and checks them:
 
 1. the card's name and power limit, the PyTorch and CUDA versions;
-2. builds the five sources, ``csrc/sector_sweep.cu`` (the list-routed
+2. builds the six sources, ``csrc/sector_sweep.cu`` (the list-routed
    sweep), ``csrc/dense_sweep.cu``, ``csrc/edf_march.cu`` (the EDF march
    and its gradient), ``csrc/general_sweep.cu`` (the general-segment
-   sweep) and ``csrc/soft_edt.cu`` (the chamfer stencil of ``soft_edt``
-   and its gradient), with one nvcc per source, started together;
+   sweep), ``csrc/soft_edt.cu`` (the chamfer stencil of ``soft_edt``
+   and its gradient) and ``csrc/car_step.cu`` (the car step), with one
+   nvcc per source, started together;
 3. per map, the sector backend: the list kernel against its plain PyTorch
    version on the card on the full 4096 x 1080 fan (mismatches must be 0;
    the rows, real slots and slots kept by the wedge cull on the kernel's
@@ -35,13 +36,15 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
    have run the dense kernel's entry from poses, ``dense_scan``, berlin
    the list kernel's entry from poses over map tiles, ``list_scan``, 25
    times each: the
-   step, 4 warm-up steps of the capture, 20 replays); "segments_pallas"
-   equal to "segments"; then the same drive on the sector backend
-   (``list_scan`` on both maps);
+   step, 4 warm-up steps of the capture, 20 replays), and the car step
+   ``car_step`` as often, each launch ``AGENTS`` car-steps on its device
+   counter; "segments_pallas" equal to "segments"; then the same drive on
+   the sector backend (``list_scan`` on both maps);
 7. 3 BPTT train steps (T = 5, 4096 x 1080) on berlin with "segments" and
    with "sectors": loss finite, parameters moved, counters grown (each
    call's first scan, whose pose no parameter reaches, on ``list_scan``,
-   the others on ``list_sweep``);
+   the others on ``list_sweep``; no ``car_step``: the policy's steering
+   carries a gradient at every step);
 8. times (CUDA events, warm-up, inputs that change between repetitions):
    each kernel and its plain version, the full scans, the closed-loop
    steps, one train step; peak device memory;
@@ -116,8 +119,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     on the adversarial set of ``tests/torch_general_cases.py`` (0
     mismatches in both modes, flat and per list, unknown lists NaN); the
     CUDA scan against the CPU scan given the same fan (bit-identical); one
-    launch a scan; the step and rollout, counted (``general_sweep`` 25
-    times), and times;
+    launch a scan; the step and rollout, counted (``general_sweep`` and
+    ``car_step`` 25 times), and times;
 15. per map, the obstacle cycle through ``RacecarSimulator(device="cuda")``
     on "segments", "sectors", "edf" (with ``graph=True``: the step
     captured again after each edit) and "segments_simplified" (the general
@@ -125,7 +128,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     ahead of the scanner shortens the beam straight ahead; the sector
     incremental edit gives exactly the full rebuild's ranges; the launch
     counters show the dense or tile kernel, the sector kernel or the
-    march on the edited map; ``clear_obstacles`` restores the earlier scan
+    march on the edited map, and one ``car_step`` a step;
+    ``clear_obstacles`` restores the earlier scan
     bit for bit (and the graphed "edf" step's beam ahead);
     the host time of ``add_obstacle``;
 16. multitrack at full width: levine + berlin stacked, 2048 agents per
@@ -136,7 +140,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
 17. a 1 x 1 mesh on the card, backend NCCL, in this process: the sharded
     sector step equal to ``make_step_fn``'s, the stacked step equal to the
     multitrack scan, the ring scan (one slab) equal to
-    ``scan_poses_sectors``, all bit for bit, counted and timed; the
+    ``scan_poses_sectors``, all bit for bit, counted (a step: one
+    ``list_sweep``, one ``car_step``) and timed; the
     ring's one launch (the gathered buffer as the table) against its plain
     version;
 18. four gloo ranks on the one card through ``parallel.dryrun`` (mesh
@@ -177,10 +182,12 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     "segments_simplified": the step replayed
     as a CUDA graph against the eager step
     over 4 replays with changing inputs, noise on from one seed (ranges,
-    collision and every state field bit for bit); the graphed rollout
+    collision and every state field bit for bit; 8 launches of the scan's
+    wrapper and of ``car_step``); the graphed rollout
     (gap follower, T = 25, scans kept, noise off and on) against the
-    eager loop; a replayed rollout adds T to its wrapper's counter and
-    the host launches T graphs; on the exact backends the graphed rollout
+    eager loop; an eager and a replayed rollout each add T to its scan
+    wrapper's counter and to ``car_step``'s (T x ``AGENTS`` car-steps on
+    the device counter), and the host launches T graphs; on the exact backends the graphed rollout
     under an open-loop policy ``steer_seq[t]`` against the eager loop
     (after step 0 the policy's ``t`` is the device's step index), a
     policy that branches on ``t`` in Python raises, and a host-counting
@@ -189,7 +196,8 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     and parameters after 3 steps (on "edf_bilinear" its backward launches
     ``edf_march_grad``, on "edf_implicit" ``implicit_pose_vjp`` once a
     step of a call but the first (whose scan pose no parameter reaches),
-    eager or replayed, and on no other backend; the
+    eager or replayed, and on no other backend; no ``car_step``: every
+    step's steering carries a gradient); the
     graphed "edf_implicit" step launches about as
     many device kernels as the "edf" step: ``_refine``'s passes are
     gone); the facade with ``graph=True`` across
@@ -224,7 +232,21 @@ max_range 10) on both bundled maps, levine and berlin, and checks them:
     of the composition and of ``dense_sweep`` alone, the plain time, and
     the bound (the sweep's tests plus ``FAN_OPS_PER_RAY`` a ray; bytes:
     the range written); from nvcc's report both entries' registers (the
-    rays-given one ``DENSE_REGISTERS``), no spill, no stack frame.
+    rays-given one ``DENSE_REGISTERS``), no spill, no stack frame;
+27. (run after the builds) the car step ``models/car_step.car_step``
+    (``csrc/car_step.cu``: input processing, the single-track or kinematic
+    update, the standstill and the lidar origin in one launch) at 4096
+    cars, for "st" and "ks" under "bang" and "smooth", on inputs that reach
+    every branch (``car_inputs``): against its plain version
+    ``car_step_plain`` over 3 chained steps, 0 mismatches (bit for bit, a
+    NaN where the plain version has one); one device kernel a call where
+    the composition puts dozens (over 50), and the cars on the device
+    counter;
+    device times from graph replays of the kernel, of the composition and
+    of one PyTorch elementwise kernel over 4096 floats (the launch floor),
+    beside the bytes bound (the kernels list's ``car_step`` entry gives
+    the "st bang" case); from nvcc's report the four instantiations'
+    registers, no spill, a stack frame of at most ``CAR_STACK_BYTES``.
 
 Every kernel's time stands beside its bound: the larger of its
 operations over the card's FP32 instruction rate at ``clocks.max.sm``,
@@ -248,7 +270,7 @@ its bytes the field in and out once and the history once. Beside the bound stand
 ``cuobjdump``, what the compiled loop issues per test or per trip (its
 SASS), as a reading.
 
-Prints a JSON line describing the ten kernel wrappers (the two sweeps
+Prints a JSON line describing the eleven kernel wrappers (the two sweeps
 that replace the five TPU kernels, ``list_sweep`` four of them, and their
 entries from poses ``list_scan`` and ``dense_scan``, which fold the fan
 and the finished range into them; the EDF
@@ -258,7 +280,8 @@ implicit march's pose VJP, which replaces its custom_vjp's backward and
 the fan's transpose, the general sweep, which replaces the
 general-segment scans, and the chamfer
 stencil of ``soft_edt`` and its gradient, which replace its scan and that
-scan's transpose; their launches
+scan's transpose, and the car step, which does in one launch what XLA
+fuses; their launches
 path by path, each path counted from 0), then as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Exits non-zero, without that line, on any failure or
@@ -342,6 +365,14 @@ KERNELS = {
                       "pyracecarsimulator_tpu/ops/soft_edt.py:110 (the "
                       "scan's transpose under jax.grad)",
                       "soft_edt's backward"),
+    # XLA fuses the step: the JAX package has no Pallas kernel for it
+    "car_step": (SRC + "car_step.cu",
+                 "no Pallas kernel: the step that XLA fuses at "
+                 "pyracecarsimulator_tpu/simulator.py:301 (process_input, "
+                 "st_step / ks_step, apply_standstill, the lidar origin)",
+                 "simulator.advance on the card, every step without a "
+                 "gradient (st, ks): steps, rollouts, the facade, sharded "
+                 "steps, a BPTT call's step 0 where its commands take none"),
 }
 
 
@@ -367,6 +398,12 @@ GENERAL_REGISTERS = {"min": 48, "winner": 56}
 FAN_OPS_PER_RAY = 17
 LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12
+# the car step's models and steering modes, and the stack frame nvcc gives
+# each of its instantiations (sm_90a): the CUDA math library's sinf, cosf
+# and tanf reduce a large argument (|x| > ~1e5) through a local array
+CAR_MODELS = (("st", "bang"), ("st", "smooth"), ("ks", "bang"),
+              ("ks", "smooth"))
+CAR_STACK_BYTES = 32
 # the march's variants, and the gathers a trip of each issues
 MARCH_VARIANTS = {"nearest": 1, "bilinear": 4, "implicit": 1}
 # operations per trip that the march's function needs, counted from its
@@ -719,7 +756,7 @@ def sass_report():
         if name == "general_sweep":
             report[name] = general_sass(sass)
             continue
-        if name == "soft_edt":     # no sweep loop: nvcc's report above
+        if name in ("soft_edt", "car_step"):  # no sweep loop
             continue
         loops = []
         for body in innermost_loops(sass):
@@ -926,6 +963,140 @@ def general_bound(args, winner, rates):
     if sass:
         out["sass_per_pair"] = sass["per_pair"]
         out["sass_skip_path_per_pair"] = sass["skip_path_per_pair"]
+    return out
+
+
+def car_step_resources():
+    """The four instantiations of ``car_step_kernel`` (model, steering):
+    registers, stack frame and spills from nvcc's ``--resource-usage``
+    report of this build. None may spill, nor have a stack frame larger
+    than the math library's ``CAR_STACK_BYTES``."""
+    def label_of(name):
+        m = re.search(r"car_step_kernelILb([01])ELb([01])E", name)
+        return m and (("st" if m.group(1) == "1" else "ks") + " "
+                      + ("smooth" if m.group(2) == "1" else "bang"))
+    out = resource_report("car_step", label_of)
+    for label, res in sorted(out.items()):
+        log(f"car_step_kernel, {label}: {res}")
+    check(set(out) == {f"{m} {s}" for m, s in CAR_MODELS}
+          and all(r.get("spill_stores", 0) == 0
+                  and r.get("stack", 0) <= CAR_STACK_BYTES
+                  for r in out.values()),
+          f"a car step instantiation is missing, spills or has a stack "
+          f"frame over {CAR_STACK_BYTES} bytes: {out}")
+    return out
+
+
+def car_inputs(n, device, seed=0):
+    """A state and per-car commands at ``n`` cars that reach every branch of
+    the car step: speeds at and near 0, +-1e-3 and +-v_switch among random
+    ones, steering errors inside, at and outside the 1e-4 dead zone,
+    commands beyond the clamps and NaN, a third of the cars latched."""
+    import numpy as np
+    import torch
+    from pyracecarsimulator_tpu_torch.state import CarState
+    rng = np.random.RandomState(seed)
+    f = lambda lo, hi: rng.uniform(lo, hi, n).astype(np.float32)
+    v, st = f(-3, 8), f(-0.45, 0.45)
+    vd, sd = f(-10, 10), f(-0.7, 0.7)
+    k, m = n // 16, n // 8
+    vsw = np.float32(0.8)
+    v[:k] = rng.choice(np.float32([
+        0, 1e-3, -1e-3, 5e-4, np.nextafter(np.float32(1e-3), 0), vsw, -vsw,
+        np.nextafter(vsw, 1), np.nextafter(vsw, 0)]), k)
+    sd[k:k + m] = st[k:k + m] + rng.choice(
+        np.float32([0, 1e-4, -1e-4, 5e-5, 2e-4]), m)
+    vd[k + m:k + 2 * m] = rng.choice(np.float32([np.nan, 7, -20, 20]), m)
+    sd[k + 2 * m:k + 3 * m] = rng.choice(np.float32([np.nan, 0.4189, -1]), m)
+    t = lambda a: torch.from_numpy(a).to(device)
+    state = CarState(x=t(f(-5, 5)), y=t(f(-5, 5)), theta=t(f(-4, 4)),
+                     velocity=t(v), steer_angle=t(st),
+                     angular_velocity=t(f(-3, 3)), slip_angle=t(f(-0.3, 0.3)),
+                     st_dyn=t(rng.rand(n) < 0.5),
+                     collision=t(rng.rand(n) < 0.3))
+    return state, t(vd), t(sd)
+
+
+def car_mismatches(got, want):
+    """Elements of two car steps' outputs whose bits differ (two NaNs
+    agree), and the largest absolute difference of the float outputs (inf
+    where one holds a NaN and the other not)."""
+    import torch
+    from pyracecarsimulator_tpu_torch.models.car_step import _FLOAT_FIELDS
+    flat = lambda o: ([getattr(o[0], f) for f in _FLOAT_FIELDS
+                       + ("st_dyn", "collision")] + list(o[1:]))
+    bad, err = 0, 0.0
+    for a, b in zip(flat(got), flat(want)):
+        if a.dtype == torch.bool:
+            bad += int((a != b).sum())
+        else:
+            both = a.isnan() & b.isnan()
+            bad += int(((a.view(torch.int32) != b.view(torch.int32))
+                        & ~both).sum())
+            d = torch.where(both, 0.0, (a - b).abs())
+            err = max(err, float(d.nan_to_num(nan=math.inf).max()))
+    return bad, err
+
+
+def car_step_phase(errs, times):
+    """Phase 27 (module doc): the car step kernel against its plain version
+    at ``AGENTS`` cars, its device kernels, counts, registers and times;
+    each case's largest difference into ``errs["car_step"]``, its times
+    beside the bound into ``times["car_step"]``."""
+    import torch
+    from pyracecarsimulator_tpu_torch import CarParams, SimParams
+    from pyracecarsimulator_tpu_torch.models import car_step as cs
+    out = {"resources": car_step_resources(), "cases": {}}
+    state, vd, sd = car_inputs(AGENTS, "cuda")
+    car = CarParams()
+    scratch = torch.empty_like(state.x)
+    floor = graphed_ms(lambda i: torch.add(state.x, state.y, out=scratch))
+    # each input read once (7 float fields, the latch, 2 commands), each
+    # output written once (7 float fields, 2 flags, the origin's 2)
+    nbytes = AGENTS * (7 * 4 + 1 + 2 * 4 + 7 * 4 + 2 * 1 + 2 * 4)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    for model, mode in CAR_MODELS:
+        sim = SimParams(dynamics=model, steer_mode=mode)
+        before = cs.CAR_COUNTS["steps"]
+        s, bad, err = state, 0, 0.0
+        for _ in range(3):
+            got = cs.car_step(s, vd, sd, car, sim)
+            want = cs.car_step_plain(s, vd, sd, car, sim)
+            n, e = car_mismatches(got, want)
+            bad, err = bad + n, max(err, e)
+            s = want[0]
+        counted = cs.CAR_COUNTS["steps"] - before
+        step = lambda: cs.car_step(state, vd, sd, car, sim)
+        plain = lambda: cs.compose(state, vd, sd, car, sim)
+        kernels, plain_kernels = device_ops(step), device_ops(plain)
+        ms = graphed_ms(lambda i: step())
+        plain_ms = graphed_ms(lambda i: plain())
+        label = f"{model} {mode}"
+        out["cases"][label] = {
+            "mismatches": bad, "ms": ms, "plain_ms": plain_ms,
+            "device_kernels": kernels, "plain_device_kernels": plain_kernels,
+            "counted_steps": counted}
+        errs["car_step"].append(err)
+        times["car_step"][label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes (launch latency sets the time: floor_ms)",
+            "floor_ms": floor}
+        log(f"[car step {label}] {AGENTS} cars, 3 chained steps: "
+            f"mismatches {bad}; device kernels a call {kernels} (plain "
+            f"{plain_kernels}); car-steps counted {counted} (3 steps of the "
+            f"kernel and of the plain twin: {6 * AGENTS}); graph replays: "
+            f"kernel {ms:.5f} ms, plain composition {plain_ms:.5f} ms; one "
+            f"PyTorch elementwise kernel over {AGENTS} floats {floor:.5f} "
+            f"ms; bytes bound {bound:.6f} ms ({nbytes} B)")
+        check(bad == 0, f"car step {label}: the kernel differs from its "
+                        f"plain version")
+        check(kernels == 1 and plain_kernels > 50,
+              f"car step {label}: {kernels} device kernels a call (plain "
+              f"{plain_kernels})")
+        check(counted == 6 * AGENTS,
+              f"car step {label}: {counted} car-steps counted")
+    out.update(floor_ms=floor, bound_ms=bound, bytes=nbytes,
+               bound_by="launch latency (bytes bound beside it)")
     return out
 
 
@@ -1388,9 +1559,12 @@ def pose_sets(poses, n=5):
 
 def drive(bundles, backend_label, poses_by_map):
     """One step and a STEPS-step noisy rollout per map, counted. Returns
-    {map: launch counts} and checks the outputs."""
+    {map: launch counts} and checks the outputs, and that the car step took
+    the kernel once a step, the capture's warm-up steps included, each
+    launch counting ``AGENTS`` car-steps on its device counter."""
     import torch
     from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
+    from pyracecarsimulator_tpu_torch.models.car_step import CAR_COUNTS
     from pyracecarsimulator_tpu_torch.ops.sweeps import DENSE_COUNTS
     from pyracecarsimulator_tpu_torch.parallel import (
         make_gap_follower_policy, make_rollout_fn)
@@ -1405,12 +1579,21 @@ def drive(bundles, backend_label, poses_by_map):
         run_fn = make_rollout_fn(step, make_gap_follower_policy(
             BEAMS, bundle.scan.fov), STEPS, BEAMS)
         reset_counts()
-        dense0 = dict(DENSE_COUNTS)
+        dense0, car0 = dict(DENSE_COUNTS), CAR_COUNTS["steps"]
         first = step(state0, act, gen)
         final, traj = run_fn(state0, gen)
         torch.cuda.synchronize()
         used[name] = {k: v for k, v in counts().items() if v}
         dense = {k: DENSE_COUNTS[k] - dense0[k] for k in dense0}
+        cars = CAR_COUNTS["steps"] - car0
+        n_steps = 1 + STEPS + (WARMUP_STEPS if step.capturable else 0)
+        log(f"[{name}] {backend_label} main path: car step launches "
+            f"{used[name].get('car_step', 0)} (want {n_steps}), car-steps "
+            f"on its counter {cars}")
+        check(used[name].get("car_step") == n_steps
+              and cars == n_steps * AGENTS,
+              f"{name} {backend_label}: the car step did not take the "
+              f"kernel once a step ({used[name]}, {cars} car-steps)")
         fanned = used[name].get("dense_scan", 0)
         scans = used[name].get("dense_sweep", 0) + fanned
         if scans:
@@ -1992,7 +2175,8 @@ def march_phases(card, name, track, poses, rates, errs, times):
     # the main path of the EDF family: the "edf" step and its rollout,
     # replayed from CUDA graphs
     out["edf_launches"] = drive({name: bundle}, "edf", {name: poses})[name]
-    check(out["edf_launches"] == {"edf_march": STEPS + 1 + WARMUP_STEPS},
+    n_main = STEPS + 1 + WARMUP_STEPS
+    check(out["edf_launches"] == {"edf_march": n_main, "car_step": n_main},
           f"{name}: the edf path launched {out['edf_launches']}")
     return out
 
@@ -2391,7 +2575,8 @@ def simplified_phase(card, name, track, poses, rates, errs, times):
     out["step_ms"] = step_ms(bundle, poses)
     out["launches"] = drive({name: bundle}, "segments_simplified",
                             {name: poses})[name]
-    check(out["launches"] == {"general_sweep": STEPS + 1 + WARMUP_STEPS},
+    n_main = STEPS + 1 + WARMUP_STEPS
+    check(out["launches"] == {"general_sweep": n_main, "car_step": n_main},
           f"{name}: segments_simplified launched {out['launches']}")
     log(f"[{name}] {card}: segments_simplified scan {out['scan_ms']:.4f} "
         f"ms ({out['scan_launches']}), step {out['step_ms']:.4f} ms")
@@ -2489,8 +2674,10 @@ def obstacle_phase(card, name, track, poses):
               f"{name} {backend}: the box does not shorten the beam ahead "
               f"({r0} -> {r1})")
         # the scan, and the step: one launch eagerly; graphed, the capture
-        # on the edited map (2 warm-up steps) and its replay
-        check(used == {kname: 4 if graphed else 2},
+        # on the edited map (2 warm-up steps) and its replay; the car step
+        # once a step
+        check(used == {kname: 4 if graphed else 2,
+                       "car_step": 3 if graphed else 1},
               f"{name} {backend}: the edited map launched {used}")
         if backend == "sectors":
             inc = sim.bundle.segmap
@@ -2674,7 +2861,7 @@ def mesh_phase(card, bundle, stack, stack_poses, mid, poses, errs):
             f": launches {out['launches']['sharded sector step']}, equal to "
             f"make_step_fn's bit for bit = {same}")
         check(same and out["launches"]["sharded sector step"] == {
-            "list_sweep": 1}, "sharded sector step")
+            "list_sweep": 1, "car_step": 1}, "sharded sector step")
 
         # the stacked step against the multitrack scan
         q = stack_poses
@@ -2692,7 +2879,7 @@ def mesh_phase(card, bundle, stack, stack_poses, mid, poses, errs):
             f"scan_poses_sectors_multi at the stepped poses = {same}; "
             f"{int(c.collision.sum())} of {AGENTS} cars latched")
         check(same and out["launches"]["stacked step"] == {
-            "list_sweep": 1}, "stacked sharded step")
+            "list_sweep": 1, "car_step": 1}, "stacked sharded step")
 
         # the ring scan, one slab: its one launch sweeps the gathered
         # (G, 4, K) buffer as the table, row by row
@@ -3290,6 +3477,7 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
     from pyracecarsimulator_tpu_torch import (RacecarSimulator, SimParams,
                                               build_sim, make_scan_fn,
                                               make_step_fn, state_from_pose)
+    from pyracecarsimulator_tpu_torch.models.car_step import CAR_COUNTS
     from pyracecarsimulator_tpu_torch.parallel import (
         make_bptt_train_fn, make_gap_follower_policy, make_rollout_fn)
     from pyracecarsimulator_tpu_torch.state import FIELDS
@@ -3354,20 +3542,23 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
             graphed.graphed.prepare(s0, act, gen_g)
             torch.cuda.synchronize()
             res["step_capture_s"] = time.perf_counter() - t0
-            before = counts()[kname]
+            before, car0 = counts(), CAR_COUNTS["steps"]
             se, sg, same = s0, s0, []
             for i in range(4):
                 a = (act[0] + 0.25 * i, act[1] + 0.02 * i)
                 oe, og = eager(se, a, gen_e), graphed(sg, a, gen_g)
                 same.append(same_out(oe, og))
                 se, sg = oe.state, og.state
-            grown = counts()[kname] - before
+            grown = {k: counts()[k] - before[k] for k in (kname, "car_step")}
+            cars = CAR_COUNTS["steps"] - car0
             log(f"[{cell}] graphed step against the eager step, 4 replays, "
                 f"noise on from one seed: ranges, collision and every state "
                 f"field bit-identical = {same}; 1 capture = "
-                f"{graphed.graphed.captures == 1}; {kname} launches of the 4 "
-                f"eager and 4 replayed steps {grown}")
-            check(all(same) and graphed.graphed.captures == 1 and grown == 8,
+                f"{graphed.graphed.captures == 1}; launches of the 4 eager "
+                f"and 4 replayed steps {grown}, car-steps counted {cars}")
+            check(all(same) and graphed.graphed.captures == 1
+                  and grown == {kname: 8, "car_step": 8}
+                  and cars == 8 * AGENTS,
                   f"{cell}: the graphed step differs from the eager step")
 
             # the rollout, noise off and on
@@ -3384,27 +3575,33 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                         and set(te) == set(tg) == {"pose", "collision",
                                                    "ranges"}
                         and same_state(fe, fg))
-                # replayed once more: T launches on the counter, T graph
-                # launches from the host, the next draws of the generators
-                before = counts()[kname]
+                # replayed once more: T launches of the scan's kernel and of
+                # the car step on the counters, T graph launches from the
+                # host, the next draws of the generators
+                names = (kname, "car_step")
+                before = counts()
                 fe, te = run_e(s0, ge)
-                mid = counts()[kname]
+                mid, car0 = counts(), CAR_COUNTS["steps"]
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     fg, tg = run_g(s0, gg)
                     torch.cuda.synchronize()
+                after, cars = counts(), CAR_COUNTS["steps"] - car0
                 again = all(bool(torch.equal(te[k], tg[k])) for k in te)
                 n_graph = sum(e.count for e in prof.key_averages()
                               if e.key == "cudaGraphLaunch")
+                eager_n = {k: mid[k] - before[k] for k in names}
+                replay_n = {k: after[k] - mid[k] for k in names}
                 log(f"[{cell}] graphed rollout against the eager loop, T = "
                     f"{T}, noise {'on' if noise else 'off'}: poses, "
                     f"collisions, kept scans and the final state "
                     f"bit-identical = {same}, a second rollout too = {again}"
-                    f"; {kname} launches: eager {mid - before}, replayed "
-                    f"{counts()[kname] - mid}; cudaGraphLaunch calls "
+                    f"; launches: eager {eager_n}, replayed {replay_n} "
+                    f"(car-steps counted {cars}); cudaGraphLaunch calls "
                     f"{n_graph}")
-                check(same and again and mid - before == T
-                      and counts()[kname] - mid == T and n_graph == T,
+                check(same and again
+                      and eager_n == replay_n == {kname: T, "car_step": T}
+                      and cars == T * AGENTS and n_graph == T,
                       f"{cell}: the graphed rollout, noise {noise}")
             res["rollout_cuda_graph_launches"] = n_graph
 
@@ -3449,6 +3646,7 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
             tstep = make_step_fn(smooth, with_noise=False)
             loss_fn = train_loss if exact else edf_train_loss
             got = {}
+            car0 = counts()["car_step"]
             for graph in (False, True):
                 train, init = make_bptt_train_fn(
                     tstep, train_policy, loss_fn, TRAIN_T, BEAMS,
@@ -3489,6 +3687,10 @@ def graph_phase(card, seg_bundles, sec_bundles, poses_by_map, tracks):
                           f"{cell}: the train step captured "
                           f"{train.graphed.captures} times")
                     train.graphed.release()
+            # every step's steering carries a gradient, step 0's too: no
+            # car step takes the kernel
+            check(counts()["car_step"] == car0,
+                  f"{cell}: a train step launched the car step")
             same = (all(bool(torch.equal(a, b))
                         for a, b in zip(got[False][:3], got[True][:3]))
                     and same_state(got[False][3], got[True][3]))
@@ -3684,8 +3886,8 @@ def run():
     # 2. build, one nvcc per source, together
     t0 = time.perf_counter()
     _kernels.build("sector_sweep", "dense_sweep", "edf_march",
-                   "general_sweep", "soft_edt")
-    log(f"built the five sources in {time.perf_counter() - t0:.2f} s wall; "
+                   "general_sweep", "soft_edt", "car_step")
+    log(f"built the six sources in {time.perf_counter() - t0:.2f} s wall; "
         f"nvcc: {' '.join(_kernels.NVCC_FLAGS)}")
     for name, info in _kernels.build_info.items():
         log(f"{name}: {info['seconds']:.2f} s\n{info['log']}")
@@ -3711,6 +3913,8 @@ def run():
 
     errs = {name: [] for name in KERNELS}
     times = {name: {} for name in KERNELS}
+    # 27. the car step
+    car_out = car_step_phase(errs, times)
     tracks, smaps, segmaps, poses_by_map = {}, {}, {}, {}
     sector_scan = lambda m, p, ct, st: rs._scan_chunk(
         m, p, ct, st, BEAMS, MAX_RANGE, rs.sector_block_width(m, BEAMS, FOV))
@@ -3828,8 +4032,10 @@ def run():
           "build_sim's default is not the 'segments' backend on the card")
     main_counts = drive(seg_bundles, "segments", poses_by_map)
     n_main = STEPS + 1 + WARMUP_STEPS
-    check(main_counts["levine"] == {"dense_scan": n_main}
-          and main_counts["berlin"] == {"list_scan": n_main},
+    check(main_counts["levine"] == {"dense_scan": n_main,
+                                    "car_step": n_main}
+          and main_counts["berlin"] == {"list_scan": n_main,
+                                        "car_step": n_main},
           f"the default path launched {main_counts}")
     from pyracecarsimulator_tpu_torch import make_step_fn, state_from_pose
     for name in MAPS:
@@ -3848,7 +4054,8 @@ def run():
     sec_bundles = {name: build_sim(name, backend="sectors", device="cuda")
                    for name in MAPS}
     sec_counts = drive(sec_bundles, "sectors", poses_by_map)
-    check(all(c == {"list_scan": n_main} for c in sec_counts.values()),
+    check(all(c == {"list_scan": n_main, "car_step": n_main}
+              for c in sec_counts.values()),
           f"the sector path launched {sec_counts}")
 
     # 7. BPTT on berlin, both backends
@@ -3859,7 +4066,9 @@ def run():
         losses, ms, used = train_phase(bundle, poses_by_map[big], label)
         # the default train step is one CUDA graph: 2 warm-up steps of its
         # capture, then 3 replays; a call's first scan, whose pose no
-        # parameter reaches, takes the entry from poses
+        # parameter reaches, takes the entry from poses; no car step takes
+        # the kernel: this policy's steering carries a gradient at every
+        # step, step 0's too
         check(used == {"list_sweep": (2 + 3) * (TRAIN_T - 1),
                        "list_scan": 2 + 3},
               f"{label} training launched {used}")
@@ -4007,7 +4216,7 @@ def run():
                 "edf_march_grad": "levine bilinear",
                 "implicit_pose_vjp": "levine",
                 "general_sweep": "berlin min", "soft_edt": "levine hard",
-                "soft_edt_grad": "levine hard"}
+                "soft_edt_grad": "levine hard", "car_step": "st bang"}
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "path": path, "launches": sum(launches_by_path[name].values()),
@@ -4018,13 +4227,17 @@ def run():
         "bound_ms": times[name][shape_of[name]]["bound_ms"],
         "bound_by": times[name][shape_of[name]]["bound_by"],
         # no PyTorch call computes the first-hit sweeps, the march, the
-        # chamfer iteration (its per-direction steps) or their gradients
+        # chamfer iteration (its per-direction steps), their gradients or
+        # the car step (its plain version composes ~55-135 kernels)
         "library_ms": None,
-        "shape_of_ms": f"{shape_of[name]} {AGENTS}x{BEAMS}"
-        if name not in ("soft_edt", "soft_edt_grad")
-        else f"{shape_of[name]} {STENCIL_MODES['hard']['iters']} iters",
+        "shape_of_ms": (
+            f"{shape_of[name]} {STENCIL_MODES['hard']['iters']} iters"
+            if name in ("soft_edt", "soft_edt_grad")
+            else f"{shape_of[name]} {AGENTS} cars" if name == "car_step"
+            else f"{shape_of[name]} {AGENTS}x{BEAMS}"),
         "ms_by_shape": times[name]}
         for name, (src, rep, path) in KERNELS.items()],
+        "car_step": car_out,
         "scans_ms": times["scans"], "steps_ms": times["steps"],
         "train": train,
         "slice": slice_out, "card": card, "rates": rates,

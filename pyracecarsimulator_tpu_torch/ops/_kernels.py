@@ -21,7 +21,7 @@ the current stream, counted on its wrapper), the registry of wrappers
 ``ops/sweeps.launch_counts`` reads, and ``DeviceCounts``, the work counts
 that kernels add to on the device (``raymarch_xla.MARCH_COUNTS``,
 ``sweeps.SWEEP_COUNTS``, ``sweeps.DENSE_COUNTS``,
-``sweeps.GENERAL_COUNTS``).
+``sweeps.GENERAL_COUNTS``, ``models/car_step.CAR_COUNTS``).
 """
 
 from __future__ import annotations
@@ -77,6 +77,9 @@ _SIGNATURES = {
                  [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P]),
     "soft_edt_grad": ("soft_edt", "soft_edt_grad_launch",
                       [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P]),
+    "car_step": ("car_step", "car_step_launch",
+                 [_I, _I] + [_P] * 10 + [_I, _I] + [_P] * 11
+                 + [_I, _P, _I, _P, _I, _P]),
     # not a launch: the march's persistent grid (blocks of one wave)
     "edf_march_wave": ("edf_march", "edf_march_wave", [_I] * 2),
 }
@@ -183,6 +186,11 @@ def launch(name, entry, *args):
     _WRAPPERS[name].launches += 1
 
 
+# rows of a ``DeviceCounts`` counter that a kernel spreads its adds over:
+# each block (or row) adds to lane block % COUNT_LANES
+COUNT_LANES = 128
+
+
 class DeviceCounts(Mapping):
     """Work counts by name (``columns``): the plain versions' counts on the
     host (``host``) plus one int64 counter per device that the kernels add
@@ -240,6 +248,7 @@ def wrappers() -> dict:
     """Every registered wrapper by name: the sweeps' (``ops/sweeps.py``),
     the march's (``ops/raymarch_xla.py``), the implicit march's pose VJP
     (``ops/raymarch_diff.py``), the general sweep's
-    (``ops/raycast_general.py``) and the chamfer stencil's
-    (``ops/soft_edt.py``), once their modules are imported."""
+    (``ops/raycast_general.py``), the chamfer stencil's
+    (``ops/soft_edt.py``) and the car step's (``models/car_step.py``),
+    once their modules are imported."""
     return dict(_WRAPPERS)

@@ -34,9 +34,10 @@ import numpy as np
 import torch
 
 from . import _kernels
+from ._kernels import COUNT_LANES
 from .common import apply_extent_mask, rays_from_poses, tile_ids
 from .raymarch_xla import INDEX_LIMIT, _as_rows
-from .sweeps import _PLAIN_BYTES_BUDGET, COUNT_LANES, GENERAL_COUNTS
+from .sweeps import _PLAIN_BYTES_BUDGET, GENERAL_COUNTS
 from ..utils.profiling import span
 
 _BIG = 3.0e38

@@ -67,14 +67,14 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+from ._kernels import COUNT_LANES
 from .common import _ray_invs, apply_extent_mask, finish_minima, rotate_fan
 
 _BIG = 3.0e38
 # bytes of each (rays, slots) intermediate the plain sweeps may hold at once
 _PLAIN_BYTES_BUDGET = 1 << 28
-# lanes of the list kernel's counter: the blocks of a launch add to lane
+# the list kernel's counter: the blocks of a launch add to lane
 # row % COUNT_LANES
-COUNT_LANES = 128
 SWEEP_COUNTS = _kernels.DeviceCounts(("slots", "rows", "kept", "fanned"),
                                      COUNT_LANES)
 # the dense kernel's counter: each block adds to lane block % COUNT_LANES
@@ -459,8 +459,8 @@ _kernels.register(dense_scan)
 
 def launch_counts() -> dict:
     """``{wrapper name: kernel launches so far}`` of every wrapper of
-    ``_kernels.wrappers()``: the sweeps', the marches' and the
-    stencil's."""
+    ``_kernels.wrappers()``: the sweeps', the marches', the stencil's
+    and the car step's."""
     return {name: w.launches for name, w in _kernels.wrappers().items()}
 
 

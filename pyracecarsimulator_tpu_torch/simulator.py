@@ -49,7 +49,7 @@ import torch
 
 from .config import CarParams, ScanParams, SimParams, resolve_device
 from .state import CarState, zero_state, state_from_pose, set_field
-from .models import dynamics as dyn
+from .models import car_step
 from .models.ttc import ttc_tables, check_ttc
 from .maps.contours import GeneralSegmentMap, build_general_segment_map
 from .maps.loader import (TrackMap, add_obstacle as _add_obs, load_builtin,
@@ -260,24 +260,16 @@ def advance(state: CarState, action, car: CarParams, sim: SimParams):
     """Input processing and one dynamics update (reference ``drive()`` +
     ``compute_accel``, then ``update_pose()``). Returns ``(new_state, sx,
     sy)``: the state before the scan and the lidar origin, which sits
-    ``scan_distance_to_base_link`` ahead of the base link."""
+    ``scan_distance_to_base_link`` ahead of the base link. A step that
+    ``car_step.fused_step`` admits (no gradient, "st" or "ks", number
+    parameters, float32) runs ``car_step.car_step``, one kernel launch on
+    the card; every other step the plain composition ``car_step.compose``.
+    """
     v_des, steer_des = action
     with span("step.dynamics"):
-        accel, steer_vel = dyn.process_input(
-            v_des, steer_des, state, car, kp=sim.speed_kp,
-            steer_mode=sim.steer_mode, steer_kp=sim.steer_kp)
-        if sim.dynamics == "st":
-            new = dyn.st_step(state, accel, steer_vel, car, sim.dt)
-        elif sim.dynamics == "ks":
-            new = dyn.ks_step(state, accel, steer_vel, car, sim.dt)
-        elif sim.dynamics == "ackermann":
-            new = dyn.ackermann_step(state, v_des, steer_des, car, sim.dt)
-        else:
-            raise ValueError(f"unknown dynamics {sim.dynamics!r}")
-        new = dyn.apply_standstill(state, new)
-        sx = new.x + car.scan_distance_to_base_link * torch.cos(new.theta)
-        sy = new.y + car.scan_distance_to_base_link * torch.sin(new.theta)
-    return new, sx, sy
+        if car_step.fused_step(state, v_des, steer_des, car, sim):
+            return car_step.car_step(state, v_des, steer_des, car, sim)
+        return car_step.compose(state, v_des, steer_des, car, sim)
 
 
 def latch(new: CarState, ranges, hit) -> StepOutput:

@@ -72,8 +72,9 @@ wrappers' launches (``ops/sweeps.launch_counts``), each live
 ``GraphedFunction``'s captures and replays, the EDF march's device
 counter (``ops/raymarch_xla.MARCH_COUNTS``), the list sweep's
 (``ops/sweeps.SWEEP_COUNTS``), the dense sweep's
-(``ops/sweeps.DENSE_COUNTS``) and the general-segment sweep's
-(``ops/sweeps.GENERAL_COUNTS``), each an exact read: a synchronisation on
+(``ops/sweeps.DENSE_COUNTS``), the general-segment sweep's
+(``ops/sweeps.GENERAL_COUNTS``) and the car step's
+(``models/car_step.CAR_COUNTS``), each an exact read: a synchronisation on
 the card.
 """
 
@@ -257,9 +258,11 @@ def counters() -> dict:
     ``GraphedFunction``: ``name``, ``captures``, ``replays``), ``march``
     (``{"calls", "trips"}`` of the EDF marches), ``sweep`` (``{"rows",
     "slots", "kept", "fanned"}`` of the list sweeps), ``dense``
-    (``{"rays", "pairs", "fanned"}`` of the dense sweep) and ``general``
-    (``{"rays", "pairs"}`` of the general-segment sweep), each read
-    exactly."""
+    (``{"rays", "pairs", "fanned"}`` of the dense sweep), ``general``
+    (``{"rays", "pairs"}`` of the general-segment sweep) and ``car``
+    (``{"steps"}``, the car-steps of ``models/car_step.car_step``), each
+    read exactly."""
+    from ..models.car_step import CAR_COUNTS
     from ..ops import sweeps
     from ..ops.raymarch_xla import MARCH_COUNTS
     return {"launches": sweeps.launch_counts(),
@@ -269,7 +272,8 @@ def counters() -> dict:
             "march": dict(MARCH_COUNTS),
             "sweep": dict(sweeps.SWEEP_COUNTS),
             "dense": dict(sweeps.DENSE_COUNTS),
-            "general": dict(sweeps.GENERAL_COUNTS)}
+            "general": dict(sweeps.GENERAL_COUNTS),
+            "car": dict(CAR_COUNTS)}
 
 
 # -- reading a trace ---------------------------------------------------------

@@ -162,3 +162,36 @@ def test_check_ttc_flags_identical(rng):
                              torch.from_numpy(dist), thr).numpy()
         np.testing.assert_array_equal(got, ref)
         assert 0 < ref.mean() < 1
+
+
+def _jax_advance(js, v, s, model, mode):
+    """The JAX step's input processing, update, standstill and lidar origin
+    (``pyracecarsimulator_tpu/simulator.py`` ``_step``)."""
+    ja, jsv = jdyn.process_input(v, s, js, CAR_J, steer_mode=mode)
+    jf = jdyn.st_step if model == "st" else jdyn.ks_step
+    jn = jdyn.apply_standstill(js, jf(js, ja, jsv, CAR_J, 0.01))
+    d = CAR_J.scan_distance_to_base_link
+    return jn, jn.x + d * jnp.cos(jn.theta), jn.y + d * jnp.sin(jn.theta)
+
+
+@pytest.mark.parametrize("model", ["st", "ks"])
+@pytest.mark.parametrize("mode", ["bang", "smooth"])
+def test_car_step_plain_matches_jax(rng, model, mode):
+    """``models/car_step.car_step_plain``, the car-step kernel's plain twin,
+    against the JAX step's chain, three steps in a row; the lidar origin
+    too."""
+    from pyracecarsimulator_tpu_torch.models import car_step
+    js, ps = _pair(_random_state(rng))
+    sim = pcfg.SimParams(dynamics=model, steer_mode=mode)
+    for _ in range(3):
+        v, s = _actions(rng)
+        jn, jx, jy = _jax_advance(js, jnp.asarray(v), jnp.asarray(s), model,
+                                  mode)
+        pn, px, py = car_step.car_step_plain(ps, torch.from_numpy(v),
+                                             torch.from_numpy(s), CAR_P, sim)
+        _close_states(pn, jn)
+        np.testing.assert_allclose(px.numpy(), np.asarray(jx), **TOL)
+        np.testing.assert_allclose(py.numpy(), np.asarray(jy), **TOL)
+        js = jn
+        ps = pstate.state_from_numpy(
+            {k: np.asarray(getattr(js, k)) for k in pstate.FIELDS}, device="cpu")

@@ -799,7 +799,8 @@ def test_sector_routes_launch_their_wrapper(cuda, mode, use_pallas):
 def test_graphed_step_and_rollout_equal_eager(cuda, backend):
     """``make_step_fn(graph=True)`` and the default rollout on the card
     against the eager step and loop, noise on from one seed: bit for bit;
-    a replayed rollout of T steps adds T to its wrapper's counter."""
+    a replayed rollout of T steps adds T to its scan wrapper's counter and
+    T to the car step's."""
     import pyracecarsimulator_tpu_torch as P
     from pyracecarsimulator_tpu_torch.maps import sample_free_poses
     from pyracecarsimulator_tpu_torch.parallel import (
@@ -835,10 +836,11 @@ def test_graphed_step_and_rollout_equal_eager(cuda, backend):
     for call in range(2):
         before = sweeps.launch_counts()
         fg, tg = run(state, gg)
-        grown = [n - before[k] for k, n in sweeps.launch_counts().items()
-                 if n != before[k]]
+        grown = {k: n - before[k] for k, n in sweeps.launch_counts().items()
+                 if n != before[k]}
         # the first call warms up its two graphs with 2 steps each
-        assert grown == [steps + (4 if call == 0 else 0)]
+        assert len(grown) == 2 and "car_step" in grown
+        assert set(grown.values()) == {steps + (4 if call == 0 else 0)}
         fe, te = run_eager(state, ge)
         assert all(torch.equal(te[k], tg[k]) for k in te) and same(fe, fg)
 
@@ -913,9 +915,11 @@ def test_graphed_rollout_policy_that_depends_on_t(cuda):
     first = rollout(step, state, open_loop, steps, beams)
     before = sweeps.launch_counts()
     again = rollout(step, state, open_loop, steps, beams)
-    grown = [k - before[name] for name, k in sweeps.launch_counts().items()
-             if k != before[name]]
-    assert grown == [steps]                     # no warm-up step: a replay
+    grown = {name: k - before[name]
+             for name, k in sweeps.launch_counts().items()
+             if k != before[name]}
+    # no warm-up step: a replay
+    assert grown == {"list_scan": steps, "car_step": steps}
     assert torch.equal(first[1]["pose"], again[1]["pose"])
 
     train, init = make_bptt_train_fn(

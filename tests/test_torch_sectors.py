@@ -294,16 +294,16 @@ def test_build_command_flags():
     source (the sweeps', whose list and dense kernels each have an entry
     from poses too, the general sweep's, the EDF march's, which
     holds the march, its gradient, their persistent grid's query and the
-    implicit march's pose VJP, and the chamfer stencil's, which holds the
-    stencil and its gradient), each entry point a C function of its
-    source."""
+    implicit march's pose VJP, the chamfer stencil's, which holds the
+    stencil and its gradient, and the car step's), each entry point a C
+    function of its source."""
     assert set(_kernels._SIGNATURES) == {"sector_sweep", "list_scan",
                                          "dense_sweep", "dense_scan",
                                          "edf_march", "edf_march_grad",
                                          "edf_march_wave",
                                          "implicit_pose_vjp",
                                          "general_sweep", "soft_edt",
-                                         "soft_edt_grad"}
+                                         "soft_edt_grad", "car_step"}
     for name, (source, symbol, _) in _kernels._SIGNATURES.items():
         cmd = _kernels.build_command(source, Path("out.so"))
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -315,7 +315,7 @@ def test_build_command_flags():
         assert f'extern "C" int {symbol}(' in Path(cmd[-1]).read_text()
     assert {s for s, _, _ in _kernels._SIGNATURES.values()} == {
         "sector_sweep", "dense_sweep", "edf_march", "general_sweep",
-        "soft_edt"}
+        "soft_edt", "car_step"}
 
 
 def test_launch_counts_on_its_wrapper(monkeypatch):
